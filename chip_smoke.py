@@ -7,19 +7,33 @@ Run from the root of a checkout (the port's package sits beside this
 script). It needs one CUDA card and takes no arguments. Phases, each of
 which raises on failure (exit code not 0, no result line):
 
-1. the card: name and power limit, as nvidia-smi reports them;
+1. the card: name and power limit, as nvidia-smi reports them; kernel
+   K2 (CUDA C++, `csrc/flash_attention.cu`) starts building from the
+   checkout in the background;
 2. kernel K1 (Triton, built from the checkout on first launch) against
-   its plain PyTorch version on the card, at the main path's shape
-   (256, 1000) and at an LM shape (4096, 32000), with labels -1 and C and
-   tied rows; times the kernel, the plain version and the library call
-   `F.cross_entropy` (a yardstick only: the port never calls it);
+   its plain PyTorch version on the card: f32 at the ResNet shape
+   (256, 1000) and at (4096, 32000), bf16 at the LM shape (8192, 32768),
+   with labels -1 and C and tied rows; times the kernel, the plain version
+   and the library call `F.cross_entropy` (a yardstick only: the port
+   never calls it);
 3. one small ResNet-18 train step on the card (through K1) against the
    same step on the CPU (K1's plain version), from one set of weights;
-4. the main path: the port's ResNet-50 training benchmark at full width
-   (batch 256, 224x224 bf16 images, 1000 classes), with K1's launch
-   count read around it.
+4. kernel K2 against its plain version on the card, forward and
+   backward: the LM's (8, 1024, 12, 64) bf16 causal in both layouts, a
+   ragged (2, 1000, 4, 64) causal and a (2, 512, 4, 128) full; times the
+   forward, the backward and the two together for the kernel, the plain
+   version and `F.scaled_dot_product_attention` (a yardstick only);
+5. two bf16 LM train steps (2 layers, 2 heads of 64, seq 128, vocab 512)
+   on the card (K1 and K2) against the same steps on the CPU (the plain
+   versions), from one set of weights;
+6. the ResNet-50 main path: the training benchmark at full width (batch
+   256, 224x224 bf16 images, 1000 classes), with K1's launches counted
+   around it;
+7. the LM main path: the LM training benchmark at its published widths
+   (12 layers, 12 heads, embed 768, vocab 32768, seq 1024, batch 8, bf16),
+   10 steps a window, with K1's and K2's launches counted around it.
 
-It prints the card line, one JSON line with every kernel of the path,
+It prints the card line, one JSON line with every kernel of the paths,
 and last `{"ok": true, "device": {...}}`.
 """
 
@@ -29,27 +43,41 @@ import json
 import math
 import subprocess
 import sys
+import threading
+import time
 
 import torch
 import torch.nn.functional as F
 
+from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
-from tritonk8ssupervisor_tpu_torch.models import ResNet18
+from tritonk8ssupervisor_tpu_torch.models import ResNet18, TransformerLM
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce
+from tritonk8ssupervisor_tpu_torch.ops import cuda_build
+from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
 from tritonk8ssupervisor_tpu_torch.parallel import train
 
-# H100 SXM data sheet: device memory rate and f32 rate outside the
-# tensor cores, the two sides of K1's bound
+# H100 SXM data sheet: device memory rate, f32 rate outside the tensor
+# cores (K1's bound), dense bf16/fp16 tensor-core rate (K2's bound)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # K1's f32 work per logit: max, subtract, exp, add, label compare
 K1_OPS_PER_LOGIT = 5
 # the kernel against its plain version (same f32 arithmetic, reduced in
 # another order; exp and log on the card's fast units)
 K1_RTOL = K1_ATOL = 1e-5
-# the loss of one bf16 ResNet-18 step on the card against the CPU: bf16
-# activations rounded at other points by cuDNN and by the CPU kernels
+# K2 against its plain version, relative to the reference's largest
+# magnitude (at least 1), as tests/test_torch_kernels.py states: the
+# kernel keeps scores in f32 and rounds P and dS to bf16 for the next
+# product; the plain version in bf16 also rounds the scores (2e-2); on
+# f32 copies of the same inputs it rounds nothing (1e-2)
+K2_REL_SAME_DTYPE = 2e-2
+K2_REL_F32 = 1e-2
+# the loss of one bf16 step on the card against the CPU: bf16 activations
+# rounded at other points by cuDNN/cuBLAS/K2 and by the CPU kernels
 PARITY_LOSS_ATOL = 2e-2
+K2_SOURCE = "flash_attention.cu"
 
 
 def _card_line() -> str:
@@ -60,10 +88,25 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _build_k2_in_background():
+    """Start K2's nvcc build, so it overlaps the K1 phases."""
+    errors: list[BaseException] = []
+
+    def build():
+        try:
+            cuda_build.load(K2_SOURCE)
+        except Exception as exc:  # re-raised by the K2 phase
+            errors.append(exc)
+
+    thread = threading.Thread(target=build, daemon=True)
+    thread.start()
+    return thread, errors
+
+
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     """Mean time per call on the card: CUDA events around back-to-back
-    calls. The logits stay in L2 between calls, as the classifier leaves
-    them for the loss on the main path."""
+    calls. The inputs stay in L2 between calls where they fit, as the
+    producer leaves them for the kernel on the main path."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -76,7 +119,58 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _k1_inputs(batch: int, classes: int, seed: int):
+def _device_ms(fn, iters: int = 10) -> float | None:
+    """The card's time per call, without the gaps where it waits for the
+    host: the card first spins in a sleep kernel while the host queues
+    `iters` calls behind it, and CUDA events time the calls from the end
+    of the sleep. It counts only when the host finished queueing before
+    the sleep ended (else a 4x longer sleep is tried); None if it never
+    did. A call whose Python and autograd overhead exceeds its device
+    work then still reads what the card spent."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000  # ~10 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    return None
+
+
+def _timings(calls: dict) -> dict:
+    """{prefix: (fn, iters)} -> {prefix + "ms": event time, prefix +
+    "device_ms": device time}."""
+    out = {}
+    for prefix, (fn, iters) in calls.items():
+        out[f"{prefix}ms"] = _time_ms(fn, iters=iters, warmup=min(20, iters))
+        out[f"{prefix}device_ms"] = _device_ms(fn)
+    return out
+
+
+def _max_abs_err(actual: torch.Tensor, expected: torch.Tensor) -> float:
+    """max |actual - expected|, with entries where both sides are the same
+    infinity counted as equal (inf - inf would read NaN)."""
+    actual, expected = actual.float(), expected.float()
+    same_inf = torch.isinf(actual) & (actual == expected)
+    return torch.where(same_inf, 0.0, (actual - expected).abs()).max().item()
+
+
+def _bound(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak_flops * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _k1_inputs(batch: int, classes: int, seed: int, dtype: torch.dtype):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn(batch, classes, generator=gen, device="cuda") * 4
     labels = torch.randint(0, classes, (batch,), generator=gen,
@@ -86,11 +180,11 @@ def _k1_inputs(batch: int, classes: int, seed: int):
         top = logits[row].max() + 1.0
         logits[row, 3] = logits[row, classes - 2] = top
         labels[row] = 3 if row % 2 else classes - 2
-    return logits, labels
+    return logits.to(dtype), labels
 
 
-def check_k1(batch: int, classes: int, seed: int) -> dict:
-    logits, labels = _k1_inputs(batch, classes, seed)
+def check_k1(batch: int, classes: int, seed: int, dtype=torch.float32) -> dict:
+    logits, labels = _k1_inputs(batch, classes, seed, dtype)
     loss, correct = ce.cross_entropy_forward(logits, labels)
     torch.cuda.synchronize()
     ref_loss, ref_correct = ce.cross_entropy_forward_plain(logits, labels)
@@ -100,24 +194,24 @@ def check_k1(batch: int, classes: int, seed: int) -> dict:
     if not correct[2:6].all() or correct[:2].any():
         raise AssertionError("K1: tied labels must read correct, out-of-range incorrect")
 
-    kernel_ms = _time_ms(lambda: ce.cross_entropy_forward(logits, labels))
-    plain_ms = _time_ms(lambda: ce.cross_entropy_forward_plain(logits, labels))
     in_range = labels.clamp(0, classes - 1).long()  # the library takes only these
-    library_ms = _time_ms(lambda: F.cross_entropy(logits, in_range, reduction="none"))
+    times = _timings({
+        "": (lambda: ce.cross_entropy_forward(logits, labels), 200),
+        "plain_": (lambda: ce.cross_entropy_forward_plain(logits, labels), 200),
+        "library_": (lambda: F.cross_entropy(logits, in_range, reduction="none"), 200),
+    })
     # each input read once, each output written once
     n_bytes = (batch * classes * logits.element_size()
                + batch * (labels.element_size() + 4 + 1))
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = batch * classes * K1_OPS_PER_LOGIT / F32_FLOPS * 1e3
+    bound_ms, bound_by = _bound(n_bytes, batch * classes * K1_OPS_PER_LOGIT, F32_FLOPS)
     return {
         "shape": [batch, classes],
-        "max_abs_err": (loss - ref_loss).abs().max().item(),
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "dtype": str(dtype).removeprefix("torch."),
+        "max_abs_err": _max_abs_err(loss, ref_loss),
+        **times,
+        "kernel_ms": times["ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
     }
 
 
@@ -148,29 +242,126 @@ def check_parity() -> None:
         raise AssertionError("card and CPU train steps disagree")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this test needs the card", file=sys.stderr)
-        return 2
+def _attention_grads(fn, q, k, v, dout):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return [out.detach(), q.grad, k.grad, v.grad]
 
-    # f32 convolutions and matrix products (the classifier) in full f32,
-    # not TF32, on the card as on the CPU
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
-    card = _card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+def _grad_calls(fn, q, k, v, dout):
+    """(the backward alone, through one saved forward graph; the forward
+    and the backward together), as calls to time."""
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v)
+    return (lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True),
+            lambda: torch.autograd.grad(fn(q, k, v), (q, k, v), dout))
 
-    k1_main = check_k1(256, 1000, seed=0)
-    k1_lm = check_k1(4096, 32000, seed=1)
-    for row in (k1_main, k1_lm):
-        print(f"K1 {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, F.cross_entropy {row['library_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"max |err| {row['max_abs_err']:.2e} on {card}", flush=True)
 
-    check_parity()
+def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
+             dtype=torch.bfloat16, seed: int = 0) -> dict:
+    shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for _ in range(4))
 
+    def kernel(*x):
+        return fa.flash_attention(*x, causal=causal, layout=layout)
+
+    def plain(*x):
+        return fa.attention_reference_layout(*x, causal, layout)
+
+    def library(*x):  # SDPA takes (b, h, s, d)
+        if layout == "bshd":
+            x = [t.transpose(1, 2) for t in x]
+        out = F.scaled_dot_product_attention(*x, is_causal=causal)
+        return out.transpose(1, 2) if layout == "bshd" else out
+
+    got = _attention_grads(kernel, q, k, v, dout)
+    torch.cuda.synchronize()
+    same = _attention_grads(plain, q, k, v, dout)
+    f32 = _attention_grads(plain, q.float(), k.float(), v.float(), dout.float())
+    errors = {}
+    for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, same, f32):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"K2 {name} not finite at {shape}")
+        scale_p = p.float().abs().max().clamp(min=1.0).item()
+        scale_e = e.float().abs().max().clamp(min=1.0).item()
+        errors[name] = _max_abs_err(a, p)
+        rel_p, rel_e = errors[name] / scale_p, _max_abs_err(a, e) / scale_e
+        if not (rel_p <= K2_REL_SAME_DTYPE and rel_e <= K2_REL_F32):
+            raise AssertionError(
+                f"K2 {name} at {shape} {layout} causal={causal}: relative error "
+                f"{rel_p:.2e} vs the plain version, {rel_e:.2e} vs f32"
+            )
+
+    out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, causal, layout)
+    grads = {name: _grad_calls(fn, q, k, v, dout)
+             for name, fn in (("", kernel), ("plain_", plain), ("library_", library))}
+    times = {
+        "forward": _timings({"": (lambda: kernel(q, k, v), 100),
+                             "plain_": (lambda: plain(q, k, v), 20),
+                             "library_": (lambda: library(q, k, v), 100)}),
+        # the kernel's backward alone is its op; plain and SDPA go through
+        # autograd on a saved forward graph
+        "backward": _timings({"": (lambda: torch.ops.tk8s.flash_attn_bwd(
+                                  dout, q, k, v, out, lse, causal, layout), 100),
+                              "plain_": (grads["plain_"][0], 20),
+                              "library_": (grads["library_"][0], 100)}),
+        "fwd_bwd": _timings({name: (calls[1], 20 if name == "plain_" else 100)
+                             for name, calls in grads.items()}),
+    }
+
+    pairs = s * (s + 1) // 2 if causal else s * s
+    n, elem = b * s * h * d, q.element_size()
+    # forward: q, k, v read, O and the f32 logsumexp written; backward:
+    # q, k, v, O, dO and the logsumexp read, dq, dk, dv written, and five
+    # products (the kernel recomputes P) against the forward's two
+    fwd_bound, fwd_by = _bound(4 * n * elem + b * h * s * 4, 4 * b * h * d * pairs, BF16_FLOPS)
+    bwd_bound, bwd_by = _bound(8 * n * elem + b * h * s * 4, 10 * b * h * d * pairs, BF16_FLOPS)
+    return {
+        "shape": list(shape), "layout": layout, "causal": causal,
+        "dtype": str(dtype).removeprefix("torch."),
+        "forward": {"max_abs_err": errors["out"], **times["forward"],
+                    "bound_ms": fwd_bound, "bound_by": fwd_by},
+        "backward": {"max_abs_err": max(errors["dq"], errors["dk"], errors["dv"]),
+                     **times["backward"], "bound_ms": bwd_bound, "bound_by": bwd_by,
+                     "forward_and_backward": {**times["fwd_bwd"],
+                                              "bound_ms": fwd_bound + bwd_bound}},
+    }
+
+
+def check_lm_parity() -> None:
+    """Two bf16 LM steps through K1 and K2 on the card against the same
+    steps through their plain versions on the CPU, from one set of
+    weights; the second step's loss reads the first step's update."""
+    tokens = torch.randint(0, 512, (4, 128), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
+                fa.flash_attention_backward)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                              max_seq_len=128, attention_fn=fa.flash_attention,
+                              generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(model, train.default_optimizer(0.03), device)
+        step = train.make_lm_train_step(state, metrics_fn=ce.cross_entropy_loss_and_correct)
+        before = [c.launches for c in counters]
+        x = tokens.to(device)
+        losses[device] = [step(x)["loss"].item() for _ in range(2)]
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        expected = [2, 4, 4] if device == "cuda" else [0, 0, 0]
+        if launched != expected:
+            raise AssertionError(f"K1, K2 fwd, K2 bwd launched {launched} times on {device}")
+    diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"parity: LM bf16 losses over 2 steps, card {losses['cuda']} "
+          f"cpu {losses['cpu']}, max |diff| {diff:.2e} (tolerance {PARITY_LOSS_ATOL})",
+          flush=True)
+    if not diff <= PARITY_LOSS_ATOL:
+        raise AssertionError("card and CPU LM train steps disagree")
+
+
+def run_resnet50(card: str) -> int:
     ce.cross_entropy_forward.launches = 0
     torch.cuda.reset_peak_memory_stats()
     result = run_benchmark(
@@ -181,7 +372,7 @@ def main() -> int:
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     print("resnet50: " + json.dumps(result, sort_keys=True), flush=True)
     if result["platform"] != "gpu" or not math.isfinite(result["final_loss"]):
-        raise AssertionError(f"main path: platform {result['platform']}, "
+        raise AssertionError(f"ResNet-50 path: platform {result['platform']}, "
                              f"loss {result['final_loss']}")
     if launches != result["final_step"]:
         raise AssertionError(f"K1 launched {launches} times in "
@@ -191,16 +382,137 @@ def main() -> int:
           f"{result['images_per_sec']:.1f} img/s, step {result['step_ms']:.2f} ms, "
           f"MFU {'not known' if mfu is None else f'{mfu:.4f}'}, "
           f"K1 launches {launches} in {result['final_step']} steps, on {card}", flush=True)
+    return launches
 
-    kernels = [{
-        "name": "cross_entropy_forward (K1)",
-        "route": "triton",
-        "source": "tritonk8ssupervisor_tpu_torch/ops/cross_entropy_triton.py",
-        "replaces": "tritonk8ssupervisor_tpu/ops/cross_entropy.py:56",
-        "launches": launches,
-        **k1_main,
-        "other_shapes": [k1_lm],
-    }]
+
+def run_lm(card: str) -> dict:
+    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
+                fa.flash_attention_backward)
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    result = lm_bench.run_benchmark(steps=10, warmup=2, windows=2)
+    k1, k2_fwd, k2_bwd = (c.launches for c in counters)
+    result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print("lm: " + json.dumps(result, sort_keys=True), flush=True)
+    steps = result["final_step"]
+    if result["platform"] != "gpu" or not math.isfinite(result["final_loss"]):
+        raise AssertionError(f"LM path: platform {result['platform']}, "
+                             f"loss {result['final_loss']}")
+    if result["attention"] != "flash":
+        raise AssertionError(f"LM path ran {result['attention']} attention")
+    layers = result["num_layers"]
+    if (k1, k2_fwd, k2_bwd) != (steps, layers * steps, layers * steps):
+        raise AssertionError(
+            f"LM path: {steps} steps launched K1 {k1}, K2 forward {k2_fwd} and "
+            f"backward {k2_bwd} times ({layers} layers)"
+        )
+    mfu = result["mfu"]
+    print(f"main path: LM 12L/768/seq 1024/batch 8 bf16, "
+          f"{result['tokens_per_sec']:.1f} tokens/s, step {result['step_ms']:.2f} ms, "
+          f"MFU {'not known' if mfu is None else f'{mfu:.4f}'} "
+          f"({result['flops_per_step']:.4g} FLOP/step, {result['flops_source']}), "
+          f"peak memory {result['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} "
+          f"steps: K1 {k1}, K2 forward {k2_fwd}, K2 backward {k2_bwd}, on {card}", flush=True)
+    return {"k1": k1, "k2_forward": k2_fwd, "k2_backward": k2_bwd}
+
+
+def _times_text(r: dict, library: str) -> str:
+    def device(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+
+    return ", ".join(
+        f"{name} {r[prefix + 'ms']:.4f} ms (device {device(r[prefix + 'device_ms'])})"
+        for name, prefix in (("kernel", ""), ("plain", "plain_"), (library, "library_"))
+    )
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test needs the card", file=sys.stderr)
+        return 2
+    started = time.monotonic()
+
+    # f32 convolutions and matrix products (the classifier) in full f32,
+    # not TF32, on the card as on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    card = _card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    k2_build, k2_build_errors = _build_k2_in_background()
+
+    k1_main = check_k1(256, 1000, seed=0)
+    k1_other = [check_k1(4096, 32000, seed=1),
+                check_k1(8192, 32768, seed=2, dtype=torch.bfloat16)]
+    for row in (k1_main, *k1_other):
+        print(f"K1 {row['shape']} {row['dtype']}: {_times_text(row, 'F.cross_entropy')}, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"max |err| {row['max_abs_err']:.2e} on {card}", flush=True)
+
+    check_parity()
+
+    k2_build.join()
+    if k2_build_errors:
+        raise k2_build_errors[0]
+    print(f"K2 built: {cuda_build.library_path(K2_SOURCE).name} "
+          f"({time.monotonic() - started:.1f} s into the run)", flush=True)
+    k2_rows = [
+        check_k2(8, 1024, 12, 64, causal=True, layout="bshd"),
+        check_k2(8, 1024, 12, 64, causal=True, layout="bhsd", seed=1),
+        check_k2(2, 1000, 4, 64, causal=True, layout="bshd", seed=2),
+        check_k2(2, 512, 4, 128, causal=False, layout="bshd", seed=3),
+    ]
+    for row in k2_rows:
+        for part, r in (("forward", row["forward"]), ("backward", row["backward"]),
+                        ("forward+backward", row["backward"]["forward_and_backward"])):
+            err = f", max |err| {r['max_abs_err']:.2e}" if "max_abs_err" in r else ""
+            print(f"K2 {part} {row['shape']} {row['layout']} causal={row['causal']}: "
+                  f"{_times_text(r, 'SDPA')}, bound {r['bound_ms']:.4f} ms{err} on {card}",
+                  flush=True)
+
+    check_lm_parity()
+    resnet_k1 = run_resnet50(card)
+    lm_launches = run_lm(card)
+
+    k2_lm = k2_rows[0]
+    kernels = [
+        {
+            "name": "cross_entropy_forward (K1)",
+            "route": "triton",
+            "source": "tritonk8ssupervisor_tpu_torch/ops/cross_entropy_triton.py",
+            "replaces": "tritonk8ssupervisor_tpu/ops/cross_entropy.py:56",
+            "launches": lm_launches["k1"],
+            "launches_by_path": {"resnet50": resnet_k1, "lm": lm_launches["k1"]},
+            **k1_other[1],
+            "other_shapes": [k1_main, k1_other[0]],
+        },
+        {
+            "name": "flash_attn_fwd (K2)",
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:127",
+            "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
+            "launches": lm_launches["k2_forward"],
+            "shape": k2_lm["shape"], "layout": k2_lm["layout"],
+            **k2_lm["forward"],
+            "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
+                              **r["forward"]} for r in k2_rows[1:]],
+        },
+        {
+            "name": "flash_attn_bwd (K2)",
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:127",
+            "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
+            "launches": lm_launches["k2_backward"],
+            "shape": k2_lm["shape"], "layout": k2_lm["layout"],
+            **k2_lm["backward"],
+            "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
+                              **r["backward"]} for r in k2_rows[1:]],
+        },
+    ]
+    print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

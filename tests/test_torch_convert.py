@@ -90,3 +90,82 @@ def test_missing_extra_and_misshapen_leaves_raise():
     with pytest.raises(ValueError):
         state_dict_from_flax(variables, resnet.ResNet18(num_classes=10, num_filters=16))
     assert isinstance(state_dict_from_flax(variables, model)["stem_norm.weight"], torch.Tensor)
+
+
+LM_CONFIG = dict(vocab_size=64, num_layers=2, num_heads=2, embed_dim=32, max_seq_len=16)
+
+
+def _lm_variables(head_major=False):
+    from tritonk8ssupervisor_tpu.models import TransformerLM as JaxLM
+
+    shapes = jax.eval_shape(
+        lambda: JaxLM(**LM_CONFIG, head_major=head_major).init(
+            jax.random.key(0), jnp.zeros((1, 16), jnp.int32)
+        )
+    )
+    rng = np.random.default_rng(1)
+    return jax.tree_util.tree_map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes
+    )
+
+
+@pytest.mark.parametrize("head_major", [False, True], ids=["seq-major", "head-major"])
+def test_every_lm_leaf_is_mapped_with_its_layout(head_major):
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+
+    variables = _lm_variables(head_major)
+    model = TransformerLM(**LM_CONFIG, head_major=head_major)
+    state = state_dict_from_flax(variables, model)
+    assert set(state) == set(model.state_dict())
+    assert len(state) == len(jax.tree_util.tree_leaves(variables))
+    model.load_state_dict(state)
+
+    p = variables["params"]
+    np.testing.assert_array_equal(model.tok_embed.weight.detach().numpy(),
+                                  p["tok_embed"]["embedding"])
+    np.testing.assert_array_equal(model.pos_embed.detach().numpy(), p["pos_embed"])
+    np.testing.assert_array_equal(model.Block_1.qkv.weight.detach().numpy(),
+                                  p["Block_1"]["qkv"]["kernel"].T)
+    np.testing.assert_array_equal(model.Block_0.proj.bias.detach().numpy(),
+                                  p["Block_0"]["proj"]["bias"])
+    np.testing.assert_array_equal(model.Block_0.LayerNorm_1.weight.detach().numpy(),
+                                  p["Block_0"]["LayerNorm_1"]["scale"])
+    np.testing.assert_array_equal(model.LayerNorm_0.bias.detach().numpy(),
+                                  p["LayerNorm_0"]["bias"])
+    np.testing.assert_array_equal(model.lm_head.weight.detach().numpy(),
+                                  p["lm_head"]["kernel"].T)
+
+
+def test_lm_unmapped_unfilled_and_misshapen_leaves_raise():
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+
+    variables = _lm_variables()
+    model = TransformerLM(**LM_CONFIG)
+
+    missing = copy.deepcopy(variables)
+    del missing["params"]["pos_embed"]
+    with pytest.raises(ValueError, match=r"unfilled.*'pos_embed'"):
+        state_dict_from_flax(missing, model)
+
+    no_embed = copy.deepcopy(variables)
+    del no_embed["params"]["tok_embed"]["embedding"]
+    with pytest.raises(ValueError, match=r"unfilled.*tok_embed\.weight"):
+        state_dict_from_flax(no_embed, model)
+
+    extra = copy.deepcopy(variables)
+    extra["params"]["rope_freqs"] = np.zeros(16, np.float32)
+    with pytest.raises(ValueError, match="rope_freqs"):
+        state_dict_from_flax(extra, model)
+
+    unknown_leaf = copy.deepcopy(variables)
+    unknown_leaf["params"]["Block_0"]["LayerNorm_0"]["offset"] = np.zeros(32, np.float32)
+    with pytest.raises(ValueError, match="unmapped leaf params/Block_0/LayerNorm_0/offset"):
+        state_dict_from_flax(unknown_leaf, model)
+
+    misshapen = copy.deepcopy(variables)
+    misshapen["params"]["pos_embed"] = np.zeros((8, 32), np.float32)
+    with pytest.raises(ValueError, match="pos_embed"):
+        state_dict_from_flax(misshapen, model)
+
+    with pytest.raises(ValueError, match="collection"):
+        state_dict_from_flax({**variables, "moe_losses": {}}, model)

@@ -12,12 +12,13 @@ import torch
 
 from tritonk8ssupervisor_tpu_torch.models import ResNet18
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce
+from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
 from tritonk8ssupervisor_tpu_torch.parallel import train
 
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is a Triton kernel with no CPU mode")
+        pytest.skip("needs a CUDA card: K1 (Triton) and K2 (CUDA C++) have no CPU mode")
 
 
 def _inputs(batch, classes, dtype, seed=0):
@@ -88,3 +89,176 @@ def test_train_step_on_card_goes_through_k1():
     metrics = step(images, labels)
     assert torch.isfinite(metrics["loss"])
     assert ce.cross_entropy_forward.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_k1_bf16_at_the_lm_shape():
+    _card()
+    logits, labels = _inputs(8192, 32768, torch.bfloat16, seed=4)
+    loss, correct = ce.cross_entropy_forward(logits, labels.int())
+    torch.cuda.synchronize()
+    ref_loss, ref_correct = ce.cross_entropy_forward_plain(logits, labels.int())
+    # the same bf16 values upcast to f32 on both sides, reduced in
+    # another order over 32768 columns: 1e-5
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
+    assert torch.equal(correct, ref_correct)
+
+
+# K2: bf16/fp16 kernel against the plain version. Tolerances are taken
+# relative to the reference's largest magnitude (at least 1): the kernel
+# keeps the scores in f32 and rounds P and dS to the input dtype for the
+# next product (8 mantissa bits in bf16: 2^-9 relative per rounding);
+# against the plain version in the same dtype, which also rounds the
+# scores, 2e-2; against the plain version on f32 copies of the same
+# inputs, 1e-2.
+K2_REL_SAME_DTYPE = 2e-2
+K2_REL_F32 = 1e-2
+
+K2_CASES = [
+    pytest.param(8, 1024, 12, 64, torch.bfloat16, True, "bshd", id="lm-bshd"),
+    pytest.param(8, 1024, 12, 64, torch.bfloat16, True, "bhsd", id="lm-bhsd"),
+    pytest.param(2, 1000, 4, 64, torch.bfloat16, True, "bshd", id="ragged-causal"),
+    pytest.param(2, 512, 4, 128, torch.bfloat16, False, "bshd", id="d128-full"),
+    pytest.param(2, 200, 3, 128, torch.float16, True, "bhsd", id="d128-fp16-ragged"),
+    pytest.param(1, 77, 2, 64, torch.float16, False, "bshd", id="fp16-short-full"),
+    pytest.param(3, 64, 2, 64, torch.bfloat16, True, "bshd", id="one-tile"),
+    pytest.param(2, 1, 2, 64, torch.bfloat16, True, "bshd", id="one-token"),
+    pytest.param(1, 130, 3, 64, torch.float16, False, "bhsd", id="fp16-ragged-full"),
+]
+
+
+def _k2_inputs(b, s, h, d, dtype, layout, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+
+
+def _rel_err(actual, expected):
+    expected = expected.float()
+    scale = expected.abs().max().clamp(min=1.0)
+    return ((actual.float() - expected).abs().max() / scale).item()
+
+
+def _fwd_bwd(fn, q, k, v, dout):
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,dtype,causal,layout", K2_CASES)
+def test_k2_matches_plain_version(b, s, h, d, dtype, causal, layout):
+    _card()
+    q, k, v, dout = _k2_inputs(b, s, h, d, dtype, layout)
+    fwd, bwd = fa.flash_attention_forward.launches, fa.flash_attention_backward.launches
+    got = _fwd_bwd(lambda *x: fa.flash_attention(*x, causal=causal, layout=layout),
+                   q, k, v, dout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_forward.launches == fwd + 1
+    assert fa.flash_attention_backward.launches == bwd + 1
+    assert all(g.dtype == dtype and g.shape == q.shape for g in got)
+    plain = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, causal, layout),
+                     q, k, v, dout)
+    f32 = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, causal, layout),
+                   q.float(), k.float(), v.float(), dout.float())
+    for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, plain, f32):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, p) <= K2_REL_SAME_DTYPE, (name, _rel_err(a, p))
+        assert _rel_err(a, e) <= K2_REL_F32, (name, _rel_err(a, e))
+
+
+@pytest.mark.cuda
+def test_k2_reads_qkv_views_in_place_and_its_logsumexp():
+    """q, k, v as the seq-major Block makes them: views of one (B, S, 3E)
+    projection with seq stride 3E."""
+    _card()
+    b, s, h, d = 2, 256, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").bfloat16()
+    q, k, v = (x.view(b, s, h, d) for x in qkv.split(h * d, dim=-1))
+    assert q.stride(1) == 3 * h * d
+    out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, True, "bshd")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, fa.attention_reference_layout(q, k, v, True, "bshd"), rtol=0, atol=2e-2
+    )
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    scores = scores.masked_fill(torch.ones(s, s, device="cuda").triu(1).bool(), float("-inf"))
+    torch.testing.assert_close(lse, scores.logsumexp(-1), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k2_wrapper_raises_on_what_it_does_not_take():
+    _card()
+    x = torch.zeros(1, 128, 2, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(x, x, x)
+    y = torch.zeros(1, 128, 2, 64, device="cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(y.bfloat16(), y.bfloat16().cpu(), y.bfloat16())
+    with pytest.raises(ValueError, match="layout"):
+        fa.flash_attention(y, y, y, layout="sbhd")
+
+
+@pytest.mark.cuda
+def test_k2_flops_reach_the_counter():
+    _card()
+    from torch.utils.flop_counter import FlopCounterMode
+
+    q, k, v, dout = _k2_inputs(2, 256, 4, 64, torch.bfloat16, "bhsd", seed=7)
+    q.requires_grad_(True)
+    with FlopCounterMode(display=False) as counter:
+        fa.flash_attention(q, k, v, layout="bhsd").backward(dout)
+    assert counter.get_total_flops() == 12 * 2 * 4 * 64 * (256 * 257 // 2)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_card_goes_through_k1_and_k2():
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                          max_seq_len=128, attention_fn=fa.flash_attention)
+    state = train.create_train_state(model, train.default_optimizer(0.03))
+    step = train.make_lm_train_step(state)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 512, (4, 128), generator=gen, device="cuda", dtype=torch.int32)
+    counts = (ce.cross_entropy_forward.launches, fa.flash_attention_forward.launches,
+              fa.flash_attention_backward.launches)
+    metrics = step(tokens)
+    assert torch.isfinite(metrics["loss"])
+    assert (ce.cross_entropy_forward.launches, fa.flash_attention_forward.launches,
+            fa.flash_attention_backward.launches) == (counts[0] + 1, counts[1] + 2, counts[2] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_major", [False, True], ids=["seq-major", "head-major"])
+def test_lm_through_k2_matches_the_plain_version_on_the_card(head_major):
+    """A bf16 LM's loss and gradients through K2 against the same weights
+    through the plain attention, both on the card. Head-major feeds K2
+    (b, h, s, d) q/k/v and a strided output gradient from the einsum
+    projection."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+    from tritonk8ssupervisor_tpu_torch.models.transformer import dense_attention
+
+    tokens = torch.randint(0, 512, (2, 192), generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for name, attention in (("k2", fa.flash_attention), ("plain", dense_attention)):
+        model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                              max_seq_len=192, attention_fn=attention, head_major=head_major,
+                              generator=torch.Generator().manual_seed(0)).cuda()
+        logits = model(tokens.cuda())
+        loss = torch.nn.functional.cross_entropy(logits.float().flatten(0, 1),
+                                                 tokens.cuda().roll(-1, 1).flatten())
+        loss.backward()
+        grads[name] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()})
+    (loss_k2, g_k2), (loss_plain, g_plain) = grads["k2"], grads["plain"]
+    # bf16 activations: the kernel rounds P once where the plain version
+    # rounds the scores and P; relative to each gradient's largest entry
+    torch.testing.assert_close(loss_k2, loss_plain, rtol=0, atol=2e-2)
+    for name, g in g_k2.items():
+        assert _rel_err(g, g_plain[name]) <= 5e-2, (name, _rel_err(g, g_plain[name]))

@@ -20,6 +20,13 @@ import torch
 
 _LOGIT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _LABEL_DTYPES = (torch.int32, torch.int64)
+# the TPU kernel pads the classes to whole 128-lane vregs
+_LANE = 128
+
+
+def padded_classes(num_classes: int) -> int:
+    """C rounded up to the TPU kernel's 128-lane multiple."""
+    return -(-num_classes // _LANE) * _LANE
 
 
 def cross_entropy_loss_reference(
@@ -46,14 +53,18 @@ def cross_entropy_forward_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's semantics in plain torch: what the kernel computes, step for
     step as the TPU kernel does (`_ce_kernel`, :56-75). A label outside
-    [0, C) picks nothing: its loss is logsumexp(x) - max(x) and it reads
-    incorrect."""
+    [0, C) reads incorrect. Its loss is what the TPU kernel gives: a label
+    in [C, padded_classes(C)) picks one of that kernel's padding lanes,
+    whose shifted logit is -inf, so its loss is +inf; any other label
+    outside [0, C) picks nothing and its loss is logsumexp(x) - max(x)."""
     x = logits.float()
     num_classes = x.shape[-1]
     shifted = x - x.amax(dim=-1, keepdim=True)
     lse = shifted.exp().sum(dim=-1).log()
     hit = torch.arange(num_classes, device=x.device) == labels[:, None]
     picked = torch.where(hit, shifted, 0.0).sum(dim=-1)
+    pad_lane = (labels >= num_classes) & (labels < padded_classes(num_classes))
+    picked = torch.where(pad_lane, float("-inf"), picked)
     valid = (labels >= 0) & (labels < num_classes)
     return lse - picked, (picked >= 0.0) & valid
 

@@ -3,8 +3,10 @@
 Replaces the TPU kernel `tritonk8ssupervisor_tpu/ops/cross_entropy.py::
 _ce_kernel` (launched by `_forward`, :56-146). Same function per row:
 upcast to f32, row max, `lse = log sum exp(x - max)`, `picked` = the
-label's shifted logit (0 for a label outside [0, C)), and returns
-`loss = lse - picked` and `correct = (picked >= 0) and 0 <= label < C`.
+label's shifted logit (-inf for a label in [C, C rounded up to 128), the
+TPU kernel's padding lanes; 0 for any other label outside [0, C)), and
+returns `loss = lse - picked` and `correct = (picked >= 0) and
+0 <= label < C`.
 
 What bounds it on an H100: memory. It reads the (B, C) logits once and
 the labels, and writes one f32 loss and one bool per row:
@@ -66,9 +68,13 @@ def _ce_fwd_kernel(
         label_logit += tl.sum(tl.where((offs == label) & in_row, x, 0.0), axis=0)
         row_max = new_max
     label_valid = (label >= 0) & (label < num_classes)
+    # a label in [C, C rounded up to 128) picks one of the TPU kernel's
+    # padding lanes, whose shifted logit is -inf
+    pad_lane = (label >= num_classes) & (label < (num_classes + 127) // 128 * 128)
     # the same f32 subtraction as the TPU kernel's `shifted`, so the
     # row max reads exactly 0 and `correct` is argmax == label up to ties
-    picked = tl.where(label_valid, label_logit - row_max, 0.0)
+    picked = tl.where(label_valid, label_logit - row_max,
+                      tl.where(pad_lane, float("-inf"), 0.0))
     tl.store(loss_ptr + row, tl.log(sum_exp) - picked)
     tl.store(correct_ptr + row, ((picked >= 0.0) & label_valid).to(tl.uint8))
 

@@ -1,0 +1,95 @@
+"""K2's launcher: the ctypes binding of `csrc/flash_attention.cu`.
+
+The kernel source says what it replaces and how it is built; this module
+turns tensors into its arguments: data pointers, (batch, seq, head)
+strides for either layout, and PyTorch's current stream. The caller
+(`ops/flash_attention.py`) has checked device, dtype and head_dim and
+allocated the outputs; a launch that the runtime refuses raises here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tritonk8ssupervisor_tpu_torch.ops import cuda_build
+
+SOURCE = "flash_attention.cu"
+# what the kernel is instantiated for: dtype -> its code in the C
+# interface, and head_dim
+DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+HEAD_DIMS = (64, 128)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load(SOURCE)
+    lib.tk8s_attn_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _STRIDES,
+                                  _I, _I, _I, _I, _F, _P]
+    lib.tk8s_attn_fwd.restype = _I
+    lib.tk8s_attn_bwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _STRIDES, _I, _I, _I, _I,
+                                  _F, _P]
+    lib.tk8s_attn_bwd.restype = _I
+    lib.tk8s_error_string.argtypes = [_I]
+    lib.tk8s_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bsh(x: torch.Tensor, layout: str) -> tuple[int, int, int]:
+    """(batch, seq, head) strides of a (B, S, H, D) or (B, H, S, D) tensor."""
+    b, one, two, _ = x.stride()
+    return (b, one, two) if layout == "bshd" else (b, two, one)
+
+
+def _strides(layout: str, *tensors: torch.Tensor):
+    flat = [s for x in tensors for s in _bsh(x, layout)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def dims(shape, layout: str) -> tuple[int, int, int, int]:
+    """(batch, heads, seq, head_dim) of a q/k/v shape in `layout`."""
+    if layout == "bshd":
+        b, s, h, d = shape
+    else:
+        b, h, s, d = shape
+    return b, h, s, d
+
+
+def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"K2 {what} launch failed: {lib.tk8s_error_string(code).decode()} ({code})"
+        )
+
+
+def forward(q, k, v, out, lse, causal: bool, layout: str) -> None:
+    """O and the (B, H, S) f32 logsumexp into `out` and `lse`."""
+    lib = _lib()
+    b, h, s, d = dims(q.shape, layout)
+    code = lib.tk8s_attn_fwd(
+        DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), _strides(layout, q, k, v, out),
+        b, h, s, int(causal), d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(lib, code, "forward")
+
+
+def backward(dout, q, k, v, out, lse, delta, dq, dk, dv, causal: bool,
+             layout: str) -> None:
+    """dq, dk, dv; `delta` is (B, H, S) f32 scratch for rowsum(dO * O)."""
+    lib = _lib()
+    b, h, s, d = dims(q.shape, layout)
+    code = lib.tk8s_attn_bwd(
+        DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(layout, q, k, v, out, dout, dq, dk, dv),
+        b, h, s, int(causal), d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(lib, code, "backward")

@@ -3,15 +3,22 @@
 
 Takes the variables as a nested dict of numpy arrays (what
 `jax.device_get(variables)` gives), so it never needs JAX. Module names
-are the same on both sides (`models/resnet.py`); only the leaf names and
-layouts differ:
+are the same on both sides (`models/resnet.py`, `models/transformer.py`);
+only the leaf names and layouts differ:
 
     params      .../kernel (kh, kw, in, out)  -> .../weight (out, in, kh, kw)
     params      .../kernel (in, out)          -> .../weight (out, in)
     params      .../bias                      -> .../bias
     params      .../scale                     -> .../weight
+    params      .../embedding                 -> .../weight
+    params      <name> (a module's own param) -> <name>
     batch_stats .../mean                      -> .../running_mean
     batch_stats .../var                       -> .../running_var
+
+The last params row is a parameter that a module declares itself rather
+than through a submodule, such as the LM's top-level `pos_embed`: its
+name is kept as it is. The head-major attention projections keep the
+Dense (in, out) kernels, so they map as any Dense does.
 
 Any leaf it cannot map, and any entry of the port's state dict left
 unfilled, raises: a silently half-loaded model would make every parity
@@ -27,7 +34,8 @@ import torch
 from torch import nn
 
 _LEAVES = {
-    "params": {"kernel": "weight", "bias": "bias", "scale": "weight"},
+    "params": {"kernel": "weight", "bias": "bias", "scale": "weight",
+               "embedding": "weight"},
     "batch_stats": {"mean": "running_mean", "var": "running_var"},
 }
 
@@ -61,9 +69,12 @@ def state_dict_from_flax(
             raise ValueError(f"unmapped variable collection {collection!r}")
         for path, value in _walk(tree):
             *modules, leaf = path
-            if leaf not in names:
+            if leaf in names:
+                key = ".".join(modules + [names[leaf]])
+            elif collection == "params" and not modules:
+                key = leaf  # the model's own parameter, e.g. pos_embed
+            else:
                 raise ValueError(f"unmapped leaf {collection}/{'/'.join(path)}")
-            key = ".".join(modules + [names[leaf]])
             if key not in expected:
                 raise ValueError(
                     f"{collection}/{'/'.join(path)} maps to {key!r}, which "

@@ -2,10 +2,11 @@
 of `tritonk8ssupervisor_tpu/utils/perf.py`.
 
 FLOPs come from `torch.utils.flop_counter.FlopCounterMode` over one real
-train step. It counts only convolutions and matrix products (2 FLOPs per
-multiply-add), where the reference used XLA's cost analysis of the whole
-compiled program, elementwise work included; `flops_source` says so
-beside every number. Peak is the card's data-sheet dense bf16 rate, so
+train step. It counts only convolutions, matrix products (2 FLOPs per
+multiply-add) and the attention kernel K2 (its registered formula,
+ops/flash_attention.py), where the reference used XLA's cost analysis of
+the whole compiled program, elementwise work included; `flops_source`
+says so beside every number. Peak is the card's data-sheet dense bf16 rate, so
 MFU = counted FLOPs / (step time x peak).
 """
 
@@ -32,7 +33,7 @@ PEAK_BF16_FLOPS = {
 
 FLOPS_SOURCE = (
     "torch.utils.flop_counter over one train step "
-    "(convolutions and matrix products only)"
+    "(convolutions, matrix products and attention only)"
 )
 
 # the drain-file contract of tritonk8ssupervisor_tpu/provision/maintenance.py

@@ -7,9 +7,10 @@ Run from the root of a checkout (the port's package sits beside this
 script). It needs one CUDA card and takes no arguments. Phases, each of
 which raises on failure (exit code not 0, no result line):
 
-1. the card: name and power limit, as nvidia-smi reports them; kernel
-   K2 (CUDA C++, `csrc/flash_attention.cu`) starts building from the
-   checkout in the background;
+1. the card: name and power limit, as nvidia-smi reports them; kernels
+   K2 and K4 (CUDA C++, `csrc/flash_attention.cu` and
+   `csrc/conv_backward.cu`) start building from the checkout in the
+   background, one nvcc each;
 2. kernel K1 (Triton, built from the checkout on first launch) against
    its plain PyTorch version on the card: f32 at the ResNet shape
    (256, 1000) and at (4096, 32000), bf16 at the LM shape (8192, 32768),
@@ -31,7 +32,20 @@ which raises on failure (exit code not 0, no result line):
    around it;
 7. the LM main path: the LM training benchmark at its published widths
    (12 layers, 12 heads, embed 768, vocab 32768, seq 1024, batch 8, bf16),
-   10 steps a window, with K1's and K2's launches counted around it.
+   10 steps a window, with K1's and K2's launches counted around it;
+8. kernel K4 (the fused 1x1-conv backward) against its plain version on
+   the card at the 12 stride-1 1x1 shapes of ResNet-50 at batch 256,
+   bf16; times the kernel, the plain version and cuDNN's
+   `convolution_backward` on the same channels_last tensors (a yardstick
+   only), and sums calls x time per step against the summed bound;
+9. two bf16 steps of a small bottleneck ResNet with `fused_1x1_bwd` and
+   `fast_pool_bwd` on the card (K1, K4) against the same steps on the CPU
+   (the plain versions), from one set of weights;
+10. the ResNet-50 fused path: the training benchmark as in 6 with
+   `fused_1x1_bwd`, with K1's and K4's launches and K4's layout copies
+   counted around it; its FLOP count must equal the default path's.
+
+Phase 6 asserts that the default path launches K4 no time.
 
 It prints the card line, one JSON line with every kernel of the paths,
 and last `{"ok": true, "device": {...}}`.
@@ -52,6 +66,9 @@ import torch.nn.functional as F
 from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
 from tritonk8ssupervisor_tpu_torch.models import ResNet18, TransformerLM
+from tritonk8ssupervisor_tpu_torch.models.resnet import BottleneckBlock, ResNet
+from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+from tritonk8ssupervisor_tpu_torch.ops import conv_backward_cuda
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce
 from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
@@ -77,7 +94,25 @@ K2_REL_F32 = 1e-2
 # the loss of one bf16 step on the card against the CPU: bf16 activations
 # rounded at other points by cuDNN/cuBLAS/K2 and by the CPU kernels
 PARITY_LOSS_ATOL = 2e-2
+# K4 against its plain version (the same exact bf16 products summed in f32
+# in other orders): dX, rounded to bf16, relative to its largest
+# magnitude; dW, f32 throughout, relative to its own
+K4_REL_DX = 1e-2
+K4_REL_DW = 1e-3
+# a fused step's FLOP count against the default path's
+FLOPS_RTOL = 1e-3
 K2_SOURCE = "flash_attention.cu"
+K4_SOURCE = conv_backward_cuda.SOURCE
+# ResNet-50's stride-1 1x1 convolutions at batch 256, 224x224 (the
+# stage sizes (3, 4, 6, 3) over models/resnet.py's bottleneck blocks):
+# (spatial size, C = dX width, N = dY width, calls per step)
+K4_SHAPES = [
+    (56, 64, 64, 1), (56, 64, 256, 4), (56, 256, 64, 2), (56, 256, 128, 1),
+    (28, 128, 512, 4), (28, 512, 128, 3), (28, 512, 256, 1),
+    (14, 256, 1024, 6), (14, 1024, 256, 5), (14, 1024, 512, 1),
+    (7, 512, 2048, 3), (7, 2048, 512, 2),
+]
+K4_BATCH = 256
 
 
 def _card_line() -> str:
@@ -88,19 +123,29 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _build_k2_in_background():
-    """Start K2's nvcc build, so it overlaps the K1 phases."""
+def _build_in_background(source: str):
+    """Start one source's nvcc build, so it overlaps the phases before the
+    kernel's own."""
     errors: list[BaseException] = []
 
     def build():
         try:
-            cuda_build.load(K2_SOURCE)
-        except Exception as exc:  # re-raised by the K2 phase
+            cuda_build.load(source)
+        except Exception as exc:  # re-raised by the kernel's phase
             errors.append(exc)
 
     thread = threading.Thread(target=build, daemon=True)
     thread.start()
     return thread, errors
+
+
+def _join_build(source: str, build, started: float) -> None:
+    thread, errors = build
+    thread.join()
+    if errors:
+        raise errors[0]
+    print(f"built: {cuda_build.library_path(source).name} "
+          f"({time.monotonic() - started:.1f} s into the run)", flush=True)
 
 
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -361,28 +406,123 @@ def check_lm_parity() -> None:
         raise AssertionError("card and CPU LM train steps disagree")
 
 
-def run_resnet50(card: str) -> int:
+def run_resnet50(card: str, fused_1x1_bwd: bool = False) -> dict:
+    """The ResNet-50 benchmark at batch 256, the default path or the fused
+    one; K1's and K4's launches and K4's layout copies counted around it."""
     ce.cross_entropy_forward.launches = 0
+    cb.conv1x1_backward_kernel.launches = 0
+    cb.conv1x1_backward.copies = 0
     torch.cuda.reset_peak_memory_stats()
     result = run_benchmark(
         model_name="resnet50", batch_per_chip=256, image_size=224,
-        num_classes=1000, steps=10, warmup=2, windows=2,
+        num_classes=1000, steps=10, warmup=2, windows=2, fused_1x1_bwd=fused_1x1_bwd,
     )
-    launches = ce.cross_entropy_forward.launches
+    k1, k4 = ce.cross_entropy_forward.launches, cb.conv1x1_backward_kernel.launches
+    steps = result["final_step"]
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    print("resnet50: " + json.dumps(result, sort_keys=True), flush=True)
+    result["k4_copies_per_step"] = cb.conv1x1_backward.copies / steps
+    name = "resnet50_fused_1x1_bwd" if fused_1x1_bwd else "resnet50"
+    print(f"{name}: " + json.dumps(result, sort_keys=True), flush=True)
     if result["platform"] != "gpu" or not math.isfinite(result["final_loss"]):
-        raise AssertionError(f"ResNet-50 path: platform {result['platform']}, "
+        raise AssertionError(f"{name} path: platform {result['platform']}, "
                              f"loss {result['final_loss']}")
-    if launches != result["final_step"]:
-        raise AssertionError(f"K1 launched {launches} times in "
-                             f"{result['final_step']} steps")
+    k4_per_step = sum(calls for *_, calls in K4_SHAPES) if fused_1x1_bwd else 0
+    if (k1, k4) != (steps, k4_per_step * steps):
+        raise AssertionError(f"{name}: K1 launched {k1} and K4 {k4} times in {steps} steps")
     mfu = result["mfu"]
-    print(f"main path: ResNet-50 batch 256 224x224 bf16, "
+    print(f"main path: {name} batch 256 224x224 bf16, "
           f"{result['images_per_sec']:.1f} img/s, step {result['step_ms']:.2f} ms, "
-          f"MFU {'not known' if mfu is None else f'{mfu:.4f}'}, "
-          f"K1 launches {launches} in {result['final_step']} steps, on {card}", flush=True)
-    return launches
+          f"MFU {'not known' if mfu is None else f'{mfu:.4f}'} "
+          f"({result['flops_per_step']:.6g} FLOP/step), peak memory "
+          f"{result['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} steps: "
+          f"K1 {k1}, K4 {k4}, K4 layout copies {result['k4_copies_per_step']:g} a step, "
+          f"on {card}", flush=True)
+    return {"k1": k1, "k4": k4, **result}
+
+
+def check_k4(size: int, c: int, n: int, calls: int, seed: int) -> dict:
+    """K4 against its plain version at one full-width shape, with the
+    times of the kernel, the plain version and cuDNN's backward."""
+    m = K4_BATCH * size * size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x2 = torch.randn(m, c, generator=gen, device="cuda").bfloat16()
+    dy2 = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
+    w2 = (torch.randn(n, c, generator=gen, device="cuda") / c ** 0.5).bfloat16()
+    dx, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    torch.cuda.synchronize()
+    ref_dx, ref_dw = cb.conv1x1_backward_plain(x2, dy2, w2, torch.bfloat16)
+    err_dx, err_dw = _max_abs_err(dx, ref_dx), _max_abs_err(dw, ref_dw)
+    rel_dx = err_dx / ref_dx.float().abs().max().item()
+    rel_dw = err_dw / ref_dw.abs().max().item()
+    if not (torch.isfinite(dx).all() and torch.isfinite(dw).all()
+            and rel_dx <= K4_REL_DX and rel_dw <= K4_REL_DW):
+        raise AssertionError(f"K4 at (M, C, N) = {(m, c, n)}: relative error dX "
+                             f"{rel_dx:.2e}, dW {rel_dw:.2e}")
+    del ref_dx, ref_dw, dx, dw
+
+    # the memory one call holds beyond its inputs and outputs (the dW
+    # workspace), measured: the allocator's peak during the call less
+    # what it still holds after it, with the outputs alive
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    torch.cuda.synchronize()
+    workspace = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+
+    # cuDNN on the same memory as (256, C, size, size) channels_last tensors
+    x4 = x2.view(K4_BATCH, size, size, c).permute(0, 3, 1, 2)
+    dy4 = dy2.view(K4_BATCH, size, size, n).permute(0, 3, 1, 2)
+    w4 = w2.view(n, c, 1, 1)
+
+    def library():
+        return torch.ops.aten.convolution_backward(
+            dy4, x4, w4, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False])
+
+    iters = 50 if m * (c + n) < 2e8 else 20
+    times = _timings({
+        "": (lambda: cb.conv1x1_backward_kernel(x2, dy2, w2), iters),
+        "plain_": (lambda: cb.conv1x1_backward_plain(x2, dy2, w2, torch.bfloat16), 10),
+        "library_": (library, iters),
+    })
+    # X, dY and W read once; dX (bf16) and dW (f32) written once
+    n_bytes = 2 * (m * c + m * n + n * c) + 2 * m * c + 4 * n * c
+    bound_ms, bound_by = _bound(n_bytes, 4 * m * c * n, BF16_FLOPS)
+    return {
+        "shape": [m, c, n], "calls_per_step": calls, "dtype": "bfloat16",
+        "max_abs_err": err_dx, "max_abs_err_dw": err_dw,
+        **times, "bound_ms": bound_ms, "bound_by": bound_by,
+        "workspace_bytes": workspace,
+    }
+
+
+def check_fused_parity() -> None:
+    """Two bf16 steps of a small bottleneck ResNet with both levers on,
+    through K1 and K4 on the card against the same steps through their
+    plain versions on the CPU, from one set of weights."""
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randn(16, 32, 32, 3, generator=gen)
+    labels = torch.randint(0, 10, (16,), generator=gen, dtype=torch.int32)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        model = ResNet(stage_sizes=(1, 1), block_cls=BottleneckBlock, num_classes=10,
+                       num_filters=16, fused_1x1_bwd=True, fast_pool_bwd=True,
+                       generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(model, train.default_optimizer(0.1), device)
+        step = train.make_train_step(state, metrics_fn=ce.cross_entropy_loss_and_correct)
+        before = cb.conv1x1_backward_kernel.launches
+        x, y = images.to(device), labels.to(device)
+        losses[device] = [step(x, y)["loss"].item() for _ in range(2)]
+        launched = cb.conv1x1_backward_kernel.launches - before
+        # Conv_0 and Conv_2 of both blocks and stage 0's shortcut, 2 steps
+        if launched != (10 if device == "cuda" else 0):
+            raise AssertionError(f"K4 launched {launched} times on {device}")
+    diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"parity: fused bottleneck ResNet bf16 losses over 2 steps, card "
+          f"{losses['cuda']} cpu {losses['cpu']}, max |diff| {diff:.2e} "
+          f"(tolerance {PARITY_LOSS_ATOL})", flush=True)
+    if not diff <= PARITY_LOSS_ATOL:
+        raise AssertionError("card and CPU fused train steps disagree")
 
 
 def run_lm(card: str) -> dict:
@@ -440,7 +580,7 @@ def main() -> int:
 
     card = _card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    k2_build, k2_build_errors = _build_k2_in_background()
+    builds = {source: _build_in_background(source) for source in (K2_SOURCE, K4_SOURCE)}
 
     k1_main = check_k1(256, 1000, seed=0)
     k1_other = [check_k1(4096, 32000, seed=1),
@@ -452,11 +592,7 @@ def main() -> int:
 
     check_parity()
 
-    k2_build.join()
-    if k2_build_errors:
-        raise k2_build_errors[0]
-    print(f"K2 built: {cuda_build.library_path(K2_SOURCE).name} "
-          f"({time.monotonic() - started:.1f} s into the run)", flush=True)
+    _join_build(K2_SOURCE, builds[K2_SOURCE], started)
     k2_rows = [
         check_k2(8, 1024, 12, 64, causal=True, layout="bshd"),
         check_k2(8, 1024, 12, 64, causal=True, layout="bhsd", seed=1),
@@ -472,10 +608,38 @@ def main() -> int:
                   flush=True)
 
     check_lm_parity()
-    resnet_k1 = run_resnet50(card)
+    resnet = run_resnet50(card)
     lm_launches = run_lm(card)
 
+    _join_build(K4_SOURCE, builds[K4_SOURCE], started)
+    k4_rows = [check_k4(size, c, n, calls, seed)
+               for seed, (size, c, n, calls) in enumerate(K4_SHAPES)]
+    for row in k4_rows:
+        print(f"K4 (M, C, N) {tuple(row['shape'])} x{row['calls_per_step']}: "
+              f"{_times_text(row, 'cuDNN')}, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), max |err| dX {row['max_abs_err']:.2e} "
+              f"dW {row['max_abs_err_dw']:.2e} on {card}", flush=True)
+    k4_step = {
+        prefix + "device_ms": sum(r["calls_per_step"] * r[prefix + "device_ms"] for r in k4_rows)
+        if all(r[prefix + "device_ms"] is not None for r in k4_rows) else None
+        for prefix in ("", "plain_", "library_")
+    }
+    k4_step["bound_ms"] = sum(r["calls_per_step"] * r["bound_ms"] for r in k4_rows)
+    k4_step["max_workspace_bytes"] = max(r["workspace_bytes"] for r in k4_rows)
+    print("K4 per ResNet-50 step (sum of calls x device time): " + ", ".join(
+        f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in k4_step.items())
+        + f" on {card}", flush=True)
+
+    check_fused_parity()
+    fused = run_resnet50(card, fused_1x1_bwd=True)
+    if not math.isclose(fused["flops_per_step"], resnet["flops_per_step"], rel_tol=FLOPS_RTOL):
+        raise AssertionError(f"fused path counts {fused['flops_per_step']} FLOP/step, the "
+                             f"default path {resnet['flops_per_step']}")
+    print(f"ResNet-50 step: fused {fused['step_ms']:.2f} ms against default "
+          f"{resnet['step_ms']:.2f} ms, on {card}", flush=True)
+
     k2_lm = k2_rows[0]
+    k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
     kernels = [
         {
             "name": "cross_entropy_forward (K1)",
@@ -483,7 +647,8 @@ def main() -> int:
             "source": "tritonk8ssupervisor_tpu_torch/ops/cross_entropy_triton.py",
             "replaces": "tritonk8ssupervisor_tpu/ops/cross_entropy.py:56",
             "launches": lm_launches["k1"],
-            "launches_by_path": {"resnet50": resnet_k1, "lm": lm_launches["k1"]},
+            "launches_by_path": {"resnet50": resnet["k1"], "lm": lm_launches["k1"],
+                                 "resnet50_fused_1x1_bwd": fused["k1"]},
             **k1_other[1],
             "other_shapes": [k1_main, k1_other[0]],
         },
@@ -510,6 +675,18 @@ def main() -> int:
             **k2_lm["backward"],
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in k2_rows[1:]],
+        },
+        {
+            "name": "conv1x1_bwd (K4)",
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/conv_backward.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/conv_backward.py:83",
+            "launches": fused["k4"],
+            "launches_by_path": {"resnet50": resnet["k4"], "resnet50_fused_1x1_bwd": fused["k4"]},
+            # the shape with the largest share of a step's K4 time
+            **k4_main,
+            "per_step": k4_step,
+            "other_shapes": [r for r in k4_rows if r is not k4_main],
         },
     ]
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)

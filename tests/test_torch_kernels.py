@@ -18,7 +18,7 @@ from tritonk8ssupervisor_tpu_torch.parallel import train
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 (Triton) and K2 (CUDA C++) have no CPU mode")
+        pytest.skip("needs a CUDA card: K1 (Triton), K2 and K4 (CUDA C++) have no CPU mode")
 
 
 def _inputs(batch, classes, dtype, seed=0):
@@ -262,3 +262,129 @@ def test_lm_through_k2_matches_the_plain_version_on_the_card(head_major):
     torch.testing.assert_close(loss_k2, loss_plain, rtol=0, atol=2e-2)
     for name, g in g_k2.items():
         assert _rel_err(g, g_plain[name]) <= 5e-2, (name, _rel_err(g, g_plain[name]))
+
+
+# K4: the fused 1x1-conv backward against its plain version on the same
+# bf16/fp16 rows. The kernel and the plain version sum the same exact
+# products in f32 in other orders; dX is then rounded to the input dtype
+# (2^-9 relative in bf16), so dX is held to 1e-2 of its largest magnitude
+# and dW (f32 throughout) to 1e-3 of its own.
+K4_REL_DX = 1e-2
+K4_REL_DW = 1e-3
+
+K4_CASES = [
+    pytest.param(128, 24, 32, torch.bfloat16, id="small"),
+    pytest.param(10, 8, 16, torch.float16, id="ragged-tiny-fp16"),
+    pytest.param(1000, 64, 256, torch.bfloat16, id="ragged"),
+    pytest.param(4099, 200, 72, torch.float16, id="ragged-partial-tiles-fp16"),
+    pytest.param(802816, 256, 64, torch.bfloat16, id="stage0-full"),
+    pytest.param(50176, 256, 1024, torch.bfloat16, id="stage2-full"),
+    pytest.param(12544, 2048, 512, torch.float16, id="stage3-full-fp16"),
+]
+
+
+def _k4_inputs(m, c, n, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x2 = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
+    dy2 = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+    w2 = (torch.randn(n, c, generator=gen, device="cuda") / c ** 0.5).to(dtype)
+    return x2, dy2, w2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,n,dtype", K4_CASES)
+def test_k4_matches_plain_version(m, c, n, dtype):
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    x2, dy2, w2 = _k4_inputs(m, c, n, dtype)
+    before = cb.conv1x1_backward_kernel.launches
+    dx, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    torch.cuda.synchronize()
+    assert cb.conv1x1_backward_kernel.launches == before + 1
+    assert dx.dtype == dtype and dx.shape == (m, c) and dw.dtype == torch.float32
+    ref_dx, ref_dw = cb.conv1x1_backward_plain(x2, dy2, w2, dtype)
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    assert _rel_err(dx, ref_dx) <= K4_REL_DX, _rel_err(dx, ref_dx)
+    scale = ref_dw.abs().max().item()
+    assert (dw - ref_dw).abs().max().item() <= K4_REL_DW * scale
+
+
+@pytest.mark.cuda
+def test_k4_is_deterministic():
+    """dW is summed over a fixed split of M in a fixed order: two calls on
+    the same inputs agree bit for bit."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    x2, dy2, w2 = _k4_inputs(200704, 128, 512, torch.bfloat16, seed=1)
+    first = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    second = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_k4_raises_on_what_it_does_not_take():
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    x = torch.zeros(2, 16, 4, 4, device="cuda").to(memory_format=torch.channels_last)
+    w = torch.zeros(8, 16, 1, 1, device="cuda")
+    dy = torch.zeros(2, 8, 4, 4, device="cuda").to(memory_format=torch.channels_last)
+    with pytest.raises(TypeError, match="bf16"):
+        cb.conv1x1_backward(x, w, dy, torch.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cb.conv1x1_backward(x[:, :12], w[:, :12], dy, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        cb.conv1x1_backward(x, w.cpu(), dy, torch.bfloat16)
+    # the wrapper itself, on rows that are not K4's
+    x2, dy2, w2 = _k4_inputs(64, 16, 8, torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        cb.conv1x1_backward_kernel(x2.float(), dy2.float(), w2.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.conv1x1_backward_kernel(x2.t().contiguous().t(), dy2, w2)
+    with pytest.raises(ValueError, match="aligned"):
+        misaligned = torch.empty(64 * 16 + 1, device="cuda", dtype=torch.bfloat16)
+        cb.conv1x1_backward_kernel(misaligned[1:].view(64, 16), dy2, w2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cb.conv1x1_backward_kernel(x2, dy2.cpu(), w2)
+
+
+@pytest.mark.cuda
+def test_k4_flops_reach_the_counter():
+    _card()
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tritonk8ssupervisor_tpu_torch.ops.conv_backward import conv1x1
+
+    b, c, h, w, n = 4, 64, 14, 14, 128
+    x = torch.randn(b, c, h, w, device="cuda").bfloat16().to(memory_format=torch.channels_last)
+    weight = torch.randn(n, c, 1, 1, device="cuda").to(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    weight.requires_grad_(True)
+    with FlopCounterMode(display=False) as counter:
+        conv1x1(x, weight).float().sum().backward()
+    m = b * h * w
+    # the forward convolution (2 M C N) and K4's two products (4 M C N)
+    assert counter.get_total_flops() == 6 * m * c * n
+
+
+@pytest.mark.cuda
+def test_resnet_step_on_card_launches_k4_per_stride1_1x1_conv():
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    model = ResNet(stage_sizes=(1, 1), block_cls=BottleneckBlock, num_classes=10,
+                   num_filters=8, fused_1x1_bwd=True, fast_pool_bwd=True)
+    state = train.create_train_state(model, train.default_optimizer())
+    step = train.make_train_step(state)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (8,), generator=gen, device="cuda")
+    before = cb.conv1x1_backward_kernel.launches, ce.cross_entropy_forward.launches
+    metrics = step(images, labels)
+    assert torch.isfinite(metrics["loss"])
+    # Conv_0 and Conv_2 of both blocks and stage 0's stride-1 shortcut
+    assert cb.conv1x1_backward_kernel.launches == before[0] + 5
+    assert ce.cross_entropy_forward.launches == before[1] + 1

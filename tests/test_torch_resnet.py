@@ -24,8 +24,10 @@ FAMILIES = {
 }
 
 
-def _random_variables(model, seed, image=32):
-    """flax variables of `model` with every leaf drawn from numpy."""
+def random_flax_variables(model, seed, image=32, stem_bias_shift=0.0):
+    """flax variables of `model` with every leaf drawn from numpy; the
+    stem BatchNorm's bias is moved by `stem_bias_shift` (negative: many
+    all-zero windows after the stem's ReLU)."""
     shapes = jax.eval_shape(
         lambda: model.init(jax.random.key(0), jnp.zeros((1, image, image, 3)), train=False)
     )
@@ -38,7 +40,8 @@ def _random_variables(model, seed, image=32):
             return (rng.normal(size=s.shape) / np.sqrt(fan_in)).astype(np.float32)
         if name in ("scale", "var"):
             return rng.uniform(0.5, 1.5, size=s.shape).astype(np.float32)
-        return (rng.normal(size=s.shape) * 0.1).astype(np.float32)
+        shift = stem_bias_shift if path[0].key == "stem_norm" and name == "bias" else 0.0
+        return (rng.normal(size=s.shape) * 0.1 + shift).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
@@ -47,7 +50,7 @@ def _pair(family, dtype, seed=0):
     jax_cls, torch_cls = FAMILIES[family]
     jdtype = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
     jmodel = jax_cls(num_classes=10, num_filters=8, dtype=jdtype)
-    variables = _random_variables(jmodel, seed)
+    variables = random_flax_variables(jmodel, seed)
     tmodel = torch_cls(num_classes=10, num_filters=8, dtype=dtype)
     tmodel.load_state_dict(state_dict_from_flax(variables, tmodel))
     return jmodel, variables, tmodel
@@ -181,9 +184,18 @@ def test_remat_blocks_same_step_and_stats_move_once():
 
 
 def test_same_function_levers_accepted_and_unported_levers_raise():
+    """Every lever of the reference's ResNet is accepted now: the
+    same-function ones run the plain convolution, and `fused_1x1_bwd`
+    and `fast_pool_bwd` (no longer unported) build and run a train-mode
+    forward and backward on the CPU."""
     for flags in ({"matmul_1x1": True}, {"s2d_stem": False}):
         resnet.ResNet18(num_classes=10, num_filters=8, **flags)
-    with pytest.raises(NotImplementedError, match="K4"):
-        resnet.ResNet50(num_filters=8, fused_1x1_bwd=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resnet.ResNet50(num_filters=8, fast_pool_bwd=True)
+    x = torch.from_numpy(_images(9, n=2))
+    for flags in ({"fused_1x1_bwd": True}, {"fast_pool_bwd": True},
+                  {"fused_1x1_bwd": True, "fast_pool_bwd": True}):
+        model = resnet.ResNet50(num_classes=10, num_filters=8, **flags)
+        model.train()
+        model(x).float().sum().backward()
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    fused = [m for m in model.modules() if isinstance(m, resnet.FusedBwdConv1x1)]
+    assert len(fused) == 33  # Conv_0 and Conv_2 of 16 blocks, stage 0's shortcut

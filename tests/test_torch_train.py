@@ -167,11 +167,25 @@ def test_run_benchmark_on_cpu_reports_the_reference_fields():
     {"model_name": "vit"},
     {"model_parallelism": 2},
     {"checkpoint_dir": "ckpt"},
-    {"fused_1x1_bwd": True},
 ])
 def test_run_benchmark_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_benchmark(device="cpu", **kwargs)
+
+
+def test_run_benchmark_resnet50_fused_1x1_bwd_runs_on_cpu():
+    """`fused_1x1_bwd` is ported (kernel K4; its plain version on CPU
+    tensors): the ResNet-50 benchmark runs with it at a tiny size and
+    counts the default path's FLOPs (the plain version's two products are
+    the two that cuDNN's backward is counted for). ResNet-18 has no
+    stride-1 1x1 convolution, so it would not reach the lever."""
+    kwargs = dict(model_name="resnet50", batch_per_chip=2, image_size=32, num_classes=10,
+                  steps=1, warmup=1, windows=1, device="cpu")
+    result = run_benchmark(fused_1x1_bwd=True, **kwargs)
+    assert result["final_step"] == 3 and np.isfinite(result["final_loss"])
+    assert result["mfu"] is None and result["platform"] == "cpu"
+    default = run_benchmark(**kwargs)
+    assert result["flops_per_step"] == pytest.approx(default["flops_per_step"], rel=1e-3)
 
 
 def test_run_benchmark_stops_at_a_window_boundary_when_draining(tmp_path, monkeypatch):

@@ -5,7 +5,9 @@
 
 Data is synthetic and made on the card from a seeded generator, so the
 benchmark measures the training computation, not a host input pipeline.
-The loss and accuracy go through kernel K1 (ops/cross_entropy.py).
+The loss and accuracy go through kernel K1 (ops/cross_entropy.py); with
+`--fused-1x1-bwd` the backward of every stride-1 1x1 convolution goes
+through kernel K4 (ops/conv_backward.py).
 """
 
 from __future__ import annotations
@@ -154,7 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model-parallelism", type=int, default=1)
     parser.add_argument(
         "--fused-1x1-bwd", action="store_true",
-        help="fused backward for stride-1 1x1 convs (kernel K4; not ported yet)",
+        help="backward of every stride-1 1x1 conv through kernel K4 "
+        "(ops/conv_backward.py; CUDA C++, built at first use)",
     )
     parser.add_argument(
         "--remat", action="store_true",

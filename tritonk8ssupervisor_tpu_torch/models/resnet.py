@@ -12,6 +12,11 @@
   `BottleneckBlock_3`, `Conv_1`, `BatchNorm_2`, `shortcut_norm`,
   `classifier`, ...), so `utils/convert.py` maps the reference's
   variables one to one.
+- `fused_1x1_bwd` builds every stride-1 1x1 convolution as
+  `FusedBwdConv1x1`, whose backward is kernel K4 on the card
+  (ops/conv_backward.py); `fast_pool_bwd` takes the stem pool's mask
+  backward (ops/pool_backward.py). Neither changes the parameters or
+  the forward.
 - Initialisation is the port's own (lecun-normal convolutions and
   classifier, zero scale on each block's last BatchNorm) from an
   explicit `torch.Generator`; it does not reproduce JAX's random bits.
@@ -27,6 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from tritonk8ssupervisor_tpu_torch.ops.conv_backward import conv1x1
+from tritonk8ssupervisor_tpu_torch.ops.pool_backward import max_pool_3x3_s2
 
 # flax's lecun_normal is a normal truncated at two standard deviations,
 # rescaled by the std of that truncated normal so the variance is 1/fan_in
@@ -96,6 +104,31 @@ class Conv(nn.Module):
         )
 
 
+class FusedBwdConv1x1(Conv):
+    """Stride-1 1x1 `Conv` whose backward is `ops/conv_backward.conv1x1`'s
+    (kernel K4 on the card): the same `weight` (and the same draw from
+    the generator), the same forward; dX and an f32 dW from one call."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_features, features, (1, 1), dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1x1(x, self.weight, self.dtype)
+
+
+def make_conv(in_features: int, features: int, kernel_size: tuple[int, int],
+              strides: tuple[int, int] = (1, 1), *, fused_1x1_bwd: bool = False,
+              **kwargs) -> nn.Module:
+    """The reference's conv factory (flax resnet.py:238-264): a
+    `FusedBwdConv1x1` for a 1x1 stride-1 convolution when `fused_1x1_bwd`
+    is set, else the plain `Conv`."""
+    if fused_1x1_bwd and tuple(kernel_size) == (1, 1) and tuple(strides) == (1, 1):
+        return FusedBwdConv1x1(in_features, features, **kwargs)
+    return Conv(in_features, features, kernel_size, strides, **kwargs)
+
+
 class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over the channels
     of an NCHW tensor, with f32 scale (`weight`), bias and statistics.
@@ -151,9 +184,11 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_features: int, filters: int,
                  strides: tuple[int, int] = (1, 1),
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 fused_1x1_bwd: bool = False):
         super().__init__()
-        conv = functools.partial(Conv, dtype=dtype, generator=generator)
+        conv = functools.partial(make_conv, dtype=dtype, generator=generator,
+                                 fused_1x1_bwd=fused_1x1_bwd)
         out = filters * self.expansion
         self.Conv_0 = conv(in_features, filters, (1, 1))
         self.BatchNorm_0 = BatchNorm(filters)
@@ -186,9 +221,11 @@ class BasicBlock(nn.Module):
     def __init__(self, in_features: int, filters: int,
                  strides: tuple[int, int] = (1, 1),
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 fused_1x1_bwd: bool = False):
         super().__init__()
-        conv = functools.partial(Conv, dtype=dtype, generator=generator)
+        conv = functools.partial(make_conv, dtype=dtype, generator=generator,
+                                 fused_1x1_bwd=fused_1x1_bwd)
         self.Conv_0 = conv(in_features, filters, (3, 3), strides)
         self.BatchNorm_0 = BatchNorm(filters)
         self.Conv_1 = conv(filters, filters, (3, 3))
@@ -235,8 +272,10 @@ class ResNet(nn.Module):
     `matmul_1x1` and `s2d_stem` are levers of the reference that compute
     the same function as the plain convolution; they are accepted and the
     plain convolution runs. `remat_blocks` recomputes each block in the
-    backward (`torch.utils.checkpoint`). `fused_1x1_bwd` (kernel K4) and
-    `fast_pool_bwd` are not ported yet and raise.
+    backward (`torch.utils.checkpoint`). `fused_1x1_bwd` takes K4 for the
+    backward of every stride-1 1x1 convolution (`FusedBwdConv1x1`), and
+    `fast_pool_bwd` the stem pool's tie-splitting mask backward when the
+    pool's input has even height and width, as the reference chooses.
     """
 
     def __init__(
@@ -254,20 +293,11 @@ class ResNet(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if fused_1x1_bwd:
-            raise NotImplementedError(
-                "fused_1x1_bwd needs kernel K4 (ops/conv_backward.py), not "
-                "ported yet: ROADMAP.md queue 2, K4"
-            )
-        if fast_pool_bwd:
-            raise NotImplementedError(
-                "fast_pool_bwd (ops/pool_backward.py) is not ported yet: "
-                "ROADMAP.md queue 1, the ResNet levers"
-            )
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.dtype = dtype
         self.remat_blocks = remat_blocks
+        self.fast_pool_bwd = fast_pool_bwd
         self.stem_conv = Conv(
             3, num_filters, (7, 7), (2, 2),
             padding=((3, 3), (3, 3)), dtype=dtype, generator=generator,
@@ -281,7 +311,8 @@ class ResNet(nn.Module):
                 filters = num_filters * 2**stage
                 name = f"{block_cls.__name__}_{len(self.block_names)}"
                 self.add_module(name, block_cls(
-                    features, filters, strides, dtype=dtype, generator=generator
+                    features, filters, strides, dtype=dtype, generator=generator,
+                    fused_1x1_bwd=fused_1x1_bwd,
                 ))
                 self.block_names.append(name)
                 features = filters * block_cls.expansion
@@ -302,8 +333,11 @@ class ResNet(nn.Module):
         # NHWC -> an NCHW view whose memory is channels_last
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = F.relu(self.stem_norm(self.stem_conv(x)))
-        # 3x3/2 max pool padded (1, 1) with -inf, as flax resnet.py:290
-        x = F.max_pool2d(x, 3, 2, padding=1)
+        # 3x3/2 max pool padded (1, 1) with -inf, as flax resnet.py:282-291
+        if self.fast_pool_bwd and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            x = max_pool_3x3_s2(x)
+        else:
+            x = F.max_pool2d(x, 3, 2, padding=1)
         for name in self.block_names:
             x = self._block(getattr(self, name), x)
         # jnp.mean of a bf16 array sums in f32 and rounds the mean to bf16

@@ -43,7 +43,32 @@ which raises on failure (exit code not 0, no result line):
    (the plain versions), from one set of weights;
 10. the ResNet-50 fused path: the training benchmark as in 6 with
    `fused_1x1_bwd`, with K1's and K4's launches and K4's layout copies
-   counted around it; its FLOP count must equal the default path's.
+   counted around it; its FLOP count must equal the default path's;
+11. kernel K3 (the int8-KV decode attention, `csrc/decode_attention.cu`)
+   against its plain version on the card: the dense `generate` shape
+   (8, 12, 640, 64) `blhd` bf16 at pos 0, 127 and 639, the engine's
+   gathered (4, 512, 12, 64) view with per-slot positions, a 5-query
+   verify window, head_dim 16 (the drafter) and 128, and a head-major
+   `bhld` case, each with q in its dtype and in f32; times the kernel and
+   the plain version (no PyTorch call computes this function, so there is
+   no library time);
+12. decode card against CPU on one set of weights: greedy `generate` with
+   the int8 cache on f32 and bf16 2-layer LMs (2 heads of 64, vocab 512),
+   tokens equal on f32, the logits of every decode step within the stated
+   tolerance, the top-2 margin printed; and a small f32 `SlotEngine` with a
+   drafter and the int8 cache, tokens equal;
+13. the decode main path: `benchmarks.decode.run_benchmark` at its
+   defaults (12 layers, 12 heads of 64, embed 768, vocab 32768, bf16,
+   batch 8, prompt 128, 512 new tokens) with the bf16 cache, the int8
+   cache, and int8 weights with the int8 cache, with K3's launches
+   counted around each (exactly num_layers x 511 a call with the int8
+   cache, 0 with the bf16 cache); before it, one decode forward of that
+   model with each cache: its wall time and the card's busy time by
+   operator, K3's row of which is printed beside each int8 run;
+14. the serving main path: `run_engine_benchmark` at the LM's full width
+   with the int8 cache (cold, warm, spec_base, spec), with K3's launches
+   counted around it: cold equals warm, spec equals spec_base, every
+   timed request hits the prefix store, none re-prefills the prefix.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -63,16 +88,23 @@ import time
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
+from tritonk8ssupervisor_tpu_torch.benchmarks import decode as decode_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
 from tritonk8ssupervisor_tpu_torch.models import ResNet18, TransformerLM
+from tritonk8ssupervisor_tpu_torch.models import decode as dec
 from tritonk8ssupervisor_tpu_torch.models.resnet import BottleneckBlock, ResNet
 from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
 from tritonk8ssupervisor_tpu_torch.ops import conv_backward_cuda
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce
 from tritonk8ssupervisor_tpu_torch.ops import cuda_build
+from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
+from tritonk8ssupervisor_tpu_torch.ops import decode_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
 from tritonk8ssupervisor_tpu_torch.parallel import train
+from tritonk8ssupervisor_tpu_torch.serving import SlotEngine
 
 # H100 SXM data sheet: device memory rate, f32 rate outside the tensor
 # cores (K1's bound), dense bf16/fp16 tensor-core rate (K2's bound)
@@ -103,6 +135,19 @@ K4_REL_DW = 1e-3
 FLOPS_RTOL = 1e-3
 K2_SOURCE = "flash_attention.cu"
 K4_SOURCE = conv_backward_cuda.SOURCE
+K3_SOURCE = decode_attention_cuda.SOURCE
+# K3 against its plain version, relative to the reference's own largest
+# magnitude, as tests/test_torch_kernels.py states: both compute the same
+# f32 output up to summation order and __expf (f32: 2e-5) and round it once
+# to q's dtype, so a bf16 or fp16 output differs by at most one ulp at the
+# largest magnitude (2^-7, 2^-10). Every shape also runs on f32 copies of q,
+# which holds its masks and positions to the f32 limit.
+K3_REL = {torch.float32: 2e-5, torch.float16: 2**-10, torch.bfloat16: 2**-7}
+# decode logits, card against CPU, teacher-forced on the CPU's tokens: f32
+# (cuBLAS without TF32 and K3's __expf against the CPU's kernels) 2e-3; bf16
+# (activations rounded to bf16 at other points; a logit near 4 steps by
+# 2^-5) four steps
+DECODE_LOGITS_ATOL = {torch.float32: 2e-3, torch.bfloat16: 1.25e-1}
 # ResNet-50's stride-1 1x1 convolutions at batch 256, 224x224 (the
 # stage sizes (3, 4, 6, 3) over models/resnet.py's bottleneck blocks):
 # (spatial size, C = dX width, N = dY width, calls per step)
@@ -557,6 +602,238 @@ def run_lm(card: str) -> dict:
     return {"k1": k1, "k2_forward": k2_fwd, "k2_backward": k2_bwd}
 
 
+def _k3_rows(pos, b: int, w: int, length: int) -> list[int]:
+    """Positions each batch row of a K3 call reads: [0, max pos] of its
+    queries, all L when a pos is negative or past the end."""
+    if not isinstance(pos, list):
+        pos = [[pos] * w] * b
+    rows = [p if isinstance(p, list) else [p] for p in pos]
+    return [length if min(r) < 0 else min(max(r) + 1, length) for r in rows]
+
+
+def check_k3(label: str, b: int, w: int, h: int, length: int, d: int, pos,
+             dtype=torch.bfloat16, layout: str = "blhd", seed: int = 0) -> dict:
+    """K3 against its plain version at one shape; `pos` an int or a list
+    (per row, or per row and query), made an int32 tensor on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache_shape = (b, h, length, d) if layout == "bhld" else (b, length, h, d)
+    q = torch.randn((b, w, h, d) if w > 1 else (b, h, d), generator=gen, device="cuda").to(dtype)
+    k8, ks = dec._quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
+    v8, vs = dec._quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
+    pos_arg = torch.tensor(pos, dtype=torch.int32, device="cuda") if isinstance(pos, list) else pos
+    args = (q, k8, ks, v8, vs, pos_arg)
+    errors = []  # max |err| with q in its dtype, then in f32
+    for q_check in (q, q.float()):
+        out = da.decode_attention_int8(q_check, *args[1:], layout=layout)
+        torch.cuda.synchronize()
+        ref = da.decode_attention_int8_plain(q_check, *args[1:], layout=layout)
+        errors.append(_max_abs_err(out, ref))
+        rel = errors[-1] / ref.float().abs().max().item()
+        if not (torch.isfinite(out).all() and rel <= K3_REL[q_check.dtype]):
+            raise AssertionError(f"K3 {label}, q {q_check.dtype}: relative error {rel:.2e} "
+                                 f"(tolerance {K3_REL[q_check.dtype]:.2e})")
+    times = _timings({
+        "": (lambda: da.decode_attention_int8(*args, layout=layout), 200),
+        "plain_": (lambda: da.decode_attention_int8_plain(*args, layout=layout), 50),
+    })
+    positions = sum(_k3_rows(pos, b, w, length))
+    # int8 K and V rows and their f32 scales read once for the positions
+    # the queries attend, q read, out written; 4 D operations a position a
+    # query (the two products) and ~10 for the scale, mask and softmax
+    n_bytes = h * positions * (2 * d + 2 * 4) + 2 * q.numel() * q.element_size()
+    bound_ms, bound_by = _bound(n_bytes, w * h * positions * (4 * d + 10), F32_FLOPS)
+    return {
+        "label": label, "shape": [b, w, h, length, d], "layout": layout,
+        "dtype": str(dtype).removeprefix("torch."), "pos": pos,
+        "max_abs_err": errors[0], "max_abs_err_f32_q": errors[1],
+        **times, "kernel_ms": times["ms"],
+        "library_ms": None, "library_device_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def _decode_logits(model, params, prompt, tokens) -> torch.Tensor:
+    """The logits of every step of `generate` with the int8 cache, fed
+    `tokens` (B, N) in turn: (B, N, vocab) f32 on the host."""
+    s = prompt.shape[1]
+    cache, logits = dec.prefill(model, params, prompt, model.max_seq_len, cache_int8=True)
+    steps = [logits]
+    for t in range(tokens.shape[1] - 1):
+        steps.append(dec.decode_step(model, params, cache, tokens[:, t:t + 1], s + t))
+    return torch.stack(steps, 1).float().cpu()
+
+
+def check_decode_parity() -> None:
+    """Greedy int8-cache `generate` of f32 and bf16 2-layer LMs on the card
+    (K3) against the CPU (its plain version), from one set of weights."""
+    prompt = torch.randint(0, 512, (4, 16), generator=torch.Generator().manual_seed(6))
+    for dtype in (torch.float32, torch.bfloat16):
+        model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                              max_seq_len=64, dtype=dtype, logits_dtype=dtype,
+                              generator=torch.Generator().manual_seed(0))
+        tokens, logits = {}, {}
+        for device in ("cpu", "cuda"):
+            params = dec.lm_params(model, device)
+            before = da.decode_attention_kernel.launches
+            tokens[device] = dec.generate(model, params, prompt.to(device), 24,
+                                          cache_int8=True).cpu()
+            launched = da.decode_attention_kernel.launches - before
+            if launched != (2 * 23 if device == "cuda" else 0):
+                raise AssertionError(f"K3 launched {launched} times on {device}")
+            logits[device] = _decode_logits(model, params, prompt.to(device),
+                                            tokens["cpu"].to(device))
+        diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        top2 = logits["cpu"].topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).min().item()
+        flips = int((tokens["cuda"] != tokens["cpu"]).sum())
+        name = str(dtype).removeprefix("torch.")
+        print(f"parity: decode {name} int8 cache, 4 x 24 tokens: {flips} tokens differ, max "
+              f"|logit diff| {diff:.2e} (tolerance {DECODE_LOGITS_ATOL[dtype]}), min top-2 "
+              f"margin {margin:.3e}", flush=True)
+        if not diff <= DECODE_LOGITS_ATOL[dtype]:
+            raise AssertionError(f"card and CPU decode logits disagree ({name})")
+        if dtype == torch.float32 and flips:
+            raise AssertionError("card and CPU f32 decode tokens differ")
+
+
+def check_engine_parity() -> None:
+    """A small f32 `SlotEngine` with a drafter and the int8 cache (decode,
+    drafter and verify attention through K3) on the card against the CPU,
+    from one set of weights: the same tokens."""
+    model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                          max_seq_len=64, dtype=torch.float32, logits_dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(0))
+    draft = TransformerLM(vocab_size=512, num_layers=1, num_heads=2, embed_dim=32,
+                          max_seq_len=64, dtype=torch.float32, logits_dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (10, 20, 14)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        engine = SlotEngine(model, dec.lm_params(model, device), slots=2, max_len=64,
+                            prefill_chunk=8, page_size=8, cache_int8=True, draft_model=draft,
+                            draft_params=dec.lm_params(draft, device), spec_k=3)
+        before = da.decode_attention_kernel.launches
+        outs[device] = decode_bench.drive(engine, prompts, 12)
+        launched = da.decode_attention_kernel.launches - before
+        if len(outs[device]) != len(prompts):
+            raise AssertionError(f"the engine on {device} answered {len(outs[device])} of "
+                                 f"{len(prompts)} requests")
+        if (launched > 0) != (device == "cuda"):
+            raise AssertionError(f"K3 launched {launched} times on {device}")
+    print(f"parity: f32 SlotEngine with a drafter, int8 cache, 3 requests x 12 tokens: "
+          f"card {'equals' if outs['cuda'] == outs['cpu'] else 'differs from'} CPU", flush=True)
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"engine tokens differ: card {outs['cuda']} cpu {outs['cpu']}")
+
+
+def profile_decode(card: str) -> dict | None:
+    """One decode forward of the decode benchmark's model (batch 8, a
+    640-long cache, pos 383: the mean position of a call) with each cache:
+    its wall time, and the card's busy time by operator from
+    torch.profiler over 5 steps. (A step is ~700 launches, more than the
+    launch queue holds behind `_device_ms`'s sleep, so the card's time is
+    the profiler's sum of kernel times.) Returns K3's row of the int8
+    step, {"device_ms": a step, "calls": a step, "pos": 383}, or None
+    when the profiler recorded no K3 kernel."""
+    k3 = None
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                          max_seq_len=640, generator=torch.Generator().manual_seed(1))
+    params = dec.lm_params(model, "cuda")
+    prompt = torch.randint(0, 32768, (8, 128), generator=torch.Generator().manual_seed(0)).cuda()
+    for cache_int8 in (False, True):
+        cache, _ = dec.prefill(model, params, prompt, 640, cache_int8=cache_int8)
+
+        def step():
+            return dec.decode_step(model, params, cache, prompt[:, :1], 383)
+
+        step()
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - start) / 20 * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in ops) / 5e3
+        top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+        busy = ("not measured (the profiler recorded no kernels)" if not ops else
+                f"{busy_ms:.4f} ms, the card idle {1 - busy_ms / wall_ms:.1%}")
+        k3 = next(({"device_ms": e.self_device_time_total / 5e3, "calls": e.count // 5,
+                    "pos": 383} for e in ops if e.key == "tk8s::decode_attn_int8"), k3)
+        print(f"decode step {'int8' if cache_int8 else 'bf16'} cache, batch 8, pos 383: wall "
+              f"{wall_ms:.3f} ms, card busy {busy}; by operator (calls a step): " + ", ".join(
+                  f"{e.key} {e.self_device_time_total / 5e3:.4f} ms ({e.count // 5})" for e in top)
+              + f" on {card}", flush=True)
+    return k3
+
+
+def run_decode(card: str, k3_step: dict | None) -> dict:
+    """The decode benchmark at its defaults three ways, with K3's launches
+    counted around each."""
+    launches = {}
+    for name, options in (("decode_bf16_cache", {}), ("decode_cache_int8", {"cache_int8": True}),
+                          ("decode_int8_weights_cache_int8", {"int8": True, "cache_int8": True})):
+        da.decode_attention_kernel.launches = 0
+        result = decode_bench.run_benchmark(**options)
+        launches[name] = da.decode_attention_kernel.launches
+        print(f"{name}: " + json.dumps(result, sort_keys=True), flush=True)
+        if result["platform"] != "gpu":
+            raise AssertionError(f"{name} ran on {result['platform']}")
+        calls = 4  # the first call and the 3 timed repeats
+        expected = result["num_layers"] * (result["new_tokens"] - 1) * calls
+        if launches[name] != (expected if result["cache_int8"] else 0):
+            raise AssertionError(f"{name}: K3 launched {launches[name]} times "
+                                 f"({expected} expected with the int8 cache)")
+        k3_text = ("" if not result["cache_int8"] else
+                   ", K3 device time not measured (the profiler recorded no K3 kernel)"
+                   if k3_step is None else
+                   f", K3 {k3_step['calls']} x {k3_step['device_ms'] / k3_step['calls']:.4f} = "
+                   f"{k3_step['device_ms']:.4f} device ms in a step at pos {k3_step['pos']} "
+                   f"({k3_step['device_ms'] / result['ms_per_token_per_stream']:.1%} of a "
+                   f"step's wall time; torch.profiler)")
+        print(f"main path: {name} 12L/768/vocab 32768 bf16, batch 8, prompt 128, 512 new: "
+              f"{result['tokens_per_sec']:.1f} tokens/s, "
+              f"{result['ms_per_token_per_stream']:.3f} ms a step (ms/token/stream){k3_text}, "
+              f"peak memory {result['peak_memory_gb']:.2f} GB, K3 launches "
+              f"{launches[name]}, on {card}", flush=True)
+    return launches
+
+
+def run_engine(card: str) -> int:
+    """The engine benchmark at the LM's full width with the int8 cache, with
+    K3's launches counted around it; returns them."""
+    da.decode_attention_kernel.launches = 0
+    result = decode_bench.run_engine_benchmark(vocab_size=32768, num_layers=12, num_heads=12,
+                                               embed_dim=768, cache_int8=True)
+    launched = da.decode_attention_kernel.launches
+    print("engine: " + json.dumps(result, sort_keys=True), flush=True)
+    spec = result["speculative"]
+    hits = result["warm"]["prefix"]["hits"]
+    if not (result["platform"] == "gpu" and result["token_identical"]
+            and spec["token_identical"] and hits >= result["requests"]
+            and result["shared_prefix_reprefilled_on_hits"] == 0 and launched > 0):
+        raise AssertionError(
+            f"engine path: token_identical {result['token_identical']}, spec token_identical "
+            f"{spec['token_identical']}, hits {hits}, re-prefilled "
+            f"{result['shared_prefix_reprefilled_on_hits']}, K3 launches {launched}")
+    print(f"main path: engine 12L/768/vocab 32768 int8 cache, {result['requests']} requests, "
+          f"{result['slots']} slots: warm/cold {result['value']}x "
+          f"({result['warm']['tokens_per_sec']:.1f} vs {result['cold']['tokens_per_sec']:.1f} "
+          f"tokens/s), spec/spec_base {spec['value']}x "
+          f"({spec['spec']['tokens_per_sec']:.1f} vs {spec['baseline']['tokens_per_sec']:.1f}), "
+          f"acceptance {spec['acceptance_rate']}, cold = warm and spec = spec_base token for "
+          f"token, peak memory {result['peak_memory_gb']:.2f} GB, K3 launches {launched}, "
+          f"on {card}", flush=True)
+    return launched
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -580,7 +857,8 @@ def main() -> int:
 
     card = _card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    builds = {source: _build_in_background(source) for source in (K2_SOURCE, K4_SOURCE)}
+    builds = {source: _build_in_background(source)
+              for source in (K2_SOURCE, K4_SOURCE, K3_SOURCE)}
 
     k1_main = check_k1(256, 1000, seed=0)
     k1_other = [check_k1(4096, 32000, seed=1),
@@ -638,6 +916,35 @@ def main() -> int:
     print(f"ResNet-50 step: fused {fused['step_ms']:.2f} ms against default "
           f"{resnet['step_ms']:.2f} ms, on {card}", flush=True)
 
+    _join_build(K3_SOURCE, builds[K3_SOURCE], started)
+    k3_rows = [
+        check_k3("generate, pos 639", 8, 1, 12, 640, 64, 639),
+        check_k3("generate, pos 127", 8, 1, 12, 640, 64, 127, seed=1),
+        check_k3("generate, pos 0", 8, 1, 12, 640, 64, 0, seed=2),
+        check_k3("engine decode, per-slot pos", 4, 1, 12, 512, 64, [300, 511, 17, -1], seed=3),
+        check_k3("engine verify, 5-query window", 4, 5, 12, 512, 64,
+                 [[p + i for i in range(5)] for p in (300, 507, 17, 0)], seed=4),
+        check_k3("drafter, head_dim 16", 4, 1, 2, 512, 16, [300, 511, 17, 200], seed=5),
+        check_k3("head_dim 128", 8, 1, 8, 640, 128, 639, seed=6),
+        check_k3("head-major bhld", 8, 1, 12, 640, 64, 639, layout="bhld", seed=7),
+        check_k3("f32 q", 8, 1, 12, 640, 64, 639, dtype=torch.float32, seed=8),
+    ]
+    for row in k3_rows:
+        device = {k: "not measured" if row[k] is None else f"{row[k]:.4f}"
+                  for k in ("device_ms", "plain_device_ms")}
+        print(f"K3 {row['label']} {row['shape']} {row['layout']} {row['dtype']}: kernel "
+              f"{row['ms']:.4f} ms (device {device['device_ms']}), plain {row['plain_ms']:.4f} "
+              f"ms (device {device['plain_device_ms']}), no library call, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max |err| "
+              f"{row['max_abs_err']:.2e} (f32 q {row['max_abs_err_f32_q']:.2e}) on {card}",
+              flush=True)
+
+    check_decode_parity()
+    check_engine_parity()
+    k3_step = profile_decode(card)
+    decode_launches = run_decode(card, k3_step)
+    engine_launches = run_engine(card)
+
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
     kernels = [
@@ -687,6 +994,21 @@ def main() -> int:
             **k4_main,
             "per_step": k4_step,
             "other_shapes": [r for r in k4_rows if r is not k4_main],
+        },
+        {
+            "name": "decode_attn_int8 (K3)",
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/decode_attention.py:58",
+            "launches": decode_launches["decode_cache_int8"],
+            "launches_by_path": {**decode_launches, "engine_cache_int8": engine_launches},
+            "library_none_reason": "no PyTorch call computes attention over an int8 cache "
+                                   "with per-token scales",
+            # the last position of the dense decode benchmark
+            **k3_rows[0],
+            # K3's profiled device time in one dense decode step at pos 383
+            "decode_step": k3_step,
+            "other_shapes": k3_rows[1:],
         },
     ]
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import tritonk8ssupervisor_tpu_torch
-from tritonk8ssupervisor_tpu_torch.benchmarks import lm, resnet50
+from tritonk8ssupervisor_tpu_torch.benchmarks import decode, lm, resnet50
 from tritonk8ssupervisor_tpu_torch.parallel import train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -44,6 +44,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys, tritonk8ssupervisor_tpu_torch.benchmarks.resnet50, "
         "tritonk8ssupervisor_tpu_torch.benchmarks.lm, "
         "tritonk8ssupervisor_tpu_torch.ops.flash_attention_cuda, "
+        "tritonk8ssupervisor_tpu_torch.benchmarks.decode, "
+        "tritonk8ssupervisor_tpu_torch.serving, "
+        "tritonk8ssupervisor_tpu_torch.ops.decode_attention_cuda, "
         "tritonk8ssupervisor_tpu_torch.utils.convert; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
@@ -65,6 +68,12 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                          seq_len=16, batch_per_data_shard=2, steps=1, warmup=1, windows=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.create_train_state(torch.nn.Linear(2, 2), train.default_optimizer())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode.run_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32,
+                             prompt_len=4, new_tokens=2, batch=1, repeats=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode.run_engine_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32,
+                                    max_len=32, prompt_len=8, shared_prefix_len=4)
     assert tritonk8ssupervisor_tpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -18,7 +18,7 @@ from tritonk8ssupervisor_tpu_torch.parallel import train
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 (Triton), K2 and K4 (CUDA C++) have no CPU mode")
+        pytest.skip("needs a CUDA card: K1 (Triton), K2, K3 and K4 (CUDA C++) have no CPU mode")
 
 
 def _inputs(batch, classes, dtype, seed=0):
@@ -388,3 +388,167 @@ def test_resnet_step_on_card_launches_k4_per_stride1_1x1_conv():
     # Conv_0 and Conv_2 of both blocks and stage 0's stride-1 shortcut
     assert cb.conv1x1_backward_kernel.launches == before[0] + 5
     assert ce.cross_entropy_forward.launches == before[1] + 1
+
+
+# K3: the int8-KV decode attention against its plain version on the same
+# inputs, relative to the reference's own largest magnitude. Both keep the
+# scores and probabilities in f32 (the kernel sums in another order and
+# exponentiates on the fast unit, __expf: 2e-5) and round the output once
+# to q's dtype, so a bf16 or fp16 output differs by at most one ulp at the
+# largest magnitude: 2^-7 and 2^-10. Every case also runs on f32 copies of
+# q, which holds its masks and positions to the f32 limit.
+K3_REL = {torch.float32: 2e-5, torch.float16: 2**-10, torch.bfloat16: 2**-7}
+
+
+def _k3_check(q, k8, ks, v8, vs, pos, layout):
+    """K3 against its plain version with q in its dtype and in f32."""
+    from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
+
+    for q_check in (q, q.float()):
+        out = da.decode_attention_int8(q_check, k8, ks, v8, vs, pos, layout=layout)
+        ref = da.decode_attention_int8_plain(q_check, k8, ks, v8, vs, pos, layout=layout).float()
+        assert torch.isfinite(out).all()
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= K3_REL[q_check.dtype], (q_check.dtype, rel)
+
+K3_CASES = [
+    # (B, W, H, L, D, q dtype, layout, pos: int, "rows" (B,) or "window" (B, W))
+    pytest.param(8, 1, 12, 640, 64, torch.bfloat16, "blhd", 639, id="lm-blhd-last"),
+    pytest.param(8, 1, 12, 640, 64, torch.bfloat16, "blhd", 127, id="lm-blhd-prompt"),
+    pytest.param(2, 1, 3, 1000, 64, torch.float32, "bhld", 0, id="ragged-pos0"),
+    pytest.param(2, 1, 3, 1000, 64, torch.float32, "bhld", 999, id="ragged-last"),
+    pytest.param(2, 1, 3, 1000, 64, torch.float32, "blhd", 1200, id="ragged-past-end"),
+    pytest.param(2, 1, 3, 1000, 64, torch.float32, "blhd", -1, id="ragged-negative"),
+    pytest.param(4, 1, 2, 512, 16, torch.float16, "blhd", "rows", id="d16-rows-fp16"),
+    pytest.param(4, 5, 12, 512, 64, torch.bfloat16, "blhd", "window", id="window5"),
+    pytest.param(3, 5, 2, 300, 16, torch.float32, "bhld", "window", id="window5-d16-bhld"),
+    pytest.param(2, 1, 4, 256, 128, torch.bfloat16, "bhld", 200, id="d128"),
+    pytest.param(2, 3, 4, 100, 128, torch.float16, "blhd", "window", id="d128-window3-fp16"),
+    pytest.param(2, 9, 2, 64, 32, torch.float32, "blhd", "window", id="window9-d32"),
+    pytest.param(1, 1, 1, 1, 16, torch.float32, "bhld", 0, id="one-position"),
+]
+
+
+def _k3_inputs(b, w, h, length, d, dtype, layout, pos, seed=0):
+    from tritonk8ssupervisor_tpu_torch.models.decode import _quant_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache_shape = (b, h, length, d) if layout == "bhld" else (b, length, h, d)
+    q = torch.randn(b, w, h, d, generator=gen, device="cuda").to(dtype)
+    k8, ks = _quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
+    v8, vs = _quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
+    if pos == "rows":
+        pos = torch.randint(-1, length + 2, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    elif pos == "window":
+        start = torch.randint(0, length - w, (b, 1), generator=gen, device="cuda")
+        pos = (start + torch.arange(w, device="cuda")).to(torch.int32)
+    return (q if w > 1 else q[:, 0]), k8, ks, v8, vs, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,h,length,d,dtype,layout,pos", K3_CASES)
+def test_k3_matches_plain_version(b, w, h, length, d, dtype, layout, pos):
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
+
+    q, k8, ks, v8, vs, pos = _k3_inputs(b, w, h, length, d, dtype, layout, pos)
+    before = da.decode_attention_kernel.launches
+    out = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout=layout)
+    torch.cuda.synchronize()
+    assert da.decode_attention_kernel.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _k3_check(q, k8, ks, v8, vs, pos, layout)
+
+
+@pytest.mark.cuda
+def test_k3_reads_the_gathered_pages_and_strided_queries():
+    """The engine's shapes: q a view of the (S, W, 3E) projection, the cache
+    gathered from pages through a page table into (S, L, H, D), per-query
+    positions."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models.decode import _quant_kv
+
+    s, w, h, d, ps, pages = 4, 5, 12, 64, 16, 130
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pool_k, pool_ks = _quant_kv(torch.randn(pages, ps, h, d, generator=gen, device="cuda"))
+    pool_v, pool_vs = _quant_kv(torch.randn(pages, ps, h, d, generator=gen, device="cuda"))
+    tables = torch.randint(0, pages, (s, 32), generator=gen, device="cuda")
+    logical = torch.arange(32 * ps, device="cuda")
+    page, off = tables[:, logical // ps], logical % ps
+    k8, ks, v8, vs = (t[page, off] for t in (pool_k, pool_ks, pool_v, pool_vs))
+    qkv = torch.randn(s, w, 3 * h * d, generator=gen, device="cuda").bfloat16()
+    q = qkv[..., : h * d].view(s, w, h, d)
+    assert not q.is_contiguous()
+    pos = (torch.tensor([[3], [100], [255], [500]], device="cuda")
+           + torch.arange(w, device="cuda")).to(torch.int32)
+    _k3_check(q, k8, ks, v8, vs, pos, "blhd")
+
+
+@pytest.mark.cuda
+def test_k3_is_deterministic():
+    """Every sum runs in a fixed order: two calls are bit-equal."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
+
+    q, k8, ks, v8, vs, pos = _k3_inputs(8, 5, 12, 640, 64, torch.float32, "blhd", "window",
+                                       seed=4)
+    first = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout="blhd")
+    second = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout="blhd")
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_k3_raises_on_what_it_does_not_take():
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
+
+    q, k8, ks, v8, vs, pos = _k3_inputs(2, 1, 2, 64, 64, torch.bfloat16, "blhd", "rows")
+    call = da.decode_attention_int8
+    with pytest.raises(TypeError, match="int8"):
+        call(q, k8.float(), ks, v8, vs, pos, layout="blhd")
+    with pytest.raises(TypeError, match="f32 scales"):
+        call(q, k8, ks.bfloat16(), v8, vs, pos, layout="blhd")
+    with pytest.raises(TypeError):
+        call(q.double(), k8, ks, v8, vs, pos, layout="blhd")
+    with pytest.raises(TypeError, match="int32"):
+        call(q, k8, ks, v8, vs, pos.long(), layout="blhd")
+    with pytest.raises(ValueError, match="CUDA"):
+        call(q, k8, ks, v8, vs, pos.cpu(), layout="blhd")
+    with pytest.raises(ValueError, match="CUDA"):
+        call(q.cpu(), k8, ks, v8, vs, 3, layout="blhd")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        q24, k24, ks24, v24, vs24, _ = _k3_inputs(2, 1, 2, 64, 24, torch.bfloat16, "blhd", 3)
+        call(q24, k24, ks24, v24, vs24, 3, layout="blhd")
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.int8, device="cuda")
+        call(q, buf[1:].view(2, 64, 2, 64), ks, v8, vs, 3, layout="blhd")
+    with pytest.raises(ValueError, match="unit stride"):
+        call(q, k8.transpose(-1, -2).contiguous().transpose(-1, -2), ks, v8, vs, 3,
+             layout="blhd")
+    with pytest.raises(ValueError, match="shared"):
+        qw, kw, ksw, vw, vsw, _ = _k3_inputs(1, 8, 1, 8192, 16, torch.float32, "bhld", 3)
+        call(qw, kw, ksw, vw, vsw, 3, layout="bhld")
+    with pytest.raises(ValueError, match="layout"):
+        call(q, k8, ks, v8, vs, 3, layout="hbld")
+    with pytest.raises(ValueError, match="pos of shape"):
+        call(q, k8, ks, v8, vs, pos[:1], layout="blhd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_int8", [False, True], ids=["bf16-cache", "int8-cache"])
+def test_generate_on_card_launches_k3_per_layer_per_decode_forward(cache_int8):
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+    from tritonk8ssupervisor_tpu_torch.models import decode as dec
+    from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
+
+    model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                          max_seq_len=64, generator=torch.Generator().manual_seed(0))
+    params = dec.lm_params(model, "cuda")
+    prompt = torch.randint(0, 512, (3, 10), generator=torch.Generator().manual_seed(1)).cuda()
+    before = da.decode_attention_kernel.launches
+    tokens = dec.generate(model, params, prompt, max_new_tokens=7, cache_int8=cache_int8)
+    assert tokens.shape == (3, 7) and tokens.dtype == torch.int32
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < 512
+    assert da.decode_attention_kernel.launches - before == (2 * 6 if cache_int8 else 0)

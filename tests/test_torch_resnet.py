@@ -183,11 +183,11 @@ def test_remat_blocks_same_step_and_stats_move_once():
         torch.testing.assert_close(remat_stats[key], stats[key], rtol=0, atol=0)
 
 
-def test_same_function_levers_accepted_and_unported_levers_raise():
-    """Every lever of the reference's ResNet is accepted now: the
-    same-function ones run the plain convolution, and `fused_1x1_bwd`
-    and `fast_pool_bwd` (no longer unported) build and run a train-mode
-    forward and backward on the CPU."""
+def test_every_resnet_lever_builds_and_runs_with_33_fused_convs():
+    """Every lever of the reference's ResNet is accepted and none raises:
+    the same-function ones run the plain convolution, and `fused_1x1_bwd`
+    and `fast_pool_bwd` build and run a train-mode forward and backward on
+    the CPU, ResNet-50 with 33 fused 1x1 convolutions."""
     for flags in ({"matmul_1x1": True}, {"s2d_stem": False}):
         resnet.ResNet18(num_classes=10, num_filters=8, **flags)
     x = torch.from_numpy(_images(9, n=2))

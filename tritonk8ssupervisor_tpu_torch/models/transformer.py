@@ -51,6 +51,25 @@ def dense_attention(q, k, v, causal: bool = True, layout: str = "bshd"):
     return attention_reference_layout(q, k, v, causal, layout)
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.Dense(dtype=dtype, param_dtype=f32)` on a (out, in) weight:
+    the weight and bias cast to `dtype` per call."""
+    return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.LayerNorm(dtype=dtype, param_dtype=f32)`: statistics in f32
+    as E[x] and E[x^2] - E[x]^2 (clamped at 0), epsilon 1e-6, result in
+    `dtype`."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    mul = torch.rsqrt(var + _LN_EPSILON) * weight
+    return ((xf - mean) * mul + bias).to(dtype)
+
+
 def _default_generator(generator: torch.Generator | None) -> torch.Generator:
     return torch.Generator().manual_seed(0) if generator is None else generator
 
@@ -68,8 +87,7 @@ class Dense(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        return dense(x, self.weight, self.bias, self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -84,11 +102,7 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
-        mul = torch.rsqrt(var + _LN_EPSILON) * self.weight
-        return ((xf - mean) * mul + self.bias).to(self.dtype)
+        return layer_norm(x, self.weight, self.bias, self.dtype)
 
 
 class _HeadMajorQKV(nn.Module):
@@ -215,9 +229,16 @@ class TransformerLM(nn.Module):
                 "ROADMAP.md queue 1, item 4"
             )
         gen = _default_generator(generator)
-        self.dtype = dtype
-        self.remat_blocks = remat_blocks
+        # the flax module's hyperparameters, which models/decode.py reads
+        self.vocab_size = vocab_size
         self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.embed_dim = embed_dim
+        self.mlp_ratio = mlp_ratio
+        self.max_seq_len = max_seq_len
+        self.dtype = dtype
+        self.logits_dtype = logits_dtype
+        self.remat_blocks = remat_blocks
         self.tok_embed = nn.Embedding(vocab_size, embed_dim)
         self.pos_embed = nn.Parameter(torch.empty(max_seq_len, embed_dim))
         with torch.no_grad():

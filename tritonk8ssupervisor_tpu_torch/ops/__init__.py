@@ -16,6 +16,11 @@ from tritonk8ssupervisor_tpu_torch.ops.cross_entropy import (
     cross_entropy_loss_and_correct_reference,
     cross_entropy_loss_reference,
 )
+from tritonk8ssupervisor_tpu_torch.ops.decode_attention import (
+    decode_attention_int8,
+    decode_attention_int8_plain,
+    decode_attention_kernel,
+)
 from tritonk8ssupervisor_tpu_torch.ops.pool_backward import max_pool_3x3_s2
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import (
     attention_reference,
@@ -35,5 +40,8 @@ __all__ = [
     "cross_entropy_loss_and_correct",
     "cross_entropy_loss_and_correct_reference",
     "cross_entropy_loss_reference",
+    "decode_attention_int8",
+    "decode_attention_int8_plain",
+    "decode_attention_kernel",
     "max_pool_3x3_s2",
 ]

@@ -23,7 +23,8 @@ which raises on failure (exit code not 0, no result line):
    backward: the LM's (8, 1024, 12, 64) bf16 causal in both layouts, a
    ragged (2, 1000, 4, 64) causal and a (2, 512, 4, 128) full; times the
    forward, the backward and the two together for the kernel, the plain
-   version and `F.scaled_dot_product_attention` (a yardstick only);
+   version and `F.scaled_dot_product_attention` (a yardstick only), and
+   prints the forward's time over SDPA's;
 5. two bf16 LM train steps (2 layers, 2 heads of 64, seq 128, vocab 512)
    on the card (K1 and K2) against the same steps on the CPU (the plain
    versions), from one set of weights;
@@ -37,13 +38,16 @@ which raises on failure (exit code not 0, no result line):
    the card at the 12 stride-1 1x1 shapes of ResNet-50 at batch 256,
    bf16; times the kernel, the plain version and cuDNN's
    `convolution_backward` on the same channels_last tensors (a yardstick
-   only), and sums calls x time per step against the summed bound;
+   only), with the kernel's time over cuDNN's at each shape and its
+   device time by kernel (dgrad, wgrad, reduction; torch.profiler), and
+   sums calls x time per step against the summed bound and cuDNN's sum;
 9. two bf16 steps of a small bottleneck ResNet with `fused_1x1_bwd` and
    `fast_pool_bwd` on the card (K1, K4) against the same steps on the CPU
    (the plain versions), from one set of weights;
 10. the ResNet-50 fused path: the training benchmark as in 6 with
    `fused_1x1_bwd`, with K1's and K4's launches and K4's layout copies
-   counted around it; its FLOP count must equal the default path's;
+   counted around it; its FLOP count must equal the default path's, and
+   its step is printed beside the default path's;
 11. kernel K3 (the int8-KV decode attention, `csrc/decode_attention.cu`)
    against its plain version on the card: the dense `generate` shape
    (8, 12, 640, 64) `blhd` bf16 at pos 0, 127 and 639, the engine's
@@ -72,8 +76,9 @@ which raises on failure (exit code not 0, no result line):
 
 Phase 6 asserts that the default path launches K4 no time.
 
-It prints the card line, one JSON line with every kernel of the paths,
-and last `{"ok": true, "device": {...}}`.
+It prints the card line, one JSON line with every kernel of the paths
+(each with its design and its time over the library call's in this run,
+`library_ratio`), and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -246,6 +251,20 @@ def _timings(calls: dict) -> dict:
     return out
 
 
+def _kernels_ms(fn, calls: int = 10) -> dict:
+    """The card's time per call of each kernel that `fn` launches, by the
+    kernel's name, from torch.profiler over `calls` calls; empty when the
+    profiler recorded no kernels."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def _max_abs_err(actual: torch.Tensor, expected: torch.Tensor) -> float:
     """max |actual - expected|, with entries where both sides are the same
     infinity counted as equal (inf - inf would read NaN)."""
@@ -258,6 +277,21 @@ def _bound(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, str]
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak_flops * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _library_ratio(r: dict) -> float | None:
+    """The kernel's time over the library call's in this run: device times
+    where both were read, else event times; None without a library call."""
+    if r.get("library_ms") is None:
+        return None
+    if r.get("device_ms") is not None and r.get("library_device_ms") is not None:
+        return r["device_ms"] / r["library_device_ms"]
+    return r["ms"] / r["library_ms"]
+
+
+def _ratio_text(r: dict, library: str) -> str:
+    ratio = _library_ratio(r)
+    return "" if ratio is None else f", kernel / {library} {ratio:.2f}x"
 
 
 def _k1_inputs(batch: int, classes: int, seed: int, dtype: torch.dtype):
@@ -530,6 +564,11 @@ def check_k4(size: int, c: int, n: int, calls: int, seed: int) -> dict:
         "plain_": (lambda: cb.conv1x1_backward_plain(x2, dy2, w2, torch.bfloat16), 10),
         "library_": (library, iters),
     })
+    # the call's device time by kernel: dgrad, wgrad and the reduction
+    parts = {}
+    for key, ms in _kernels_ms(lambda: cb.conv1x1_backward_kernel(x2, dy2, w2)).items():
+        part = next((p for p in ("dgrad", "wgrad", "reduce") if p in key), "other")
+        parts[part] = parts.get(part, 0.0) + ms
     # X, dY and W read once; dX (bf16) and dW (f32) written once
     n_bytes = 2 * (m * c + m * n + n * c) + 2 * m * c + 4 * n * c
     bound_ms, bound_by = _bound(n_bytes, 4 * m * c * n, BF16_FLOPS)
@@ -537,7 +576,7 @@ def check_k4(size: int, c: int, n: int, calls: int, seed: int) -> dict:
         "shape": [m, c, n], "calls_per_step": calls, "dtype": "bfloat16",
         "max_abs_err": err_dx, "max_abs_err_dw": err_dw,
         **times, "bound_ms": bound_ms, "bound_by": bound_by,
-        "workspace_bytes": workspace,
+        "workspace_bytes": workspace, "device_ms_by_kernel": parts,
     }
 
 
@@ -881,8 +920,9 @@ def main() -> int:
         for part, r in (("forward", row["forward"]), ("backward", row["backward"]),
                         ("forward+backward", row["backward"]["forward_and_backward"])):
             err = f", max |err| {r['max_abs_err']:.2e}" if "max_abs_err" in r else ""
+            ratio = _ratio_text(r, "SDPA") if part == "forward" else ""
             print(f"K2 {part} {row['shape']} {row['layout']} causal={row['causal']}: "
-                  f"{_times_text(r, 'SDPA')}, bound {r['bound_ms']:.4f} ms{err} on {card}",
+                  f"{_times_text(r, 'SDPA')}{ratio}, bound {r['bound_ms']:.4f} ms{err} on {card}",
                   flush=True)
 
     check_lm_parity()
@@ -894,9 +934,13 @@ def main() -> int:
                for seed, (size, c, n, calls) in enumerate(K4_SHAPES)]
     for row in k4_rows:
         print(f"K4 (M, C, N) {tuple(row['shape'])} x{row['calls_per_step']}: "
-              f"{_times_text(row, 'cuDNN')}, bound {row['bound_ms']:.4f} ms "
+              f"{_times_text(row, 'cuDNN')}{_ratio_text(row, 'cuDNN')}, "
+              f"bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), max |err| dX {row['max_abs_err']:.2e} "
-              f"dW {row['max_abs_err_dw']:.2e} on {card}", flush=True)
+              f"dW {row['max_abs_err_dw']:.2e}, device ms by kernel "
+              + (", ".join(f"{k} {v:.4f}" for k, v in row["device_ms_by_kernel"].items())
+                 or "not measured (the profiler recorded no kernels)")
+              + f" on {card}", flush=True)
     k4_step = {
         prefix + "device_ms": sum(r["calls_per_step"] * r[prefix + "device_ms"] for r in k4_rows)
         if all(r[prefix + "device_ms"] is not None for r in k4_rows) else None
@@ -904,9 +948,11 @@ def main() -> int:
     }
     k4_step["bound_ms"] = sum(r["calls_per_step"] * r["bound_ms"] for r in k4_rows)
     k4_step["max_workspace_bytes"] = max(r["workspace_bytes"] for r in k4_rows)
+    k4_step["library_ratio"] = (None if None in (k4_step["device_ms"], k4_step["library_device_ms"])
+                                else k4_step["device_ms"] / k4_step["library_device_ms"])
     print("K4 per ResNet-50 step (sum of calls x device time): " + ", ".join(
         f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in k4_step.items())
-        + f" on {card}", flush=True)
+        + f" (library_ratio: kernel / cuDNN) on {card}", flush=True)
 
     check_fused_parity()
     fused = run_resnet50(card, fused_1x1_bwd=True)
@@ -914,7 +960,8 @@ def main() -> int:
         raise AssertionError(f"fused path counts {fused['flops_per_step']} FLOP/step, the "
                              f"default path {resnet['flops_per_step']}")
     print(f"ResNet-50 step: fused {fused['step_ms']:.2f} ms against default "
-          f"{resnet['step_ms']:.2f} ms, on {card}", flush=True)
+          f"{resnet['step_ms']:.2f} ms ({fused['step_ms'] / resnet['step_ms'] - 1:+.1%}), "
+          f"on {card}", flush=True)
 
     _join_build(K3_SOURCE, builds[K3_SOURCE], started)
     k3_rows = [
@@ -956,18 +1003,27 @@ def main() -> int:
             "launches": lm_launches["k1"],
             "launches_by_path": {"resnet50": resnet["k1"], "lm": lm_launches["k1"],
                                  "resnet50_fused_1x1_bwd": fused["k1"]},
+            "design": "one program per row, online logsumexp over column tiles, the label's "
+                      "logit picked in its tile; logits read once",
             **k1_other[1],
+            "library_ratio": _library_ratio(k1_other[1]),
             "other_shapes": [k1_main, k1_other[0]],
         },
         {
             "name": "flash_attn_fwd (K2)",
             "route": "cuda",
             "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:127",
+            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:128",
             "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
             "launches": lm_launches["k2_forward"],
+            "design": "TMA-fed wgmma: work items of 128 q rows walked by one persistent CTA "
+                      "per SM; q by TMA (two buffers), k/v through a 4-stage TMA ring over 4-d "
+                      "tensor maps, one producer thread, two consumer warpgroups of 64 rows; "
+                      "S = QK^T wgmma SS, online softmax in f32 registers, O += PV wgmma RS with "
+                      "V read MN-major; O stored by TMA",
             "shape": k2_lm["shape"], "layout": k2_lm["layout"],
             **k2_lm["forward"],
+            "library_ratio": _library_ratio(k2_lm["forward"]),
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in k2_rows[1:]],
         },
@@ -975,11 +1031,15 @@ def main() -> int:
             "name": "flash_attn_bwd (K2)",
             "route": "cuda",
             "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:127",
+            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:128",
             "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
             "launches": lm_launches["k2_backward"],
+            "design": "first design: D pre-pass, then dK/dV and dQ kernels of four warps, "
+                      "64-row tiles, synchronous loads, transposed shared copies, mma.sync "
+                      "m16n8k16",
             "shape": k2_lm["shape"], "layout": k2_lm["layout"],
             **k2_lm["backward"],
+            "library_ratio": _library_ratio(k2_lm["backward"]),
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in k2_rows[1:]],
         },
@@ -990,8 +1050,14 @@ def main() -> int:
             "replaces": "tritonk8ssupervisor_tpu/ops/conv_backward.py:83",
             "launches": fused["k4"],
             "launches_by_path": {"resnet50": resnet["k4"], "resnet50_fused_1x1_bwd": fused["k4"]},
+            "design": "TMA-fed wgmma: persistent dgrad over 128 x {64, 128, 256} tiles (all of "
+                      "C up to 256) and wgrad over 128 x 128 tiles and one wave of M splits, each "
+                      "a TMA ring with one producer thread and two consumer warpgroups; W, dY^T "
+                      "and X read MN-major by the descriptor; dX stored by TMA; dW partials "
+                      "summed in split order",
             # the shape with the largest share of a step's K4 time
             **k4_main,
+            "library_ratio": _library_ratio(k4_main),
             "per_step": k4_step,
             "other_shapes": [r for r in k4_rows if r is not k4_main],
         },
@@ -1004,6 +1070,10 @@ def main() -> int:
             "launches_by_path": {**decode_launches, "engine_cache_int8": engine_launches},
             "library_none_reason": "no PyTorch call computes attention over an int8 cache "
                                    "with per-token scales",
+            "library_ratio": None,
+            "design": "first design: one CTA of 256 threads per (b, h) holding the "
+                      "window's queries; scores, f32 softmax and values over 16-byte int8 rows, "
+                      "reads stop at pos + 1; fixed-order reductions",
             # the last position of the dense decode benchmark
             **k3_rows[0],
             # K3's profiled device time in one dense decode step at pos 383

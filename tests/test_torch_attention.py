@@ -16,6 +16,7 @@ import torch
 
 from tritonk8ssupervisor_tpu.ops.flash_attention import flash_attention as jax_flash
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
+from tritonk8ssupervisor_tpu_torch.ops import flash_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import attention_reference
 
 # f32: the same arithmetic in another op order; bf16: both sides round the
@@ -136,3 +137,34 @@ def test_the_ops_shapes_and_flops_without_a_card():
                 assert lse.shape == (b, h, s) and lse.dtype == torch.float32
                 assert q.grad.shape == shape
             assert counter.get_total_flops() == 12 * b * h * d * pairs
+
+
+def _strided(shape, pad_last=0, offset=0):
+    """A bf16 (B, S, H, D) view into a larger buffer: rows padded by
+    `pad_last` elements, starting `offset` elements in."""
+    b, s, h, d = shape
+    buf = torch.zeros(b * s * h * (d + pad_last) + offset, dtype=torch.bfloat16)
+    return buf[offset:].view(b, s, h, d + pad_last)[..., :d]
+
+
+@pytest.mark.parametrize("pad_last,offset,message", [
+    (4, 0, "multiples of 8"),        # strides of 68 elements
+    (0, 4, "aligned"),               # a start 8 bytes past a 16-byte line
+    (0, 0, None),                    # dense: read in place
+    (8, 8, None),                    # strides of 72 elements, a 16-byte start
+], ids=["odd-stride", "misaligned", "dense", "padded"])
+def test_k2_forward_raises_on_what_tma_refuses(pad_last, offset, message):
+    """The forward reads q, k, v and writes O through TMA tensor maps: the
+    launcher refuses strides that are not whole 16-byte multiples and
+    starts that are not 16-byte aligned before it builds or launches
+    anything."""
+    x = _strided((1, 16, 2, 64), pad_last, offset)
+    assert x.data_ptr() % 16 == (2 * offset) % 16
+    if message is None:
+        flash_attention_cuda.check_tma_operand("q", x)
+        return
+    out, lse = torch.empty(1, 16, 2, 64, dtype=torch.bfloat16), torch.empty(1, 2, 16)
+    with pytest.raises(ValueError, match=message):
+        flash_attention_cuda.forward(x, x, x, out, lse, True, "bshd")
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_cuda.check_tma_operand("k", x.transpose(-1, -2))

@@ -23,6 +23,7 @@ from tritonk8ssupervisor_tpu.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu.parallel import train as jax_train
 from tritonk8ssupervisor_tpu_torch.models import resnet
 from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+from tritonk8ssupervisor_tpu_torch.ops import conv_backward_cuda
 from tritonk8ssupervisor_tpu_torch.ops.cross_entropy import cross_entropy_loss_and_correct
 from tritonk8ssupervisor_tpu_torch.parallel import train
 from tritonk8ssupervisor_tpu_torch.utils.convert import state_dict_from_flax
@@ -170,6 +171,32 @@ def test_kernel_inputs_that_k4_does_not_take_raise():
     with pytest.raises(ValueError, match="CUDA"):
         cb.conv1x1_backward(x, w.to("meta"), dy, torch.bfloat16)
     assert cb.conv1x1_backward_kernel.launches == 0
+
+
+# ResNet-50's stride-1 1x1 convolutions at batch 256 as K4's (M, C, N)
+# (chip_smoke.K4_SHAPES)
+RESNET50_K4_SHAPES = [
+    (256 * size * size, c, n) for size, c, n in (
+        (56, 64, 64), (56, 64, 256), (56, 256, 64), (56, 256, 128),
+        (28, 128, 512), (28, 512, 128), (28, 512, 256),
+        (14, 256, 1024), (14, 1024, 256), (14, 1024, 512),
+        (7, 512, 2048), (7, 2048, 512))
+]
+
+
+@pytest.mark.parametrize("m,c,n", RESNET50_K4_SHAPES + [(1, 8, 8), (129, 136, 72)])
+def test_k4_split_plan(m, c, n):
+    """dW's split of M is a fixed function of the shape, covers M in whole
+    64-row steps with no empty split, fills at most one wave of the
+    H100's 132 SMs, and keeps the f32 workspace under 13 MB (the cap of
+    the kernel's first design)."""
+    splits, rows = conv_backward_cuda.split(m, c, n)
+    assert conv_backward_cuda.split(m, c, n) == (splits, rows)
+    assert rows % 64 == 0 and (splits - 1) * rows < m <= splits * rows
+    tiles = -(-c // 128) * -(-n // 128)
+    assert splits * tiles <= max(132, tiles)
+    workspace = splits * n * c * 4 if splits > 1 else 0
+    assert workspace <= 13 * 2**20
 
 
 # ----------------------------------------------------------- the model

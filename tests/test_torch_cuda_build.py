@@ -53,6 +53,19 @@ def test_a_library_is_built_once_per_source_and_flags(toolkit):
     assert sorted(p.suffix for p in (csrc / "build").iterdir()) == [".log", ".log", ".so", ".so"]
 
 
+def test_editing_a_header_changes_the_library_name(toolkit):
+    """A source that includes a shared header (csrc/*.cuh) builds anew when
+    the header changes, though the source itself did not."""
+    calls, csrc = toolkit
+    (csrc / "shared.cuh").write_text("// helpers v1\n")
+    first = cuda_build.build("k.cu")
+    assert cuda_build.library_path("k.cu") == first
+    (csrc / "shared.cuh").write_text("// helpers v2\n")
+    assert cuda_build.library_path("k.cu") != first
+    second = cuda_build.build("k.cu")
+    assert second != first and len(calls.read_text().splitlines()) == 2
+
+
 def test_a_failed_build_raises_with_the_compiler_output(toolkit, monkeypatch):
     _, csrc = toolkit
     monkeypatch.setenv("FAIL", "identifier undefined")

@@ -168,6 +168,52 @@ def test_k2_matches_plain_version(b, s, h, d, dtype, causal, layout):
         assert _rel_err(a, e) <= K2_REL_F32, (name, _rel_err(a, e))
 
 
+def _k2_views(b, s, h, d, dtype, layout, seed):
+    """q, k, v, dout in `layout`, or q, k, v as views of one (B, S, 3 H D)
+    projection ("qkv", read as bshd)."""
+    if layout != "qkv":
+        return _k2_inputs(b, s, h, d, dtype, layout, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dtype)
+    dout = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+    return [*(x.view(b, s, h, d) for x in qkv.split(h * d, dim=-1)), dout]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bshd", "bhsd", "qkv"])
+@pytest.mark.parametrize("s,causal", [(1, True), (17, True), (129, True), (1000, False)])
+def test_k2_forward_tiles_at_ragged_lengths_d128_fp16(s, causal, layout):
+    """The forward's 128-row q tiles and 64-row k/v tiles at lengths that
+    are not multiples of either, head_dim 128 in fp16; the backward runs
+    from the forward's O and logsumexp."""
+    _card()
+    q, k, v, dout = _k2_views(2, s, 3, 128, torch.float16, layout, seed=s)
+    kernel_layout = "bhsd" if layout == "bhsd" else "bshd"
+    got = _fwd_bwd(lambda *x: fa.flash_attention(*x, causal=causal, layout=kernel_layout),
+                   q, k, v, dout)
+    torch.cuda.synchronize()
+    plain = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, causal, kernel_layout),
+                     q, k, v, dout)
+    f32 = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, causal, kernel_layout),
+                   q.float(), k.float(), v.float(), dout.float())
+    for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, plain, f32):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, p) <= K2_REL_SAME_DTYPE, (name, _rel_err(a, p))
+        assert _rel_err(a, e) <= K2_REL_F32, (name, _rel_err(a, e))
+
+
+@pytest.mark.cuda
+def test_k2_forward_refuses_strides_that_tma_cannot_address():
+    _card()
+    x = torch.zeros(1, 64, 2, 68, device="cuda", dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention(x, x, x)
+    buf = torch.zeros(1 * 64 * 2 * 64 + 4, device="cuda", dtype=torch.bfloat16)
+    y = buf[4:].view(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(y, y, y)
+
+
 @pytest.mark.cuda
 def test_k2_reads_qkv_views_in_place_and_its_logsumexp():
     """q, k, v as the seq-major Block makes them: views of one (B, S, 3E)
@@ -308,6 +354,26 @@ def test_k4_matches_plain_version(m, c, n, dtype):
     assert _rel_err(dx, ref_dx) <= K4_REL_DX, _rel_err(dx, ref_dx)
     scale = ref_dw.abs().max().item()
     assert (dw - ref_dw).abs().max().item() <= K4_REL_DW * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("c,n", [(8, 72), (72, 136), (136, 8)])
+@pytest.mark.parametrize("m", [1, 127, 129])
+def test_k4_at_widths_and_rows_that_are_not_whole_tiles(m, c, n, dtype):
+    """Widths that are multiples of 8 but not of the 64-wide boxes or the
+    128-wide tiles, and M around one 128-row tile: TMA zero-fills the
+    loads past each edge and clips the store."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    x2, dy2, w2 = _k4_inputs(m, c, n, dtype, seed=m + c + n)
+    dx, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    torch.cuda.synchronize()
+    ref_dx, ref_dw = cb.conv1x1_backward_plain(x2, dy2, w2, dtype)
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    assert _rel_err(dx, ref_dx) <= K4_REL_DX, _rel_err(dx, ref_dx)
+    assert (dw - ref_dw).abs().max().item() <= K4_REL_DW * ref_dw.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-// K2 on Hopper: exact softmax attention, forward and backward, in the
-// manner of FlashAttention-2, for sm_90a.
+// K2 on Hopper: exact softmax attention, forward and backward, for
+// sm_90a.
 //
 // Replaces the TPU kernels reached from
 // tritonk8ssupervisor_tpu/ops/flash_attention.py: `_splash_kernel`
@@ -16,13 +16,33 @@
 // memory once per CTA that needs it, and skips the tiles above the causal
 // diagonal (what splash's mask partition does).
 //
-// Design. Four __global__ functions, one CTA of four warps each, every
+// The forward, `attn_fwd`, is built from csrc/hopper.cuh in the manner of
+// FlashAttention-3. Its work items are (128-row q tile, batch*head), the
+// longest causal rows first; one persistent CTA per SM walks them. TMA
+// brings each q tile once (two buffers, so the next item's q loads while
+// this item's O leaves) and 64-wide (head_dim 128) or 128-wide (head_dim
+// 64) k and v tiles through a 4-stage ring, each over a 4-d tensor map of
+// (head_dim, seq, head, batch) with the tensor's real strides, so a tile
+// never leaves its head and the ragged end of the sequence reads as zeros.
+// One producer thread keeps the ring full across items; two consumer
+// warpgroups own 64 rows each:
+//
+//   S = Q K^T       wgmma, both operands K-major in shared memory;
+//   softmax         online, in f32 registers: a running max and a
+//                   rescaled sum (exp2 with the scale folded in); only a
+//                   tile that crosses the diagonal or the sequence's end
+//                   masks;
+//   O += P V        wgmma with P in registers (the accumulator layout of S
+//                   is the A-fragment layout, so P is rounded in place) and
+//                   V read MN-major from the ring, no transposed copy.
+//
+// O is rounded to q's dtype in the q tile's shared memory and stored by
+// TMA (which clips the ragged end); the logsumexp (B, H, S) in f32 goes
+// out directly.
+//
+// The backward: three __global__ functions of four warps each, every
 // product a bf16/fp16 `mma.sync.m16n8k16` with f32 accumulation:
 //
-//   attn_fwd        one CTA per (64-row q tile, batch*head); loops over
-//                   64-row k/v tiles staged in shared memory, with a running
-//                   max and a rescaled sum in f32 (online softmax). Writes O
-//                   in q's dtype and the logsumexp (B, H, S) in f32.
 //   attn_bwd_delta  the pre-pass D = rowsum(dO * O), f32 (B, H, S).
 //   attn_bwd_dkdv   one CTA per 64-row k tile; loops over the q tiles at
 //                   and below the diagonal, recomputes P^T from the saved
@@ -34,25 +54,25 @@
 // one CTA. Each warp owns 16 rows; a score tile's mma accumulator layout is
 // exactly the A-operand layout of the next product, so P and dS go from
 // one product to the next in registers. Operands that the next product
-// reads along the other axis (V, dO, Q, K) are also staged transposed in
+// reads along the other axis (dO, Q, K) are also staged transposed in
 // shared memory. Rows of shared tiles are padded by 8 elements so that the
 // 32 lanes of a fragment load hit 32 distinct banks.
 //
 // The scale 1/sqrt(d) is applied to the f32 scores (the splash kernel
 // folds it into bf16 q instead). q, k, v, O and dO are taken by their
 // (batch, seq, head) strides with a unit head_dim stride, so the (B, S, H,
-// D) and (B, H, S, D) layouts both run without a copy; a ragged last tile
-// is masked. Template instances: head_dim 64 and 128, bf16 and fp16.
+// D) and (B, H, S, D) layouts and views of one fused qkv projection all
+// run without a copy; the forward's TMA needs those strides in multiples
+// of 8 elements and 16-byte aligned starts (the wrapper checks both).
+// Template instances: head_dim 64 and 128, bf16 and fp16.
 //
 // Plain C interface, loaded with ctypes (ops/flash_attention_cuda.py).
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -87,10 +107,6 @@ struct Num;
 
 template <>
 struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
   static __device__ __forceinline__ float2 unpack(uint32_t x) {
     return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
   }
@@ -105,10 +121,6 @@ struct Num<__nv_bfloat16> {
 
 template <>
 struct Num<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
   static __device__ __forceinline__ float2 unpack(uint32_t x) {
     return __half22float2(*reinterpret_cast<__half2*>(&x));
   }
@@ -186,10 +198,10 @@ __device__ __forceinline__ void frag_b(uint32_t b[2], const T* s, int ld, int n0
 // register.
 template <typename T>
 __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4], const float c1[4]) {
-  a[0] = Num<T>::pack(c0[0], c0[1]);
-  a[1] = Num<T>::pack(c0[2], c0[3]);
-  a[2] = Num<T>::pack(c1[0], c1[1]);
-  a[3] = Num<T>::pack(c1[2], c1[3]);
+  a[0] = tk8s::pack2<T>(c0[0], c0[1]);
+  a[1] = tk8s::pack2<T>(c0[2], c0[3]);
+  a[2] = tk8s::pack2<T>(c1[0], c1[1]);
+  a[3] = tk8s::pack2<T>(c1[2], c1[3]);
 }
 
 // rows = a warp's 16 rows x 8 columns per accumulator; lane (g, t) holds
@@ -200,121 +212,237 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
   for (int n = 0; n < N; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 }
 
+// ----- the forward (csrc/hopper.cuh)
+
+constexpr int kFwdThreads = 384;  // warpgroup 0 the producer, 1 and 2 consumers
+constexpr int kFwdConsumers = 256;
+constexpr int kFwdRows = 128;     // q rows a work item: 64 per consumer warpgroup
+constexpr int kStages = 4;        // k/v ring
+
+template <int D>
+struct Fwd {
+  static constexpr int kBN = D == 64 ? 128 : 64;  // keys a tile
+  static constexpr int kQ = kFwdRows * D * 2;     // D / 64 chunks of 128 lines
+  static constexpr int kKV = kBN * D * 2;         // one k or v tile
+  // two q buffers (the next item's q loads while this item's O leaves
+  // through the other), the ring of k and v tiles
+  static constexpr int kSmem = 2 * kQ + 2 * kStages * kKV + tk8s::kAtom;
+};
+
+struct FwdMaps {
+  CUtensorMap q;  // boxes 64 x 128 rows
+  CUtensorMap k;  // boxes 64 x kBN rows
+  CUtensorMap v;  // boxes 64 x kBN rows
+  CUtensorMap o;  // boxes 64 x 64 rows, stored
+};
+
+// Work item i of a call: a 128-row q tile of one (batch, head), the
+// longest causal rows first; (q0, bh, k/v tiles).
+struct Item {
+  int q0, bh, tiles;
+  __device__ Item(const Params& p, int i, int bn) {
+    const int bhs = p.batch * p.heads;
+    q0 = (cdiv(p.seq, kFwdRows) - 1 - i / bhs) * kFwdRows;
+    bh = i % bhs;
+    tiles = p.causal ? min(cdiv(p.seq, bn), cdiv(q0 + kFwdRows, bn)) : cdiv(p.seq, bn);
+  }
+};
+
+// Persistent: each CTA walks the work items blockIdx.x, + gridDim.x, ...
+// The producer thread runs ahead across items (the ring and the two q
+// buffers carry over), so one item's loads overlap the last one's tiles
+// and epilogue.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
-  constexpr int BN = 64, LD = D + 8, LDT = BN + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kRows * LD;
-  T* sVt = sK + BN * LD;
-
-  // the longest causal rows first, so the short ones fill the tail
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads, seq = p.seq;
-  const T* q = head<T>(p, p.q, kQ, b, h);
-  const T* k = head<T>(p, p.k, kK, b, h);
-  const T* v = head<T>(p, p.v, kV, b, h);
-
-  load_rows<T, D, kRows>(sQ, q, p.strides[kQ][1], q0, seq);
+__global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant__ FwdMaps maps, Params p) {
+  using F = Fwd<D>;
+  constexpr int BN = F::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full[2], q_empty[2], k_full[kStages], v_full[kStages], empty[kStages];
+  uint8_t* sQ = tk8s::align_atom(smem_raw);  // two buffers of F::kQ
+  uint8_t* sK = sQ + 2 * F::kQ;
+  uint8_t* sV = sK + kStages * F::kKV;
+  const int items = cdiv(p.seq, kFwdRows) * p.batch * p.heads;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      tk8s::mbar_init(&q_full[i], 1);
+      tk8s::mbar_init(&q_empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < kStages; ++s) {
+      tk8s::mbar_init(&k_full[s], 1);
+      tk8s::mbar_init(&v_full[s], 1);
+      tk8s::mbar_init(&empty[s], kFwdConsumers);
+    }
+    tk8s::mbar_init_fence();
+  }
   __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int row[2] = {q0 + warp * 16 + (lane >> 2), q0 + warp * 16 + (lane >> 2) + 8};
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) frag_a(qf[kk], sQ, LD, warp * 16, kk * 16);
 
-  float acc[D / 8][4];
-  zero(acc);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float sl2 = p.scale * kLog2e;  // exp(x * scale) = exp2(x * sl2)
-  const int k_tiles = p.causal ? min(cdiv(seq, BN), cdiv(q0 + kRows, BN)) : cdiv(seq, BN);
-  for (int j = 0; j < k_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D, BN>(sK, k, p.strides[kK][1], k0, seq);
-    load_rows_t<T, D, BN>(sVt, v, p.strides[kV][1], k0, seq);
-    __syncthreads();
-
-    float s[BN / 8][4];
-    zero(s);
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0) {
+      tk8s::prefetch_map(&maps.q);
+      tk8s::prefetch_map(&maps.k);
+      tk8s::prefetch_map(&maps.v);
+      int t = 0;  // k/v tiles loaded so far: the ring position
+      for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
+        const Item it(p, i, BN);
+        const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1;
+        tk8s::mbar_wait(&q_empty[qb], ((n >> 1) & 1) ^ 1);
+        tk8s::mbar_expect_tx(&q_full[qb], F::kQ);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb) {
-        uint32_t bf[2];
-        frag_b(bf, sK, LD, nb * 8, kk * 16);
-        Num<T>::mma(s[nb], qf[kk], bf);
-      }
-    }
-    // only a tile that crosses the diagonal or the sequence's end masks
-    const bool edge = k0 + BN > seq || (p.causal && k0 + BN - 1 > q0);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[nb][i] * sl2;
-        if (edge) {
-          const int col = k0 + nb * 8 + 2 * t + (i & 1);
-          if (col >= seq || (p.causal && col > row[i >> 1])) x = -INFINITY;
+        for (int c = 0; c < D / 64; ++c) {
+          tk8s::tma_load_4d(sQ + qb * F::kQ + c * kFwdRows * tk8s::kLine, &maps.q, &q_full[qb], 64 * c, it.q0,
+                            h, b);
         }
-        s[nb][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        for (int j = 0; j < it.tiles; ++j, ++t) {
+          const int s = t % kStages;
+          tk8s::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+          tk8s::mbar_expect_tx(&k_full[s], F::kKV);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tk8s::tma_load_4d(sK + s * F::kKV + c * BN * tk8s::kLine, &maps.k, &k_full[s], 64 * c, j * BN, h, b);
+          }
+          tk8s::mbar_expect_tx(&v_full[s], F::kKV);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tk8s::tma_load_4d(sV + s * F::kKV + c * BN * tk8s::kLine, &maps.v, &v_full[s], 64 * c, j * BN, h, b);
+          }
+        }
       }
     }
-    float alpha[2], rowsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // a row's 64 columns sit in the 4 lanes of its group
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile: column 0 is never masked
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nb][i] = exp2f(s[nb][i] - m[i >> 1]);
-        rowsum[i >> 1] += s[nb][i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
-#pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
-      acc[db][0] *= alpha[0];
-      acc[db][1] *= alpha[0];
-      acc[db][2] *= alpha[1];
-      acc[db][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a<T>(pa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-        uint32_t bf[2];
-        frag_b(bf, sVt, LDT, db * 8, kc * 16);
-        Num<T>::mma(acc[db], pa, bf);
-      }
-    }
+    return;
   }
 
-  T* o = static_cast<T*>(p.o) + b * p.strides[kO][0] + h * p.strides[kO][2];
+  const int wg = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t4 = lane & 3, seq = p.seq;
+  const float sl2 = p.scale * kLog2e;  // exp(x * scale) = exp2(x * sl2)
+  int t = 0;
+  for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
+    const Item it(p, i, BN);
+    const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1, wg_row0 = it.q0 + wg * 64;
+    const int row[2] = {wg_row0 + warp * 16 + (lane >> 2), wg_row0 + warp * 16 + (lane >> 2) + 8};
+    uint8_t* q_tile = sQ + qb * F::kQ + wg * 64 * tk8s::kLine;  // this warpgroup's rows
+    const uint32_t q_addr = tk8s::smem_addr(q_tile);
+
+    float o[D / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (row[r] >= seq) continue;
-    const float inv = 1.f / l[r];
-    T* dst = o + row[r] * p.strides[kO][1] + 2 * t;
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    // running max of the scaled scores (log2 units) and this thread's
+    // share of the running sum
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    tk8s::mbar_wait(&q_full[qb], (n >> 1) & 1);
+    for (int j = 0; j < it.tiles; ++j, ++t) {
+      const int s = t % kStages, k0 = j * BN;
+      const uint32_t parity = (t / kStages) & 1;
+      tk8s::mbar_wait(&k_full[s], parity);
+      // a tile wholly above the diagonal for this warpgroup's rows is
+      // waited for (the ring stays in step) and skipped
+      if (!(p.causal && k0 > wg_row0 + 63)) {
+        float sc[BN / 2];
 #pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
-      *reinterpret_cast<uint32_t*>(dst + db * 8) =
-          Num<T>::pack(acc[db][2 * r] * inv, acc[db][2 * r + 1] * inv);
+        for (int e = 0; e < BN / 2; ++e) sc[e] = 0.f;
+        const uint32_t k_addr = tk8s::smem_addr(sK + s * F::kKV);
+        tk8s::fence_regs(sc);
+        tk8s::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int c = kk / 4, in = 32 * (kk % 4);
+          tk8s::wgmma_ss<T, 0, 0>(sc, tk8s::desc_k_major(q_addr + c * kFwdRows * tk8s::kLine + in),
+                                  tk8s::desc_k_major(k_addr + c * BN * tk8s::kLine + in), 1);
+        }
+        tk8s::wgmma_commit();
+        tk8s::wgmma_wait<0>();
+        tk8s::fence_regs(sc);
+
+        // only a tile that crosses the diagonal or the sequence's end masks
+        if (k0 + BN > seq || (p.causal && k0 + BN - 1 > wg_row0)) {
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) {
+            const int col = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+            if (col >= seq || (p.causal && col > row[(e >> 1) & 1])) sc[e] = -INFINITY;
+          }
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+        float alpha[2], neg_m[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // a row's columns sit in the 4 lanes of its group
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r] * sl2);
+          alpha[r] = exp2f(m[r] - m_new);  // 0 on the first tile: column 0 is never masked
+          m[r] = m_new;
+          neg_m[r] = -m_new;
+        }
+        uint32_t pa[BN / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < BN / 16; ++kc) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e & 1;
+            const float lo = exp2f(fmaf(sc[8 * kc + 2 * e], sl2, neg_m[r]));
+            const float hi = exp2f(fmaf(sc[8 * kc + 2 * e + 1], sl2, neg_m[r]));
+            rowsum[r] += lo + hi;
+            pa[kc][e] = tk8s::pack2<T>(lo, hi);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+        tk8s::mbar_wait(&v_full[s], parity);
+        const uint32_t v_addr = tk8s::smem_addr(sV + s * F::kKV);
+        tk8s::fence_regs(o);
+        tk8s::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < BN / 16; ++kc) {
+          tk8s::wgmma_rs<T, 1>(o, pa[kc], tk8s::desc_mn_major(v_addr + kc * 16 * tk8s::kLine, BN * tk8s::kLine),
+                               1);
+        }
+        tk8s::wgmma_commit();
+        tk8s::wgmma_wait<0>();
+        tk8s::fence_regs(o);
+      } else {
+        tk8s::mbar_wait(&v_full[s], parity);
+      }
+      tk8s::mbar_arrive(&empty[s]);
     }
-    if (t == 0) p.lse[(long long)bh * seq + row[r]] = (m[r] + log2f(l[r])) * kLn2;
+
+    // O / l in q's dtype, staged in this warpgroup's rows of its q buffer
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      const int r = (e >> 1) & 1, lr = warp * 16 + (lane >> 2) + 8 * r, col = 8 * (e >> 2) + 2 * t4;
+      // chunks of the q buffer are kFwdRows lines apart; the swizzle runs
+      // over the warpgroup's 64 lines
+      const uint32_t off = (col >> 6) * kFwdRows * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
+      *reinterpret_cast<uint32_t*>(q_tile + off) = tk8s::pack2<T>(o[e] * inv[r], o[e + 1] * inv[r]);
+    }
+    tk8s::fence_proxy_async();
+    tk8s::named_sync(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      if (wg_row0 < seq) {
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tk8s::tma_store_4d(&maps.o, q_tile + c * kFwdRows * tk8s::kLine, 64 * c, wg_row0, h, b);
+        }
+        tk8s::tma_store_commit();
+        tk8s::tma_store_wait_read();
+      }
+      tk8s::mbar_arrive(&q_empty[qb]);  // the q buffer may take the item after next
+    }
+    if (t4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] < seq) p.lse[(long long)it.bh * seq + row[r]] = (m[r] + log2f(l[r])) * kLn2;
+      }
+    }
   }
 }
 
@@ -474,8 +602,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv(Params p) {
 #pragma unroll
     for (int db = 0; db < D / 8; ++db) {
       *reinterpret_cast<uint32_t*>(dkr + db * 8) =
-          Num<T>::pack(dk[db][2 * r] * p.scale, dk[db][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvr + db * 8) = Num<T>::pack(dv[db][2 * r], dv[db][2 * r + 1]);
+          tk8s::pack2<T>(dk[db][2 * r] * p.scale, dk[db][2 * r + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvr + db * 8) = tk8s::pack2<T>(dv[db][2 * r], dv[db][2 * r + 1]);
     }
   }
 }
@@ -584,25 +712,36 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq(Params p) {
 #pragma unroll
     for (int db = 0; db < D / 8; ++db) {
       *reinterpret_cast<uint32_t*>(dst + db * 8) =
-          Num<T>::pack(dq[db][2 * r] * p.scale, dq[db][2 * r + 1] * p.scale);
+          tk8s::pack2<T>(dq[db][2 * r] * p.scale, dq[db][2 * r + 1] * p.scale);
     }
   }
 }
 
-// Kernels whose shared tiles pass the 48 KB default need the opt-in,
-// once per instance.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <typename T, int D>
 cudaError_t forward(const Params& p, cudaStream_t stream) {
-  constexpr int BN = 64;
-  constexpr int smem = (kRows * (D + 8) + BN * (D + 8) + D * (BN + 8)) * sizeof(T);
-  static const cudaError_t attr = allow_smem(attn_fwd<T, D>, smem);
+  using F = Fwd<D>;
+  // q, k, v, o as (head_dim, seq, head, batch) with their own strides
+  FwdMaps maps;
+  CUtensorMap* out[4] = {&maps.q, &maps.k, &maps.v, &maps.o};
+  const void* base[4] = {p.q, p.k, p.v, p.o};
+  const int rows[4] = {kFwdRows, F::kBN, F::kBN, 64};
+  const long long b = p.batch, h = p.heads, s = p.seq;
+  for (int i = 0; i < 4; ++i) {
+    const long long* st = p.strides[i];
+    const cudaError_t err =
+        tk8s::make_map<T>(out[i], base[i], {D, s, h, b}, {st[1], st[2], st[0]}, {64, rows[i], 1, 1});
+    if (err != cudaSuccess) return err;
+  }
+  static const cudaError_t attr = tk8s::allow_smem(attn_fwd<T, D>, F::kSmem);
   if (attr != cudaSuccess) return attr;
-  attn_fwd<T, D><<<dim3(cdiv(p.seq, kRows), p.batch * p.heads), kThreads, smem, stream>>>(p);
+  static const int sms = [] {
+    int device = 0, count = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    return count;
+  }();
+  const int items = cdiv(p.seq, kFwdRows) * p.batch * p.heads;
+  attn_fwd<T, D><<<(items < sms ? items : sms), kFwdThreads, F::kSmem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -612,8 +751,8 @@ cudaError_t backward(const Params& p, cudaStream_t stream) {
   constexpr int smem_kv =
       (2 * kRows * (D + 8) + 2 * BN * (D + 8) + 2 * D * (BN + 8)) * sizeof(T) + 2 * BN * sizeof(float);
   constexpr int smem_q = (2 * kRows * (D + 8) + 2 * BN * (D + 8) + D * (BN + 8)) * sizeof(T);
-  static const cudaError_t attr_kv = allow_smem(attn_bwd_dkdv<T, D>, smem_kv);
-  static const cudaError_t attr_q = allow_smem(attn_bwd_dq<T, D>, smem_q);
+  static const cudaError_t attr_kv = tk8s::allow_smem(attn_bwd_dkdv<T, D>, smem_kv);
+  static const cudaError_t attr_q = tk8s::allow_smem(attn_bwd_dq<T, D>, smem_q);
   if (attr_kv != cudaSuccess) return attr_kv;
   if (attr_q != cudaSuccess) return attr_q;
   const long long rows = (long long)p.batch * p.heads * p.seq;

@@ -26,15 +26,16 @@ WIDTH_MULTIPLE = 8
 # the dgrad grid's row axis (128 rows a CTA) is at most 65535 CTAs
 MAX_ROWS = 65535 * 128
 
-# dW is split over M so that the wgrad grid fills the card: about four
-# CTAs per SM of the H100's 132, at least MIN_SPLIT_ROWS rows a split, a
-# multiple of the kernel's 64-row step, and at most MAX_SPLITS splits. The
-# f32 workspace is then splits * N * C * 4 bytes, which this caps at about
-# (TARGET_CTAS + C/64 * N/64) * 16 KB (13 MB at ResNet-50's widest shape).
-TARGET_CTAS = 4 * 132
+# dW is split over M so that the wgrad grid fills the card in one wave:
+# one CTA (128 x 128 of (N, C), 384 threads, 129 KB of shared memory) per
+# SM of the H100's 132, so at most WAVE // tiles splits, each at least
+# MIN_SPLIT_ROWS rows and a whole number of the kernel's 64-row steps (a
+# split's last step must not read the next split's rows). The f32
+# workspace is then splits * N * C * 4 bytes <= WAVE * 128 * 128 * 4
+# (8.7 MB), whatever the shape.
+WAVE = 132
 MIN_SPLIT_ROWS = 512
-MAX_SPLITS = 1024
-_WG_TILE = 64
+_WG_TILE = 128
 _WG_STEP = 64
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -48,7 +49,7 @@ def split(m: int, c: int, n: int) -> tuple[int, int]:
     """(splits, rows per split) of M for the dW reduction: a fixed
     function of the shape, so dW is summed in the same order every call."""
     tiles = _cdiv(c, _WG_TILE) * _cdiv(n, _WG_TILE)
-    splits = max(1, min(_cdiv(TARGET_CTAS, tiles), _cdiv(m, MIN_SPLIT_ROWS), MAX_SPLITS))
+    splits = max(1, min(WAVE // tiles, _cdiv(m, MIN_SPLIT_ROWS)))
     rows = _cdiv(_cdiv(m, splits), _WG_STEP) * _WG_STEP
     return _cdiv(m, rows), rows
 

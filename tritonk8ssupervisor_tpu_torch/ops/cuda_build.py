@@ -3,10 +3,11 @@
 Each source under `csrc/` has a plain C interface and no PyTorch headers,
 so `nvcc` builds it in seconds: for Hopper (`sm_90a`), into
 `csrc/build/` beside the sources (listed in .gitignore). The library's
-name carries a hash of its source and flags, so an edited source builds
-anew and an unchanged one loads what an earlier process built; the
-compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
-kept beside it as `<name>.log`.
+name carries a hash of its source, the shared headers (`csrc/*.cuh`) and
+the flags, so an edited source or header builds anew and an unchanged
+one loads what an earlier process built; the compiler's report
+(`-Xptxas -v`: registers, shared memory, spills) is kept beside it as
+`<name>.log`.
 
 A missing `nvcc` or a failed build raises with the compiler's output:
 nothing falls back to a plain version on the card.
@@ -51,12 +52,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source_name: str) -> Path:
-    """Where `source_name`'s library lives once built."""
+    """Where `source_name`'s library lives once built: named by a hash of
+    the source, every header under `csrc/` and the flags."""
     source = CSRC / source_name
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(source_name: str) -> Path:

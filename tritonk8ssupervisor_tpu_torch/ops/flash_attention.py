@@ -40,9 +40,9 @@ LAYOUTS = ("bshd", "bhsd")
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """`x` itself when K2 can read it in place (unit head_dim stride, the
-    other strides whole 16-byte chunks, a 16-byte aligned start), else a
-    contiguous copy."""
+    """`x` itself when K2's backward can read it in place (unit head_dim
+    stride, the other strides whole 16-byte chunks, a 16-byte aligned
+    start), else a contiguous copy."""
     ok = (
         x.stride(-1) == 1
         and all(s % 8 == 0 for s in x.stride()[:-1])
@@ -76,12 +76,15 @@ def _check_kernel_inputs(q, k, v, layout: str) -> None:
         )
     if b * h > 65535:
         raise ValueError(f"K2's grid takes at most 65535 batch*heads, got {b * h}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        flash_attention_cuda.check_tma_operand(name, x)
 
 
 def flash_attention_forward(q, k, v, causal: bool, layout: str):
     """K2's forward wrapper: (O in q's layout and dtype, (B, H, S) f32
-    logsumexp). One launch, counted in `flash_attention_forward.launches`."""
-    q, k, v = (_kernel_view(x) for x in (q, k, v))
+    logsumexp). q, k and v are read in place, as TMA takes them (anything
+    else raises). One launch, counted in
+    `flash_attention_forward.launches`."""
     b, h, s, _ = _dims(q.shape, layout)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)

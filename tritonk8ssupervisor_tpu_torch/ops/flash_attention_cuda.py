@@ -4,7 +4,9 @@ The kernel source says what it replaces and how it is built; this module
 turns tensors into its arguments: data pointers, (batch, seq, head)
 strides for either layout, and PyTorch's current stream. The caller
 (`ops/flash_attention.py`) has checked device, dtype and head_dim and
-allocated the outputs; a launch that the runtime refuses raises here.
+allocated the outputs. The forward reads q, k, v and writes O through
+TMA tensor maps, which take only what `check_tma_operand` lets through;
+a launch that the runtime refuses raises here.
 """
 
 from __future__ import annotations
@@ -61,6 +63,23 @@ def dims(shape, layout: str) -> tuple[int, int, int, int]:
     return b, h, s, d
 
 
+def check_tma_operand(name: str, x: torch.Tensor) -> None:
+    """Raise unless the forward's TMA can address `x` in place: a unit
+    head_dim stride, the other strides multiples of 8 elements (16
+    bytes), a 16-byte aligned start."""
+    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]):
+        raise ValueError(
+            f"K2's forward reads {name} through a TMA tensor map, which needs a unit "
+            f"head_dim stride and the other strides in multiples of 8 elements, got "
+            f"strides {tuple(x.stride())}"
+        )
+    if x.data_ptr() % 16:
+        raise ValueError(
+            f"K2's forward reads {name} through a TMA tensor map, which needs a 16-byte "
+            f"aligned start, got an address {x.data_ptr() % 16} bytes past one"
+        )
+
+
 def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(
@@ -70,6 +89,8 @@ def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 def forward(q, k, v, out, lse, causal: bool, layout: str) -> None:
     """O and the (B, H, S) f32 logsumexp into `out` and `lse`."""
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        check_tma_operand(name, x)
     lib = _lib()
     b, h, s, d = dims(q.shape, layout)
     code = lib.tk8s_attn_fwd(

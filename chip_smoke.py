@@ -23,8 +23,8 @@ which raises on failure (exit code not 0, no result line):
    backward: the LM's (8, 1024, 12, 64) bf16 causal in both layouts, a
    ragged (2, 1000, 4, 64) causal and a (2, 512, 4, 128) full; times the
    forward, the backward and the two together for the kernel, the plain
-   version and `F.scaled_dot_product_attention` (a yardstick only), and
-   prints the forward's time over SDPA's;
+   version and `F.scaled_dot_product_attention` (a yardstick only),
+   and prints the forward's and the backward's time over SDPA's;
 5. two bf16 LM train steps (2 layers, 2 heads of 64, seq 128, vocab 512)
    on the card (K1 and K2) against the same steps on the CPU (the plain
    versions), from one set of weights;
@@ -33,7 +33,11 @@ which raises on failure (exit code not 0, no result line):
    around it;
 7. the LM main path: the LM training benchmark at its published widths
    (12 layers, 12 heads, embed 768, vocab 32768, seq 1024, batch 8, bf16),
-   10 steps a window, with K1's and K2's launches counted around it;
+   10 steps a window, with K1's and K2's launches and K2's input copies
+   counted around it (the qkv views are read in place: 0 copies); then
+   K2's backward device time by kernel (the rows pre-pass, dK/dV, dQ;
+   torch.profiler) at the shapes of 4, profiled only now so that no
+   profiler session comes before the host-bound LM step;
 8. kernel K4 (the fused 1x1-conv backward) against its plain version on
    the card at the 12 stride-1 1x1 shapes of ResNet-50 at batch 256,
    bf16; times the kernel, the plain version and cuDNN's
@@ -382,12 +386,15 @@ def _grad_calls(fn, q, k, v, dout):
             lambda: torch.autograd.grad(fn(q, k, v), (q, k, v), dout))
 
 
+def _k2_inputs(shape, dtype: torch.dtype, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+
+
 def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
              dtype=torch.bfloat16, seed: int = 0) -> dict:
     shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                     for _ in range(4))
+    q, k, v, dout = _k2_inputs(shape, dtype, seed)
 
     def kernel(*x):
         return fa.flash_attention(*x, causal=causal, layout=layout)
@@ -420,6 +427,7 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
             )
 
     out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, causal, layout)
+
     grads = {name: _grad_calls(fn, q, k, v, dout)
              for name, fn in (("", kernel), ("plain_", plain), ("library_", library))}
     times = {
@@ -444,7 +452,7 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
     fwd_bound, fwd_by = _bound(4 * n * elem + b * h * s * 4, 4 * b * h * d * pairs, BF16_FLOPS)
     bwd_bound, bwd_by = _bound(8 * n * elem + b * h * s * 4, 10 * b * h * d * pairs, BF16_FLOPS)
     return {
-        "shape": list(shape), "layout": layout, "causal": causal,
+        "shape": list(shape), "layout": layout, "causal": causal, "seed": seed,
         "dtype": str(dtype).removeprefix("torch."),
         "forward": {"max_abs_err": errors["out"], **times["forward"],
                     "bound_ms": fwd_bound, "bound_by": fwd_by},
@@ -453,6 +461,17 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
                      "forward_and_backward": {**times["fwd_bwd"],
                                               "bound_ms": fwd_bound + bwd_bound}},
     }
+
+
+def k2_backward_by_kernel(row: dict) -> dict:
+    """The device ms of each kernel of one K2 backward call on `row`'s
+    inputs (the rows pre-pass, dK/dV, dQ), from torch.profiler. Taken
+    after the LM main path: with these sessions before it, the host-bound
+    LM step read 80-90 ms on an H100 that reads it at 51-74 ms without."""
+    q, k, v, dout = _k2_inputs(row["shape"], getattr(torch, row["dtype"]), row["seed"])
+    out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, row["causal"], row["layout"])
+    return _kernels_ms(lambda: torch.ops.tk8s.flash_attn_bwd(
+        dout, q, k, v, out, lse, row["causal"], row["layout"]))
 
 
 def check_lm_parity() -> None:
@@ -614,9 +633,11 @@ def run_lm(card: str) -> dict:
                 fa.flash_attention_backward)
     for counter in counters:
         counter.launches = 0
+    fa.flash_attention_forward.copies = 0
     torch.cuda.reset_peak_memory_stats()
     result = lm_bench.run_benchmark(steps=10, warmup=2, windows=2)
     k1, k2_fwd, k2_bwd = (c.launches for c in counters)
+    copies = fa.flash_attention_forward.copies
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     print("lm: " + json.dumps(result, sort_keys=True), flush=True)
     steps = result["final_step"]
@@ -631,14 +652,17 @@ def run_lm(card: str) -> dict:
             f"LM path: {steps} steps launched K1 {k1}, K2 forward {k2_fwd} and "
             f"backward {k2_bwd} times ({layers} layers)"
         )
+    if copies:
+        raise AssertionError(f"LM path: K2's forward copied {copies} of its q, k, v views")
     mfu = result["mfu"]
     print(f"main path: LM 12L/768/seq 1024/batch 8 bf16, "
           f"{result['tokens_per_sec']:.1f} tokens/s, step {result['step_ms']:.2f} ms, "
           f"MFU {'not known' if mfu is None else f'{mfu:.4f}'} "
           f"({result['flops_per_step']:.4g} FLOP/step, {result['flops_source']}), "
           f"peak memory {result['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} "
-          f"steps: K1 {k1}, K2 forward {k2_fwd}, K2 backward {k2_bwd}, on {card}", flush=True)
-    return {"k1": k1, "k2_forward": k2_fwd, "k2_backward": k2_bwd}
+          f"steps: K1 {k1}, K2 forward {k2_fwd}, K2 backward {k2_bwd}, K2 input copies "
+          f"{copies}, on {card}", flush=True)
+    return {"k1": k1, "k2_forward": k2_fwd, "k2_backward": k2_bwd, "k2_copies": copies}
 
 
 def _k3_rows(pos, b: int, w: int, length: int) -> list[int]:
@@ -920,7 +944,7 @@ def main() -> int:
         for part, r in (("forward", row["forward"]), ("backward", row["backward"]),
                         ("forward+backward", row["backward"]["forward_and_backward"])):
             err = f", max |err| {r['max_abs_err']:.2e}" if "max_abs_err" in r else ""
-            ratio = _ratio_text(r, "SDPA") if part == "forward" else ""
+            ratio = _ratio_text(r, "SDPA") if part != "forward+backward" else ""
             print(f"K2 {part} {row['shape']} {row['layout']} causal={row['causal']}: "
                   f"{_times_text(r, 'SDPA')}{ratio}, bound {r['bound_ms']:.4f} ms{err} on {card}",
                   flush=True)
@@ -928,6 +952,12 @@ def main() -> int:
     check_lm_parity()
     resnet = run_resnet50(card)
     lm_launches = run_lm(card)
+    for row in k2_rows:
+        by_kernel = row["backward"]["device_ms_by_kernel"] = k2_backward_by_kernel(row)
+        print(f"K2 backward {row['shape']} {row['layout']} causal={row['causal']}: device ms "
+              "by kernel " + (", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
+                              or "not measured (the profiler recorded no kernels)")
+              + f" on {card}", flush=True)
 
     _join_build(K4_SOURCE, builds[K4_SOURCE], started)
     k4_rows = [check_k4(size, c, n, calls, seed)
@@ -1016,6 +1046,7 @@ def main() -> int:
             "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:128",
             "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
             "launches": lm_launches["k2_forward"],
+            "input_copies": lm_launches["k2_copies"],
             "design": "TMA-fed wgmma: work items of 128 q rows walked by one persistent CTA "
                       "per SM; q by TMA (two buffers), k/v through a 4-stage TMA ring over 4-d "
                       "tensor maps, one producer thread, two consumer warpgroups of 64 rows; "
@@ -1034,9 +1065,15 @@ def main() -> int:
             "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:128",
             "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
             "launches": lm_launches["k2_backward"],
-            "design": "first design: D pre-pass, then dK/dV and dQ kernels of four warps, "
-                      "64-row tiles, synchronous loads, transposed shared copies, mma.sync "
-                      "m16n8k16",
+            "design": "TMA-fed wgmma: a pre-pass writes each q row's lse*log2e and "
+                      "rowsum(dO*O) (padded rows +inf and 0); then a dK/dV kernel over 128-key "
+                      "items and a dQ kernel over 128-row q items, each with one persistent CTA "
+                      "per SM, one producer thread, two consumer warpgroups of 64 rows (setmaxnreg "
+                      "40/232), the item's own tiles loaded once by TMA (two buffers) and 64-row "
+                      "tiles of the other side through a TMA ring over 4-d tensor maps; S and dP "
+                      "wgmma SS, P and dS in f32 registers, dV, dK and dQ wgmma RS with Q, dO and "
+                      "K read MN-major; outputs staged in the item's input tiles and stored by "
+                      "TMA; no atomics, bit-equal calls",
             "shape": k2_lm["shape"], "layout": k2_lm["layout"],
             **k2_lm["backward"],
             "library_ratio": _library_ratio(k2_lm["backward"]),

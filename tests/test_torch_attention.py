@@ -168,3 +168,30 @@ def test_k2_forward_raises_on_what_tma_refuses(pad_last, offset, message):
         flash_attention_cuda.forward(x, x, x, out, lse, True, "bshd")
     with pytest.raises(ValueError, match="TMA"):
         flash_attention_cuda.check_tma_operand("k", x.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("pad_last,offset,in_place", [
+    (0, 0, True),     # dense
+    (8, 8, True),     # strides of 72 elements, a 16-byte start
+    (4, 0, False),    # strides of 68 elements
+    (0, 4, False),    # a start 8 bytes past a 16-byte line
+], ids=["dense", "padded", "odd-stride", "misaligned"])
+def test_kernel_view_reads_in_place_or_copies(pad_last, offset, in_place):
+    """What TMA can address goes to K2 as it is; anything else becomes a
+    dense copy with the same values in fresh, 16-byte aligned memory."""
+    x = _strided((2, 16, 3, 64), pad_last, offset)
+    x.copy_(torch.arange(x.numel(), dtype=torch.float32).view(x.shape))
+    y = fa._kernel_view(x)
+    assert (y is x) == in_place
+    assert y.is_contiguous() or in_place
+    assert y.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in y.stride()[:-1])
+    assert torch.equal(y, x)
+    flash_attention_cuda.check_tma_operand("q", y)
+
+
+@pytest.mark.parametrize("seq,padded", [(1, 128), (128, 128), (129, 256), (1000, 1024)])
+def test_backward_rows_scratch_covers_whole_items(seq, padded):
+    """The backward's scratch holds a logsumexp and a rowsum(dO * O) for
+    every q row of every (batch, head), over the sequence padded to whole
+    128-row items: the kernel's tiles never read past it."""
+    assert flash_attention_cuda.rows_numel(2, 3, seq) == 2 * 3 * 2 * padded

@@ -128,6 +128,21 @@ def test_plain_version_matches_the_reference_kernel(m):
                                atol=1e-5 * np.abs(np.asarray(ref_dw)).max())
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_plain_version_takes_an_empty_batch_as_the_reference_does(dtype):
+    """M = 0 rows: the reference returns an empty dX in the compute dtype
+    and a zero f32 dW, and so does the port's plain version."""
+    c, n = 24, 16
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref_dx, ref_dw = jax_cb._fused_backward_2d(jnp.zeros((0, c), jdt), jnp.zeros((0, n), jdt),
+                                               jnp.zeros((c, n), jdt), True)
+    dx, dw = cb.conv1x1_backward_plain(torch.zeros(0, c, dtype=tdt), torch.zeros(0, n, dtype=tdt),
+                                       torch.zeros(n, c, dtype=tdt), tdt)
+    assert dx.shape == ref_dx.shape == (0, c) and dx.dtype == tdt
+    assert dw.shape == (n, c) and dw.dtype == torch.float32
+    np.testing.assert_array_equal(dw.numpy().T, np.asarray(ref_dw))
+
+
 def test_rows_are_read_in_place_or_copied_and_counted():
     """X and dY are viewed as rows without a copy when their memory is
     channels_last-dense; an NCHW-contiguous tensor is copied, once, and
@@ -171,6 +186,13 @@ def test_kernel_inputs_that_k4_does_not_take_raise():
     with pytest.raises(ValueError, match="CUDA"):
         cb.conv1x1_backward(x, w.to("meta"), dy, torch.bfloat16)
     assert cb.conv1x1_backward_kernel.launches == 0
+
+
+@pytest.mark.parametrize("c,n", [(8, 8), (64, 256), (2048, 512)])
+def test_k4_split_plan_of_an_empty_batch(c, n):
+    """M = 0 is one split of no rows, not a division by zero; K4's wrapper
+    then launches nothing."""
+    assert conv_backward_cuda.split(0, c, n) == (1, 0)
 
 
 # ResNet-50's stride-1 1x1 convolutions at batch 256 as K4's (M, C, N)

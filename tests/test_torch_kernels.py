@@ -13,6 +13,7 @@ import torch
 from tritonk8ssupervisor_tpu_torch.models import ResNet18
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
+from tritonk8ssupervisor_tpu_torch.ops import flash_attention_cuda
 from tritonk8ssupervisor_tpu_torch.parallel import train
 
 
@@ -119,6 +120,7 @@ K2_CASES = [
     pytest.param(8, 1024, 12, 64, torch.bfloat16, True, "bhsd", id="lm-bhsd"),
     pytest.param(2, 1000, 4, 64, torch.bfloat16, True, "bshd", id="ragged-causal"),
     pytest.param(2, 512, 4, 128, torch.bfloat16, False, "bshd", id="d128-full"),
+    pytest.param(2, 1024, 4, 128, torch.bfloat16, True, "bshd", id="d128-causal"),
     pytest.param(2, 200, 3, 128, torch.float16, True, "bhsd", id="d128-fp16-ragged"),
     pytest.param(1, 77, 2, 64, torch.float16, False, "bshd", id="fp16-short-full"),
     pytest.param(3, 64, 2, 64, torch.bfloat16, True, "bshd", id="one-tile"),
@@ -202,16 +204,75 @@ def test_k2_forward_tiles_at_ragged_lengths_d128_fp16(s, causal, layout):
         assert _rel_err(a, e) <= K2_REL_F32, (name, _rel_err(a, e))
 
 
+def _strided(shape, dtype, pad_last=0, offset=0, seed=0):
+    """A random (B, S, H, D) view into a larger card buffer that takes
+    gradients: rows padded by `pad_last` elements, starting `offset`
+    elements in."""
+    b, s, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn(b * s * h * (d + pad_last) + offset, generator=gen, device="cuda").to(dtype)
+    return buf.requires_grad_(True)[offset:].view(b, s, h, d + pad_last)[..., :d]
+
+
 @pytest.mark.cuda
-def test_k2_forward_refuses_strides_that_tma_cannot_address():
+@pytest.mark.parametrize("pad_last,offset", [(4, 0), (0, 4)], ids=["odd-stride", "misaligned"])
+def test_k2_copies_inputs_that_tma_cannot_address(pad_last, offset):
+    """q, k, v with 68-element strides, or starting 8 bytes off a 16-byte
+    line, are views the reference takes: the wrapper copies them (and
+    counts the copies), forward and backward match the plain version, and
+    the launcher itself still refuses them."""
     _card()
-    x = torch.zeros(1, 64, 2, 68, device="cuda", dtype=torch.bfloat16)[..., :64]
-    with pytest.raises(ValueError, match="multiples of 8"):
-        fa.flash_attention(x, x, x)
-    buf = torch.zeros(1 * 64 * 2 * 64 + 4, device="cuda", dtype=torch.bfloat16)
-    y = buf[4:].view(1, 64, 2, 64)
-    with pytest.raises(ValueError, match="aligned"):
-        fa.flash_attention(y, y, y)
+    shape = (2, 130, 3, 64)
+    q, k, v = (_strided(shape, torch.bfloat16, pad_last, offset, seed=i) for i in range(3))
+    assert q.data_ptr() % 16 == (2 * offset) % 16
+    dout = _k2_inputs(*shape, torch.bfloat16, "bshd", seed=3)[0]
+
+    def run(fn, *x):  # the views themselves, not dense clones, reach `fn`
+        out = fn(*x)
+        return [out.detach(), *torch.autograd.grad(out, x, dout)]
+
+    copies = fa.flash_attention_forward.copies
+    got = run(lambda *x: fa.flash_attention(*x, causal=True), q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_forward.copies == copies + 3
+    plain = run(lambda *x: fa.attention_reference_layout(*x, True, "bshd"), q, k, v)
+    f32 = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, True, "bshd"),
+                   q.float(), k.float(), v.float(), dout.float())
+    for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, plain, f32):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, p) <= K2_REL_SAME_DTYPE, (name, _rel_err(a, p))
+        assert _rel_err(a, e) <= K2_REL_F32, (name, _rel_err(a, e))
+    out = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+    lse = torch.empty(2, 3, shape[1], device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8" if pad_last else "aligned"):
+        flash_attention_cuda.forward(q.detach(), k.detach(), v.detach(), out, lse, True, "bshd")
+
+
+@pytest.mark.cuda
+def test_k2_backward_is_deterministic():
+    """No atomics: every dQ, dK and dV row is written by one CTA in a fixed
+    order, so two backward calls on the same inputs agree bit for bit."""
+    _card()
+    q, k, v, dout = _k2_inputs(4, 1024, 12, 64, torch.bfloat16, "bshd", seed=11)
+    out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, True, "bshd")
+    first = torch.ops.tk8s.flash_attn_bwd(dout, q, k, v, out, lse, True, "bshd")
+    second = torch.ops.tk8s.flash_attn_bwd(dout, q, k, v, out, lse, True, "bshd")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_k2_takes_more_batch_heads_than_a_grid_axis():
+    """65,540 (batch, head) pairs, past the 65,535 CTAs of a grid's y axis:
+    the persistent CTAs walk them as work items."""
+    _card()
+    b, s, h, d = 16385, 8, 4, 64
+    q, k, v, dout = _k2_inputs(b, s, h, d, torch.bfloat16, "bshd", seed=12)
+    got = _fwd_bwd(lambda *x: fa.flash_attention(*x, causal=True), q, k, v, dout)
+    torch.cuda.synchronize()
+    plain = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, True, "bshd"), q, k, v, dout)
+    for name, a, p in zip(("out", "dq", "dk", "dv"), got, plain):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, p) <= K2_REL_SAME_DTYPE, (name, _rel_err(a, p))
 
 
 @pytest.mark.cuda
@@ -387,6 +448,23 @@ def test_k4_is_deterministic():
     first = cb.conv1x1_backward_kernel(x2, dy2, w2)
     second = cb.conv1x1_backward_kernel(x2, dy2, w2)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k4_takes_an_empty_batch(dtype):
+    """M = 0 rows: an empty dX in the compute dtype and a zero f32 dW, as
+    the reference returns, without a launch."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    x2, dy2, w2 = _k4_inputs(0, 64, 256, dtype)
+    before = cb.conv1x1_backward_kernel.launches
+    dx2, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    torch.cuda.synchronize()
+    assert cb.conv1x1_backward_kernel.launches == before
+    assert dx2.shape == (0, 64) and dx2.dtype == dtype
+    assert dw.shape == (256, 64) and dw.dtype == torch.float32 and not dw.any()
 
 
 @pytest.mark.cuda

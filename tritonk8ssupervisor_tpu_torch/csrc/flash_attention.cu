@@ -16,16 +16,22 @@
 // memory once per CTA that needs it, and skips the tiles above the causal
 // diagonal (what splash's mask partition does).
 //
-// The forward, `attn_fwd`, is built from csrc/hopper.cuh in the manner of
-// FlashAttention-3. Its work items are (128-row q tile, batch*head), the
-// longest causal rows first; one persistent CTA per SM walks them. TMA
-// brings each q tile once (two buffers, so the next item's q loads while
-// this item's O leaves) and 64-wide (head_dim 128) or 128-wide (head_dim
-// 64) k and v tiles through a 4-stage ring, each over a 4-d tensor map of
-// (head_dim, seq, head, batch) with the tensor's real strides, so a tile
-// never leaves its head and the ragged end of the sequence reads as zeros.
-// One producer thread keeps the ring full across items; two consumer
-// warpgroups own 64 rows each:
+// Every kernel here is built from csrc/hopper.cuh in the manner of
+// FlashAttention-3: 384 threads, warpgroup 0 the producer (one thread
+// issues every TMA load into an mbarrier ring), warpgroups 1 and 2
+// consumers of 64 rows each; one persistent CTA per SM walks the work
+// items, the longest causal items first. Tiles come through 4-d tensor
+// maps of (head_dim, seq, head, batch) with the tensors' real strides, so
+// a tile never leaves its head, the ragged end of the sequence reads as
+// zeros, and the (B, S, H, D) and (B, H, S, D) layouts and views of one
+// fused qkv projection run without a copy. Every operand is read from its
+// one TMA copy, K-major or MN-major by its wgmma descriptor: no transposed
+// copies.
+//
+// The forward, `attn_fwd`: items of (128-row q tile, batch*head). q comes
+// once (two buffers, so the next item's q loads while this item's O
+// leaves), k and v 64-wide (head_dim 128) or 128-wide (head_dim 64)
+// through a 4-stage ring:
 //
 //   S = Q K^T       wgmma, both operands K-major in shared memory;
 //   softmax         online, in f32 registers: a running max and a
@@ -34,37 +40,51 @@
 //                   masks;
 //   O += P V        wgmma with P in registers (the accumulator layout of S
 //                   is the A-fragment layout, so P is rounded in place) and
-//                   V read MN-major from the ring, no transposed copy.
+//                   V read MN-major from the ring.
 //
 // O is rounded to q's dtype in the q tile's shared memory and stored by
 // TMA (which clips the ragged end); the logsumexp (B, H, S) in f32 goes
 // out directly.
 //
-// The backward: three __global__ functions of four warps each, every
-// product a bf16/fp16 `mma.sync.m16n8k16` with f32 accumulation:
+// The backward recomputes P from that logsumexp, in three launches:
 //
-//   attn_bwd_delta  the pre-pass D = rowsum(dO * O), f32 (B, H, S).
-//   attn_bwd_dkdv   one CTA per 64-row k tile; loops over the q tiles at
-//                   and below the diagonal, recomputes P^T from the saved
-//                   logsumexp and accumulates dV = P^T dO, dK = dS^T Q.
-//   attn_bwd_dq     one CTA per 64-row q tile; loops over the k tiles at
-//                   and left of the diagonal and accumulates dQ = dS K.
+//   attn_bwd_rows   a pre-pass: per q row, lse2 = logsumexp * log2(e) and
+//                   D = rowsum(dO * O) in f32, in 64-row blocks, over the
+//                   sequence padded to whole 128-row items; a padded row
+//                   has lse2 = +inf and D = 0, so its P and dS are 0
+//                   without a mask.
+//   attn_bwd_dkdv   items of (128-key tile, batch*head): K and V once (two
+//                   buffers, as the forward's q), then the 64-row q tiles
+//                   at and below the diagonal through the ring, each with
+//                   Q, dO and its lse2 and D rows (a bulk copy). A step:
+//                     S^T = K Q^T    wgmma SS, both K-major;
+//                     P^T            exp2(S^T scale log2e - lse2), f32;
+//                     dP^T = V dO^T  wgmma SS, both K-major;
+//                     dS^T           P^T (dP^T - D), f32;
+//                     dV += P^T dO, dK += dS^T Q   wgmma RS, P^T and dS^T
+//                                    rounded in registers, dO and Q read
+//                                    MN-major.
+//   attn_bwd_dq     items of (128-row q tile, batch*head), as the forward:
+//                   Q and dO once (two buffers), 64-row k and v tiles at
+//                   and left of the diagonal through the ring:
+//                     S = Q K^T, dP = dO V^T   wgmma SS;
+//                     dS             P (dP - D), f32;
+//                     dQ += dS K     wgmma RS, K read MN-major.
 //
-// The backward is deterministic: no atomics, every output row is owned by
-// one CTA. Each warp owns 16 rows; a score tile's mma accumulator layout is
-// exactly the A-operand layout of the next product, so P and dS go from
-// one product to the next in registers. Operands that the next product
-// reads along the other axis (dO, Q, K) are also staged transposed in
-// shared memory. Rows of shared tiles are padded by 8 elements so that the
-// 32 lanes of a fragment load hit 32 distinct banks.
+// dK (times the scale), dV and dQ (times the scale) are rounded to the
+// input dtype in the shared memory of the item's own input tiles and
+// stored by TMA. Determinism: no atomics; every output row is written by
+// the one CTA that owns its item, in a fixed order, so two calls on the
+// same inputs are bit-equal. The two kernels recompute S and dP each (7
+// products for the function's 5) to keep it so. The consumers hold the
+// dK and dV accumulators beside two score tiles, so the producer's
+// warpgroup gives its registers to them (`setmaxnreg`).
 //
 // The scale 1/sqrt(d) is applied to the f32 scores (the splash kernel
-// folds it into bf16 q instead). q, k, v, O and dO are taken by their
-// (batch, seq, head) strides with a unit head_dim stride, so the (B, S, H,
-// D) and (B, H, S, D) layouts and views of one fused qkv projection all
-// run without a copy; the forward's TMA needs those strides in multiples
-// of 8 elements and 16-byte aligned starts (the wrapper checks both).
-// Template instances: head_dim 64 and 128, bf16 and fp16.
+// folds it into bf16 q instead). TMA needs the (batch, seq, head) strides
+// in multiples of 8 elements with a unit head_dim stride, and 16-byte
+// aligned starts (the wrapper copies anything else). Template instances:
+// head_dim 64 and 128, bf16 and fp16.
 //
 // Plain C interface, loaded with ctypes (ops/flash_attention_cuda.py).
 // Each entry point launches on the caller's stream, allocates nothing,
@@ -76,8 +96,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // four warps
-constexpr int kRows = 64;      // a CTA's own rows: 16 per warp
+constexpr int kThreads = 384;    // warpgroup 0 the producer, 1 and 2 consumers
+constexpr int kConsumers = 256;
+constexpr int kItemRows = 128;   // q rows or keys a work item: 64 per consumer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -94,7 +115,7 @@ struct Params {
   void* dk;
   void* dv;
   float* lse;        // (B, H, S) natural-log logsumexp of the scaled scores
-  float* delta;      // (B, H, S) rowsum(dO * O)
+  float* rows;       // the backward's lse2 and D rows (attn_bwd_rows)
   long long strides[kTensors][3];
   int batch, heads, seq, causal;
   float scale;       // 1/sqrt(head_dim)
@@ -103,126 +124,33 @@ struct Params {
 __host__ __device__ constexpr int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
 
 template <typename T>
-struct Num;
-
-template <>
-struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+__device__ __forceinline__ float2 unpack(uint32_t x) {
+  if constexpr (tk8s::kHalf<T>) {
+    return __half22float2(*reinterpret_cast<__half2*>(&x));
+  } else {
     return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
   }
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Num<__half> {
-  static __device__ __forceinline__ float2 unpack(uint32_t x) {
-    return __half22float2(*reinterpret_cast<__half2*>(&x));
-  }
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
+}
 
 template <typename T>
 __device__ __forceinline__ const T* head(const Params& p, const void* base, Tensor t, int b, int h) {
   return static_cast<const T*>(base) + b * p.strides[t][0] + h * p.strides[t][2];
 }
 
-// Rows [r0, r0 + ROWS) of one head's (seq, D) slice, row stride `ld` in
-// device memory, into shared memory row-major with row stride D + 8.
-// Rows at or past `seq` read as zeros. 16 bytes per thread per load.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ld, int r0, int seq) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < seq) x = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = x;
-  }
-}
-
-// The same rows stored transposed, dst[c][r] with row stride ROWS + 8, for
-// a product that contracts over the rows. Neighbouring lanes take
-// neighbouring rows, so the 2-byte stores of a warp fall in distinct banks.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows_t(T* dst, const T* src, long long ld, int r0, int seq) {
-  constexpr int kChunks = D / 8;
-  uint16_t* out = reinterpret_cast<uint16_t*>(dst);
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i % ROWS, c = (i / ROWS) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < seq) x = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      out[(c + j) * (ROWS + 8) + r] = static_cast<uint16_t>(w[j / 2] >> (16 * (j % 2)));
-    }
-  }
-}
-
-// A operand of m16n8k16: the 16 x 16 block at (row0, k0) of a row-major
-// shared tile with row stride `ld`.
-template <typename T>
-__device__ __forceinline__ void frag_a(uint32_t a[4], const T* s, int ld, int row0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const T* p = s + (row0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B operand of m16n8k16 (16 deep, 8 wide) at (k0, n0), from a shared tile
-// that holds B transposed: its rows are B's columns n, contiguous in k.
-template <typename T>
-__device__ __forceinline__ void frag_b(uint32_t b[2], const T* s, int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const T* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// Two 16 x 8 accumulators side by side, rounded to T, as the A operand of
-// the next product: the accumulator layout is the A layout, register for
-// register.
-template <typename T>
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4], const float c1[4]) {
-  a[0] = tk8s::pack2<T>(c0[0], c0[1]);
-  a[1] = tk8s::pack2<T>(c0[2], c0[3]);
-  a[2] = tk8s::pack2<T>(c1[0], c1[1]);
-  a[3] = tk8s::pack2<T>(c1[2], c1[3]);
-}
-
-// rows = a warp's 16 rows x 8 columns per accumulator; lane (g, t) holds
-// rows g and g + 8, columns 2t and 2t + 1 of each
 template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
+__device__ __forceinline__ void zero(float (&c)[N]) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  for (int i = 0; i < N; ++i) c[i] = 0.f;
 }
 
 // ----- the forward (csrc/hopper.cuh)
 
-constexpr int kFwdThreads = 384;  // warpgroup 0 the producer, 1 and 2 consumers
-constexpr int kFwdConsumers = 256;
-constexpr int kFwdRows = 128;     // q rows a work item: 64 per consumer warpgroup
-constexpr int kStages = 4;        // k/v ring
+constexpr int kStages = 4;  // the forward's k/v ring
 
 template <int D>
 struct Fwd {
   static constexpr int kBN = D == 64 ? 128 : 64;  // keys a tile
-  static constexpr int kQ = kFwdRows * D * 2;     // D / 64 chunks of 128 lines
+  static constexpr int kQ = kItemRows * D * 2;     // D / 64 chunks of 128 lines
   static constexpr int kKV = kBN * D * 2;         // one k or v tile
   // two q buffers (the next item's q loads while this item's O leaves
   // through the other), the ring of k and v tiles
@@ -242,9 +170,9 @@ struct Item {
   int q0, bh, tiles;
   __device__ Item(const Params& p, int i, int bn) {
     const int bhs = p.batch * p.heads;
-    q0 = (cdiv(p.seq, kFwdRows) - 1 - i / bhs) * kFwdRows;
+    q0 = (cdiv(p.seq, kItemRows) - 1 - i / bhs) * kItemRows;
     bh = i % bhs;
-    tiles = p.causal ? min(cdiv(p.seq, bn), cdiv(q0 + kFwdRows, bn)) : cdiv(p.seq, bn);
+    tiles = p.causal ? min(cdiv(p.seq, bn), cdiv(q0 + kItemRows, bn)) : cdiv(p.seq, bn);
   }
 };
 
@@ -253,7 +181,7 @@ struct Item {
 // buffers carry over), so one item's loads overlap the last one's tiles
 // and epilogue.
 template <typename T, int D>
-__global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant__ FwdMaps maps, Params p) {
+__global__ void __launch_bounds__(kThreads, 1) attn_fwd(const __grid_constant__ FwdMaps maps, Params p) {
   using F = Fwd<D>;
   constexpr int BN = F::kBN;
   extern __shared__ uint8_t smem_raw[];
@@ -261,7 +189,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant
   uint8_t* sQ = tk8s::align_atom(smem_raw);  // two buffers of F::kQ
   uint8_t* sK = sQ + 2 * F::kQ;
   uint8_t* sV = sK + kStages * F::kKV;
-  const int items = cdiv(p.seq, kFwdRows) * p.batch * p.heads;
+  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       tk8s::mbar_init(&q_full[i], 1);
@@ -270,7 +198,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant
     for (int s = 0; s < kStages; ++s) {
       tk8s::mbar_init(&k_full[s], 1);
       tk8s::mbar_init(&v_full[s], 1);
-      tk8s::mbar_init(&empty[s], kFwdConsumers);
+      tk8s::mbar_init(&empty[s], kConsumers);
     }
     tk8s::mbar_init_fence();
   }
@@ -289,7 +217,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant
         tk8s::mbar_expect_tx(&q_full[qb], F::kQ);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
-          tk8s::tma_load_4d(sQ + qb * F::kQ + c * kFwdRows * tk8s::kLine, &maps.q, &q_full[qb], 64 * c, it.q0,
+          tk8s::tma_load_4d(sQ + qb * F::kQ + c * kItemRows * tk8s::kLine, &maps.q, &q_full[qb], 64 * c, it.q0,
                             h, b);
         }
         for (int j = 0; j < it.tiles; ++j, ++t) {
@@ -345,7 +273,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int c = kk / 4, in = 32 * (kk % 4);
-          tk8s::wgmma_ss<T, 0, 0>(sc, tk8s::desc_k_major(q_addr + c * kFwdRows * tk8s::kLine + in),
+          tk8s::wgmma_ss<T, 0, 0>(sc, tk8s::desc_k_major(q_addr + c * kItemRows * tk8s::kLine + in),
                                   tk8s::desc_k_major(k_addr + c * BN * tk8s::kLine + in), 1);
         }
         tk8s::wgmma_commit();
@@ -419,9 +347,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant
 #pragma unroll
     for (int e = 0; e < D / 2; e += 2) {
       const int r = (e >> 1) & 1, lr = warp * 16 + (lane >> 2) + 8 * r, col = 8 * (e >> 2) + 2 * t4;
-      // chunks of the q buffer are kFwdRows lines apart; the swizzle runs
+      // chunks of the q buffer are kItemRows lines apart; the swizzle runs
       // over the warpgroup's 64 lines
-      const uint32_t off = (col >> 6) * kFwdRows * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
+      const uint32_t off = (col >> 6) * kItemRows * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
       *reinterpret_cast<uint32_t*>(q_tile + off) = tk8s::pack2<T>(o[e] * inv[r], o[e + 1] * inv[r]);
     }
     tk8s::fence_proxy_async();
@@ -430,7 +358,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant
       if (wg_row0 < seq) {
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
-          tk8s::tma_store_4d(&maps.o, q_tile + c * kFwdRows * tk8s::kLine, 64 * c, wg_row0, h, b);
+          tk8s::tma_store_4d(&maps.o, q_tile + c * kItemRows * tk8s::kLine, 64 * c, wg_row0, h, b);
         }
         tk8s::tma_store_commit();
         tk8s::tma_store_wait_read();
@@ -446,16 +374,119 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd(const __grid_constant
   }
 }
 
-// D = rowsum(dO * O) in f32: D / 8 threads per row, 16 bytes each
+int sm_count() {
+  static const int count = [] {
+    int device = 0, n = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    return n;
+  }();
+  return count;
+}
+
+// ----- the backward (csrc/hopper.cuh)
+
+constexpr int kStep = 64;  // q rows (dK/dV) or keys (dQ) a ring stage
+// registers a thread: the producer's warpgroup gives its own to the two
+// consumer warpgroups (128 x 40 + 256 x 232 <= 65,536)
+constexpr int kRegsProducer = 40, kRegsConsumer = 232;
+
+// 64-row blocks of the rows buffer a (batch, head) holds: the sequence
+// padded to whole items
+__host__ __device__ constexpr int row_blocks(int seq) { return cdiv(seq, kItemRows) * (kItemRows / kStep); }
+
+// offset of q row r's lse2 in the rows buffer; its D lies kStep floats on
+__device__ __forceinline__ long long row_at(int bh, int seq, int r) {
+  return ((long long)bh * row_blocks(seq) + r / kStep) * 2 * kStep + r % kStep;
+}
+
+template <int D>
+struct Bwd {
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kTile = kItemRows * D * 2;  // a 128-row tile: D / 64 chunks of 128 lines
+  static constexpr int kRing = kStep * D * 2;      // a 64-row tile: D / 64 chunks of 64 lines
+  static constexpr int kRowBytes = 2 * kStep * 4;  // a q tile's lse2 and D
+  // dK/dV: two buffers of (K, V), a ring of (Q, dO, lse2 and D) with each
+  // stage padded to whole atoms
+  static constexpr int kKVStage = 2 * kRing + tk8s::kAtom;
+  static constexpr int kKVSmem = 4 * kTile + kStages * kKVStage + tk8s::kAtom;
+  // dQ: two buffers of (Q, dO), a ring of (K, V)
+  static constexpr int kQSmem = 4 * kTile + kStages * 2 * kRing + tk8s::kAtom;
+  static_assert(kKVSmem <= 227 * 1024 && kQSmem <= 227 * 1024, "a CTA's shared memory");
+};
+
+// q, k, v and dO loaded, dQ, dK and dV stored, all in boxes of 64 x 64 rows
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, dq, dk, dv;
+};
+
+// rows [r0, r0 + ROWS) of one head as D / 64 chunks of ROWS swizzled
+// lines, in 64-row boxes
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int r0, int h,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+#pragma unroll
+    for (int r = 0; r < ROWS / kStep; ++r) {
+      tk8s::tma_load_4d(dst + (c * ROWS + r * kStep) * tk8s::kLine, map, bar, 64 * c, r0 + r * kStep, h, b);
+    }
+  }
+}
+
+// A warpgroup's 64 x D f32 accumulator times `scale`, rounded to T, into
+// its 64 `rows` of a 128-row tile, laid out as TMA reads them
 template <typename T, int D>
-__global__ void __launch_bounds__(256) attn_bwd_delta(Params p) {
+__device__ __forceinline__ void stage_rows(uint8_t* rows, const float (&acc)[D / 2], float scale) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int e = 0; e < D / 2; e += 2) {
+    const int lr = warp * 16 + (lane >> 2) + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * (lane & 3);
+    const uint32_t off = (col >> 6) * kItemRows * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
+    *reinterpret_cast<uint32_t*>(rows + off) = tk8s::pack2<T>(acc[e] * scale, acc[e + 1] * scale);
+  }
+}
+
+// those rows to device memory at row r0 (the box clips the ragged end)
+template <int D>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, const uint8_t* rows, int r0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tk8s::tma_store_4d(map, rows + c * kItemRows * tk8s::kLine, 64 * c, r0, h, b);
+}
+
+// acc (64 x 64) = A B^T over head_dim: A a warpgroup's 64 rows of a
+// 128-row tile, B a 64-row tile of the ring, both K-major
+template <typename T, int D>
+__device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4, in = 32 * (kk % 4);
+    tk8s::wgmma_ss<T, 0, 0>(acc, tk8s::desc_k_major(a + c * kItemRows * tk8s::kLine + in),
+                            tk8s::desc_k_major(b + c * kStep * tk8s::kLine + in), 1);
+  }
+}
+
+// acc (64 x D) += A B: A (64 x 64) as four A fragments in registers, B a
+// 64-row tile of the ring read MN-major
+template <typename T, int D>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    tk8s::wgmma_rs<T, 1>(acc, a[kc], tk8s::desc_mn_major(b + kc * 16 * tk8s::kLine, kStep * tk8s::kLine), 1);
+  }
+}
+
+// lse2 = logsumexp * log2(e) and D = rowsum(dO * O) in f32 for every row
+// of the padded sequence: D / 8 threads a row, 16 bytes each
+template <typename T, int D>
+__global__ void __launch_bounds__(256) attn_bwd_rows(Params p) {
   constexpr int kPer = D / 8;
-  const long long id = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = id / kPer, rows = (long long)p.batch * p.heads * p.seq;
-  const int part = (int)(id % kPer);
+  const int padded = row_blocks(p.seq) * kStep;
+  const long long id = (long long)blockIdx.x * blockDim.x + threadIdx.x, row = id / kPer;
+  const int part = (int)(id % kPer), s = (int)(row % padded), bh = (int)(row / padded);
+  const bool in = row < (long long)p.batch * p.heads * padded, real = in && s < p.seq;
   float acc = 0.f;
-  if (row < rows) {
-    const int s = (int)(row % p.seq), bh = (int)(row / p.seq);
+  if (real) {
     const int b = bh / p.heads, h = bh % p.heads;
     const T* o = head<T>(p, p.o, kO, b, h) + s * p.strides[kO][1] + part * 8;
     const T* d = head<T>(p, p.dout, kDO, b, h) + s * p.strides[kDO][1] + part * 8;
@@ -463,256 +494,316 @@ __global__ void __launch_bounds__(256) attn_bwd_delta(Params p) {
     const uint32_t xw[4] = {x.x, x.y, x.z, x.w}, yw[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-      const float2 a = Num<T>::unpack(xw[w]), c = Num<T>::unpack(yw[w]);
+      const float2 a = unpack<T>(xw[w]), c = unpack<T>(yw[w]);
       acc += a.x * c.x + a.y * c.y;
     }
   }
 #pragma unroll
   for (int off = kPer / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row < rows && part == 0) p.delta[row] = acc;
-}
-
-// width of the inner loop's tiles in the backward: the warp holds two
-// (16 x BN) f32 tiles beside two (16 x D) accumulators
-template <int D>
-__host__ __device__ constexpr int bwd_block() { return D == 64 ? 64 : 32; }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkdv(Params p) {
-  constexpr int BN = bwd_block<D>(), LD = D + 8, LDT = BN + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kRows * LD;
-  T* sQ = sV + kRows * LD;
-  T* sQt = sQ + BN * LD;
-  T* sdO = sQt + D * LDT;
-  T* sdOt = sdO + BN * LD;
-  float* sL = reinterpret_cast<float*>(sdOt + D * LDT);
-  float* sDelta = sL + BN;
-
-  const int k0 = blockIdx.x * kRows;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads, seq = p.seq;
-  const T* q = head<T>(p, p.q, kQ, b, h);
-  const T* dout = head<T>(p, p.dout, kDO, b, h);
-  const float* lse = p.lse + (long long)bh * seq;
-  const float* delta = p.delta + (long long)bh * seq;
-  load_rows<T, D, kRows>(sK, head<T>(p, p.k, kK, b, h), p.strides[kK][1], k0, seq);
-  load_rows<T, D, kRows>(sV, head<T>(p, p.v, kV, b, h), p.strides[kV][1], k0, seq);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int key[2] = {k0 + warp * 16 + (lane >> 2), k0 + warp * 16 + (lane >> 2) + 8};
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-  const float sl2 = p.scale * kLog2e;
-  // causal: the first q tile holding a row at or after k0
-  for (int i = p.causal ? k0 / BN : 0; i < cdiv(seq, BN); ++i) {
-    const int q0 = i * BN;
-    __syncthreads();
-    load_rows<T, D, BN>(sQ, q, p.strides[kQ][1], q0, seq);
-    load_rows_t<T, D, BN>(sQt, q, p.strides[kQ][1], q0, seq);
-    load_rows<T, D, BN>(sdO, dout, p.strides[kDO][1], q0, seq);
-    load_rows_t<T, D, BN>(sdOt, dout, p.strides[kDO][1], q0, seq);
-    for (int r = threadIdx.x; r < BN; r += kThreads) {
-      const bool ok = q0 + r < seq;
-      sL[r] = ok ? lse[q0 + r] * kLog2e : 0.f;
-      sDelta[r] = ok ? delta[q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T for the warp's 16 keys, then P^T = exp(S^T * scale - lse)
-    float st[BN / 8][4];
-    zero(st);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      frag_a(a, sK, LD, warp * 16, kk * 16);
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb) {
-        uint32_t bf[2];
-        frag_b(bf, sQ, LD, nb * 8, kk * 16);
-        Num<T>::mma(st[nb], a, bf);
-      }
-    }
-    const bool edge = q0 + BN > seq || (p.causal && q0 < k0 + kRows - 1);
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = nb * 8 + 2 * t + (i & 1);
-        float x = exp2f(st[nb][i] * sl2 - sL[c]);
-        if (edge && (q0 + c >= seq || (p.causal && q0 + c < key[i >> 1]))) x = 0.f;
-        st[nb][i] = x;
-      }
-    }
-    // dV += P^T dO
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a<T>(pa, st[2 * kc], st[2 * kc + 1]);
-#pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-        uint32_t bf[2];
-        frag_b(bf, sdOt, LDT, db * 8, kc * 16);
-        Num<T>::mma(dv[db], pa, bf);
-      }
-    }
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - D)
-    float dpt[BN / 8][4];
-    zero(dpt);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      frag_a(a, sV, LD, warp * 16, kk * 16);
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb) {
-        uint32_t bf[2];
-        frag_b(bf, sdO, LD, nb * 8, kk * 16);
-        Num<T>::mma(dpt[nb], a, bf);
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        dpt[nb][i] = st[nb][i] * (dpt[nb][i] - sDelta[nb * 8 + 2 * t + (i & 1)]);
-      }
-    }
-    // dK += dS^T Q
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a<T>(pa, dpt[2 * kc], dpt[2 * kc + 1]);
-#pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-        uint32_t bf[2];
-        frag_b(bf, sQt, LDT, db * 8, kc * 16);
-        Num<T>::mma(dk[db], pa, bf);
-      }
-    }
-  }
-
-  T* dkp = static_cast<T*>(p.dk) + b * p.strides[kDK][0] + h * p.strides[kDK][2];
-  T* dvp = static_cast<T*>(p.dv) + b * p.strides[kDV][0] + h * p.strides[kDV][2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key[r] >= seq) continue;
-    T* dkr = dkp + key[r] * p.strides[kDK][1] + 2 * t;
-    T* dvr = dvp + key[r] * p.strides[kDV][1] + 2 * t;
-#pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
-      *reinterpret_cast<uint32_t*>(dkr + db * 8) =
-          tk8s::pack2<T>(dk[db][2 * r] * p.scale, dk[db][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvr + db * 8) = tk8s::pack2<T>(dv[db][2 * r], dv[db][2 * r + 1]);
-    }
+  if (in && part == 0) {
+    float* out = p.rows + row_at(bh, p.seq, s);
+    out[0] = real ? p.lse[(long long)bh * p.seq + s] * kLog2e : INFINITY;
+    out[kStep] = acc;
   }
 }
 
+// Work item i of the dK/dV kernel: a 128-key tile of one (batch, head),
+// the first keys (the most q tiles under a causal mask) first, and its
+// 64-row q tiles [first, last)
+struct KVItem {
+  int k0, bh, first, last;
+  __device__ KVItem(const Params& p, int i) {
+    const int bhs = p.batch * p.heads;
+    k0 = i / bhs * kItemRows;
+    bh = i % bhs;
+    first = p.causal ? k0 / kStep : 0;
+    last = cdiv(p.seq, kStep);
+  }
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq(Params p) {
-  constexpr int BN = bwd_block<D>(), LD = D + 8, LDT = BN + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + kRows * LD;
-  T* sK = sdO + kRows * LD;
-  T* sKt = sK + BN * LD;
-  T* sV = sKt + D * LDT;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads, seq = p.seq;
-  const T* k = head<T>(p, p.k, kK, b, h);
-  const T* v = head<T>(p, p.v, kV, b, h);
-  load_rows<T, D, kRows>(sQ, head<T>(p, p.q, kQ, b, h), p.strides[kQ][1], q0, seq);
-  load_rows<T, D, kRows>(sdO, head<T>(p, p.dout, kDO, b, h), p.strides[kDO][1], q0, seq);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int row[2] = {q0 + warp * 16 + (lane >> 2), q0 + warp * 16 + (lane >> 2) + 8};
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool ok = row[r] < seq;
-    lse2[r] = ok ? p.lse[(long long)bh * seq + row[r]] * kLog2e : 0.f;
-    dl[r] = ok ? p.delta[(long long)bh * seq + row[r]] : 0.f;
+__global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_constant__ BwdMaps maps, Params p) {
+  using B = Bwd<D>;
+  constexpr int S = B::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full[2], kv_empty[2], full[S], empty[S];
+  uint8_t* sKV = tk8s::align_atom(smem_raw);  // buffer kb: K at 2 kb kTile, V after it
+  uint8_t* sRing = sKV + 4 * B::kTile;        // stage s: Q, dO, then the lse2 and D rows
+  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      tk8s::mbar_init(&kv_full[i], 1);
+      tk8s::mbar_init(&kv_empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < S; ++s) {
+      tk8s::mbar_init(&full[s], 1);
+      tk8s::mbar_init(&empty[s], kConsumers);
+    }
+    tk8s::mbar_init_fence();
   }
-  float dq[D / 8][4];
-  zero(dq);
-  const float sl2 = p.scale * kLog2e;
-  const int k_tiles = p.causal ? min(cdiv(seq, BN), cdiv(q0 + kRows, BN)) : cdiv(seq, BN);
-  for (int j = 0; j < k_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();
-    load_rows<T, D, BN>(sK, k, p.strides[kK][1], k0, seq);
-    load_rows_t<T, D, BN>(sKt, k, p.strides[kK][1], k0, seq);
-    load_rows<T, D, BN>(sV, v, p.strides[kV][1], k0, seq);
-    __syncthreads();
+  __syncthreads();
 
-    // S = Q K^T, P = exp(S * scale - lse)
-    float s[BN / 8][4];
-    zero(s);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      frag_a(a, sQ, LD, warp * 16, kk * 16);
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb) {
-        uint32_t bf[2];
-        frag_b(bf, sK, LD, nb * 8, kk * 16);
-        Num<T>::mma(s[nb], a, bf);
+  if (threadIdx.x < 128) {
+    tk8s::regs_dec<kRegsProducer>();
+    if (threadIdx.x == 0) {
+      tk8s::prefetch_map(&maps.q);
+      tk8s::prefetch_map(&maps.k);
+      tk8s::prefetch_map(&maps.v);
+      tk8s::prefetch_map(&maps.dout);
+      int t = 0;  // q tiles loaded so far: the ring position
+      for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
+        const KVItem it(p, i);
+        const int b = it.bh / p.heads, h = it.bh % p.heads, kb = n & 1;
+        uint8_t* kv = sKV + 2 * kb * B::kTile;
+        tk8s::mbar_wait(&kv_empty[kb], ((n >> 1) & 1) ^ 1);
+        tk8s::mbar_expect_tx(&kv_full[kb], 2 * B::kTile);
+        load_tile<D, kItemRows>(kv, &maps.k, &kv_full[kb], it.k0, h, b);
+        load_tile<D, kItemRows>(kv + B::kTile, &maps.v, &kv_full[kb], it.k0, h, b);
+        for (int j = it.first; j < it.last; ++j, ++t) {
+          const int s = t % S;
+          uint8_t* stage = sRing + s * B::kKVStage;
+          tk8s::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+          tk8s::mbar_expect_tx(&full[s], 2 * B::kRing + B::kRowBytes);
+          load_tile<D, kStep>(stage, &maps.q, &full[s], j * kStep, h, b);
+          load_tile<D, kStep>(stage + B::kRing, &maps.dout, &full[s], j * kStep, h, b);
+          tk8s::bulk_load(stage + 2 * B::kRing, p.rows + row_at(it.bh, p.seq, j * kStep), B::kRowBytes,
+                          &full[s]);
+        }
       }
     }
-    const bool edge = k0 + BN > seq || (p.causal && k0 + BN - 1 > q0);
+  } else {
+    tk8s::regs_inc<kRegsConsumer>();
+    const int wg = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int t4 = lane & 3;
+    const float sl2 = p.scale * kLog2e;  // exp(x * scale) = exp2(x * sl2)
+    int t = 0;
+    for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
+      const KVItem it(p, i);
+      const int b = it.bh / p.heads, h = it.bh % p.heads, kb = n & 1, key0 = it.k0 + wg * 64;
+      const int key[2] = {key0 + warp * 16 + (lane >> 2), key0 + warp * 16 + (lane >> 2) + 8};
+      uint8_t* k_rows = sKV + 2 * kb * B::kTile + wg * 64 * tk8s::kLine;  // this warpgroup's keys
+      uint8_t* v_rows = k_rows + B::kTile;
+      const uint32_t k_addr = tk8s::smem_addr(k_rows), v_addr = tk8s::smem_addr(v_rows);
+      float dk[D / 2], dv[D / 2];
+      zero(dk);
+      zero(dv);
+      tk8s::mbar_wait(&kv_full[kb], (n >> 1) & 1);
+      for (int j = it.first; j < it.last; ++j, ++t) {
+        const int s = t % S, q0 = j * kStep;
+        tk8s::mbar_wait(&full[s], (t / S) & 1);
+        // a q tile wholly before this warpgroup's keys, or keys wholly past
+        // the sequence, is waited for (the ring stays in step) and skipped
+        if (key0 < p.seq && !(p.causal && q0 + kStep <= key0)) {
+          const uint8_t* stage = sRing + s * B::kKVStage;
+          const uint32_t q_addr = tk8s::smem_addr(stage), do_addr = q_addr + B::kRing;
+          const float* lse2 = reinterpret_cast<const float*>(stage + 2 * B::kRing);
+          const float* dd = lse2 + kStep;
+          // S^T = K Q^T and dP^T = V dO^T: row = key, column c = q row q0 + c
+          float st[32], dpt[32];
+          zero(st);
+          zero(dpt);
+          tk8s::fence_regs(st);
+          tk8s::fence_regs(dpt);
+          tk8s::wgmma_fence();
+          product_ss<T, D>(st, k_addr, q_addr);
+          product_ss<T, D>(dpt, v_addr, do_addr);
+          tk8s::wgmma_commit();
+          tk8s::wgmma_wait<0>();
+          tk8s::fence_regs(st);
+          tk8s::fence_regs(dpt);
+
+          // P^T = exp2(S^T sl2 - lse2), 0 where the key comes after the q
+          // row (only the diagonal tile masks; q rows past the end have
+          // lse2 = +inf), and dS^T = P^T (dP^T - D), both rounded to A
+          // fragments: accumulator e is register (e / 2) % 4 of fragment e / 8
+          const bool diag = p.causal && q0 < key0 + 63;
+          uint32_t pa[4][4], da[4][4];
 #pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
+          for (int cb = 0; cb < 8; ++cb) {
+            const int c = 8 * cb + 2 * t4;
+            const float2 l = *reinterpret_cast<const float2*>(lse2 + c);
+            const float2 d = *reinterpret_cast<const float2*>(dd + c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nb * 8 + 2 * t + (i & 1);
-        float x = exp2f(s[nb][i] * sl2 - lse2[i >> 1]);
-        if (edge && (col >= seq || (p.causal && col > row[i >> 1]))) x = 0.f;
-        s[nb][i] = x;
+            for (int r = 0; r < 2; ++r) {
+              const int e = 4 * cb + 2 * r;
+              float p0 = exp2f(fmaf(st[e], sl2, -l.x)), p1 = exp2f(fmaf(st[e + 1], sl2, -l.y));
+              if (diag) {
+                if (q0 + c < key[r]) p0 = 0.f;
+                if (q0 + c + 1 < key[r]) p1 = 0.f;
+              }
+              pa[cb / 2][2 * (cb & 1) + r] = tk8s::pack2<T>(p0, p1);
+              da[cb / 2][2 * (cb & 1) + r] = tk8s::pack2<T>(p0 * (dpt[e] - d.x), p1 * (dpt[e + 1] - d.y));
+            }
+          }
+
+          // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+          tk8s::fence_regs(dk);
+          tk8s::fence_regs(dv);
+          tk8s::wgmma_fence();
+          product_rs<T, D>(dv, pa, do_addr);
+          product_rs<T, D>(dk, da, q_addr);
+          tk8s::wgmma_commit();
+          tk8s::wgmma_wait<0>();
+          tk8s::fence_regs(dk);
+          tk8s::fence_regs(dv);
+        }
+        tk8s::mbar_arrive(&empty[s]);
       }
-    }
-    // dP = dO V^T, then dS = P (dP - D)
-    float dp[BN / 8][4];
-    zero(dp);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      frag_a(a, sdO, LD, warp * 16, kk * 16);
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb) {
-        uint32_t bf[2];
-        frag_b(bf, sV, LD, nb * 8, kk * 16);
-        Num<T>::mma(dp[nb], a, bf);
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dp[nb][i] = s[nb][i] * (dp[nb][i] - dl[i >> 1]);
-    }
-    // dQ += dS K
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a<T>(pa, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-        uint32_t bf[2];
-        frag_b(bf, sKt, LDT, db * 8, kc * 16);
-        Num<T>::mma(dq[db], pa, bf);
+
+      // dK (times the scale) and dV in the input dtype, staged in this
+      // warpgroup's rows of the K and V tiles
+      stage_rows<T, D>(k_rows, dk, p.scale);
+      stage_rows<T, D>(v_rows, dv, 1.f);
+      tk8s::fence_proxy_async();
+      tk8s::named_sync(1 + wg, 128);
+      if (threadIdx.x % 128 == 0) {
+        if (key0 < p.seq) {
+          store_rows<D>(&maps.dk, k_rows, key0, h, b);
+          store_rows<D>(&maps.dv, v_rows, key0, h, b);
+          tk8s::tma_store_commit();
+          tk8s::tma_store_wait_read();
+        }
+        tk8s::mbar_arrive(&kv_empty[kb]);  // the buffers may take the item after next
       }
     }
   }
+}
 
-  T* dqp = static_cast<T*>(p.dq) + b * p.strides[kDQ][0] + h * p.strides[kDQ][2];
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant__ BwdMaps maps, Params p) {
+  using B = Bwd<D>;
+  constexpr int S = B::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full[2], q_empty[2], full[S], empty[S];
+  uint8_t* sQ = tk8s::align_atom(smem_raw);  // buffer qb: Q at 2 qb kTile, dO after it
+  uint8_t* sRing = sQ + 4 * B::kTile;        // stage s: K, then V
+  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      tk8s::mbar_init(&q_full[i], 1);
+      tk8s::mbar_init(&q_empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < S; ++s) {
+      tk8s::mbar_init(&full[s], 1);
+      tk8s::mbar_init(&empty[s], kConsumers);
+    }
+    tk8s::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    tk8s::regs_dec<kRegsProducer>();
+    if (threadIdx.x == 0) {
+      tk8s::prefetch_map(&maps.q);
+      tk8s::prefetch_map(&maps.k);
+      tk8s::prefetch_map(&maps.v);
+      tk8s::prefetch_map(&maps.dout);
+      int t = 0;  // k/v tiles loaded so far: the ring position
+      for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
+        const Item it(p, i, kStep);
+        const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1;
+        uint8_t* qd = sQ + 2 * qb * B::kTile;
+        tk8s::mbar_wait(&q_empty[qb], ((n >> 1) & 1) ^ 1);
+        tk8s::mbar_expect_tx(&q_full[qb], 2 * B::kTile);
+        load_tile<D, kItemRows>(qd, &maps.q, &q_full[qb], it.q0, h, b);
+        load_tile<D, kItemRows>(qd + B::kTile, &maps.dout, &q_full[qb], it.q0, h, b);
+        for (int j = 0; j < it.tiles; ++j, ++t) {
+          const int s = t % S;
+          uint8_t* stage = sRing + s * 2 * B::kRing;
+          tk8s::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+          tk8s::mbar_expect_tx(&full[s], 2 * B::kRing);
+          load_tile<D, kStep>(stage, &maps.k, &full[s], j * kStep, h, b);
+          load_tile<D, kStep>(stage + B::kRing, &maps.v, &full[s], j * kStep, h, b);
+        }
+      }
+    }
+  } else {
+    tk8s::regs_inc<kRegsConsumer>();
+    const int wg = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int t4 = lane & 3;
+    const float sl2 = p.scale * kLog2e;
+    int t = 0;
+    for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
+      const Item it(p, i, kStep);
+      const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1, row0 = it.q0 + wg * 64;
+      const int row[2] = {row0 + warp * 16 + (lane >> 2), row0 + warp * 16 + (lane >> 2) + 8};
+      uint8_t* q_rows = sQ + 2 * qb * B::kTile + wg * 64 * tk8s::kLine;  // this warpgroup's rows
+      const uint32_t q_addr = tk8s::smem_addr(q_rows), do_addr = q_addr + B::kTile;
+      float lse2[2], dd[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= seq) continue;
-    T* dst = dqp + row[r] * p.strides[kDQ][1] + 2 * t;
+      for (int r = 0; r < 2; ++r) {
+        const float* at = p.rows + row_at(it.bh, p.seq, row[r]);
+        lse2[r] = at[0];
+        dd[r] = at[kStep];
+      }
+      float dq[D / 2];
+      zero(dq);
+      tk8s::mbar_wait(&q_full[qb], (n >> 1) & 1);
+      for (int j = 0; j < it.tiles; ++j, ++t) {
+        const int s = t % S, k0 = j * kStep;
+        tk8s::mbar_wait(&full[s], (t / S) & 1);
+        // a k tile wholly above the diagonal for this warpgroup's rows, or
+        // rows wholly past the sequence: waited for and skipped
+        if (row0 < p.seq && !(p.causal && k0 > row0 + 63)) {
+          const uint32_t k_addr = tk8s::smem_addr(sRing + s * 2 * B::kRing), v_addr = k_addr + B::kRing;
+          // S = Q K^T and dP = dO V^T: row = q row, column c = key k0 + c
+          float sc[32], dp[32];
+          zero(sc);
+          zero(dp);
+          tk8s::fence_regs(sc);
+          tk8s::fence_regs(dp);
+          tk8s::wgmma_fence();
+          product_ss<T, D>(sc, q_addr, k_addr);
+          product_ss<T, D>(dp, do_addr, v_addr);
+          tk8s::wgmma_commit();
+          tk8s::wgmma_wait<0>();
+          tk8s::fence_regs(sc);
+          tk8s::fence_regs(dp);
+
+          // dS = P (dP - D) with P = exp2(S sl2 - lse2), 0 for a key after
+          // the row or past the end (a tile that crosses either masks)
+          const bool edge = k0 + kStep > p.seq || (p.causal && k0 + kStep - 1 > row0);
+          uint32_t da[4][4];
 #pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
-      *reinterpret_cast<uint32_t*>(dst + db * 8) =
-          tk8s::pack2<T>(dq[db][2 * r] * p.scale, dq[db][2 * r + 1] * p.scale);
+          for (int cb = 0; cb < 8; ++cb) {
+            const int c = k0 + 8 * cb + 2 * t4;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int e = 4 * cb + 2 * r;
+              float p0 = exp2f(fmaf(sc[e], sl2, -lse2[r])), p1 = exp2f(fmaf(sc[e + 1], sl2, -lse2[r]));
+              if (edge) {
+                const int last = p.causal ? min(row[r], p.seq - 1) : p.seq - 1;
+                if (c > last) p0 = 0.f;
+                if (c + 1 > last) p1 = 0.f;
+              }
+              da[cb / 2][2 * (cb & 1) + r] = tk8s::pack2<T>(p0 * (dp[e] - dd[r]), p1 * (dp[e + 1] - dd[r]));
+            }
+          }
+
+          // dQ += dS K, K read MN-major
+          tk8s::fence_regs(dq);
+          tk8s::wgmma_fence();
+          product_rs<T, D>(dq, da, k_addr);
+          tk8s::wgmma_commit();
+          tk8s::wgmma_wait<0>();
+          tk8s::fence_regs(dq);
+        }
+        tk8s::mbar_arrive(&empty[s]);
+      }
+
+      // dQ (times the scale) in q's dtype, staged in this warpgroup's rows
+      // of its Q tile
+      stage_rows<T, D>(q_rows, dq, p.scale);
+      tk8s::fence_proxy_async();
+      tk8s::named_sync(1 + wg, 128);
+      if (threadIdx.x % 128 == 0) {
+        if (row0 < p.seq) {
+          store_rows<D>(&maps.dq, q_rows, row0, h, b);
+          tk8s::tma_store_commit();
+          tk8s::tma_store_wait_read();
+        }
+        tk8s::mbar_arrive(&q_empty[qb]);  // the buffer may take the item after next
+      }
     }
   }
 }
@@ -724,7 +815,7 @@ cudaError_t forward(const Params& p, cudaStream_t stream) {
   FwdMaps maps;
   CUtensorMap* out[4] = {&maps.q, &maps.k, &maps.v, &maps.o};
   const void* base[4] = {p.q, p.k, p.v, p.o};
-  const int rows[4] = {kFwdRows, F::kBN, F::kBN, 64};
+  const int rows[4] = {kItemRows, F::kBN, F::kBN, 64};
   const long long b = p.batch, h = p.heads, s = p.seq;
   for (int i = 0; i < 4; ++i) {
     const long long* st = p.strides[i];
@@ -734,36 +825,41 @@ cudaError_t forward(const Params& p, cudaStream_t stream) {
   }
   static const cudaError_t attr = tk8s::allow_smem(attn_fwd<T, D>, F::kSmem);
   if (attr != cudaSuccess) return attr;
-  static const int sms = [] {
-    int device = 0, count = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
-    return count;
-  }();
-  const int items = cdiv(p.seq, kFwdRows) * p.batch * p.heads;
-  attn_fwd<T, D><<<(items < sms ? items : sms), kFwdThreads, F::kSmem, stream>>>(maps, p);
+  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  attn_fwd<T, D><<<(items < sm_count() ? items : sm_count()), kThreads, F::kSmem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t backward(const Params& p, cudaStream_t stream) {
-  constexpr int BN = bwd_block<D>();
-  constexpr int smem_kv =
-      (2 * kRows * (D + 8) + 2 * BN * (D + 8) + 2 * D * (BN + 8)) * sizeof(T) + 2 * BN * sizeof(float);
-  constexpr int smem_q = (2 * kRows * (D + 8) + 2 * BN * (D + 8) + D * (BN + 8)) * sizeof(T);
-  static const cudaError_t attr_kv = tk8s::allow_smem(attn_bwd_dkdv<T, D>, smem_kv);
-  static const cudaError_t attr_q = tk8s::allow_smem(attn_bwd_dq<T, D>, smem_q);
+  using B = Bwd<D>;
+  // every map of the backward, encoded once a call, for both kernels:
+  // (head_dim, seq, head, batch) with the tensor's own strides
+  BwdMaps maps;
+  CUtensorMap* out[7] = {&maps.q, &maps.k, &maps.v, &maps.dout, &maps.dq, &maps.dk, &maps.dv};
+  const Tensor which[7] = {kQ, kK, kV, kDO, kDQ, kDK, kDV};
+  const void* base[7] = {p.q, p.k, p.v, p.dout, p.dq, p.dk, p.dv};
+  const long long b = p.batch, h = p.heads, s = p.seq;
+  for (int i = 0; i < 7; ++i) {
+    const long long* st = p.strides[which[i]];
+    const cudaError_t err =
+        tk8s::make_map<T>(out[i], base[i], {D, s, h, b}, {st[1], st[2], st[0]}, {64, kStep, 1, 1});
+    if (err != cudaSuccess) return err;
+  }
+  static const cudaError_t attr_kv = tk8s::allow_smem(attn_bwd_dkdv<T, D>, B::kKVSmem);
+  static const cudaError_t attr_q = tk8s::allow_smem(attn_bwd_dq<T, D>, B::kQSmem);
   if (attr_kv != cudaSuccess) return attr_kv;
   if (attr_q != cudaSuccess) return attr_q;
-  const long long rows = (long long)p.batch * p.heads * p.seq;
-  attn_bwd_delta<T, D><<<cdiv(rows * (D / 8), 256), 256, 0, stream>>>(p);
+  const long long rows = b * h * row_blocks(p.seq) * kStep;
+  attn_bwd_rows<T, D><<<cdiv(rows * (D / 8), 256), 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(p.seq, kRows), p.batch * p.heads);
-  attn_bwd_dkdv<T, D><<<grid, kThreads, smem_kv, stream>>>(p);
+  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  const int grid = items < sm_count() ? items : sm_count();
+  attn_bwd_dkdv<T, D><<<grid, kThreads, B::kKVSmem, stream>>>(maps, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq<T, D><<<grid, kThreads, smem_q, stream>>>(p);
+  attn_bwd_dq<T, D><<<grid, kThreads, B::kQSmem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -808,9 +904,10 @@ int tk8s_attn_fwd(int dtype, int head_dim, const void* q, const void* k, const v
 }
 
 // strides: (batch, seq, head) of q, k, v, o, dout, dq, dk, dv (24 values);
-// delta is (B, H, S) f32 scratch
+// rows is f32 scratch of batch * heads * 2 * (seq rounded up to 128)
+// values, 16-byte aligned
 int tk8s_attn_bwd(int dtype, int head_dim, const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
+                  const void* dout, const float* lse, float* rows, void* dq, void* dk, void* dv,
                   const long long* strides, int batch, int heads, int seq, int causal, float scale,
                   void* stream) {
   Params p = make_params(strides, kTensors, batch, heads, seq, causal, scale);
@@ -820,7 +917,7 @@ int tk8s_attn_bwd(int dtype, int head_dim, const void* q, const void* k, const v
   p.o = const_cast<void*>(o);
   p.dout = dout;
   p.lse = const_cast<float*>(lse);
-  p.delta = delta;
+  p.rows = rows;
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the port's CUDA kernels (sm_90a).
 //
 // The kernels that include this header (csrc/conv_backward.cu, K4;
-// csrc/flash_attention.cu, K2's forward) share one shape: a ring of
+// csrc/flash_attention.cu, K2's forward and backward) share one shape: a ring of
 // shared-memory stages that the Tensor Memory Accelerator (TMA) fills, one
 // producer thread that keeps the loads in flight, and consumer warpgroups
 // that multiply the tiles that have arrived with `wgmma`, accumulating in
@@ -14,7 +14,11 @@
 //   mbarrier init, arrive, arrive with expected bytes, wait on a phase
 //            parity;
 //   TMA      2-d and 4-d tile loads that complete on an mbarrier, tile
-//            stores from shared memory, the proxy fence between them;
+//            stores from shared memory, the proxy fence between them, and
+//            plain bulk copies (no tensor map: f32 rows) on the same
+//            mbarriers;
+//   regs     `setmaxnreg`, which moves registers from the producer's
+//            warpgroup to the consumers';
 //   wgmma    shared-memory descriptors for K-major and MN-major tiles, the
 //            fence / commit / wait of a warpgroup, and m64nNk16 products
 //            in bf16 and fp16, both operands in shared memory (`wgmma_ss`)
@@ -227,9 +231,34 @@ __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// `bytes` (a multiple of 16) from 16-byte aligned global memory at `src`
+// into shared memory, completing on `bar` as a tile load does
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // makes this thread's generic shared-memory writes visible to TMA and wgmma
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ----- registers
+
+// Lower or raise the registers of every thread of the calling warpgroup
+// to N (a multiple of 8 in [24, 256]); all of its threads execute it. The
+// kernel splits producer and consumer warpgroups in one if / else that
+// never rejoins, or ptxas ignores the request.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ----- wgmma

@@ -87,11 +87,14 @@ def conv1x1_backward_kernel(x2, dy2, w2):
     CUDA tensors in one compute dtype -> (dX (M, C) in that dtype, dW
     (N, C) f32); anything else raises. One call launches dgrad, wgrad
     and, with more than one split of M, the reduction; it is counted once
-    in `conv1x1_backward_kernel.launches`."""
+    in `conv1x1_backward_kernel.launches`. An empty M launches nothing:
+    dX is empty and dW zero, as the reference returns."""
     _check_kernel_inputs(x2, dy2, w2)
     m, c = x2.shape
     n = dy2.shape[1]
     dx2 = torch.empty((m, c), dtype=x2.dtype, device=x2.device)
+    if m == 0:
+        return dx2, torch.zeros((n, c), dtype=torch.float32, device=x2.device)
     dw = torch.empty((n, c), dtype=torch.float32, device=x2.device)
     conv_backward_cuda.backward(x2, dy2, w2, dx2, dw)
     conv1x1_backward_kernel.launches += 1

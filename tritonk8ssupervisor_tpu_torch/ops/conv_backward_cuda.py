@@ -47,7 +47,10 @@ def _cdiv(a: int, b: int) -> int:
 
 def split(m: int, c: int, n: int) -> tuple[int, int]:
     """(splits, rows per split) of M for the dW reduction: a fixed
-    function of the shape, so dW is summed in the same order every call."""
+    function of the shape, so dW is summed in the same order every call.
+    An empty M is one split of no rows (the wrapper launches nothing)."""
+    if m == 0:
+        return 1, 0
     tiles = _cdiv(c, _WG_TILE) * _cdiv(n, _WG_TILE)
     splits = max(1, min(WAVE // tiles, _cdiv(m, MIN_SPLIT_ROWS)))
     rows = _cdiv(_cdiv(m, splits), _WG_STEP) * _WG_STEP

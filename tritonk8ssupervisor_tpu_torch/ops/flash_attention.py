@@ -8,7 +8,10 @@ and scales the scores by 1/sqrt(head_dim). On CPU tensors it is the
 plain version (`ops/ring_attention.attention_reference_layout`). On CUDA
 tensors it launches kernel K2 (`csrc/flash_attention.cu`), forward and
 backward, for every sequence length: the kernel masks a ragged last
-tile, so there is no dense branch. What K2 does not take (a head_dim
+tile, so there is no dense branch. K2 reads q, k, v (and O and dO) in
+place where TMA can address them, which the LM's qkv views allow; any
+other view is copied first (`_kernel_view`, counted in
+`flash_attention_forward.copies`). What K2 does not take (a head_dim
 other than 64 or 128, a dtype other than bf16 or fp16) raises; nothing
 falls back to the plain version on the card.
 
@@ -40,15 +43,16 @@ LAYOUTS = ("bshd", "bhsd")
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """`x` itself when K2's backward can read it in place (unit head_dim
+    """`x` itself when K2's TMA can read it in place (unit head_dim
     stride, the other strides whole 16-byte chunks, a 16-byte aligned
-    start), else a contiguous copy."""
+    start), else a contiguous copy in fresh (aligned) memory."""
     ok = (
         x.stride(-1) == 1
         and all(s % 8 == 0 for s in x.stride()[:-1])
         and x.data_ptr() % 16 == 0
     )
-    return x if ok else x.contiguous()
+    # `contiguous()` would return a dense view that starts off a line as it is
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
 def _check_kernel_inputs(q, k, v, layout: str) -> None:
@@ -68,33 +72,32 @@ def _check_kernel_inputs(q, k, v, layout: str) -> None:
             f"{v.dtype}: other dtypes on the card are a gap (ROADMAP.md "
             "queue 2, K2)"
         )
-    b, h, s, d = _dims(q.shape, layout)
+    d = _dims(q.shape, layout)[3]
     if d not in HEAD_DIMS:
         raise ValueError(
             f"K2 is built for head_dim {HEAD_DIMS}, got {d}: other widths "
             "are a gap (ROADMAP.md queue 2, K2)"
         )
-    if b * h > 65535:
-        raise ValueError(f"K2's grid takes at most 65535 batch*heads, got {b * h}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        flash_attention_cuda.check_tma_operand(name, x)
 
 
 def flash_attention_forward(q, k, v, causal: bool, layout: str):
     """K2's forward wrapper: (O in q's layout and dtype, (B, H, S) f32
-    logsumexp). q, k and v are read in place, as TMA takes them (anything
-    else raises). One launch, counted in
-    `flash_attention_forward.launches`."""
+    logsumexp). q, k and v are read in place where TMA can address them,
+    else copied (each copy counted in `flash_attention_forward.copies`).
+    One launch, counted in `flash_attention_forward.launches`."""
     b, h, s, _ = _dims(q.shape, layout)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel():
-        flash_attention_cuda.forward(q, k, v, out, lse, causal, layout)
+        views = [_kernel_view(x) for x in (q, k, v)]
+        flash_attention_forward.copies += sum(y is not x for x, y in zip((q, k, v), views))
+        flash_attention_cuda.forward(*views, out, lse, causal, layout)
         flash_attention_forward.launches += 1
     return out, lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.copies = 0
 
 
 def flash_attention_backward(dout, q, k, v, out, lse, causal: bool, layout: str):
@@ -104,8 +107,9 @@ def flash_attention_backward(dout, q, k, v, out, lse, causal: bool, layout: str)
     dout, q, k, v, out = (_kernel_view(x) for x in (dout, q, k, v, out))
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
     if q.numel():
-        delta = torch.empty_like(lse)
-        flash_attention_cuda.backward(dout, q, k, v, out, lse, delta, *grads,
+        rows = torch.empty(flash_attention_cuda.rows_numel(*_dims(q.shape, layout)[:3]),
+                           dtype=torch.float32, device=q.device)
+        flash_attention_cuda.backward(dout, q, k, v, out, lse, rows, *grads,
                                       causal, layout)
         flash_attention_backward.launches += 1
     return tuple(grads)

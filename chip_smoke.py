@@ -54,12 +54,15 @@ which raises on failure (exit code not 0, no result line):
    its step is printed beside the default path's;
 11. kernel K3 (the int8-KV decode attention, `csrc/decode_attention.cu`)
    against its plain version on the card: the dense `generate` shape
-   (8, 12, 640, 64) `blhd` bf16 at pos 0, 127 and 639, the engine's
-   gathered (4, 512, 12, 64) view with per-slot positions, a 5-query
-   verify window, head_dim 16 (the drafter) and 128, and a head-major
-   `bhld` case, each with q in its dtype and in f32; times the kernel and
-   the plain version (no PyTorch call computes this function, so there is
-   no library time);
+   (8, 12, 640, 64) `blhd` bf16 at pos 0, 127 and 639, a (4, 512, 12, 64)
+   cache with per-slot positions, a 5-query verify window, head_dim 16
+   (the drafter) and 128, and a head-major `bhld` case; the same engine
+   shapes on a paged pool read through page tables (the engine's own
+   calls); one query over 65,536 positions; each with q in its dtype and
+   in f32; times the kernel and the plain version (no PyTorch call
+   computes this function, so there is no library time) and one launch's
+   floor (a one-element fill), printed beside K1's (256, 1000) and K3's
+   pos-0 times;
 12. decode card against CPU on one set of weights: greedy `generate` with
    the int8 cache on f32 and bf16 2-layer LMs (2 heads of 64, vocab 512),
    tokens equal on f32, the logits of every decode step within the stated
@@ -76,7 +79,12 @@ which raises on failure (exit code not 0, no result line):
 14. the serving main path: `run_engine_benchmark` at the LM's full width
    with the int8 cache (cold, warm, spec_base, spec), with K3's launches
    counted around it: cold equals warm, spec equals spec_base, every
-   timed request hits the prefix store, none re-prefills the prefix.
+   timed request hits the prefix store, none re-prefills the prefix;
+15. one engine decode step at that shape (4 slots of 512, pages of 16, 4
+   requests of 256 prompt tokens) profiled with torch.profiler: K3's and
+   the page gathers' (`aten::index`) device ms and calls a step. With
+   `--engine-step` this phase runs alone, on the package beside the
+   script.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -114,6 +122,7 @@ from tritonk8ssupervisor_tpu_torch.ops import decode_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
 from tritonk8ssupervisor_tpu_torch.parallel import train
 from tritonk8ssupervisor_tpu_torch.serving import SlotEngine
+from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
 
 # H100 SXM data sheet: device memory rate, f32 rate outside the tensor
 # cores (K1's bound), dense bf16/fp16 tensor-core rate (K2's bound)
@@ -674,36 +683,66 @@ def _k3_rows(pos, b: int, w: int, length: int) -> list[int]:
     return [length if min(r) < 0 else min(max(r) + 1, length) for r in rows]
 
 
-def check_k3(label: str, b: int, w: int, h: int, length: int, d: int, pos,
-             dtype=torch.bfloat16, layout: str = "blhd", seed: int = 0) -> dict:
-    """K3 against its plain version at one shape; `pos` an int or a list
-    (per row, or per row and query), made an int32 tensor on the card."""
+K3_PAGE_SIZE = 16  # the engine benchmark's page size
+
+
+def _k3_inputs(b: int, w: int, h: int, length: int, d: int, pos, dtype, layout: str,
+               seed: int):
+    """q, the cache (dense, or for "paged" a pool of b * length / 16 + 1
+    pages of 16 positions read through shuffled tables, one page shared by
+    two rows, the last table column on the last page), pos (a list made an
+    int32 tensor on the card) and the tables (None when dense)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cache_shape = (b, h, length, d) if layout == "bhld" else (b, length, h, d)
     q = torch.randn((b, w, h, d) if w > 1 else (b, h, d), generator=gen, device="cuda").to(dtype)
+    tables = None
+    if layout == "paged":
+        n_pages = length // K3_PAGE_SIZE
+        pages = b * n_pages + 1
+        cache_shape = (pages, K3_PAGE_SIZE, h, d)
+        tables = torch.randperm(pages - 1, generator=gen, device="cuda")[: b * n_pages]
+        tables = tables.view(b, n_pages).to(torch.int32)
+        if b > 1:
+            tables[1, 0] = tables[0, 1]
+        tables[:, -1] = pages - 1
+    else:
+        cache_shape = (b, h, length, d) if layout == "bhld" else (b, length, h, d)
     k8, ks = dec._quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
     v8, vs = dec._quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
     pos_arg = torch.tensor(pos, dtype=torch.int32, device="cuda") if isinstance(pos, list) else pos
+    return q, k8, ks, v8, vs, pos_arg, tables
+
+
+def check_k3(label: str, b: int, w: int, h: int, length: int, d: int, pos,
+             dtype=torch.bfloat16, layout: str = "blhd", seed: int = 0) -> dict:
+    """K3 against its plain version at one shape; `pos` an int or a list
+    (per row, or per row and query), made an int32 tensor on the card;
+    layout "paged" reads a pool through page tables."""
+    q, k8, ks, v8, vs, pos_arg, tables = _k3_inputs(b, w, h, length, d, pos, dtype, layout,
+                                                    seed)
     args = (q, k8, ks, v8, vs, pos_arg)
     errors = []  # max |err| with q in its dtype, then in f32
     for q_check in (q, q.float()):
-        out = da.decode_attention_int8(q_check, *args[1:], layout=layout)
+        out = da.decode_attention_int8(q_check, *args[1:], layout=layout, tables=tables)
         torch.cuda.synchronize()
-        ref = da.decode_attention_int8_plain(q_check, *args[1:], layout=layout)
+        ref = da.decode_attention_int8_plain(q_check, *args[1:], layout=layout, tables=tables)
         errors.append(_max_abs_err(out, ref))
         rel = errors[-1] / ref.float().abs().max().item()
         if not (torch.isfinite(out).all() and rel <= K3_REL[q_check.dtype]):
             raise AssertionError(f"K3 {label}, q {q_check.dtype}: relative error {rel:.2e} "
                                  f"(tolerance {K3_REL[q_check.dtype]:.2e})")
     times = _timings({
-        "": (lambda: da.decode_attention_int8(*args, layout=layout), 200),
-        "plain_": (lambda: da.decode_attention_int8_plain(*args, layout=layout), 50),
+        "": (lambda: da.decode_attention_int8(*args, layout=layout, tables=tables), 200),
+        "plain_": (lambda: da.decode_attention_int8_plain(*args, layout=layout, tables=tables),
+                   20 if length > 4096 else 50),
     })
     positions = sum(_k3_rows(pos, b, w, length))
     # int8 K and V rows and their f32 scales read once for the positions
-    # the queries attend, q read, out written; 4 D operations a position a
-    # query (the two products) and ~10 for the scale, mask and softmax
+    # the queries attend (and the page ids of those positions), q read, out
+    # written; 4 D operations a position a query (the two products) and
+    # ~10 for the scale, mask and softmax
     n_bytes = h * positions * (2 * d + 2 * 4) + 2 * q.numel() * q.element_size()
+    if tables is not None:
+        n_bytes += 4 * sum(-(-n // K3_PAGE_SIZE) for n in _k3_rows(pos, b, w, length))
     bound_ms, bound_by = _bound(n_bytes, w * h * positions * (4 * d + 10), F32_FLOPS)
     return {
         "label": label, "shape": [b, w, h, length, d], "layout": layout,
@@ -713,6 +752,70 @@ def check_k3(label: str, b: int, w: int, h: int, length: int, d: int, pos,
         "library_ms": None, "library_device_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+
+
+def launch_floor_ms() -> float | None:
+    """The card's time for a one-element in-place fill, timed as the
+    kernels are (`_device_ms`): the least a launch costs on this card."""
+    x = torch.zeros(1, device="cuda")
+    return _device_ms(lambda: x.fill_(1.0), iters=50)
+
+
+def profile_engine_step(card: str) -> dict:
+    """One engine decode step at the engine benchmark's shape (the LM's
+    full width, int8 cache, 4 slots of 512, pages of 16; random weights)
+    with 4 requests of 256 prompt tokens prefilled: its wall time and the
+    card's time by operator from torch.profiler over 5 steps. Returns K3's
+    and `aten::index`'s (the page gathers') device ms and calls a step,
+    and the step's device total."""
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                          max_seq_len=512, generator=torch.Generator().manual_seed(1))
+    engine = SlotEngine(model, dec.lm_params(model, "cuda"), slots=4, max_len=512,
+                        prefill_chunk=64, page_size=K3_PAGE_SIZE, cache_int8=True,
+                        prefix_cache=False)
+    rng = np.random.default_rng(0)
+    for slot in range(engine.slots):
+        tokens = rng.integers(0, 32768, 256).astype(np.int32)
+        engine.join(slot, Request(rid=slot, prompt_len=256, max_new_tokens=64, tokens=tokens))
+    while not engine.active.all():
+        engine.step()
+
+    def step():
+        return engine._decode(engine.model, engine.params, engine.pool, engine.last,
+                              engine.pos, engine.active.copy())
+
+    step()
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - start) / 20 * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    by_op = {e.key: (e.self_device_time_total / 5e3, e.count // 5) for e in ops}
+    device_ms = sum(ms for ms, _ in by_op.values()) if ops else None
+    k3_ms, k3_calls = by_op.get("tk8s::decode_attn_int8", (0.0, 0))
+    gather_ms, gather_calls = by_op.get("aten::index", (0.0, 0))
+    result = {"wall_ms": wall_ms, "device_ms": device_ms, "k3_device_ms": k3_ms,
+              "k3_calls": k3_calls, "gather_device_ms": gather_ms, "gather_calls": gather_calls,
+              "pos": int(engine.pos.max())}
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+    print("engine step: " + json.dumps(result, sort_keys=True), flush=True)
+    print(f"engine decode step, 4 slots at pos {result['pos']}, int8 cache: wall {wall_ms:.3f} ms, "
+          f"card busy {'not measured' if device_ms is None else f'{device_ms:.4f} ms'}; K3 "
+          f"{k3_calls} calls {k3_ms:.4f} device ms, page gathers (aten::index) {gather_calls} "
+          f"calls {gather_ms:.4f} device ms a step; by operator: " + ", ".join(
+              f"{e.key} {e.self_device_time_total / 5e3:.4f} ms ({e.count // 5})" for e in top)
+          + f" on {card}", flush=True)
+    if device_ms is not None and k3_calls != model.num_layers:
+        raise AssertionError(f"engine step: K3 ran {k3_calls} times, not once a layer")
+    return result
 
 
 def _decode_logits(model, params, prompt, tokens) -> torch.Tensor:
@@ -994,33 +1097,51 @@ def main() -> int:
           f"on {card}", flush=True)
 
     _join_build(K3_SOURCE, builds[K3_SOURCE], started)
+    floor_ms = launch_floor_ms()
+    engine_pos = [300, 511, 17, -1]  # an inactive slot reads all L through trash pages
+    verify_pos = [[p + i for i in range(5)] for p in (300, 507, 17, 0)]
     k3_rows = [
         check_k3("generate, pos 639", 8, 1, 12, 640, 64, 639),
         check_k3("generate, pos 127", 8, 1, 12, 640, 64, 127, seed=1),
         check_k3("generate, pos 0", 8, 1, 12, 640, 64, 0, seed=2),
-        check_k3("engine decode, per-slot pos", 4, 1, 12, 512, 64, [300, 511, 17, -1], seed=3),
-        check_k3("engine verify, 5-query window", 4, 5, 12, 512, 64,
-                 [[p + i for i in range(5)] for p in (300, 507, 17, 0)], seed=4),
+        check_k3("engine decode, per-slot pos", 4, 1, 12, 512, 64, engine_pos, seed=3),
+        check_k3("engine verify, 5-query window", 4, 5, 12, 512, 64, verify_pos, seed=4),
         check_k3("drafter, head_dim 16", 4, 1, 2, 512, 16, [300, 511, 17, 200], seed=5),
         check_k3("head_dim 128", 8, 1, 8, 640, 128, 639, seed=6),
         check_k3("head-major bhld", 8, 1, 12, 640, 64, 639, layout="bhld", seed=7),
         check_k3("f32 q", 8, 1, 12, 640, 64, 639, dtype=torch.float32, seed=8),
+        # the engine's own calls: its pool read through the page tables
+        check_k3("paged engine decode, per-slot pos", 4, 1, 12, 512, 64, engine_pos,
+                 layout="paged", seed=9),
+        check_k3("paged engine verify, 5-query window", 4, 5, 12, 512, 64, verify_pos,
+                 layout="paged", seed=10),
+        check_k3("paged drafter, head_dim 16", 4, 1, 2, 512, 16, [300, 511, 17, 200],
+                 layout="paged", seed=11),
+        # past the first design's 227 KB of scores in shared memory
+        check_k3("one query over 65,536 positions", 1, 1, 12, 65536, 64, 65535, seed=12),
     ]
     for row in k3_rows:
         device = {k: "not measured" if row[k] is None else f"{row[k]:.4f}"
                   for k in ("device_ms", "plain_device_ms")}
+        floor = (f", one launch's floor {floor_ms:.4f} ms" if row is k3_rows[2]
+                 and floor_ms is not None else "")
         print(f"K3 {row['label']} {row['shape']} {row['layout']} {row['dtype']}: kernel "
               f"{row['ms']:.4f} ms (device {device['device_ms']}), plain {row['plain_ms']:.4f} "
               f"ms (device {device['plain_device_ms']}), no library call, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max |err| "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}){floor}, max |err| "
               f"{row['max_abs_err']:.2e} (f32 q {row['max_abs_err_f32_q']:.2e}) on {card}",
               flush=True)
+    print(f"one launch's floor (a one-element fill, device time): "
+          f"{'not measured' if floor_ms is None else f'{floor_ms:.4f} ms'}, beside K1 "
+          f"(256, 1000) f32 {k1_main['device_ms']} and K3 at pos 0 {k3_rows[2]['device_ms']} "
+          f"device ms on {card}", flush=True)
 
     check_decode_parity()
     check_engine_parity()
     k3_step = profile_decode(card)
     decode_launches = run_decode(card, k3_step)
     engine_launches = run_engine(card)
+    engine_step = profile_engine_step(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -1035,6 +1156,7 @@ def main() -> int:
                                  "resnet50_fused_1x1_bwd": fused["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
+            "launch_floor_ms": floor_ms,
             **k1_other[1],
             "library_ratio": _library_ratio(k1_other[1]),
             "other_shapes": [k1_main, k1_other[0]],
@@ -1108,13 +1230,24 @@ def main() -> int:
             "library_none_reason": "no PyTorch call computes attention over an int8 cache "
                                    "with per-token scales",
             "library_ratio": None,
-            "design": "first design: one CTA of 256 threads per (b, h) holding the "
-                      "window's queries; scores, f32 softmax and values over 16-byte int8 rows, "
-                      "reads stop at pos + 1; fixed-order reductions",
+            "design": "split-K over fixed 64-position chunks (flash-decoding): one CTA of "
+                      "128 threads per (b, h, chunk), chunks past the row's last position exit; "
+                      "all of a chunk's K/V rows and scales in flight at once (16- and 4-byte "
+                      "cp.async, the paged layout through the page table, one copy a row); "
+                      "scores, chunk softmax and values from shared memory in f32, int8 to f32 "
+                      "by byte permute; per-chunk (m, l, o) partials, combined in chunk order "
+                      "by the row's last CTA (an acquire-release counter), or written directly "
+                      "when the row has one chunk; a query's bits depend only on its own pos",
+            "first_design": "one CTA of 256 threads per (b, h) holding the window's queries; "
+                            "scores, f32 softmax and values over 16-byte int8 rows, reads stop "
+                            "at pos + 1; fixed-order reductions",
+            "launch_floor_ms": floor_ms,
             # the last position of the dense decode benchmark
             **k3_rows[0],
             # K3's profiled device time in one dense decode step at pos 383
             "decode_step": k3_step,
+            # K3 and the page gathers in one engine decode step (torch.profiler)
+            "engine_step": engine_step,
             "other_shapes": k3_rows[1:],
         },
     ]
@@ -1130,4 +1263,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--engine-step"]:  # that phase alone, e.g. on another tree's package
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        profile_engine_step(_card_line())
+        sys.exit(0)
     sys.exit(main())

@@ -123,16 +123,22 @@ def test_shapes_that_do_not_fit_raise():
 def test_the_op_gives_the_output_shape_on_fake_tensors(dtype):
     """K3's op `tk8s::decode_attn_int8` traced without a card: its fake
     implementation returns q's shape and dtype, with a tensor pos or a
-    scalar one."""
+    scalar one, on a dense cache and on a paged pool with page tables."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
         q = torch.empty(2, 3, 4, 64, dtype=dtype)
         k8 = torch.empty(2, 100, 4, 64, dtype=torch.int8)
         scale = torch.empty(2, 100, 4)
+        pool = torch.empty(9, 16, 4, 64, dtype=torch.int8)
+        pool_scale = torch.empty(9, 16, 4)
+        tables = torch.empty(2, 4, dtype=torch.int32)
         pos = torch.empty(2, 3, dtype=torch.int32)
         for args in ((pos, 0), (None, 7)):
             out = torch.ops.tk8s.decode_attn_int8(q, k8, scale, k8, scale, *args, "blhd")
+            assert out.shape == q.shape and out.dtype == dtype
+            out = torch.ops.tk8s.decode_attn_int8(q, pool, pool_scale, pool, pool_scale, *args,
+                                                  "paged", tables)
             assert out.shape == q.shape and out.dtype == dtype
 
 

@@ -544,19 +544,23 @@ def test_resnet_step_on_card_launches_k4_per_stride1_1x1_conv():
 K3_REL = {torch.float32: 2e-5, torch.float16: 2**-10, torch.bfloat16: 2**-7}
 
 
-def _k3_check(q, k8, ks, v8, vs, pos, layout):
+def _k3_check(q, k8, ks, v8, vs, pos, layout, tables=None):
     """K3 against its plain version with q in its dtype and in f32."""
     from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
 
     for q_check in (q, q.float()):
-        out = da.decode_attention_int8(q_check, k8, ks, v8, vs, pos, layout=layout)
-        ref = da.decode_attention_int8_plain(q_check, k8, ks, v8, vs, pos, layout=layout).float()
+        out = da.decode_attention_int8(q_check, k8, ks, v8, vs, pos, layout=layout,
+                                       tables=tables)
+        ref = da.decode_attention_int8_plain(q_check, k8, ks, v8, vs, pos, layout=layout,
+                                             tables=tables).float()
         assert torch.isfinite(out).all()
         rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
         assert rel <= K3_REL[q_check.dtype], (q_check.dtype, rel)
 
 K3_CASES = [
-    # (B, W, H, L, D, q dtype, layout, pos: int, "rows" (B,) or "window" (B, W))
+    # (B, W, H, L, D, q dtype, layout, pos: int, a list (per row, or per row
+    # and query), "rows" (B,) or "window" (B, W)); "paged" is a pool of
+    # 16-position pages read through shuffled page tables
     pytest.param(8, 1, 12, 640, 64, torch.bfloat16, "blhd", 639, id="lm-blhd-last"),
     pytest.param(8, 1, 12, 640, 64, torch.bfloat16, "blhd", 127, id="lm-blhd-prompt"),
     pytest.param(2, 1, 3, 1000, 64, torch.float32, "bhld", 0, id="ragged-pos0"),
@@ -570,15 +574,50 @@ K3_CASES = [
     pytest.param(2, 3, 4, 100, 128, torch.float16, "blhd", "window", id="d128-window3-fp16"),
     pytest.param(2, 9, 2, 64, 32, torch.float32, "blhd", "window", id="window9-d32"),
     pytest.param(1, 1, 1, 1, 16, torch.float32, "bhld", 0, id="one-position"),
+    # the engine's shapes on its pool: decode with per-slot positions (an
+    # inactive slot at -1), the 5-query verify window, the drafter
+    pytest.param(4, 1, 12, 512, 64, torch.bfloat16, "paged", [300, 511, 17, -1],
+                 id="paged-engine-decode"),
+    pytest.param(4, 5, 12, 512, 64, torch.bfloat16, "paged",
+                 [[p + i for i in range(5)] for p in (300, 507, 17, 0)], id="paged-verify5"),
+    pytest.param(4, 1, 2, 512, 16, torch.bfloat16, "paged", [300, 511, 17, 200],
+                 id="paged-drafter-d16"),
+    pytest.param(3, 5, 4, 256, 128, torch.float32, "paged", "window", id="paged-window5-d128"),
+    # past the old limit of 227 KB of scores (one query over 65,536)
+    pytest.param(1, 1, 2, 65536, 64, torch.float32, "blhd", 65535, id="long-65536"),
+    pytest.param(1, 1, 2, 65536, 64, torch.bfloat16, "paged", [40000], id="long-65536-paged"),
+    # positions at the chunk edges, one row each and as a window
+    pytest.param(5, 1, 3, 256, 64, torch.bfloat16, "blhd", [63, 64, 65, 127, 128],
+                 id="chunk-edges"),
+    pytest.param(2, 5, 3, 256, 64, torch.float32, "paged",
+                 [[61 + i for i in range(5)], [124 + i for i in range(5)]],
+                 id="chunk-edges-window-paged"),
+    pytest.param(2, 12, 2, 300, 256, torch.float16, "blhd", "window", id="window12-d256"),
 ]
+PAGE_SIZE = 16
 
 
 def _k3_inputs(b, w, h, length, d, dtype, layout, pos, seed=0):
+    """q, the cache (dense, or a pool of PAGE_SIZE-position pages with B *
+    L / PAGE_SIZE + 1 pages: shuffled tables, one page shared by two rows,
+    the last table column on the last page), pos and the tables (None when
+    dense)."""
     from tritonk8ssupervisor_tpu_torch.models.decode import _quant_kv
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cache_shape = (b, h, length, d) if layout == "bhld" else (b, length, h, d)
     q = torch.randn(b, w, h, d, generator=gen, device="cuda").to(dtype)
+    tables = None
+    if layout == "paged":
+        n_pages = length // PAGE_SIZE
+        pages = b * n_pages + 1
+        cache_shape = (pages, PAGE_SIZE, h, d)
+        tables = torch.randperm(pages - 1, generator=gen, device="cuda")[: b * n_pages]
+        tables = tables.view(b, n_pages).to(torch.int32)
+        if b > 1 and n_pages > 1:
+            tables[1, 0] = tables[0, 1]
+        tables[:, -1] = pages - 1
+    else:
+        cache_shape = (b, h, length, d) if layout == "bhld" else (b, length, h, d)
     k8, ks = _quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
     v8, vs = _quant_kv(torch.randn(cache_shape, generator=gen, device="cuda"))
     if pos == "rows":
@@ -587,7 +626,9 @@ def _k3_inputs(b, w, h, length, d, dtype, layout, pos, seed=0):
     elif pos == "window":
         start = torch.randint(0, length - w, (b, 1), generator=gen, device="cuda")
         pos = (start + torch.arange(w, device="cuda")).to(torch.int32)
-    return (q if w > 1 else q[:, 0]), k8, ks, v8, vs, pos
+    elif isinstance(pos, list):
+        pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return (q if w > 1 else q[:, 0]), k8, ks, v8, vs, pos, tables
 
 
 @pytest.mark.cuda
@@ -596,20 +637,20 @@ def test_k3_matches_plain_version(b, w, h, length, d, dtype, layout, pos):
     _card()
     from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
 
-    q, k8, ks, v8, vs, pos = _k3_inputs(b, w, h, length, d, dtype, layout, pos)
+    q, k8, ks, v8, vs, pos, tables = _k3_inputs(b, w, h, length, d, dtype, layout, pos)
     before = da.decode_attention_kernel.launches
-    out = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout=layout)
+    out = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout=layout, tables=tables)
     torch.cuda.synchronize()
     assert da.decode_attention_kernel.launches == before + 1
     assert out.shape == q.shape and out.dtype == dtype
-    _k3_check(q, k8, ks, v8, vs, pos, layout)
+    _k3_check(q, k8, ks, v8, vs, pos, layout, tables)
 
 
 @pytest.mark.cuda
 def test_k3_reads_the_gathered_pages_and_strided_queries():
     """The engine's shapes: q a view of the (S, W, 3E) projection, the cache
     gathered from pages through a page table into (S, L, H, D), per-query
-    positions."""
+    positions; then the same pool read through the table in place."""
     _card()
     from tritonk8ssupervisor_tpu_torch.models.decode import _quant_kv
 
@@ -627,16 +668,47 @@ def test_k3_reads_the_gathered_pages_and_strided_queries():
     pos = (torch.tensor([[3], [100], [255], [500]], device="cuda")
            + torch.arange(w, device="cuda")).to(torch.int32)
     _k3_check(q, k8, ks, v8, vs, pos, "blhd")
+    _k3_check(q, pool_k, pool_ks, pool_v, pool_vs, pos, "paged", tables.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_k3_query_is_bit_equal_alone_in_a_window_and_paged(d):
+    """A query's output depends only on its own pos and the cache: bit-equal
+    alone (W = 1) and inside a 5-query window, and bit-equal on the paged
+    pool and on its gathered view (the engine's spec = spec_base token
+    identity leans on it)."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
+
+    window = [[p + i for i in range(5)] for p in (60, 507, 0, 126)]
+    q, k8, ks, v8, vs, pos, tables = _k3_inputs(4, 5, 6, 512, d, torch.bfloat16, "paged",
+                                                window, seed=d)
+    paged = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout="paged", tables=tables)
+    view = [da.gather_pages(t, tables) for t in (k8, ks, v8, vs)]
+    assert torch.equal(paged, da.decode_attention_int8(q, *view, pos, layout="blhd"))
+    for i in range(5):
+        alone = da.decode_attention_int8(q[:, i], k8, ks, v8, vs, pos[:, i].contiguous(),
+                                         layout="paged", tables=tables)
+        assert torch.equal(alone, paged[:, i]), i
+    # a Python-int pos (generate's) gives the bits of the same pos as a tensor
+    row = da.decode_attention_int8(q[:1, 0], *(t[:1] for t in view), 130, layout="blhd")
+    same = da.decode_attention_int8(q[:1, 0], *(t[:1] for t in view),
+                                    torch.tensor([130], dtype=torch.int32, device="cuda"),
+                                    layout="blhd")
+    assert torch.equal(row, same)
 
 
 @pytest.mark.cuda
 def test_k3_is_deterministic():
-    """Every sum runs in a fixed order: two calls are bit-equal."""
+    """Every sum runs in a fixed order: two calls are bit-equal, here over
+    64 chunks of positions a row."""
     _card()
     from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
 
-    q, k8, ks, v8, vs, pos = _k3_inputs(8, 5, 12, 640, 64, torch.float32, "blhd", "window",
-                                       seed=4)
+    window = [[4000 + 7 * r + i for i in range(5)] for r in range(8)]
+    q, k8, ks, v8, vs, pos, _ = _k3_inputs(8, 5, 12, 4096, 64, torch.float32, "blhd", window,
+                                           seed=4)
     first = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout="blhd")
     second = da.decode_attention_int8(q, k8, ks, v8, vs, pos, layout="blhd")
     assert torch.equal(first, second)
@@ -647,7 +719,7 @@ def test_k3_raises_on_what_it_does_not_take():
     _card()
     from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
 
-    q, k8, ks, v8, vs, pos = _k3_inputs(2, 1, 2, 64, 64, torch.bfloat16, "blhd", "rows")
+    q, k8, ks, v8, vs, pos, _ = _k3_inputs(2, 1, 2, 64, 64, torch.bfloat16, "blhd", "rows")
     call = da.decode_attention_int8
     with pytest.raises(TypeError, match="int8"):
         call(q, k8.float(), ks, v8, vs, pos, layout="blhd")
@@ -662,7 +734,7 @@ def test_k3_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         call(q.cpu(), k8, ks, v8, vs, 3, layout="blhd")
     with pytest.raises(ValueError, match="multiple of 16"):
-        q24, k24, ks24, v24, vs24, _ = _k3_inputs(2, 1, 2, 64, 24, torch.bfloat16, "blhd", 3)
+        q24, k24, ks24, v24, vs24, _, _ = _k3_inputs(2, 1, 2, 64, 24, torch.bfloat16, "blhd", 3)
         call(q24, k24, ks24, v24, vs24, 3, layout="blhd")
     with pytest.raises(ValueError, match="aligned"):
         buf = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.int8, device="cuda")
@@ -670,13 +742,20 @@ def test_k3_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="unit stride"):
         call(q, k8.transpose(-1, -2).contiguous().transpose(-1, -2), ks, v8, vs, 3,
              layout="blhd")
-    with pytest.raises(ValueError, match="shared"):
-        qw, kw, ksw, vw, vsw, _ = _k3_inputs(1, 8, 1, 8192, 16, torch.float32, "bhld", 3)
-        call(qw, kw, ksw, vw, vsw, 3, layout="bhld")
     with pytest.raises(ValueError, match="layout"):
         call(q, k8, ks, v8, vs, 3, layout="hbld")
     with pytest.raises(ValueError, match="pos of shape"):
         call(q, k8, ks, v8, vs, pos[:1], layout="blhd")
+    # the paged layout: int32 tables on the card, 16-byte aligned pool rows
+    qp, pk, pks, pv, pvs, ppos, tables = _k3_inputs(2, 1, 2, 64, 64, torch.bfloat16, "paged",
+                                                    [5, 63])
+    with pytest.raises(TypeError, match="int32"):
+        call(qp, pk, pks, pv, pvs, ppos, layout="paged", tables=tables.long())
+    with pytest.raises(ValueError, match="CUDA"):
+        call(qp, pk, pks, pv, pvs, ppos, layout="paged", tables=tables.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(pk.numel() + 8, dtype=torch.int8, device="cuda")
+        call(qp, buf[8:].view(pk.shape), pks, pv, pvs, ppos, layout="paged", tables=tables)
 
 
 @pytest.mark.cuda

@@ -32,10 +32,12 @@ the device that holds the parameters; the host state (`tables`, `pos`,
 and offset indices computed from it on the host. The page gathers and
 scatters are torch index operations. Every int8-cache attention of a
 decode, drafter or verify step goes through
-`ops/decode_attention.decode_attention_int8` on the gathered (S, L, H, D)
-view with per-slot (decode) or per-query (verify) positions: kernel K3 on
-the card. The bf16 cache and the prefill chunk stay plain torch in the
-reference's order.
+`ops/decode_attention.decode_attention_int8` with `layout="paged"`: the
+pool and the slots' page tables (cut to `max_pages` columns, int32) with
+per-slot (decode) or per-query (verify) positions, so kernel K3 reads the
+pages on the card and nothing gathers the int8 pool. The bf16 cache and
+the prefill chunk gather each slot's logical view and stay plain torch in
+the reference's order.
 
 Positions past `max_seq_len` (only over-budget speculative candidates,
 whose emissions the host truncates, reach them) read the last position
@@ -563,6 +565,12 @@ def _gather(layer, page, off):
     return {name: t[page, off] for name, t in layer.items()}
 
 
+def _attend_int8(q, layer, tables, reach):
+    """K3 over the int8 pool, read through the slots' page tables."""
+    return decode_attention_int8(q, layer["k"], layer["k_scale"], layer["v"], layer["v_scale"],
+                                 reach, layout="paged", tables=tables)
+
+
 @torch.no_grad()
 def _prefill_chunk_paged(model, params, pool, tokens, table, start, last_row, chunk,
                          page_size, max_pages, int8):
@@ -622,21 +630,28 @@ def _decode_step_paged(model, params, pool, tables, last, pos, active, page_size
     """One decode token for every slot at once, with per-slot positions and
     page tables: slot s embeds its last token at pos[s], scatters K/V into
     page tables[s, pos[s] // page_size] (the trash page when inactive),
-    gathers its logical view, and attends [0, pos[s]]. Returns (greedy
-    next tokens (S,) int32, logits (S, vocab)) on the device; the caller
-    advances pos where active."""
+    and attends [0, pos[s]] of its logical view: K3 reads the int8 pool
+    through the tables, the bf16 cache's attention gathers the view.
+    Inactive slots (pos -1 or a stale pos) read their trash-page entries.
+    Returns (greedy next tokens (S,) int32, logits (S, vocab)) on the
+    device; the caller advances pos where active."""
     device = params["pos_embed"].device
     slots = last.shape[0]
     length = max_pages * page_size
     logical = np.arange(length)
     own = tables[np.arange(slots), np.minimum(pos // page_size, max_pages)]
-    # K3 reads the positions; the bf16 cache's attention a dense mask
-    tok, emb_pos, reach, g_page, g_off, w_page, w_off = _ship(
-        device, last.astype(np.int64), _positions(model, pos),
-        pos.astype(np.int32) if int8 else logical[None, :] <= pos[:, None],
-        tables[:, logical // page_size], logical % page_size, np.where(active, own, trash),
+    tok, emb_pos, w_page, w_off = _ship(
+        device, last.astype(np.int64), _positions(model, pos), np.where(active, own, trash),
         np.where(active, pos % page_size, 0),
     )
+    # K3 reads the positions and the tables; the bf16 cache's attention a
+    # dense mask and the gather indices
+    if int8:
+        reach, table = _ship(device, pos.astype(np.int32),
+                             tables[:, :max_pages].astype(np.int32))
+    else:
+        reach, g_page, g_off = _ship(device, logical[None, :] <= pos[:, None],
+                                     tables[:, logical // page_size], logical % page_size)
     x = (params["tok_embed"]["weight"][tok][:, None].to(model.dtype)
          + params["pos_embed"][emb_pos][:, None].to(model.dtype))
     for i in range(model.num_layers):
@@ -645,11 +660,10 @@ def _decode_step_paged(model, params, pool, tables, last, pos, active, page_size
         q, k, v = _qkv(bp, x, model)  # (S, 1, H, D)
         layer = pool[name]
         _write(layer, w_page, w_off, k[:, 0], v[:, 0], int8)
-        view = _gather(layer, g_page, g_off[None])  # (S, L, H, D), (S, L, H)
         if int8:
-            attn = decode_attention_int8(q[:, 0], view["k"], view["k_scale"], view["v"],
-                                         view["v_scale"], reach, layout="blhd")
+            attn = _attend_int8(q[:, 0], layer, table, reach)
         else:
+            view = _gather(layer, g_page, g_off[None])  # (S, L, H, D)
             attn = dec.attend_bf16_cache(q, view["k"], view["v"], reach[:, None, None, :],
                                          model.dtype)
         x = _layer_mlp(bp, x, attn, model)
@@ -662,25 +676,31 @@ def _verify_window_paged(model, params, pool, tables, window, pos, active, page_
                          max_pages, trash, int8):
     """Score a window for every slot in one forward: slot s's window holds
     [last, d_1, .., d_{W-1}] at positions [pos[s], pos[s] + W); K/V
-    scatters into the slot's pages at those positions, attention gathers
-    the slot's view back through the table, and query i attends
-    [0, pos[s] + i]. Like the decode step, the window's own K/V is read
-    back from the pool (bf16-rounded or int8-quantised), which is what W
-    consecutive decode steps would have attended. Inactive rows park on
-    the trash page; positions past the table's end clamp onto the
-    sentinel column. Returns logits (S, W, vocab)."""
+    scatters into the slot's pages at those positions, attention reads the
+    slot's view back through the table (K3 on the int8 pool, a gather for
+    the bf16 cache), and query i attends [0, pos[s] + i]. Like the decode
+    step, the window's own K/V is read back from the pool (bf16-rounded or
+    int8-quantised), which is what W consecutive decode steps would have
+    attended. Inactive rows park on the trash page; writes past the
+    table's end clamp onto the sentinel column, and a query past it
+    attends all L positions, as it did on the gathered view of length L.
+    Returns logits (S, W, vocab)."""
     device = params["pos_embed"].device
     slots, win = window.shape
     length = max_pages * page_size
     logical = np.arange(length)
     pos_idx = pos[:, None] + np.arange(win)[None, :]  # (S, W)
     own = np.take_along_axis(tables, np.minimum(pos_idx // page_size, max_pages), axis=1)
-    tok, emb_pos, reach, g_page, g_off, w_page, w_off = _ship(
+    tok, emb_pos, w_page, w_off = _ship(
         device, window.astype(np.int64), _positions(model, pos_idx),
-        pos_idx.astype(np.int32) if int8 else logical[None, None, :] <= pos_idx[:, :, None],
-        tables[:, logical // page_size], logical % page_size,
         np.where(active[:, None], own, trash), np.where(active[:, None], pos_idx % page_size, 0),
     )
+    if int8:
+        reach, table = _ship(device, pos_idx.astype(np.int32),
+                             tables[:, :max_pages].astype(np.int32))
+    else:
+        reach, g_page, g_off = _ship(device, logical[None, None, :] <= pos_idx[:, :, None],
+                                     tables[:, logical // page_size], logical % page_size)
     x = (params["tok_embed"]["weight"][tok].to(model.dtype)
          + params["pos_embed"][emb_pos].to(model.dtype))  # (S, W, E)
     for i in range(model.num_layers):
@@ -689,11 +709,10 @@ def _verify_window_paged(model, params, pool, tables, window, pos, active, page_
         q, k, v = _qkv(bp, x, model)  # (S, W, H, D)
         layer = pool[name]
         _write(layer, w_page, w_off, k, v, int8)
-        view = _gather(layer, g_page, g_off[None])
         if int8:
-            attn = decode_attention_int8(q, view["k"], view["k_scale"], view["v"],
-                                         view["v_scale"], reach, layout="blhd")
+            attn = _attend_int8(q, layer, table, reach)
         else:
+            view = _gather(layer, g_page, g_off[None])
             attn = dec.attend_bf16_cache(q, view["k"], view["v"], reach[:, None], model.dtype)
         x = _layer_mlp(bp, x, attn, model)
     return dec._head(params, x, model)  # (S, W, vocab)

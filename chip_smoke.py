@@ -84,7 +84,34 @@ which raises on failure (exit code not 0, no result line):
    requests of 256 prompt tokens) profiled with torch.profiler: K3's and
    the page gathers' (`aten::index`) device ms and calls a step. With
    `--engine-step` this phase runs alone, on the package beside the
-   script.
+   script;
+16. (after 5) two bf16 steps of a small MoE LM (2 layers, 2 heads of 64,
+   seq 128, vocab 512, its second block 4 experts, k = 2, capacity factor
+   0.5) on the card (K1, K2) against the CPU (the plain versions), with
+   the top-k choices the capacity dropped counted and printed; then two
+   bf16 steps of a small ViT (2 layers, 2 heads of 64, 32x32 images,
+   patch 8, 10 classes) the same way, with dense attention and with
+   `flash_attention`;
+17. (in 4) K2 at ViT-S/16's attention, (256, 197, 6, 64) bf16
+   non-causal: forward and backward against the plain version, timed
+   beside the plain version and SDPA, with its bound;
+18. (after 7) the ViT main path: the image benchmark with
+   model_name="vit" at ViT-S/16's configuration (batch 256, 224x224, 1000
+   classes, dense attention as in the reference: 1 K1 launch a step, no
+   K2), then the same step with `flash_attention` (12 K2 forward and 12
+   backward launches a step, 0 copies of the qkv views), its step beside
+   the dense one's and the first step's loss of both;
+19. the MoE LM main path: the LM benchmark at its published widths with
+   every second block a mixture of 8 experts (k = 2, capacity factor
+   1.25): K1 once a step, K2 12 + 12 a step, the router loss of the last
+   step;
+20. checkpoint and resume: a small MoE LM through the LM benchmark, 6
+   steps straight against 3 with `checkpoint_dir` and 3 more in a fresh
+   process that restores them (parameters and momentum bit-equal), then
+   a torn step 6 that a restore must skip for step 3; restore_seconds;
+21. (last) where a ViT-S/16 step and a MoE LM step go on the card
+   (torch.profiler, by operator; for the MoE LM, the expert products'
+   and the dispatch and combine products' shares).
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -97,8 +124,10 @@ from __future__ import annotations
 
 import json
 import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -110,9 +139,11 @@ import numpy as np
 from tritonk8ssupervisor_tpu_torch.benchmarks import decode as decode_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
-from tritonk8ssupervisor_tpu_torch.models import ResNet18, TransformerLM
+from tritonk8ssupervisor_tpu_torch.models import ResNet18, TransformerLM, ViT
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
+from tritonk8ssupervisor_tpu_torch.models import moe
 from tritonk8ssupervisor_tpu_torch.models.resnet import BottleneckBlock, ResNet
+from tritonk8ssupervisor_tpu_torch.models.transformer import dense_attention
 from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
 from tritonk8ssupervisor_tpu_torch.ops import conv_backward_cuda
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce
@@ -120,9 +151,11 @@ from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
 from tritonk8ssupervisor_tpu_torch.ops import decode_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
+from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
 from tritonk8ssupervisor_tpu_torch.parallel import train
 from tritonk8ssupervisor_tpu_torch.serving import SlotEngine
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
+from tritonk8ssupervisor_tpu_torch.utils import perf
 
 # H100 SXM data sheet: device memory rate, f32 rate outside the tensor
 # cores (K1's bound), dense bf16/fp16 tensor-core rate (K2's bound)
@@ -144,6 +177,11 @@ K2_REL_F32 = 1e-2
 # the loss of one bf16 step on the card against the CPU: bf16 activations
 # rounded at other points by cuDNN/cuBLAS/K2 and by the CPU kernels
 PARITY_LOSS_ATOL = 2e-2
+# ViT-S/16's whole first update with K2 against dense attention, as a
+# relative norm: the bf16 gradient tolerance of
+# tests/test_torch_transformer.py; dense attention rounds its scores to
+# bf16 where K2 keeps them in f32
+VIT_UPDATE_REL = 5e-2
 # K4 against its plain version (the same exact bf16 products summed in f32
 # in other orders): dX, rounded to bf16, relative to its largest
 # magnitude; dW, f32 throughout, relative to its own
@@ -1000,6 +1038,375 @@ def run_engine(card: str) -> int:
     return launched
 
 
+# Phases of the ViT, the mixture-of-experts LM and checkpointing
+MOE_PARITY_CAPACITY_FACTOR = 0.5  # low enough that choices drop
+VIT_STEPS = dict(steps=10, warmup=2, windows=2)
+MOE_LM_STEPS = dict(steps=10, warmup=2, windows=2)
+
+
+def _count_drops(model) -> list[int]:
+    """Hooks on every MoE block of `model` that append, on each forward,
+    the number of top-k choices its capacity dropped (the dispatch
+    recomputed from the block's input); returns the list they fill."""
+    drops: list[int] = []
+
+    def hook(layer, inputs, _output):
+        with torch.no_grad():
+            x = inputs[0]
+            probs = torch.softmax(x.float() @ layer.router_kernel, dim=-1)
+            capacity = moe.compute_capacity(x.shape[1], layer.num_experts, layer.k,
+                                            layer.capacity_factor)
+            dispatch = moe.top_k_dispatch(probs, layer.k, capacity)[0]
+            drops.append(int(x.shape[0] * x.shape[1] * layer.k - dispatch.sum().item()))
+
+    for module in model.modules():
+        if isinstance(module, moe.MoEMLP):
+            module.register_forward_hook(hook)
+    return drops
+
+
+def _paired_losses(label: str, make_model, batch_on, step_factory, expected: list[int]) -> None:
+    """Two bf16 steps of `make_model()` on the card (through K1 and K2)
+    and on the CPU (their plain versions), from one set of weights;
+    `expected` is K1's, K2's forward's and K2's backward's launches on the
+    card. Prints the losses and the choices the MoE blocks dropped."""
+    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
+                fa.flash_attention_backward)
+    losses, drops = {}, {}
+    for device in ("cpu", "cuda"):
+        model = make_model()
+        drops[device] = _count_drops(model)
+        state = train.create_train_state(model, train.default_optimizer(0.03), device)
+        step = step_factory(state, metrics_fn=ce.cross_entropy_loss_and_correct)
+        before = [c.launches for c in counters]
+        batch = batch_on(device)
+        losses[device] = [step(*batch)["loss"].item() for _ in range(2)]
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        if launched != (expected if device == "cuda" else [0, 0, 0]):
+            raise AssertionError(f"{label}: K1, K2 fwd, K2 bwd launched {launched} times "
+                                 f"on {device}")
+    diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    dropped = (f", top-k choices dropped by capacity a forward: card {drops['cuda']} cpu "
+               f"{drops['cpu']}" if drops["cuda"] else "")
+    print(f"parity: {label} bf16 losses over 2 steps, card {losses['cuda']} cpu "
+          f"{losses['cpu']}, max |diff| {diff:.2e} (tolerance {PARITY_LOSS_ATOL}){dropped}",
+          flush=True)
+    if not diff <= PARITY_LOSS_ATOL:
+        raise AssertionError(f"card and CPU {label} train steps disagree")
+    if drops["cuda"] and not min(drops["cuda"]) > 0:
+        raise AssertionError(f"{label}: the capacity dropped no choice")
+
+
+def check_moe_lm_parity() -> None:
+    """Two bf16 steps of a 2-layer LM (2 heads of 64, seq 128, vocab 512)
+    whose second block is a mixture of 4 experts (k = 2) at a capacity
+    factor that drops choices."""
+    tokens = torch.randint(0, 512, (4, 128), generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    _paired_losses(
+        "MoE LM",
+        lambda: TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                              max_seq_len=128, attention_fn=fa.flash_attention, moe_experts=4,
+                              moe_capacity_factor=MOE_PARITY_CAPACITY_FACTOR,
+                              generator=torch.Generator().manual_seed(0)),
+        lambda device: (tokens.to(device),), train.make_lm_train_step, [2, 4, 4])
+
+
+def check_vit_parity() -> None:
+    """Two bf16 steps of a 2-layer ViT (2 heads of 64, 32x32 images,
+    patch 8, 10 classes), with dense attention and with `flash_attention`."""
+    gen = torch.Generator().manual_seed(6)
+    images = torch.randn(16, 32, 32, 3, generator=gen)
+    labels = torch.randint(0, 10, (16,), generator=gen, dtype=torch.int32)
+    for name, attention, k2 in (("dense", dense_attention, 0), ("flash", fa.flash_attention, 4)):
+        _paired_losses(
+            f"ViT ({name} attention)",
+            lambda attention=attention: ViT(
+                num_classes=10, patch_size=8, num_layers=2, num_heads=2, embed_dim=128,
+                image_size=32, attention_fn=attention, generator=torch.Generator().manual_seed(0)),
+            lambda device: (images.to(device), labels.to(device)), train.make_train_step,
+            [2, k2, k2])
+
+
+def _counted(run):
+    """run() with K1's, K2's and K4's launch counters and K2's copies set
+    to 0 just before it: (its result, {counter: count just after})."""
+    ce.cross_entropy_forward.launches = 0
+    fa.flash_attention_forward.launches = fa.flash_attention_backward.launches = 0
+    fa.flash_attention_forward.copies = 0
+    cb.conv1x1_backward_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    result = run()
+    return result, {"k1": ce.cross_entropy_forward.launches,
+                    "k2_forward": fa.flash_attention_forward.launches,
+                    "k2_backward": fa.flash_attention_backward.launches,
+                    "k2_copies": fa.flash_attention_forward.copies,
+                    "k4": cb.conv1x1_backward_kernel.launches,
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _vit_s16(attention_fn) -> ViT:
+    return ViT(num_classes=1000, image_size=224, attention_fn=attention_fn)
+
+
+def _vit_batch():
+    """The image benchmark's synthetic batch at ViT-S/16's configuration."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn((256, 224, 224, 3), generator=gen, device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (256,), generator=gen, device="cuda", dtype=torch.int32)
+    return images, labels
+
+
+def run_vit(card: str) -> dict:
+    """The ViT main path: the image benchmark with model_name="vit" at
+    ViT-S/16's configuration (batch 256, 224x224, 1000 classes; the
+    reference's default dense attention), then the same step with
+    `flash_attention` (K2), timed by the same windows; from the same
+    weights and batch, the first update and the second step's loss of
+    both."""
+    result, counts = _counted(lambda: run_benchmark(
+        model_name="vit", batch_per_chip=256, image_size=224, num_classes=1000, **VIT_STEPS))
+    steps = result["final_step"]
+    result["peak_memory_bytes"] = counts["peak_memory_bytes"]
+    print("vit: " + json.dumps(result, sort_keys=True), flush=True)
+    if result["platform"] != "gpu" or not math.isfinite(result["final_loss"]):
+        raise AssertionError(f"ViT path: platform {result['platform']}, "
+                             f"loss {result['final_loss']}")
+    if (counts["k1"], counts["k2_forward"], counts["k2_backward"]) != (steps, 0, 0):
+        raise AssertionError(f"ViT path: {steps} steps launched {counts}")
+    mfu = result["mfu"]
+    print(f"main path: ViT-S/16 batch 256 224x224 bf16, dense attention, "
+          f"{result['images_per_sec']:.1f} img/s, step {result['step_ms']:.2f} ms "
+          f"(windows {result['step_ms_windows']}), MFU "
+          f"{'not known' if mfu is None else f'{mfu:.4f}'} ({result['flops_per_step']:.6g} "
+          f"FLOP/step, {result['flops_source']}), peak memory "
+          f"{counts['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} steps: K1 "
+          f"{counts['k1']}, K2 0, on {card}", flush=True)
+
+    images, labels = _vit_batch()
+    deltas, second = {}, {}
+    for name, attention in (("dense", dense_attention), ("flash", fa.flash_attention)):
+        state = train.create_train_state(_vit_s16(attention), train.default_optimizer(0.1))
+        step = train.make_train_step(state)
+        before = torch.cat([p.detach().flatten() for p in state.model.parameters()])
+        step(images, labels)
+        deltas[name] = torch.cat([p.detach().flatten() for p in state.model.parameters()]) - before
+        second[name] = step(images, labels)["loss"].item()
+        del state, step, before
+    # the first update is -lr (1 + momentum) times the gradient, which runs
+    # through K2's forward and backward in all 12 blocks
+    rel = ((deltas["flash"] - deltas["dense"]).norm() / deltas["dense"].norm()).item()
+    diff = abs(second["flash"] - second["dense"])
+    print(f"ViT-S/16 from one set of weights and batch, flash against dense attention: "
+          f"first update |d_flash - d_dense| / |d_dense| {rel:.2e} (tolerance {VIT_UPDATE_REL}), "
+          f"second-step loss flash {second['flash']:.6f} dense {second['dense']:.6f}, "
+          f"|diff| {diff:.2e} (tolerance {PARITY_LOSS_ATOL})", flush=True)
+    del deltas
+    if not (rel <= VIT_UPDATE_REL and diff <= PARITY_LOSS_ATOL):
+        raise AssertionError("ViT-S/16: flash and dense attention disagree")
+
+    def flash_run():
+        state = train.create_train_state(_vit_s16(fa.flash_attention),
+                                         train.default_optimizer(0.1))
+        step = train.make_train_step(state)
+        timing = perf.timed_windows(lambda: step(images, labels), **VIT_STEPS)
+        return {**timing, "steps_run": state.step}
+
+    flash, fcounts = _counted(flash_run)
+    fsteps = flash["steps_run"]
+    print(f"ViT-S/16 with flash_attention (K2, non-causal, 197 tokens): step "
+          f"{flash['step_ms']:.2f} ms (windows {flash['step_ms_windows']}) against dense "
+          f"{result['step_ms']:.2f} ms, peak memory {fcounts['peak_memory_bytes'] / 1e9:.2f} GB, "
+          f"launches in {fsteps} steps: K1 {fcounts['k1']}, K2 forward "
+          f"{fcounts['k2_forward']}, backward {fcounts['k2_backward']}, K2 input copies "
+          f"{fcounts['k2_copies']}, on {card}", flush=True)
+    layers = 12
+    if (fcounts["k1"], fcounts["k2_forward"], fcounts["k2_backward"], fcounts["k2_copies"]) != (
+            fsteps, layers * fsteps, layers * fsteps, 0):
+        raise AssertionError(f"ViT flash path: {fsteps} steps launched {fcounts}")
+    return {"k1": counts["k1"], "k2_forward": 0, "flash_k1": fcounts["k1"],
+            "flash_k2_forward": fcounts["k2_forward"],
+            "flash_k2_backward": fcounts["k2_backward"], "flash_k2_copies": fcounts["k2_copies"],
+            "step_ms": result["step_ms"], "flash_step_ms": flash["step_ms"],
+            "flops_per_step": result["flops_per_step"]}
+
+
+def run_moe_lm(card: str) -> dict:
+    """The MoE LM main path: the LM benchmark at its published widths with
+    every second block a mixture of 8 experts (k = 2, capacity factor
+    1.25)."""
+    result, counts = _counted(lambda: lm_bench.run_benchmark(
+        moe_experts=8, moe_every=2, **MOE_LM_STEPS))
+    steps, layers = result["final_step"], result["num_layers"]
+    result["peak_memory_bytes"] = counts["peak_memory_bytes"]
+    print("moe_lm: " + json.dumps(result, sort_keys=True), flush=True)
+    if result["platform"] != "gpu" or not math.isfinite(result["final_loss"]):
+        raise AssertionError(f"MoE LM path: platform {result['platform']}, "
+                             f"loss {result['final_loss']}")
+    if not (math.isfinite(result["router_loss"]) and result["router_loss"] > 0):
+        raise AssertionError(f"MoE LM path: router loss {result['router_loss']}")
+    if (counts["k1"], counts["k2_forward"], counts["k2_backward"], counts["k2_copies"]) != (
+            steps, layers * steps, layers * steps, 0):
+        raise AssertionError(f"MoE LM path: {steps} steps launched {counts}")
+    mfu = result["mfu"]
+    print(f"main path: MoE LM 12L/768/seq 1024/batch 8 bf16, 6 blocks of 8 experts (k 2, "
+          f"capacity factor 1.25), {result['tokens_per_sec']:.1f} tokens/s, step "
+          f"{result['step_ms']:.2f} ms (windows {result['step_ms_windows']}), MFU "
+          f"{'not known' if mfu is None else f'{mfu:.4f}'} ({result['flops_per_step']:.4g} "
+          f"FLOP/step, {result['flops_source']}; the MoE blocks' dispatch and combine products "
+          f"with the one-hots and the expert products at capacity, 320 slots an expert a row, "
+          f"are counted), router loss of the last step {result['router_loss']:.6f}, peak memory "
+          f"{counts['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} steps: K1 "
+          f"{counts['k1']}, K2 forward {counts['k2_forward']}, backward "
+          f"{counts['k2_backward']}, K2 input copies {counts['k2_copies']}, on {card}",
+          flush=True)
+    return {**counts, "step_ms": result["step_ms"]}
+
+
+CKPT_LM = ["--vocab-size", "512", "--num-layers", "2", "--num-heads", "2", "--embed-dim",
+           "128", "--seq-len", "128", "--batch-per-data-shard", "4", "--moe-experts", "4"]
+
+
+def _lm_kwargs(args: list[str]) -> dict:
+    parsed = lm_bench.build_parser().parse_args(args)
+    return {k: getattr(parsed, k) for k in (
+        "vocab_size", "num_layers", "num_heads", "embed_dim", "seq_len",
+        "batch_per_data_shard", "moe_experts", "steps", "warmup", "windows", "checkpoint_dir")}
+
+
+def _restored(directory: str, step: int | None = None) -> train.TrainState:
+    kw = _lm_kwargs(CKPT_LM)
+    model = TransformerLM(vocab_size=kw["vocab_size"], num_layers=kw["num_layers"],
+                          num_heads=kw["num_heads"], embed_dim=kw["embed_dim"],
+                          max_seq_len=kw["seq_len"], moe_experts=kw["moe_experts"],
+                          generator=torch.Generator().manual_seed(7))
+    state = train.create_train_state(model, train.default_optimizer())
+    return ckpt_lib.TrainCheckpointer(directory).restore(state, step)
+
+
+def check_checkpoint_resume(card: str) -> dict:
+    """A small MoE LM through the LM benchmark (K1, K2): 6 steps straight,
+    against 3 steps with `checkpoint_dir` and 3 more in a fresh process
+    that restores them. The two step-6 checkpoints must be bit-equal
+    (tolerance 0: K2's backward has no atomics and every product runs at
+    the same shapes). Then the resumed run's step 6 is torn: a restore
+    must fall back to step 3."""
+    with tempfile.TemporaryDirectory() as root:
+        straight, halves = f"{root}/straight", f"{root}/halves"
+        lm_bench.run_benchmark(**_lm_kwargs(
+            CKPT_LM + ["--steps", "2", "--warmup", "1", "--windows", "2",
+                       "--checkpoint-dir", straight]))
+        first = lm_bench.run_benchmark(**_lm_kwargs(
+            CKPT_LM + ["--steps", "1", "--warmup", "1", "--windows", "1",
+                       "--checkpoint-dir", halves]))
+        out = subprocess.run(
+            [sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.benchmarks.lm", *CKPT_LM,
+             "--steps", "1", "--warmup", "1", "--windows", "1", "--checkpoint-dir", halves,
+             "--json"], capture_output=True, text=True, timeout=300,
+            cwd=pathlib.Path(__file__).resolve().parent)
+        if out.returncode:
+            raise AssertionError(f"the resumed run failed: {out.stderr[-2000:]}")
+        second = json.loads(out.stdout.strip().splitlines()[-1])
+        if (first["final_step"], second["start_step"], second["final_step"]) != (3, 3, 6):
+            raise AssertionError(f"resume: first run ended at {first['final_step']}, the "
+                                 f"second ran {second['start_step']} -> {second['final_step']}")
+        a, b = _restored(straight), _restored(halves)
+        diffs = [(x.float() - y.float()).abs().max().item()
+                 for x, y in zip(a.model.state_dict().values(), b.model.state_dict().values())]
+        diffs += [(a.optimizer.state[p]["momentum_buffer"]
+                   - b.optimizer.state[q]["momentum_buffer"]).abs().max().item()
+                  for p, q in zip(a.model.parameters(), b.model.parameters())]
+        steps = (a.step, b.step)
+        for f in pathlib.Path(halves, "6").rglob("*"):  # torn, its marker intact
+            if f.is_file():
+                f.write_bytes(b"x")
+        fallback = _restored(halves).step
+    result = {"steps": steps, "max_abs_diff": max(diffs), "fallback_step": fallback,
+              "restore_seconds": second["restore_seconds"]}
+    print(f"checkpoint: 6 LM steps straight against 3 + save + a fresh process that restores "
+          f"and runs 3: steps {steps}, max |diff| over parameters and momentum "
+          f"{result['max_abs_diff']:.3g} (tolerance 0), restore_seconds "
+          f"{result['restore_seconds']:.4f}; the resumed run's step 6 torn: restore fell back "
+          f"to step {fallback}, on {card}", flush=True)
+    if steps != (6, 6) or result["max_abs_diff"] != 0.0 or fallback != 3:
+        raise AssertionError(f"checkpoint resume: {result}")
+    return result
+
+
+def _profile_step(step, steps: int = 2):
+    """step() run `steps` times under torch.profiler after one warm call:
+    (wall ms a step, the card's busy ms a step, the operator rows grouped
+    by input shape)."""
+    step()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
+        start = time.monotonic()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - start) / steps * 1e3
+    rows = prof.key_averages(group_by_input_shape=True)
+    busy = sum(e.self_device_time_total for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA) / steps / 1e3
+    ops = [e for e in rows if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    return wall_ms, busy, ops
+
+
+def _by_operator(ops, steps: int = 2) -> dict:
+    out: dict[str, float] = {}
+    for e in ops:
+        out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / steps / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def profile_breakdowns(card: str) -> dict:
+    """Where a ViT-S/16 step (dense attention, the benchmark's path) and a
+    MoE LM step go on the card, from torch.profiler over 2 steps; for the
+    MoE LM, the einsum products (aten::bmm: the only bmm calls of that
+    step) split by shape into the expert products (a dimension of the
+    3072-wide FFN) and the dispatch and combine products (the rest; their
+    forward and backward products have the same shapes, so they are
+    summed together). Run last: a profiler session slows later host-bound
+    paths."""
+    out = {}
+    images, labels = _vit_batch()
+    state = train.create_train_state(_vit_s16(dense_attention), train.default_optimizer(0.1))
+    step = train.make_train_step(state)
+    wall, busy, ops = _profile_step(lambda: step(images, labels))
+    out["vit"] = {"wall_ms": wall, "device_ms": busy,
+                  "by_operator": dict(list(_by_operator(ops).items())[:10])}
+    del state, step
+
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                          max_seq_len=1024, attention_fn=fa.flash_attention, moe_experts=8)
+    state = train.create_train_state(model, train.default_optimizer(0.03))
+    lm_step = train.make_lm_train_step(state)
+    tokens = torch.randint(0, 32768, (8, 1024), generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda", dtype=torch.int32)
+    wall, busy, ops = _profile_step(lambda: lm_step(tokens))
+    expert = sum(e.self_device_time_total for e in ops if e.key == "aten::bmm"
+                 and any(3072 in shape for shape in e.input_shapes)) / 2e3
+    bmm = sum(e.self_device_time_total for e in ops if e.key == "aten::bmm") / 2e3
+    out["moe_lm"] = {"wall_ms": wall, "device_ms": busy, "expert_products_ms": expert,
+                     "dispatch_and_combine_products_ms": bmm - expert,
+                     "by_operator": dict(list(_by_operator(ops).items())[:10])}
+    del state, lm_step
+    for name, r in out.items():
+        shares = (f"; expert products {r['expert_products_ms']:.3f} ms "
+                  f"({r['expert_products_ms'] / r['device_ms']:.1%}), dispatch and combine "
+                  f"products {r['dispatch_and_combine_products_ms']:.3f} ms "
+                  f"({r['dispatch_and_combine_products_ms'] / r['device_ms']:.1%})"
+                  if name == "moe_lm" else "")
+        print(f"profile: {name} step, wall {r['wall_ms']:.2f} ms, card busy "
+              f"{r['device_ms']:.3f} ms (idle {1 - r['device_ms'] / r['wall_ms']:.1%}, an upper "
+              f"bound: the profiler's own host cost){shares}; by operator: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in r["by_operator"].items()) + f" on {card}",
+              flush=True)
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -1042,7 +1449,10 @@ def main() -> int:
         check_k2(8, 1024, 12, 64, causal=True, layout="bhsd", seed=1),
         check_k2(2, 1000, 4, 64, causal=True, layout="bshd", seed=2),
         check_k2(2, 512, 4, 128, causal=False, layout="bshd", seed=3),
+        # ViT-S/16's attention: non-causal, 197 tokens, 256 x 6 heads of 64
+        check_k2(256, 197, 6, 64, causal=False, layout="bshd", seed=4),
     ]
+    k2_vit = k2_rows[4]
     for row in k2_rows:
         for part, r in (("forward", row["forward"]), ("backward", row["backward"]),
                         ("forward+backward", row["backward"]["forward_and_backward"])):
@@ -1053,8 +1463,13 @@ def main() -> int:
                   flush=True)
 
     check_lm_parity()
+    check_moe_lm_parity()
+    check_vit_parity()
     resnet = run_resnet50(card)
     lm_launches = run_lm(card)
+    vit = run_vit(card)
+    moe_lm = run_moe_lm(card)
+    ckpt = check_checkpoint_resume(card)
     for row in k2_rows:
         by_kernel = row["backward"]["device_ms_by_kernel"] = k2_backward_by_kernel(row)
         print(f"K2 backward {row['shape']} {row['layout']} causal={row['causal']}: device ms "
@@ -1142,6 +1557,7 @@ def main() -> int:
     decode_launches = run_decode(card, k3_step)
     engine_launches = run_engine(card)
     engine_step = profile_engine_step(card)
+    breakdowns = profile_breakdowns(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -1153,7 +1569,9 @@ def main() -> int:
             "replaces": "tritonk8ssupervisor_tpu/ops/cross_entropy.py:56",
             "launches": lm_launches["k1"],
             "launches_by_path": {"resnet50": resnet["k1"], "lm": lm_launches["k1"],
-                                 "resnet50_fused_1x1_bwd": fused["k1"]},
+                                 "resnet50_fused_1x1_bwd": fused["k1"], "vit": vit["k1"],
+                                 "vit_flash_attention": vit["flash_k1"],
+                                 "moe_lm": moe_lm["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
             "launch_floor_ms": floor_ms,
@@ -1177,8 +1595,11 @@ def main() -> int:
             "shape": k2_lm["shape"], "layout": k2_lm["layout"],
             **k2_lm["forward"],
             "library_ratio": _library_ratio(k2_lm["forward"]),
+            "launches_by_path": {"lm": lm_launches["k2_forward"],
+                                 "moe_lm": moe_lm["k2_forward"],
+                                 "vit_flash_attention": vit["flash_k2_forward"], "vit": 0},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["forward"]} for r in k2_rows[1:]],
+                              **r["forward"]} for r in k2_rows[1:4]],
         },
         {
             "name": "flash_attn_bwd (K2)",
@@ -1199,9 +1620,25 @@ def main() -> int:
             "shape": k2_lm["shape"], "layout": k2_lm["layout"],
             **k2_lm["backward"],
             "library_ratio": _library_ratio(k2_lm["backward"]),
+            "launches_by_path": {"lm": lm_launches["k2_backward"],
+                                 "moe_lm": moe_lm["k2_backward"],
+                                 "vit_flash_attention": vit["flash_k2_backward"], "vit": 0},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["backward"]} for r in k2_rows[1:]],
+                              **r["backward"]} for r in k2_rows[1:4]],
         },
+        *({
+            "name": f"flash_attn_{part[0]}w{part[-1]} (K2), ViT-S/16 shape",  # fwd, bwd
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:128",
+            "launches": vit[f"flash_k2_{part}"],
+            "input_copies": vit["flash_k2_copies"],
+            "path": "ViT-S/16 step with attention_fn=flash_attention (the benchmark's ViT "
+                    "runs dense attention, as the reference's)",
+            "shape": k2_vit["shape"], "layout": k2_vit["layout"], "causal": False,
+            **k2_vit[part],
+            "library_ratio": _library_ratio(k2_vit[part]),
+        } for part in ("forward", "backward")),
         {
             "name": "conv1x1_bwd (K4)",
             "route": "cuda",
@@ -1251,6 +1688,8 @@ def main() -> int:
             "other_shapes": k3_rows[1:],
         },
     ]
+    print("slice 8: " + json.dumps({"vit": vit, "moe_lm": moe_lm, "checkpoint": ckpt,
+                                    "profiles": breakdowns}, sort_keys=True), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""utils/convert.py: every flax leaf of the ResNet family maps onto the
-port's state dict, and anything it cannot map raises."""
+"""utils/convert.py: every flax leaf of the ResNet family, the LM, the
+ViT and the MoE blocks maps onto the port's state dict, and anything it
+cannot map raises."""
 
 import copy
 
@@ -169,3 +170,47 @@ def test_lm_unmapped_unfilled_and_misshapen_leaves_raise():
 
     with pytest.raises(ValueError, match="collection"):
         state_dict_from_flax({**variables, "moe_losses": {}}, model)
+
+
+def test_every_vit_and_moe_leaf_is_mapped_with_its_layout():
+    """The ViT's own leaves (cls_token, pos_embed), its HWIO patch
+    kernel, its classifier, and the five leaves of a MoE block, which the
+    port keeps under the reference's names and layouts."""
+    from tritonk8ssupervisor_tpu.models import ViT as JaxViT
+    from tritonk8ssupervisor_tpu_torch.models import ViT
+
+    config = dict(num_classes=10, patch_size=8, num_layers=2, num_heads=2, embed_dim=32,
+                  moe_experts=4)
+    shapes = jax.eval_shape(lambda: JaxViT(**config).init(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 3)), train=False))
+    rng = np.random.default_rng(2)
+    variables = {"params": jax.tree_util.tree_map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes["params"])}
+    model = ViT(**config, image_size=32)
+    state = state_dict_from_flax(variables, model)
+    assert set(state) == set(model.state_dict())
+    assert len(state) == len(jax.tree_util.tree_leaves(variables))
+    model.load_state_dict(state)
+
+    p = variables["params"]
+    np.testing.assert_array_equal(model.patch_embed.weight.detach().numpy(),
+                                  p["patch_embed"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(model.cls_token.detach().numpy(), p["cls_token"])
+    np.testing.assert_array_equal(model.pos_embed.detach().numpy(), p["pos_embed"])
+    np.testing.assert_array_equal(model.classifier.weight.detach().numpy(),
+                                  p["classifier"]["kernel"].T)
+    moe = p["Block_1"]["moe_mlp"]
+    assert sorted(moe) == ["expert_down_bias", "expert_down_kernel", "expert_up_bias",
+                           "expert_up_kernel", "router_kernel"]
+    for name, value in moe.items():
+        np.testing.assert_array_equal(getattr(model.Block_1.moe_mlp, name).detach().numpy(),
+                                      value)
+
+    missing = copy.deepcopy(variables)
+    del missing["params"]["Block_1"]["moe_mlp"]["router_kernel"]
+    with pytest.raises(ValueError, match=r"unfilled.*Block_1\.moe_mlp\.router_kernel"):
+        state_dict_from_flax(missing, model)
+    extra = copy.deepcopy(variables)
+    extra["params"]["Block_1"]["moe_mlp"]["gate_bias"] = np.zeros(4, np.float32)
+    with pytest.raises(ValueError, match="unmapped leaf params/Block_1/moe_mlp/gate_bias"):
+        state_dict_from_flax(extra, model)

@@ -47,6 +47,8 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.benchmarks.decode, "
         "tritonk8ssupervisor_tpu_torch.serving, "
         "tritonk8ssupervisor_tpu_torch.ops.decode_attention_cuda, "
+        "tritonk8ssupervisor_tpu_torch.models.moe, tritonk8ssupervisor_tpu_torch.models.vit, "
+        "tritonk8ssupervisor_tpu_torch.parallel.checkpoint, "
         "tritonk8ssupervisor_tpu_torch.utils.convert; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
@@ -64,8 +66,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         resnet50.run_benchmark(model_name="resnet18", batch_per_chip=2, image_size=32,
                                num_classes=10, steps=1, warmup=1, windows=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet50.run_benchmark(model_name="vit", batch_per_chip=2, image_size=32,
+                               num_classes=10, steps=1, warmup=1, windows=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.run_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=64,
                          seq_len=16, batch_per_data_shard=2, steps=1, warmup=1, windows=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.run_benchmark(vocab_size=64, num_layers=2, num_heads=2, embed_dim=64, seq_len=16,
+                         batch_per_data_shard=2, steps=1, warmup=1, windows=1, moe_experts=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.create_train_state(torch.nn.Linear(2, 2), train.default_optimizer())
     with pytest.raises(RuntimeError, match="no CUDA device"):

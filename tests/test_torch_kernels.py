@@ -775,3 +775,148 @@ def test_generate_on_card_launches_k3_per_layer_per_decode_forward(cache_int8):
     assert tokens.shape == (3, 7) and tokens.dtype == torch.int32
     assert int(tokens.min()) >= 0 and int(tokens.max()) < 512
     assert da.decode_attention_kernel.launches - before == (2 * 6 if cache_int8 else 0)
+
+
+# ViT-S/16 on K2: non-causal, the ragged 197 tokens (a second 128-row item
+# of 69 real rows, the masked edge path of the forward and of all three
+# backward kernels), head_dim 64, q/k/v read in place as views of the one
+# qkv projection (sequence stride 3 * H * D, k 2 * H * D bytes into a row).
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(256, 6), (2, 2)], ids=["vit-s16", "small"])
+def test_k2_at_the_vit_shape_reads_the_qkv_views_in_place(b, h):
+    _card()
+    s, d = 197, 64
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").bfloat16()
+    dout = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+
+    def run(fn):
+        x = qkv.detach().requires_grad_(True)
+        q, k, v = (t.view(b, s, h, d) for t in x.split(h * d, dim=-1))
+        out = fn(q, k, v)
+        return [out.detach(), *torch.autograd.grad(out, (q, k, v), dout)]
+
+    copies, fwd = fa.flash_attention_forward.copies, fa.flash_attention_forward.launches
+    got = run(lambda *x: fa.flash_attention(*x, causal=False))
+    torch.cuda.synchronize()
+    assert fa.flash_attention_forward.copies == copies  # 0 copies of the views
+    assert fa.flash_attention_forward.launches == fwd + 1
+    plain = run(lambda *x: fa.attention_reference_layout(*x, False, "bshd"))
+    q, k, v = (t.view(b, s, h, d).float() for t in qkv.split(h * d, dim=-1))
+    f32 = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, False, "bshd"),
+                   q, k, v, dout.float())
+    for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, plain, f32):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, p) <= K2_REL_SAME_DTYPE, (name, _rel_err(a, p))
+        assert _rel_err(a, e) <= K2_REL_F32, (name, _rel_err(a, e))
+
+
+def _paired_steps(make_model, batch, steps=2):
+    """`steps` train steps of one model through K1 and K2 and of its twin
+    (same seed) through their plain versions, both on the card: the
+    losses, and K1's, K2's and K2's copies' counts of the kernel run."""
+    from tritonk8ssupervisor_tpu_torch.models.transformer import dense_attention
+
+    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
+                fa.flash_attention_backward)
+    out = {}
+    for name, attention, metrics_fn in (
+            ("kernels", fa.flash_attention, ce.cross_entropy_loss_and_correct),
+            ("plain", dense_attention, ce.cross_entropy_loss_and_correct_reference)):
+        state = train.create_train_state(make_model(attention), train.default_optimizer(0.03))
+        if isinstance(batch, tuple):
+            step = train.make_train_step(state, metrics_fn=metrics_fn)
+        else:
+            step = train.make_lm_train_step(state, metrics_fn=metrics_fn)
+        before = [c.launches for c in counters] + [fa.flash_attention_forward.copies]
+        metrics = [step(*batch) if isinstance(batch, tuple) else step(batch)
+                   for _ in range(steps)]
+        after = [c.launches for c in counters] + [fa.flash_attention_forward.copies]
+        out[name] = ([m["loss"].item() for m in metrics], metrics[-1],
+                     [a - b for a, b in zip(after, before)])
+    return out
+
+
+@pytest.mark.cuda
+def test_moe_lm_step_through_k1_and_k2_matches_the_plain_versions():
+    """Two bf16 steps of a 2-layer LM whose second block is a mixture of 4
+    experts (k = 2, capacity factor 0.5, so choices drop), through K1 and
+    K2 against the same steps through their plain versions on the card."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+
+    def make(attention):
+        return TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                             max_seq_len=128, attention_fn=attention, moe_experts=4,
+                             moe_capacity_factor=0.5,
+                             generator=torch.Generator().manual_seed(0))
+
+    tokens = torch.randint(0, 512, (4, 128), generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).cuda()
+    runs = _paired_steps(make, tokens)
+    (k_loss, k_metrics, k_counts), (p_loss, p_metrics, p_counts) = runs["kernels"], runs["plain"]
+    assert k_counts == [2, 4, 4, 0] and p_counts == [0, 0, 0, 0]
+    torch.testing.assert_close(torch.tensor(k_loss), torch.tensor(p_loss), rtol=0, atol=2e-2)
+    assert k_metrics["router_loss"].item() > 0 and p_metrics["router_loss"].item() > 0
+
+
+@pytest.mark.cuda
+def test_vit_step_through_k1_and_k2_matches_the_plain_versions():
+    """Two bf16 steps of a 2-layer ViT (heads of 64, 17 tokens) with
+    `flash_attention`, non-causal, against dense attention and K1's plain
+    version, on the card."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models import ViT
+
+    def make(attention):
+        return ViT(num_classes=10, patch_size=8, num_layers=2, num_heads=2, embed_dim=128,
+                   image_size=32, attention_fn=attention,
+                   generator=torch.Generator().manual_seed(0))
+
+    gen = torch.Generator().manual_seed(2)
+    batch = (torch.randn(8, 32, 32, 3, generator=gen).cuda(),
+             torch.randint(0, 10, (8,), generator=gen, dtype=torch.int32).cuda())
+    runs = _paired_steps(make, batch)
+    (k_loss, _, k_counts), (p_loss, _, p_counts) = runs["kernels"], runs["plain"]
+    assert k_counts == [2, 4, 4, 0] and p_counts == [0, 0, 0, 0]
+    torch.testing.assert_close(torch.tensor(k_loss), torch.tensor(p_loss), rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_a_checkpointed_run_resumes_bit_equal_on_the_card(tmp_path):
+    """Four LM steps through K1 and K2 straight, against two, a save, a
+    restore into a fresh state and two more: K2's backward has no atomics
+    and the products run at the same shapes, so every parameter and
+    momentum buffer is bit-equal."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+    from tritonk8ssupervisor_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+    def fresh(seed):
+        model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
+                              max_seq_len=128, attention_fn=fa.flash_attention,
+                              moe_experts=4, generator=torch.Generator().manual_seed(seed))
+        return train.create_train_state(model, train.default_optimizer(0.03))
+
+    tokens = torch.randint(0, 512, (4, 128), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32).cuda()
+    straight = fresh(0)
+    step = train.make_lm_train_step(straight)
+    for _ in range(4):
+        step(tokens)
+    first = fresh(0)
+    step = train.make_lm_train_step(first)
+    for _ in range(2):
+        step(tokens)
+    TrainCheckpointer(tmp_path / "ckpt").save(first.step, first)
+    resumed = TrainCheckpointer(tmp_path / "ckpt").restore(fresh(1))
+    step = train.make_lm_train_step(resumed)
+    for _ in range(2):
+        step(tokens)
+    assert resumed.step == straight.step == 4
+    for (name, a), b in zip(resumed.model.state_dict().items(),
+                            straight.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    for p_a, p_b in zip(resumed.model.parameters(), straight.model.parameters()):
+        assert torch.equal(resumed.optimizer.state[p_a]["momentum_buffer"],
+                           straight.optimizer.state[p_b]["momentum_buffer"])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_moe import draw
 from tritonk8ssupervisor_tpu.models import TransformerLM as JaxLM
 from tritonk8ssupervisor_tpu.ops.cross_entropy import (
     cross_entropy_loss_and_correct_interpret,
@@ -95,6 +96,44 @@ def test_two_sgd_steps_match_jax():
                                    float(jmetrics["accuracy"]), rtol=0, atol=1e-7)
     assert state.step == int(jstate.step) == 2
     # f32 gradients through two layers, summed in other orders: 1e-4
+    _assert_params_match(state, jstate.params, rtol=1e-4, atol=1e-4)
+
+
+MOE = dict(moe_experts=4, moe_every=2, moe_capacity_factor=1.0)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_moe_lm_sgd_steps_match_jax(grad_accum):
+    """Two SGD steps of an LM whose second block is a mixture of 4
+    experts (capacity factor 1: some choices drop), against JAX: the
+    router losses join the objective on both sides, the reported loss is
+    the data loss, and with grad_accum=2 each half-batch adds its own
+    router losses (the reference's per-chunk average)."""
+    jmodel = JaxLM(**CONFIG, **MOE, dtype=jnp.float32, logits_dtype=jnp.float32)
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.key(0), jnp.zeros((1, SEQ), jnp.int32)))
+    variables = draw(shapes, seed=20 + grad_accum)
+    mesh = mesh_lib.make_mesh(devices=jax.devices()[:1])
+    tx = jax_train.default_optimizer(learning_rate=0.1)
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    jstate = jax_train.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                  batch_stats={}, opt_state=tx.init(params))
+    jstep = jax_train.make_lm_train_step(
+        jmodel, tx, mesh, mesh_lib.param_shardings(jstate, mesh),
+        metrics_fn=cross_entropy_loss_and_correct_interpret, grad_accum=grad_accum)
+
+    model = TransformerLM(**CONFIG, **MOE, dtype=torch.float32, logits_dtype=torch.float32)
+    model.load_state_dict(state_dict_from_flax(variables, model))
+    state = train.create_train_state(model, train.default_optimizer(0.1), device="cpu")
+    step = train.make_lm_train_step(state, metrics_fn=cross_entropy_loss_and_correct,
+                                    grad_accum=grad_accum)
+    tokens = _tokens(22)
+    for _ in range(2):
+        jstate, jmetrics = jstep(jstate, jnp.asarray(tokens))
+        metrics = step(torch.from_numpy(tokens))
+        np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]),
+                                   rtol=1e-5, atol=1e-5)
+        assert float(metrics["router_loss"]) > 0.0
     _assert_params_match(state, jstate.params, rtol=1e-4, atol=1e-4)
 
 
@@ -239,12 +278,30 @@ def test_run_benchmark_on_cpu_reports_the_reference_fields():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"sequence_parallelism": 2}, {"expert_parallelism": 2}, {"moe_experts": 4},
-    {"pipeline_parallelism": 2}, {"checkpoint_dir": "ckpt"},
+    {"sequence_parallelism": 2}, {"expert_parallelism": 2},
+    {"pipeline_parallelism": 2}, {"checkpoint_dir": "gs://bucket/ckpt"},
 ])
 def test_run_benchmark_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.run_benchmark(device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item (4b|7)"):
+        lm.run_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32, seq_len=16,
+                         batch_per_data_shard=2, steps=1, warmup=1, windows=1, device="cpu",
+                         **kwargs)
+
+
+def test_run_benchmark_trains_a_moe_lm_on_cpu():
+    result = lm.run_benchmark(
+        vocab_size=128, num_layers=2, num_heads=2, embed_dim=64, seq_len=32,
+        batch_per_data_shard=2, steps=2, warmup=1, windows=1, moe_experts=4, moe_every=2,
+        device="cpu",
+    )
+    assert result["moe_experts"] == 4 and result["final_step"] == 4
+    assert np.isfinite(result["final_loss"]) and result["router_loss"] > 0.0
+    # the expert products are counted: more FLOPs than the dense model's
+    dense = lm.run_benchmark(
+        vocab_size=128, num_layers=2, num_heads=2, embed_dim=64, seq_len=32,
+        batch_per_data_shard=2, steps=1, warmup=1, windows=1, device="cpu",
+    )
+    assert result["flops_per_step"] > dense["flops_per_step"] and "router_loss" not in dense
 
 
 def test_run_benchmark_rejects_bad_arguments():

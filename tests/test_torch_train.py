@@ -164,13 +164,26 @@ def test_run_benchmark_on_cpu_reports_the_reference_fields():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"model_name": "vit"},
     {"model_parallelism": 2},
-    {"checkpoint_dir": "ckpt"},
+    {"checkpoint_dir": "gs://bucket/ckpt"},
 ])
 def test_run_benchmark_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_benchmark(device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item (4b|7)"):
+        run_benchmark(model_name="resnet18", batch_per_chip=2, image_size=32, num_classes=10,
+                      steps=1, warmup=1, windows=1, device="cpu", **kwargs)
+
+
+def test_run_benchmark_trains_vit_on_cpu():
+    """`model_name="vit"` is ViT-S/16's family at a tiny image: the same
+    harness and fields as the ResNets; `fused_1x1_bwd` is refused, as the
+    reference refuses it, since a ViT has no 1x1 convolution."""
+    kwargs = dict(model_name="vit", batch_per_chip=2, image_size=32, num_classes=10,
+                  steps=2, warmup=1, windows=1, device="cpu")
+    result = run_benchmark(**kwargs)
+    assert result["model"] == "vit" and result["final_step"] == 4
+    assert np.isfinite(result["final_loss"]) and result["flops_per_step"] > 0
+    with pytest.raises(ValueError, match="no 1x1 convolutions"):
+        run_benchmark(fused_1x1_bwd=True, **kwargs)
 
 
 def test_run_benchmark_resnet50_fused_1x1_bwd_runs_on_cpu():

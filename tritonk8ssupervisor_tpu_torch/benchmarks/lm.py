@@ -10,9 +10,15 @@ goes through kernel K2 (ops/flash_attention.py) and the loss through K1
 (ops/cross_entropy.py). Timing is `utils/perf.timed_windows`, the same
 discipline as the ResNet-50 benchmark.
 
-Not ported yet, and raising: sequence parallelism (ring attention),
-mixture-of-experts and expert parallelism, pipeline parallelism
-(ROADMAP.md queue 1, item 4) and checkpointing (item 5).
+    python -m tritonk8ssupervisor_tpu_torch.benchmarks.lm --moe-experts 8 --json
+
+`--moe-experts E` makes every `--moe-every`-th block a mixture of E
+experts (models/moe.py, k = 2, capacity factor 1.25), whose router losses
+join the objective. `--checkpoint-dir` resumes from the directory's
+latest step and saves at every window boundary (parallel/checkpoint.py).
+
+Not ported yet, and raising: sequence, expert and pipeline parallelism
+(ROADMAP.md queue 1, item 4b).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.models import TransformerLM
 from tritonk8ssupervisor_tpu_torch.models.transformer import dense_attention
 from tritonk8ssupervisor_tpu_torch.ops.flash_attention import flash_attention
+from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
 from tritonk8ssupervisor_tpu_torch.parallel import train as train_lib
 from tritonk8ssupervisor_tpu_torch.utils import perf
 
@@ -71,14 +78,16 @@ def run_benchmark(
     `attention`: "flash" (K2 on the card; the plain version on the CPU),
     "dense" (plain torch) or "auto" ("flash" on the card, "dense" on the
     CPU, as the reference picks flash on its accelerator). One extra step
-    before the warm-up runs under the FLOP counter (utils/perf.py).
+    before the warm-up runs under the FLOP counter (utils/perf.py). A MoE
+    run also returns `router_loss`, the router losses of the last step.
+    With `checkpoint_dir`, the latest step there is restored first (its
+    time is `restore_seconds`, not start-up time), every window boundary
+    saves, and the run ends with a save.
     """
     _unported(
-        sequence_parallelism=(sequence_parallelism, 1, 4),
-        expert_parallelism=(expert_parallelism, 1, 4),
-        moe_experts=(moe_experts, 0, 4),
-        pipeline_parallelism=(pipeline_parallelism, 1, 4),
-        checkpoint_dir=(checkpoint_dir, None, 5),
+        sequence_parallelism=(sequence_parallelism, 1, "4b"),
+        expert_parallelism=(expert_parallelism, 1, "4b"),
+        pipeline_parallelism=(pipeline_parallelism, 1, "4b"),
     )
     if grad_accum < 1:
         raise ValueError(f"--grad-accum {grad_accum} must be >= 1 (1 = no accumulation)")
@@ -99,6 +108,8 @@ def run_benchmark(
         embed_dim=embed_dim,
         max_seq_len=seq_len,
         attention_fn=flash_attention if attention == "flash" else dense_attention,
+        moe_experts=moe_experts,
+        moe_every=moe_every,
         remat_blocks=remat,
         head_major=head_major,
     )
@@ -106,23 +117,31 @@ def run_benchmark(
         model, train_lib.default_optimizer(learning_rate=learning_rate), device
     )
     step = train_lib.make_lm_train_step(state, grad_accum=grad_accum)
+    ckpt, state, start_step, restore_seconds = ckpt_lib.maybe_restore(checkpoint_dir, state)
     gen = torch.Generator(device=device).manual_seed(1)
     tokens = torch.randint(0, vocab_size, (global_batch, seq_len), generator=gen,
                            device=device, dtype=torch.int32)
 
-    flops = perf.flops_per_step(lambda: step(tokens)["loss"].item())
+    last: dict = {}
+
+    def run_once() -> dict:
+        last.update(step(tokens))
+        return last
+
+    flops = perf.flops_per_step(lambda: run_once()["loss"].item())
     timing = perf.timed_windows(
-        lambda: step(tokens), steps=steps, warmup=warmup, windows=windows,
-        profile_dir=profile_dir,
+        run_once, steps=steps, warmup=warmup, windows=windows,
+        profile_dir=profile_dir, on_window=ckpt_lib.window_save_hook(ckpt, state),
     )
-    compile_seconds = timing.pop("first_fence_seconds") - init_start
+    compile_seconds = timing.pop("first_fence_seconds") - init_start - restore_seconds
+    ckpt_lib.save_and_close(ckpt, state)
 
     device_kind = torch.cuda.get_device_name(device) if on_card else device.type
     step_ms = timing["step_ms"]
     tokens_per_sec = global_batch * seq_len / (step_ms / 1000)
     flops_per_step = flops["flops_per_step"]
     return {
-        "start_step": 0,
+        "start_step": start_step,
         "final_step": state.step,
         "model": "transformer_lm",
         "platform": "gpu" if on_card else device.type,
@@ -150,6 +169,8 @@ def run_benchmark(
             if on_card else None
         ),
         "compile_seconds": compile_seconds,
+        "restore_seconds": restore_seconds,
+        **({"router_loss": last["router_loss"].item()} if moe_experts else {}),
     }
 
 
@@ -169,7 +190,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="ring attention (not ported yet)")
     parser.add_argument("--expert-parallelism", type=int, default=1,
                         help="(not ported yet)")
-    parser.add_argument("--moe-experts", type=int, default=0, help="(not ported yet)")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="make every --moe-every'th block a mixture of this many "
+                        "experts (models/moe.py); 0 = dense MLPs")
     parser.add_argument("--moe-every", type=int, default=2)
     parser.add_argument("--pipeline-parallelism", type=int, default=1,
                         help="(not ported yet)")
@@ -184,7 +207,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="auto = flash (kernel K2) on the card, dense on the CPU")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="capture a torch.profiler trace of one steady-state step into DIR")
-    parser.add_argument("--checkpoint-dir", default=None, help="(not ported yet)")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="resume from this directory's latest step; save at every "
+                        "window boundary and at the end (local paths)")
     parser.add_argument("--json", action="store_true", help="machine-readable output")
     return parser
 

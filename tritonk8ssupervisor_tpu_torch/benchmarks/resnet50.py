@@ -2,12 +2,17 @@
 `tritonk8ssupervisor_tpu/benchmarks/resnet50.py`, on one NVIDIA card.
 
     python -m tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 --json
+    python -m tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 --model vit --batch-per-chip 256 --json
 
-Data is synthetic and made on the card from a seeded generator, so the
-benchmark measures the training computation, not a host input pipeline.
-The loss and accuracy go through kernel K1 (ops/cross_entropy.py); with
-`--fused-1x1-bwd` the backward of every stride-1 1x1 convolution goes
-through kernel K4 (ops/conv_backward.py).
+Every image-classifier family shares this harness: ResNet-50, ResNet-18
+and ViT-S/16 (`--model vit`, models/vit.py). Data is synthetic and made
+on the card from a seeded generator, so the benchmark measures the
+training computation, not a host input pipeline. The loss and accuracy
+go through kernel K1 (ops/cross_entropy.py); with `--fused-1x1-bwd` the
+backward of every stride-1 1x1 convolution of a ResNet goes through
+kernel K4 (ops/conv_backward.py). With `--checkpoint-dir` the run
+resumes from the directory's latest step and saves at every window
+boundary (parallel/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -19,11 +24,13 @@ import time
 import torch
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
-from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50
+from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50, ViT
+from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
 from tritonk8ssupervisor_tpu_torch.parallel import train as train_lib
 from tritonk8ssupervisor_tpu_torch.utils import perf
 
-MODELS = {"resnet50": ResNet50, "resnet18": ResNet18}
+# "vit" is ViT-S/16 (models/vit.py), the transformer vision family
+MODELS = {"resnet50": ResNet50, "resnet18": ResNet18, "vit": ViT}
 
 
 def run_benchmark(
@@ -46,26 +53,31 @@ def run_benchmark(
     """Train on synthetic data and measure steady-state throughput.
 
     The same signature and returned fields as the reference, plus
-    `device` (the card unless told otherwise), `device_kind` and
-    `flops_source`. One extra step before the warm-up runs under the
-    FLOP counter (utils/perf.py); `windows` windows of `steps` steps are
-    then timed, each fenced by reading the loss.
+    `device` (the card unless told otherwise), `device_kind`,
+    `flops_source` and `restore_seconds`. One extra step before the
+    warm-up runs under the FLOP counter (utils/perf.py); `windows`
+    windows of `steps` steps are then timed, each fenced by reading the
+    loss. With `checkpoint_dir`, the latest step there is restored first
+    (its time is `restore_seconds`, not start-up time), every window
+    boundary saves, and the run ends with a save.
     """
-    if model_name == "vit":
-        raise NotImplementedError(
-            "ViT is not ported yet: ROADMAP.md queue 1, ViT"
-        )
     if model_name not in MODELS:
         raise ValueError(f"unknown model {model_name!r}; choose from {sorted(MODELS)}")
     if model_parallelism != 1:
         raise NotImplementedError(
             "model parallelism needs the mesh and tensor parallelism, not "
-            "ported yet: ROADMAP.md queue 1, mesh and DDP"
+            "ported yet: ROADMAP.md queue 1, item 4b"
         )
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet: ROADMAP.md queue 1, checkpointing"
+    model_kwargs = {"num_classes": num_classes, "remat_blocks": remat}
+    if model_name.startswith("resnet"):
+        model_kwargs["fused_1x1_bwd"] = fused_1x1_bwd
+    elif fused_1x1_bwd:
+        raise ValueError(
+            "--fused-1x1-bwd is a ResNet lever (kernel K4, the 1x1-conv "
+            f"backward); {model_name} has no 1x1 convolutions"
         )
+    else:
+        model_kwargs["image_size"] = image_size  # sizes the ViT's pos_embed
     device = resolve_device(device)
     if steps_per_call <= 0:
         steps_per_call = 1
@@ -78,13 +90,12 @@ def run_benchmark(
     global_batch = batch_per_chip
 
     init_start = time.monotonic()
-    model = MODELS[model_name](
-        num_classes=num_classes, remat_blocks=remat, fused_1x1_bwd=fused_1x1_bwd
-    )
+    model = MODELS[model_name](**model_kwargs)
     state = train_lib.create_train_state(
         model, train_lib.default_optimizer(learning_rate=learning_rate), device
     )
     step = train_lib.make_train_step(state, steps_per_call=steps_per_call)
+    ckpt, state, start_step, restore_seconds = ckpt_lib.maybe_restore(checkpoint_dir, state)
 
     # synthetic batch born on the device: bf16 NHWC images, int32 labels
     gen = torch.Generator(device=device).manual_seed(1)
@@ -105,8 +116,10 @@ def run_benchmark(
         windows=windows,
         steps_per_call=steps_per_call,
         profile_dir=profile_dir,
+        on_window=ckpt_lib.window_save_hook(ckpt, state),
     )
-    compile_seconds = timing.pop("first_fence_seconds") - init_start
+    compile_seconds = timing.pop("first_fence_seconds") - init_start - restore_seconds
+    ckpt_lib.save_and_close(ckpt, state)
 
     on_card = device.type == "cuda"
     device_kind = torch.cuda.get_device_name(device) if on_card else device.type
@@ -114,7 +127,7 @@ def run_benchmark(
     images_per_sec = global_batch / (step_ms / 1000)
     flops_per_step = flops["flops_per_step"]
     return {
-        "start_step": 0,
+        "start_step": start_step,
         "final_step": state.step,
         "model": model_name,
         "platform": "gpu" if on_card else device.type,
@@ -136,13 +149,13 @@ def run_benchmark(
             if on_card else None
         ),
         "compile_seconds": compile_seconds,
+        "restore_seconds": restore_seconds,
     }
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--model", choices=sorted([*MODELS, "vit"]),
-                        default="resnet50")
+    parser.add_argument("--model", choices=sorted(MODELS), default="resnet50")
     parser.add_argument("--batch-per-chip", type=int, default=128)
     parser.add_argument("--image-size", type=int, default=224)
     parser.add_argument("--num-classes", type=int, default=1000)
@@ -169,7 +182,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--checkpoint-dir", default=None,
-        help="checkpoint directory (not ported yet)",
+        help="resume from this directory's latest step; save at every window "
+        "boundary and at the end (local paths)",
     )
     parser.add_argument("--json", action="store_true", help="machine-readable output")
     return parser

@@ -21,8 +21,10 @@
   (lecun-normal kernels, zero biases, N(0, 1/embed) token embedding,
   N(0, 0.02^2) position embedding); it does not reproduce JAX's bits.
 
-Mixture-of-experts blocks (`moe_experts > 0`) are not ported yet and
-raise: ROADMAP.md queue 1, item 4.
+- `moe_experts > 0` makes every `moe_every`-th block (the 2nd, 4th, ...)
+  a mixture-of-experts block (`models/moe.py`); its router loss is
+  kept as the block's `moe_mlp.router_loss`, which the train steps fold
+  into the objective.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tritonk8ssupervisor_tpu_torch.models.moe import MoEMLP
 from tritonk8ssupervisor_tpu_torch.models.resnet import lecun_normal_
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import (
     attention_reference_layout,
@@ -159,14 +162,12 @@ class Block(nn.Module):
         causal: bool = True,
         head_major: bool = False,
         moe_experts: int = 0,
+        moe_k: int = 2,
+        moe_capacity_factor: float = 1.25,
+        moe_mesh=None,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "mixture-of-experts blocks (models/moe.py) are not ported "
-                "yet: ROADMAP.md queue 1, item 4"
-            )
         gen = _default_generator(generator)
         e = embed_dim
         self.num_heads = num_heads
@@ -181,8 +182,13 @@ class Block(nn.Module):
             self.qkv = Dense(e, 3 * e, dtype, gen)
             self.proj = Dense(e, e, dtype, gen)
         self.LayerNorm_1 = LayerNorm(e, dtype)
-        self.mlp_up = Dense(e, mlp_ratio * e, dtype, gen)
-        self.mlp_down = Dense(mlp_ratio * e, e, dtype, gen)
+        self.moe_experts = moe_experts
+        if moe_experts:
+            self.moe_mlp = MoEMLP(e, moe_experts, mlp_ratio, moe_k, moe_capacity_factor,
+                                  dtype=dtype, mesh=moe_mesh, generator=gen)
+        else:
+            self.mlp_up = Dense(e, mlp_ratio * e, dtype, gen)
+            self.mlp_down = Dense(mlp_ratio * e, e, dtype, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, e = x.shape
@@ -198,6 +204,8 @@ class Block(nn.Module):
             attn = self.attention_fn(q, k, v, causal=self.causal)
             x = x + self.proj(attn.reshape(b, s, e))
         y = self.LayerNorm_1(x)
+        if self.moe_experts:
+            return x + self.moe_mlp(y)
         y = F.gelu(self.mlp_up(y), approximate="tanh")
         return x + self.mlp_down(y)
 
@@ -218,16 +226,14 @@ class TransformerLM(nn.Module):
         logits_dtype: torch.dtype = torch.bfloat16,
         moe_experts: int = 0,
         moe_every: int = 2,
+        moe_k: int = 2,
+        moe_capacity_factor: float = 1.25,
+        moe_mesh=None,
         remat_blocks: bool = False,
         head_major: bool = False,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "mixture-of-experts LMs (models/moe.py) are not ported yet: "
-                "ROADMAP.md queue 1, item 4"
-            )
         gen = _default_generator(generator)
         # the flax module's hyperparameters, which models/decode.py reads
         self.vocab_size = vocab_size
@@ -239,15 +245,20 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.logits_dtype = logits_dtype
         self.remat_blocks = remat_blocks
+        self.moe_experts = moe_experts
+        self.moe_every = moe_every
         self.tok_embed = nn.Embedding(vocab_size, embed_dim)
         self.pos_embed = nn.Parameter(torch.empty(max_seq_len, embed_dim))
         with torch.no_grad():
             self.tok_embed.weight.normal_(0.0, 1.0 / math.sqrt(embed_dim), generator=gen)
             self.pos_embed.normal_(0.0, 0.02, generator=gen)
         for i in range(num_layers):
+            moe_here = moe_experts and (i + 1) % moe_every == 0
             self.add_module(f"Block_{i}", Block(
                 embed_dim, num_heads, attention_fn, mlp_ratio, dtype,
-                head_major=head_major, generator=gen,
+                head_major=head_major, moe_experts=moe_experts if moe_here else 0,
+                moe_k=moe_k, moe_capacity_factor=moe_capacity_factor, moe_mesh=moe_mesh,
+                generator=gen,
             ))
         self.LayerNorm_0 = LayerNorm(embed_dim, dtype)
         self.lm_head = Dense(embed_dim, vocab_size, logits_dtype, gen)

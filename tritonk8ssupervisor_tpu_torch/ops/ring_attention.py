@@ -9,7 +9,7 @@ q's dtype, the causal mask is the finite -1e30, the softmax runs in f32,
 and the probabilities are cast to v's dtype before the value einsum.
 
 The ring itself (sequence parallelism over a device ring) is not ported
-yet: ROADMAP.md queue 1, item 4.
+yet: ROADMAP.md queue 1, item 4b.
 """
 
 from __future__ import annotations

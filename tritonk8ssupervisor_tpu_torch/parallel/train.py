@@ -8,9 +8,13 @@ step. The BatchNorm running statistics move inside the forward.
 `make_train_step` is the image step; `make_lm_train_step` and
 `make_lm_eval_step` are the causal-LM steps, whose masked next-token
 metrics are `_next_token_metrics`; `lm_optimizer` is the reference's
-AdamW recipe.
+AdamW recipe. Both train steps add the router losses of a model's
+mixture-of-experts blocks to the objective they differentiate
+(`_moe_aux_total`, the reference's), and report the data loss without
+them, as the reference does; a MoE model's metrics also carry
+`router_loss`.
 
-Not ported yet (ROADMAP.md queue 1, item 4): the mesh, sequence and
+Not ported yet (ROADMAP.md queue 1, item 4b): the mesh, sequence and
 tensor parallelism and the vocab-parallel loss, data parallelism across
 cards (DDP), and the pipeline's `forward_fn` hook.
 """
@@ -26,6 +30,7 @@ import torch
 from torch import nn
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
+from tritonk8ssupervisor_tpu_torch.models.moe import MoEMLP
 from tritonk8ssupervisor_tpu_torch.ops.cross_entropy import (
     cross_entropy_loss_and_correct,
     cross_entropy_loss_and_correct_reference,
@@ -43,6 +48,16 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+
+def _moe_aux_total(model: nn.Module) -> torch.Tensor | None:
+    """Sum of the router losses that the model's MoE layers kept from its
+    last forward (the reference's "moe_losses" collection); None for a
+    dense model. Read right after the forward: a block that
+    `torch.utils.checkpoint` recomputes in the backward overwrites its
+    loss only after the objective was built."""
+    losses = [m.router_loss for m in model.modules() if isinstance(m, MoEMLP)]
+    return sum(losses) if losses else None
 
 
 def _default_metrics_fn(device: torch.device) -> Callable:
@@ -103,13 +118,16 @@ def make_train_step(
         for _ in range(max(1, steps_per_call)):
             logits = state.model(images)
             losses, correct = loss_and_correct(logits, labels)
-            # the reference adds the MoE router losses here: 0 for ResNet
             loss = losses.mean()
+            aux = _moe_aux_total(state.model)
             state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            (loss if aux is None else loss + aux).backward()
             state.optimizer.step()
             state.step += 1
-        return {"loss": loss.detach(), "accuracy": correct.float().mean()}
+        metrics = {"loss": loss.detach(), "accuracy": correct.float().mean()}
+        if aux is not None:
+            metrics["router_loss"] = aux.detach()
+        return metrics
 
     return step
 
@@ -224,7 +242,7 @@ def _unported_lm_options(mesh, seq_axis, forward_fn) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"{name} (the mesh, ring attention and the pipeline) is not "
-                "ported yet: ROADMAP.md queue 1, item 4"
+                "ported yet: ROADMAP.md queue 1, item 4b"
             )
 
 
@@ -246,7 +264,9 @@ def make_lm_train_step(
     argmax. `grad_accum` > 1 splits the batch into that many equal
     microbatches, sums their gradients and divides by `grad_accum` before
     the one optimizer update: exact for the dense LM, whose loss is a
-    mean over equal chunks. The metrics stay on the device."""
+    mean over equal chunks; a MoE LM's router losses are batch statistics,
+    so each chunk adds its own and they are averaged, as the reference
+    documents. The metrics stay on the device."""
     _unported_lm_options(mesh, seq_axis, forward_fn)
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} must be >= 1")
@@ -260,11 +280,16 @@ def make_lm_train_step(
         if b % grad_accum:
             raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
         loss_sum = acc_sum = 0.0
+        aux_sum = None
         for chunk in tokens.reshape(grad_accum, b // grad_accum, -1):
-            loss, accuracy = _next_token_metrics(pair_fn, state.model(chunk), chunk)
-            loss.backward()
+            logits = state.model(chunk)
+            loss, accuracy = _next_token_metrics(pair_fn, logits, chunk)
+            aux = _moe_aux_total(state.model)
+            (loss if aux is None else loss + aux).backward()
             loss_sum = loss_sum + loss.detach()
             acc_sum = acc_sum + accuracy
+            if aux is not None:
+                aux_sum = aux.detach() + (0.0 if aux_sum is None else aux_sum)
         if grad_accum > 1:
             # the mean of chunk means is the full-batch mean
             for p in params:
@@ -272,7 +297,10 @@ def make_lm_train_step(
                     p.grad.div_(grad_accum)
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss_sum / grad_accum, "accuracy": acc_sum / grad_accum}
+        metrics = {"loss": loss_sum / grad_accum, "accuracy": acc_sum / grad_accum}
+        if aux_sum is not None:
+            metrics["router_loss"] = aux_sum / grad_accum
+        return metrics
 
     return step
 
@@ -285,7 +313,8 @@ def make_lm_eval_step(
 ) -> Callable[[torch.Tensor], dict]:
     """Gradient-free LM evaluation: tokens -> {"loss", "accuracy"}, by the
     same masked next-token arithmetic and kernel as the train step,
-    without the backward or the update. exp(loss) is the perplexity."""
+    without the backward or the update, and without the router losses
+    (the reference's eval collects none). exp(loss) is the perplexity."""
     _unported_lm_options(mesh, seq_axis, None)
     pair_fn = _lm_pair_fn(state, None, metrics_fn)
 

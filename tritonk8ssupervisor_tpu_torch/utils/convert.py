@@ -3,8 +3,9 @@
 
 Takes the variables as a nested dict of numpy arrays (what
 `jax.device_get(variables)` gives), so it never needs JAX. Module names
-are the same on both sides (`models/resnet.py`, `models/transformer.py`);
-only the leaf names and layouts differ:
+are the same on both sides (`models/resnet.py`, `models/transformer.py`,
+`models/vit.py`, `models/moe.py`); only the leaf names and layouts
+differ:
 
     params      .../kernel (kh, kw, in, out)  -> .../weight (out, in, kh, kw)
     params      .../kernel (in, out)          -> .../weight (out, in)
@@ -16,8 +17,13 @@ only the leaf names and layouts differ:
     batch_stats .../var                       -> .../running_var
 
 The last params row is a parameter that a module declares itself rather
-than through a submodule, such as the LM's top-level `pos_embed`: its
-name is kept as it is. The head-major attention projections keep the
+than through a submodule: the LM's and the ViT's `pos_embed`, the ViT's
+`cls_token` (1, 1, D), and the five leaves of a `moe_mlp`
+(`router_kernel` (d, E), `expert_up_kernel` (E, d, f), `expert_up_bias`,
+`expert_down_kernel` (E, f, d), `expert_down_bias`), which the port
+declares with the reference's names and layouts: its path is kept as it
+is. The ViT's `patch_embed` is a 4-d conv kernel (HWIO -> OIHW) and its
+`classifier` a Dense. The head-major attention projections keep the
 Dense (in, out) kernels, so they map as any Dense does.
 
 Any leaf it cannot map, and any entry of the port's state dict left
@@ -71,8 +77,8 @@ def state_dict_from_flax(
             *modules, leaf = path
             if leaf in names:
                 key = ".".join(modules + [names[leaf]])
-            elif collection == "params" and not modules:
-                key = leaf  # the model's own parameter, e.g. pos_embed
+            elif collection == "params" and ".".join(path) in expected:
+                key = ".".join(path)  # a module's own parameter, e.g. pos_embed
             else:
                 raise ValueError(f"unmapped leaf {collection}/{'/'.join(path)}")
             if key not in expected:

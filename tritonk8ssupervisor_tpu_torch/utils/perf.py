@@ -97,6 +97,7 @@ def timed_windows(
     windows: int,
     steps_per_call: int = 1,
     profile_dir: str | None = None,
+    on_window: Callable[[], None] | None = None,
 ) -> dict:
     """The reference's measurement discipline: warm up, then time
     `windows` windows of `steps` optimizer steps on the host clock, each
@@ -104,8 +105,13 @@ def timed_windows(
     window, not per step, so the host keeps the queue full.
 
     run_once: () -> metrics, one call covering `steps_per_call` steps.
-    Between windows the maintenance drain file is polled and the run
-    stops early when the host is draining (`drained` carries why).
+    on_window() runs after each window's fence, outside the window's
+    timed span: the benchmarks' periodic checkpoint
+    (`parallel/checkpoint.window_save_hook`), so a run killed mid-way
+    resumes at the last window boundary. After it the maintenance drain
+    file is polled and the run stops early when the host is draining
+    (`drained` carries why; the message says whether a checkpoint was
+    saved).
 
     Returns final_loss, step_ms (median), step_ms_min, step_ms_windows,
     steps, windows, drained, and first_fence_seconds (monotonic time of
@@ -127,10 +133,14 @@ def timed_windows(
             metrics = run_once()
         final_loss = metrics["loss"].item()  # the fence
         window_seconds.append(time.monotonic() - start)
+        if on_window is not None:
+            on_window()
         drained = drain_requested()
         if drained is not None:
+            saved = ("checkpoint saved" if on_window is not None
+                     else "NO checkpoint hook configured")
             print(f"drain requested ({drained}); stopping after "
-                  f"{len(window_seconds)} window(s)", flush=True)
+                  f"{len(window_seconds)} window(s), {saved}", flush=True)
             break
 
     if profile_dir:

@@ -111,7 +111,23 @@ which raises on failure (exit code not 0, no result line):
    a torn step 6 that a restore must skip for step 3; restore_seconds;
 21. (last) where a ViT-S/16 step and a MoE LM step go on the card
    (torch.profiler, by operator; for the MoE LM, the expert products'
-   and the dispatch and combine products' shares).
+   and the dispatch and combine products' shares);
+22. (after 20) the mesh at a world of one over NCCL: a process group of
+   one rank from a FileStore and `make_mesh()` (1, 1, 1, 1) on the card;
+   the LM of 7 and ResNet-50 with `fused_1x1_bwd` each take a first step
+   on the mesh (the gradient all_reduce made) from their default
+   weights, held against the single-device step from the same weights:
+   equal to the bit, or the largest difference and the single-device
+   step's own run-to-run difference; the reduction's own time; then both
+   benchmarks' mesh paths with K1's, K2's and K4's launches counted
+   around each; ring attention and the vocab-parallel loss at n = 1 on
+   CUDA tensors against their plain versions;
+23. two processes on the one card over gloo, data parallel: the LM at
+   global batch 8 (4 a rank) and ResNet-50 with `fused_1x1_bwd` at 256
+   (128 a rank, BatchNorm over the global batch), each rank's first step
+   against this process's step on the whole batch, then the step's wall
+   time and the gloo all_reduce's share, as two processes sharing one
+   card (not a two-card number).
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -125,6 +141,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -132,6 +149,7 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 import numpy as np
@@ -139,7 +157,7 @@ import numpy as np
 from tritonk8ssupervisor_tpu_torch.benchmarks import decode as decode_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
-from tritonk8ssupervisor_tpu_torch.models import ResNet18, TransformerLM, ViT
+from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50, TransformerLM, ViT
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
 from tritonk8ssupervisor_tpu_torch.models import moe
 from tritonk8ssupervisor_tpu_torch.models.resnet import BottleneckBlock, ResNet
@@ -151,11 +169,15 @@ from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
 from tritonk8ssupervisor_tpu_torch.ops import decode_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
+from tritonk8ssupervisor_tpu_torch.ops.ring_attention import attention_reference, ring_attention
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
-from tritonk8ssupervisor_tpu_torch.parallel import train
+from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
+from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
+from tritonk8ssupervisor_tpu_torch.parallel.ranks import run_ranks
 from tritonk8ssupervisor_tpu_torch.serving import SlotEngine
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
 from tritonk8ssupervisor_tpu_torch.utils import perf
+from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
 
 # H100 SXM data sheet: device memory rate, f32 rate outside the tensor
 # cores (K1's bound), dense bf16/fp16 tensor-core rate (K2's bound)
@@ -709,7 +731,8 @@ def run_lm(card: str) -> dict:
           f"peak memory {result['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} "
           f"steps: K1 {k1}, K2 forward {k2_fwd}, K2 backward {k2_bwd}, K2 input copies "
           f"{copies}, on {card}", flush=True)
-    return {"k1": k1, "k2_forward": k2_fwd, "k2_backward": k2_bwd, "k2_copies": copies}
+    return {"k1": k1, "k2_forward": k2_fwd, "k2_backward": k2_bwd, "k2_copies": copies,
+            "step_ms": result["step_ms"]}
 
 
 def _k3_rows(pos, b: int, w: int, length: int) -> list[int]:
@@ -1383,8 +1406,7 @@ def profile_breakdowns(card: str) -> dict:
                           max_seq_len=1024, attention_fn=fa.flash_attention, moe_experts=8)
     state = train.create_train_state(model, train.default_optimizer(0.03))
     lm_step = train.make_lm_train_step(state)
-    tokens = torch.randint(0, 32768, (8, 1024), generator=torch.Generator(device="cuda")
-                           .manual_seed(1), device="cuda", dtype=torch.int32)
+    tokens = _lm_tokens()
     wall, busy, ops = _profile_step(lambda: lm_step(tokens))
     expert = sum(e.self_device_time_total for e in ops if e.key == "aten::bmm"
                  and any(3072 in shape for shape in e.input_shapes)) / 2e3
@@ -1404,6 +1426,303 @@ def profile_breakdowns(card: str) -> dict:
               f"bound: the profiler's own host cost){shares}; by operator: " + ", ".join(
                   f"{k} {v:.3f}" for k, v in r["by_operator"].items()) + f" on {card}",
               flush=True)
+    return out
+
+
+# slice 9: the mesh. The mesh paths' steps (a few: the LM step is host-bound)
+MESH_STEPS = dict(steps=5, warmup=1, windows=2)
+MESH_LR = {"lm": 3e-2, "resnet50": 0.1}
+# the first update of 2 ranks sharing the card (each on half of the batch,
+# bf16; for ResNet-50, BatchNorm over the global batch by gloo) against one
+# process on the whole batch, as max |d_ranks - d_one| / max |d_one|: the
+# bf16 tolerance of VIT_UPDATE_REL (other GEMM shapes round the bf16
+# activations at other points; the sums cross ranks in another order)
+DP_UPDATE_REL = 5e-2
+# ring attention at n = 1 against the plain version on f32 copies of its
+# bf16 inputs, relative to the plain version's largest magnitude (at least
+# 1), as K2's: the ring rounds its scores to bf16 (its einsum runs in q's
+# dtype, as the reference's does) and its output once
+RING_REL = 2e-2
+# the vocab-parallel loss at n = 1 against the plain f32 loss and gradient
+VP_ATOL = 1e-5
+
+
+def _lm_model():
+    """The LM benchmark's model at its published widths (its default
+    weights: the seed-0 generator)."""
+    return TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                         max_seq_len=1024, attention_fn=fa.flash_attention)
+
+
+def _lm_tokens():
+    return torch.randint(0, 32768, (8, 1024), generator=torch.Generator(device="cuda")
+                         .manual_seed(1), device="cuda", dtype=torch.int32)
+
+
+def _resnet_model():
+    return ResNet50(num_classes=1000, fused_1x1_bwd=True)
+
+
+def _resnet_batch():
+    """The image benchmark's synthetic batch at batch 256, 224x224."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn((256, 224, 224, 3), generator=gen, device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (256,), generator=gen, device="cuda", dtype=torch.int32)
+    return images, labels
+
+
+MESH_MODELS = {
+    "lm": (_lm_model, lambda: (_lm_tokens(),), train.make_lm_train_step),
+    "resnet50": (_resnet_model, _resnet_batch, train.make_train_step),
+}
+
+
+def _params(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _first_step(name: str, mesh=None, shard=None) -> dict:
+    """One step of `name`'s model from its default weights: loss, the
+    parameters before and after (this rank's, where `shard` cuts the
+    batch)."""
+    make_model, make_batch, make_step = MESH_MODELS[name]
+    state = train.create_train_state(make_model(), train.default_optimizer(MESH_LR[name]),
+                                     "cuda", mesh=mesh)
+    step = make_step(state)
+    batch = make_batch()
+    if shard is not None:
+        batch = tuple(shard(x) for x in batch)
+    before = _params(state.model)
+    loss = step(*batch)["loss"].item()
+    return {"loss": loss, "before": before, "after": _params(state.model),
+            "state": state, "step": step, "batch": batch}
+
+
+def _update_diff(ours: dict, ref_after: dict, before: dict) -> tuple[float, float]:
+    """(max |ours - ref|, that over the reference's largest update)."""
+    diff = max((ours[n] - ref_after[n]).abs().max().item() for n in ours)
+    update = max((ref_after[n] - before[n]).abs().max().item() for n in ours)
+    return diff, diff / update
+
+
+def _reduce_ms(state) -> dict:
+    """The gradient reduction of a mesh step alone (flatten, all_reduce,
+    copies back), by CUDA events and on the card's own clock."""
+    def reduce():
+        spmd.reduce_gradients(state.model, state.mesh, state.specs,
+                              spmd.split_axes(state.mesh, None))
+
+    grads = sum(p.grad.numel() for p in state.model.parameters() if p.grad is not None)
+    # two calls behind the sleep: a call launches a copy per parameter
+    # (~150-160), and ten would fill the launch queue, which blocks the
+    # host until the sleep ends
+    return {"ms": _time_ms(reduce, iters=20, warmup=3), "device_ms": _device_ms(reduce, iters=2),
+            "gradient_bytes": 4 * grads}
+
+
+def check_mesh_ops(mesh, card: str) -> dict:
+    """`ring_attention` and `vocab_parallel_cross_entropy` at n = 1 on CUDA
+    tensors against their plain counterparts."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(2, 512, 4, 64, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    out = {}
+    for causal in (True, False):
+        ring = ring_attention(q, k, v, mesh=mesh, axis_name="model", causal=causal)
+        ref = attention_reference(q.float(), k.float(), v.float(), causal=causal)
+        out[f"ring_causal_{causal}_rel"] = (_max_abs_err(ring, ref)
+                                            / max(1.0, ref.abs().max().item()))
+    logits = torch.randn(256, 1000, generator=gen, device="cuda").requires_grad_()
+    labels = torch.randint(0, 1000, (256,), generator=gen, device="cuda")
+    with torch.no_grad():  # a tie: row 0's label shares the row's max
+        logits[0, labels[0]] = logits[0, (labels[0] + 1) % 1000] = logits[0].max() + 1
+    g = torch.randn(256, generator=gen, device="cuda")
+    losses, correct = ce.vocab_parallel_cross_entropy(logits, labels, mesh_lib.mesh_group(mesh, "model"))
+    (losses * g).sum().backward()
+    ref_losses, ref_correct = ce.cross_entropy_loss_and_correct_reference(logits.detach(), labels)
+    ref_grad = (torch.softmax(logits.detach(), -1)
+                - F.one_hot(labels.long(), 1000).float()) * g[:, None]
+    out["vp_loss_err"] = _max_abs_err(losses, ref_losses)
+    out["vp_grad_err"] = _max_abs_err(logits.grad, ref_grad)
+    out["vp_correct_equal"] = bool(torch.equal(correct, ref_correct)) and bool(correct[0])
+    print(f"mesh ops at n = 1 on the card: ring attention (2, 512, 4, 64) bf16 against the plain "
+          f"version on f32 copies, max |err| / max(1, max |plain|) causal {out['ring_causal_True_rel']:.2e}, "
+          f"full {out['ring_causal_False_rel']:.2e} (tolerance {RING_REL}); vocab-parallel "
+          f"cross-entropy (256, 1000) f32 against the plain loss: max |err| loss "
+          f"{out['vp_loss_err']:.2e}, dlogits {out['vp_grad_err']:.2e} (tolerance {VP_ATOL}), "
+          f"correct equal (a tie included): {out['vp_correct_equal']}, on {card}", flush=True)
+    if not (out["ring_causal_True_rel"] <= RING_REL and out["ring_causal_False_rel"] <= RING_REL
+            and out["vp_loss_err"] <= VP_ATOL and out["vp_grad_err"] <= VP_ATOL
+            and out["vp_correct_equal"]):
+        raise AssertionError(f"mesh ops disagree with their plain versions: {out}")
+    return out
+
+
+def run_mesh_one_rank(card: str, lm_single_ms: float) -> dict:
+    """The mesh path at a world of one, over NCCL: a process group of one
+    rank from a FileStore, `make_mesh()` (1, 1, 1, 1) on the card. For the
+    LM (K2 forward and backward, K1) and ResNet-50 with `fused_1x1_bwd`
+    (K4, K1): the first step from the default weights on the mesh against
+    the single-device step, whose loss and update it should equal to the
+    bit (the reduction over one rank copies); then the benchmarks' mesh
+    paths with K1's, K2's and K4's launches counted; the reduction's own
+    cost; the mesh ops at n = 1."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = mesh_lib.make_mesh(device_type="cuda")
+            if tuple(mesh.shape) != (1, 1, 1, 1):
+                raise AssertionError(f"make_mesh() at a world of one: {mesh}")
+            for name in MESH_MODELS:
+                single = _first_step(name)
+                ref_loss, ref_after, before = single["loss"], single["after"], single["before"]
+                del single
+                ours, counts = _counted(lambda: _first_step(name, mesh))
+                diff, rel = _update_diff(ours["after"], ref_after, before)
+                ours_loss = ours["loss"]
+                equal = ours_loss == ref_loss and diff == 0.0
+                reduce = _reduce_ms(ours["state"])
+                del ours
+                spread = None
+                if not equal:  # the single-device step's own run-to-run difference
+                    again = _first_step(name)
+                    spread = _update_diff(again["after"], ref_after, before)[0]
+                    del again
+                del ref_after, before
+                torch.cuda.empty_cache()
+                device_ms = ("not measured" if reduce["device_ms"] is None
+                             else f"{reduce['device_ms']:.3f} ms")
+                print(f"mesh ({name}), one rank over NCCL, first step from the default weights "
+                      f"against the single-device step: loss {ours_loss!r} against "
+                      f"{ref_loss!r}, equal to the bit (loss and every parameter): {equal}; "
+                      f"max |param diff| {diff:.3g} ({rel:.3g} of the largest update); "
+                      f"launches in the step {counts}; the gradient reduction alone "
+                      f"({reduce['gradient_bytes'] / 1e6:.1f} MB of f32 gradients flattened, "
+                      f"all_reduce over one rank, copied back) {reduce['ms']:.3f} ms (device "
+                      f"{device_ms}), on {card}", flush=True)
+                if not equal:
+                    why = ("the card's own run-to-run variation: the single-device step run "
+                           f"twice differs by {spread:.3g}" if spread else
+                           "not known: the single-device step repeats to the bit")
+                    print(f"mesh ({name}): not equal to the bit, the largest parameter "
+                          f"difference is {diff:.3g}; why: {why}", flush=True)
+                if rel > DP_UPDATE_REL:
+                    raise AssertionError(f"mesh ({name}) at one rank: update off by {rel:.3g}")
+                out[name] = {"bit_equal": equal, "max_abs_diff": diff, "update_rel": rel,
+                             "single_run_to_run": spread, "first_step_launches": counts,
+                             "reduce": reduce}
+            lm, counts = _counted(lambda: lm_bench.run_benchmark(**MESH_STEPS))
+            steps = lm["final_step"]
+            if lm["num_chips"] != 1 or (counts["k1"], counts["k2_forward"],
+                                        counts["k2_backward"]) != (steps, 12 * steps, 12 * steps):
+                raise AssertionError(f"mesh LM path: {steps} steps, {lm['num_chips']} "
+                                     f"ranks, launches {counts}")
+            resnet, rcounts = _counted(lambda: run_benchmark(
+                model_name="resnet50", batch_per_chip=256, image_size=224, num_classes=1000,
+                fused_1x1_bwd=True, **MESH_STEPS))
+            rsteps = resnet["final_step"]
+            k4_per_step = sum(calls for *_, calls in K4_SHAPES)
+            if (rcounts["k1"], rcounts["k4"]) != (rsteps, k4_per_step * rsteps):
+                raise AssertionError(f"mesh ResNet-50 path: {rsteps} steps, launches {rcounts}")
+            for label, r, c, single in (
+                    ("LM 12L/768/seq 1024/batch 8", lm, counts,
+                     f"the single-device path's {lm_single_ms:.2f} ms earlier in this run"),
+                    ("ResNet-50 fused_1x1_bwd batch 256", resnet, rcounts,
+                     "the single-device fused path, timed later in this run")):
+                print(f"main path on the mesh, one rank over NCCL: {label}, step "
+                      f"{r['step_ms']:.2f} ms (windows {r['step_ms_windows']}) against "
+                      f"{single}, final loss "
+                      f"{r['final_loss']:.6f}, launches in {r['final_step']} steps: K1 "
+                      f"{c['k1']}, K2 forward {c['k2_forward']}, K2 backward "
+                      f"{c['k2_backward']}, K2 input copies {c['k2_copies']}, K4 {c['k4']}, "
+                      f"on {card}", flush=True)
+            out["lm_path"] = {**counts, "step_ms": lm["step_ms"], "steps": steps}
+            out["resnet50_fused_1x1_bwd_path"] = {**rcounts, "step_ms": resnet["step_ms"],
+                                                  "steps": rsteps}
+            out["ops"] = check_mesh_ops(mesh, card)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def two_rank_step(name: str, reference_path: str, timed_steps: int) -> dict:
+    """One rank of the two-process data-parallel phase (gloo, both on the
+    one card): the first step on this rank's half of the batch against the
+    one-process step's parameters at `reference_path`, then `timed_steps`
+    steps timed on the host clock, the reduction (gloo all_reduce of the
+    CUDA gradients) timed apart."""
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_lib.make_mesh(device_type="cuda")
+    reduce_s: list[float] = []
+    reduce = spmd.reduce_gradients
+
+    def timed_reduce(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(*args)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    spmd.reduce_gradients = timed_reduce
+    try:
+        first = _first_step(name, mesh, shard=lambda x: batch_shard(mesh, x))
+        ref = torch.load(reference_path, map_location="cuda")
+        diff, rel = _update_diff(first["after"], ref["after"], first["before"])
+        step, batch = first["step"], first["batch"]
+        times = []
+        for _ in range(timed_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*batch)["loss"].item()
+            times.append(time.perf_counter() - t0)
+        reduce_ms = 1e3 * statistics.median(reduce_s[1:])
+    finally:
+        spmd.reduce_gradients = reduce
+    # this rank's kernels in one more step (torch.profiler), after the timing
+    _, device_ms, _ = _profile_step(lambda: step(*batch)["loss"].item(), steps=1)
+    return {"loss": first["loss"], "ref_loss": ref["loss"], "max_abs_diff": diff,
+            "update_rel": rel, "step_ms": 1e3 * statistics.median(times),
+            "reduce_ms": reduce_ms, "device_ms": device_ms,
+            "batch_per_rank": batch[0].shape[0]}
+
+
+def run_two_ranks(card: str) -> dict:
+    """Data parallelism in two processes on the one card over gloo: the LM
+    (global batch 8, 4 a rank) and ResNet-50 with `fused_1x1_bwd` (256,
+    128 a rank, BatchNorm over the global batch), each first step against
+    this process's step on the whole batch."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, global_batch, unit in (("lm", 8 * 1024, "tokens"),
+                                         ("resnet50", 256, "images")):
+            single = _first_step(name)
+            path = f"{tmp}/{name}.pt"
+            torch.save({"loss": single["loss"], "after": single["after"]}, path)
+            del single
+            torch.cuda.empty_cache()
+            ranks = run_ranks(two_rank_step, 2, args=(name, path, 3), backend="gloo",
+                              timeout=600, threads=4)
+            r = ranks[0]
+            loss_diff = abs(r["loss"] - r["ref_loss"])
+            rate = global_batch / (max(x["step_ms"] for x in ranks) / 1e3)
+            print(f"two ranks (gloo) on one card, {name} data parallel, {r['batch_per_rank']} "
+                  f"a rank: first-step loss {r['loss']:.6f} against one process's "
+                  f"{r['ref_loss']:.6f} (|diff| {loss_diff:.2e}, tolerance {PARITY_LOSS_ATOL}), "
+                  f"first update max |diff| {r['max_abs_diff']:.3g} = {r['update_rel']:.3g} of "
+                  f"the largest (tolerance {DP_UPDATE_REL}); step {r['step_ms']:.1f} ms wall "
+                  f"(rank 1 {ranks[1]['step_ms']:.1f}), of which the gloo gradient all_reduce "
+                  f"{r['reduce_ms']:.1f} ms; the card busy with a step's kernels "
+                  f"{r['device_ms']:.1f} + {ranks[1]['device_ms']:.1f} ms (rank 0 + rank 1, "
+                  f"torch.profiler); {rate:.1f} {unit}/s by two processes sharing one card "
+                  f"(not a two-card number), on {card}", flush=True)
+            if not (loss_diff <= PARITY_LOSS_ATOL and all(
+                    x["update_rel"] <= DP_UPDATE_REL for x in ranks)):
+                raise AssertionError(f"two ranks ({name}) disagree with one process: {ranks}")
+            out[name] = {"ranks": ranks, "rate_per_s": rate, "unit": unit}
     return out
 
 
@@ -1470,6 +1789,9 @@ def main() -> int:
     vit = run_vit(card)
     moe_lm = run_moe_lm(card)
     ckpt = check_checkpoint_resume(card)
+    _join_build(K4_SOURCE, builds[K4_SOURCE], started)
+    mesh_one = run_mesh_one_rank(card, lm_launches["step_ms"])
+    two_ranks = run_two_ranks(card)
     for row in k2_rows:
         by_kernel = row["backward"]["device_ms_by_kernel"] = k2_backward_by_kernel(row)
         print(f"K2 backward {row['shape']} {row['layout']} causal={row['causal']}: device ms "
@@ -1477,7 +1799,6 @@ def main() -> int:
                               or "not measured (the profiler recorded no kernels)")
               + f" on {card}", flush=True)
 
-    _join_build(K4_SOURCE, builds[K4_SOURCE], started)
     k4_rows = [check_k4(size, c, n, calls, seed)
                for seed, (size, c, n, calls) in enumerate(K4_SHAPES)]
     for row in k4_rows:
@@ -1510,6 +1831,9 @@ def main() -> int:
     print(f"ResNet-50 step: fused {fused['step_ms']:.2f} ms against default "
           f"{resnet['step_ms']:.2f} ms ({fused['step_ms'] / resnet['step_ms'] - 1:+.1%}), "
           f"on {card}", flush=True)
+    print(f"ResNet-50 fused_1x1_bwd step: on the mesh (one rank over NCCL, the gradient "
+          f"all_reduce made) {mesh_one['resnet50_fused_1x1_bwd_path']['step_ms']:.2f} ms "
+          f"against the single-device path's {fused['step_ms']:.2f} ms, on {card}", flush=True)
 
     _join_build(K3_SOURCE, builds[K3_SOURCE], started)
     floor_ms = launch_floor_ms()
@@ -1571,7 +1895,10 @@ def main() -> int:
             "launches_by_path": {"resnet50": resnet["k1"], "lm": lm_launches["k1"],
                                  "resnet50_fused_1x1_bwd": fused["k1"], "vit": vit["k1"],
                                  "vit_flash_attention": vit["flash_k1"],
-                                 "moe_lm": moe_lm["k1"]},
+                                 "moe_lm": moe_lm["k1"],
+                                 "mesh_lm": mesh_one["lm_path"]["k1"],
+                                 "mesh_resnet50_fused_1x1_bwd":
+                                     mesh_one["resnet50_fused_1x1_bwd_path"]["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
             "launch_floor_ms": floor_ms,
@@ -1597,7 +1924,8 @@ def main() -> int:
             "library_ratio": _library_ratio(k2_lm["forward"]),
             "launches_by_path": {"lm": lm_launches["k2_forward"],
                                  "moe_lm": moe_lm["k2_forward"],
-                                 "vit_flash_attention": vit["flash_k2_forward"], "vit": 0},
+                                 "vit_flash_attention": vit["flash_k2_forward"], "vit": 0,
+                                 "mesh_lm": mesh_one["lm_path"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in k2_rows[1:4]],
         },
@@ -1622,7 +1950,8 @@ def main() -> int:
             "library_ratio": _library_ratio(k2_lm["backward"]),
             "launches_by_path": {"lm": lm_launches["k2_backward"],
                                  "moe_lm": moe_lm["k2_backward"],
-                                 "vit_flash_attention": vit["flash_k2_backward"], "vit": 0},
+                                 "vit_flash_attention": vit["flash_k2_backward"], "vit": 0,
+                                 "mesh_lm": mesh_one["lm_path"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in k2_rows[1:4]],
         },
@@ -1645,7 +1974,9 @@ def main() -> int:
             "source": "tritonk8ssupervisor_tpu_torch/csrc/conv_backward.cu",
             "replaces": "tritonk8ssupervisor_tpu/ops/conv_backward.py:83",
             "launches": fused["k4"],
-            "launches_by_path": {"resnet50": resnet["k4"], "resnet50_fused_1x1_bwd": fused["k4"]},
+            "launches_by_path": {"resnet50": resnet["k4"], "resnet50_fused_1x1_bwd": fused["k4"],
+                                 "mesh_resnet50_fused_1x1_bwd":
+                                     mesh_one["resnet50_fused_1x1_bwd_path"]["k4"]},
             "design": "TMA-fed wgmma: persistent dgrad over 128 x {64, 128, 256} tiles (all of "
                       "C up to 256) and wgrad over 128 x 128 tiles and one wave of M splits, each "
                       "a TMA ring with one producer thread and two consumer warpgroups; W, dY^T "
@@ -1690,6 +2021,8 @@ def main() -> int:
     ]
     print("slice 8: " + json.dumps({"vit": vit, "moe_lm": moe_lm, "checkpoint": ckpt,
                                     "profiles": breakdowns}, sort_keys=True), flush=True)
+    print("slice 9: " + json.dumps({"mesh_one_rank": mesh_one, "two_ranks": two_ranks},
+                                   sort_keys=True, default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """The port's checkpointing (`parallel/checkpoint.py`, on
 torch.distributed.checkpoint): every case of tests/test_checkpoint.py
-but the resized-mesh restore (ROADMAP.md queue 1, item 4b), and a
+but the resized-mesh restore (tests/test_torch_mesh_checkpoint.py), and a
 resumed run bit-equal to one that never stopped.
 
 The round trip, an unmarked torn step skipped, a marked but torn step

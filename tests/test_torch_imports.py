@@ -14,7 +14,7 @@ import torch
 
 import tritonk8ssupervisor_tpu_torch
 from tritonk8ssupervisor_tpu_torch.benchmarks import decode, lm, resnet50
-from tritonk8ssupervisor_tpu_torch.parallel import train
+from tritonk8ssupervisor_tpu_torch.parallel import mesh, train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tritonk8ssupervisor_tpu_torch").rglob("*.py")) + [
@@ -49,6 +49,12 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.ops.decode_attention_cuda, "
         "tritonk8ssupervisor_tpu_torch.models.moe, tritonk8ssupervisor_tpu_torch.models.vit, "
         "tritonk8ssupervisor_tpu_torch.parallel.checkpoint, "
+        "tritonk8ssupervisor_tpu_torch.parallel.mesh, tritonk8ssupervisor_tpu_torch.parallel.spmd, "
+        "tritonk8ssupervisor_tpu_torch.parallel.collectives, "
+        "tritonk8ssupervisor_tpu_torch.parallel.distributed, "
+        "tritonk8ssupervisor_tpu_torch.parallel.ranks, "
+        "tritonk8ssupervisor_tpu_torch.ops.ring_attention, "
+        "tritonk8ssupervisor_tpu_torch.utils.data, "
         "tritonk8ssupervisor_tpu_torch.utils.convert; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
@@ -76,6 +82,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                          batch_per_data_shard=2, steps=1, warmup=1, windows=1, moe_experts=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.create_train_state(torch.nn.Linear(2, 2), train.default_optimizer())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode.run_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32,
                              prompt_len=4, new_tokens=2, batch=1, repeats=1)

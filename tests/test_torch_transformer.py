@@ -151,9 +151,17 @@ def test_moe_lm_logits_match_jax(dtype):
 
 
 def test_moe_block_with_a_mesh_raises_naming_item_4b():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4b"):
-        transformer.Block(64, 2, transformer.dense_attention, 4, torch.float32,
-                          moe_experts=2, moe_mesh=object())
+    """A MoE block takes a mesh now; a sequence shard (pos_offset > 0) of a
+    MoE LM raises, naming ROADMAP item 4c: its capacity counts would need
+    the earlier shards'."""
+    mesh = object()
+    block = transformer.Block(64, 2, transformer.dense_attention, 4, torch.float32,
+                              moe_experts=2, moe_mesh=mesh)
+    assert block.moe_mlp.mesh is mesh
+    model = TransformerLM(vocab_size=32, num_layers=2, num_heads=2, embed_dim=16,
+                          max_seq_len=8, moe_experts=2, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4c"):
+        model(torch.zeros(1, 4, dtype=torch.long), pos_offset=4)
 
 
 def test_layer_norm_and_dense_follow_flax():

@@ -19,7 +19,7 @@ re-prefilling none of the shared prefix) and `spec_base`/`spec` (a
 decode-heavy stream without and with a drafter proposing `spec_k` tokens a
 round: exact acceptance, so `spec` must be token-identical).
 
-One card: a request for more raises (ROADMAP.md queue 1, item 4b), and the
+One card: a request for more raises (ROADMAP.md queue 1, item 4c), and the
 multi-host rendezvous (`initialize_from_env`) is not ported (item 5b).
 """
 
@@ -43,7 +43,7 @@ def _one_card(num_chips: int) -> None:
     if num_chips != 1:
         raise NotImplementedError(
             f"num_chips={num_chips}: decode runs on one card; data-parallel decode over "
-            "several is not ported yet: ROADMAP.md queue 1, item 4b"
+            "several is not ported yet: ROADMAP.md queue 1, item 4c"
         )
 
 

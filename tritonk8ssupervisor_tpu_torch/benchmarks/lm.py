@@ -17,8 +17,17 @@ experts (models/moe.py, k = 2, capacity factor 1.25), whose router losses
 join the objective. `--checkpoint-dir` resumes from the directory's
 latest step and saves at every window boundary (parallel/checkpoint.py).
 
-Not ported yet, and raising: sequence, expert and pipeline parallelism
-(ROADMAP.md queue 1, item 4b).
+    torchrun --nproc-per-node N -m tritonk8ssupervisor_tpu_torch.benchmarks.lm --json
+
+In a process group (torchrun, or `parallel/ranks.run_ranks`) the step
+runs on the mesh (`parallel/mesh.make_workload_mesh`), each rank on its
+shard of a global batch of `--batch-per-data-shard` x the batch degree:
+`--sequence-parallelism S` shards the sequence over S ranks of the
+"model" axis with ring attention (ops/ring_attention.py), and
+`--expert-parallelism E` shards the experts of `--moe-experts` over the
+"expert" axis (all_to_all dispatch). A degree that does not divide the
+ranks raises ValueError, also without a process group (one rank).
+Pipeline parallelism raises (ROADMAP.md queue 1, item 4c).
 """
 
 from __future__ import annotations
@@ -28,22 +37,45 @@ import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.models import TransformerLM
 from tritonk8ssupervisor_tpu_torch.models.transformer import dense_attention
 from tritonk8ssupervisor_tpu_torch.ops.flash_attention import flash_attention
+from tritonk8ssupervisor_tpu_torch.ops.ring_attention import ring_attention
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
+from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import train as train_lib
+from tritonk8ssupervisor_tpu_torch.parallel.distributed import init_from_launcher
+from tritonk8ssupervisor_tpu_torch.parallel.mesh import MODEL_AXIS
 from tritonk8ssupervisor_tpu_torch.utils import perf
+from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
 
 
-def _unported(**options) -> None:
-    for name, (value, default, item) in options.items():
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet: ROADMAP.md queue 1, item {item}"
-            )
+def _check_options(seq_len: int, sequence_parallelism: int, expert_parallelism: int,
+                   moe_experts: int, pipeline_parallelism: int, head_major: bool,
+                   grad_accum: int) -> None:
+    """The reference's refusals (:73-119), and the pipeline, not ported."""
+    if seq_len % max(sequence_parallelism, 1):
+        raise ValueError(
+            f"--seq-len {seq_len} must be divisible by --sequence-parallelism "
+            f"{sequence_parallelism} (the sequence axis shards evenly across the ring)")
+    if head_major and sequence_parallelism > 1:
+        raise ValueError(
+            "--head-major with --sequence-parallelism is not wired: the ring "
+            "attention path is seq-major")
+    if grad_accum < 1:
+        raise ValueError(f"--grad-accum {grad_accum} must be >= 1 (1 = no accumulation)")
+    if moe_experts and moe_experts % expert_parallelism:
+        raise ValueError(
+            f"--moe-experts {moe_experts} must be divisible by --expert-parallelism "
+            f"{expert_parallelism}: a non-dividing expert count would replicate every "
+            "expert weight while the run reports itself expert-parallel")
+    if pipeline_parallelism != 1:
+        raise NotImplementedError(
+            f"pipeline_parallelism={pipeline_parallelism!r} (the GPipe schedule) is not "
+            "ported yet: ROADMAP.md queue 1, item 4c")
 
 
 def run_benchmark(
@@ -84,21 +116,29 @@ def run_benchmark(
     time is `restore_seconds`, not start-up time), every window boundary
     saves, and the run ends with a save.
     """
-    _unported(
-        sequence_parallelism=(sequence_parallelism, 1, "4b"),
-        expert_parallelism=(expert_parallelism, 1, "4b"),
-        pipeline_parallelism=(pipeline_parallelism, 1, "4b"),
-    )
-    if grad_accum < 1:
-        raise ValueError(f"--grad-accum {grad_accum} must be >= 1 (1 = no accumulation)")
+    _check_options(seq_len, sequence_parallelism, expert_parallelism, moe_experts,
+                   pipeline_parallelism, head_major, grad_accum)
     if attention not in ("auto", "dense", "flash"):
         raise ValueError(f"attention={attention!r}: expected 'auto', 'dense' or 'flash'")
     device = resolve_device(device)
     on_card = device.type == "cuda"
     if attention == "auto":
         attention = "flash" if on_card else "dense"
-    num_chips = 1
-    global_batch = batch_per_data_shard
+    mesh = None
+    if dist.is_initialized() or sequence_parallelism != 1 or expert_parallelism != 1:
+        mesh = mesh_lib.make_workload_mesh(model_parallelism=sequence_parallelism,
+                                           expert_parallelism=expert_parallelism,
+                                           device_type=device.type)
+    num_chips = mesh.size() if mesh is not None else 1
+    global_batch = batch_per_data_shard * (mesh_lib.batch_degree(mesh) if mesh is not None else 1)
+    seq_axis = MODEL_AXIS if sequence_parallelism > 1 else None
+    if seq_axis is not None:
+        attention = "ring"
+
+        def attention_fn(q, k, v, causal=True):
+            return ring_attention(q, k, v, mesh=mesh, axis_name=MODEL_AXIS, causal=causal)
+    else:
+        attention_fn = flash_attention if attention == "flash" else dense_attention
 
     init_start = time.monotonic()
     model = TransformerLM(
@@ -107,20 +147,25 @@ def run_benchmark(
         num_heads=num_heads,
         embed_dim=embed_dim,
         max_seq_len=seq_len,
-        attention_fn=flash_attention if attention == "flash" else dense_attention,
+        attention_fn=attention_fn,
         moe_experts=moe_experts,
         moe_every=moe_every,
+        moe_mesh=mesh if moe_experts else None,
         remat_blocks=remat,
         head_major=head_major,
     )
     state = train_lib.create_train_state(
-        model, train_lib.default_optimizer(learning_rate=learning_rate), device
+        model, train_lib.default_optimizer(learning_rate=learning_rate), device, mesh=mesh
     )
-    step = train_lib.make_lm_train_step(state, grad_accum=grad_accum)
+    step = train_lib.make_lm_train_step(state, seq_axis=seq_axis, grad_accum=grad_accum)
     ckpt, state, start_step, restore_seconds = ckpt_lib.maybe_restore(checkpoint_dir, state)
     gen = torch.Generator(device=device).manual_seed(1)
     tokens = torch.randint(0, vocab_size, (global_batch, seq_len), generator=gen,
                            device=device, dtype=torch.int32)
+    if mesh is not None:  # this rank's shard: batch rows, and a sequence block
+        tokens = batch_shard(mesh, tokens)
+        if seq_axis is not None:
+            tokens = mesh_lib.local_shard(tokens, mesh, (None, seq_axis))
 
     last: dict = {}
 
@@ -129,6 +174,8 @@ def run_benchmark(
         return last
 
     flops = perf.flops_per_step(lambda: run_once()["loss"].item())
+    if flops["flops_per_step"]:  # the ranks' counts summed (they run the same step)
+        flops["flops_per_step"] *= num_chips
     timing = perf.timed_windows(
         run_once, steps=steps, warmup=warmup, windows=windows,
         profile_dir=profile_dir, on_window=ckpt_lib.window_save_hook(ckpt, state),
@@ -187,15 +234,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--windows", type=int, default=3, help="timed windows")
     parser.add_argument("--sequence-parallelism", type=int, default=1,
-                        help="ring attention (not ported yet)")
+                        help="shard the sequence over this many ranks (ring attention)")
     parser.add_argument("--expert-parallelism", type=int, default=1,
-                        help="(not ported yet)")
+                        help="shard the MoE experts over this many ranks")
     parser.add_argument("--moe-experts", type=int, default=0,
                         help="make every --moe-every'th block a mixture of this many "
                         "experts (models/moe.py); 0 = dense MLPs")
     parser.add_argument("--moe-every", type=int, default=2)
     parser.add_argument("--pipeline-parallelism", type=int, default=1,
-                        help="(not ported yet)")
+                        help="(not ported yet: ROADMAP.md queue 1, item 4c)")
     parser.add_argument("--num-microbatches", type=int, default=4)
     parser.add_argument("--remat", action="store_true",
                         help="recompute blocks in the backward (torch.utils.checkpoint)")
@@ -214,9 +261,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
-    result = run_benchmark(
+def _run(args) -> dict:
+    return run_benchmark(
         vocab_size=args.vocab_size,
         num_layers=args.num_layers,
         num_heads=args.num_heads,
@@ -239,6 +285,19 @@ def main(argv: list[str] | None = None) -> int:
         checkpoint_dir=args.checkpoint_dir,
         profile_dir=args.profile,
     )
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    joined = init_from_launcher()  # under torchrun: every rank runs the mesh path
+    rank = dist.get_rank() if joined else 0
+    try:
+        result = _run(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if rank:
+        return 0
     if args.json:
         print(json.dumps(result, sort_keys=True))
     else:

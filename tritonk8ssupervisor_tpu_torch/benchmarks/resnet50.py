@@ -13,6 +13,17 @@ backward of every stride-1 1x1 convolution of a ResNet goes through
 kernel K4 (ops/conv_backward.py). With `--checkpoint-dir` the run
 resumes from the directory's latest step and saves at every window
 boundary (parallel/checkpoint.py).
+
+    torchrun --nproc-per-node N -m tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 --json
+
+In a process group (torchrun, or `parallel/ranks.run_ranks`) the step
+runs on the mesh (`parallel/mesh.make_workload_mesh`): each rank trains
+on its shard of a global batch of `batch_per_chip` x the batch degree,
+the gradient is summed over the ranks and BatchNorm takes its
+statistics over the global batch; `--model-parallelism M` puts M ranks
+on the "model" axis, which class-shards the classifier (tensor
+parallelism). A degree that does not divide the ranks raises ValueError,
+also without a process group (one rank).
 """
 
 from __future__ import annotations
@@ -22,12 +33,16 @@ import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50, ViT
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
+from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import train as train_lib
+from tritonk8ssupervisor_tpu_torch.parallel.distributed import init_from_launcher
 from tritonk8ssupervisor_tpu_torch.utils import perf
+from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
 
 # "vit" is ViT-S/16 (models/vit.py), the transformer vision family
 MODELS = {"resnet50": ResNet50, "resnet18": ResNet18, "vit": ViT}
@@ -59,15 +74,11 @@ def run_benchmark(
     windows of `steps` steps are then timed, each fenced by reading the
     loss. With `checkpoint_dir`, the latest step there is restored first
     (its time is `restore_seconds`, not start-up time), every window
-    boundary saves, and the run ends with a save.
+    boundary saves, and the run ends with a save. On a mesh the metrics
+    are the global batch's and `flops_per_step` the ranks' counts summed.
     """
     if model_name not in MODELS:
         raise ValueError(f"unknown model {model_name!r}; choose from {sorted(MODELS)}")
-    if model_parallelism != 1:
-        raise NotImplementedError(
-            "model parallelism needs the mesh and tensor parallelism, not "
-            "ported yet: ROADMAP.md queue 1, item 4b"
-        )
     model_kwargs = {"num_classes": num_classes, "remat_blocks": remat}
     if model_name.startswith("resnet"):
         model_kwargs["fused_1x1_bwd"] = fused_1x1_bwd
@@ -79,6 +90,10 @@ def run_benchmark(
     else:
         model_kwargs["image_size"] = image_size  # sizes the ViT's pos_embed
     device = resolve_device(device)
+    mesh = None
+    if dist.is_initialized() or model_parallelism != 1:
+        mesh = mesh_lib.make_workload_mesh(model_parallelism=model_parallelism,
+                                           device_type=device.type)
     if steps_per_call <= 0:
         steps_per_call = 1
     if steps % steps_per_call:
@@ -86,13 +101,14 @@ def run_benchmark(
             f"steps ({steps}) must be a multiple of steps_per_call "
             f"({steps_per_call})"
         )
-    num_chips = 1
-    global_batch = batch_per_chip
+    num_chips = mesh.size() if mesh is not None else 1
+    data_degree = mesh_lib.batch_degree(mesh) if mesh is not None else 1
+    global_batch = batch_per_chip * data_degree
 
     init_start = time.monotonic()
     model = MODELS[model_name](**model_kwargs)
     state = train_lib.create_train_state(
-        model, train_lib.default_optimizer(learning_rate=learning_rate), device
+        model, train_lib.default_optimizer(learning_rate=learning_rate), device, mesh=mesh
     )
     step = train_lib.make_train_step(state, steps_per_call=steps_per_call)
     ckpt, state, start_step, restore_seconds = ckpt_lib.maybe_restore(checkpoint_dir, state)
@@ -107,8 +123,12 @@ def run_benchmark(
         0, num_classes, (global_batch,),
         generator=gen, device=device, dtype=torch.int32,
     )
+    if mesh is not None:  # this rank's shard of the global batch
+        images, labels = batch_shard(mesh, images), batch_shard(mesh, labels)
 
     flops = perf.flops_per_step(lambda: step(images, labels)["loss"].item())
+    if flops["flops_per_step"]:  # the ranks' counts summed (they run the same step)
+        flops["flops_per_step"] *= num_chips
     timing = perf.timed_windows(
         lambda: step(images, labels),
         steps=steps,
@@ -133,7 +153,7 @@ def run_benchmark(
         "platform": "gpu" if on_card else device.type,
         "device_kind": device_kind,
         "num_chips": num_chips,
-        "data_parallelism": 1,
+        "data_parallelism": data_degree,
         "model_parallelism": model_parallelism,
         "global_batch": global_batch,
         "image_size": image_size,
@@ -189,9 +209,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
-    result = run_benchmark(
+def _run(args) -> dict:
+    return run_benchmark(
         model_name=args.model,
         batch_per_chip=args.batch_per_chip,
         image_size=args.image_size,
@@ -206,6 +225,19 @@ def main(argv: list[str] | None = None) -> int:
         checkpoint_dir=args.checkpoint_dir,
         profile_dir=args.profile,
     )
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    joined = init_from_launcher()  # under torchrun: every rank runs the mesh path
+    rank = dist.get_rank() if joined else 0
+    try:
+        result = _run(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if rank:
+        return 0
     if args.json:
         print(json.dumps(result, sort_keys=True))
     else:

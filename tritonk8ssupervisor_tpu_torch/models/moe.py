@@ -1,5 +1,5 @@
 """Mixture-of-experts MLP: the port of
-`tritonk8ssupervisor_tpu/models/moe.py` for one device.
+`tritonk8ssupervisor_tpu/models/moe.py`, on one device or over a mesh.
 
 - Routing is static-shaped, as the reference's: every (batch row,
   expert) pair has `capacity` token slots; a choice that finds its
@@ -26,7 +26,18 @@
   overwrites the attribute, after the objective was built from the first
   forward's tensors.
 
-Expert parallelism (a `mesh`) is ROADMAP.md queue 1, item 4b, and raises.
+- On a mesh (`mesh`, which `parallel/train.create_train_state` sets on
+  every MoE layer) each rank routes its own batch rows, as capacity is
+  per row. The router loss is the reference's over the global batch: the
+  per-expert sums of the first-choice mask and of the probabilities, the
+  token count and the z-loss sum are all-reduced over the batch axes.
+  Where the expert axis shards the expert parameters (each rank holds
+  E / ep experts, `parallel/mesh.param_shardings`), the dispatched
+  (E, b, C, d) slots go to their experts' ranks by all_to_all over
+  "expert", the rank runs its experts over the slots of every rank of
+  its expert group, and a second all_to_all brings the results back
+  before the combine: the reference's two all_to_alls, which XLA places
+  there.
 """
 
 from __future__ import annotations
@@ -39,6 +50,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from tritonk8ssupervisor_tpu_torch.models.resnet import lecun_normal_
+from tritonk8ssupervisor_tpu_torch.parallel import collectives as coll
+from tritonk8ssupervisor_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS,
+    axis_sizes,
+    batch_axes,
+    batch_degree,
+    mesh_group,
+)
 
 def compute_capacity(seq_len: int, num_experts: int, k: int,
                      capacity_factor: float) -> int:
@@ -115,11 +134,7 @@ class MoEMLP(nn.Module):
                  z_weight: float = 1e-3, dtype: torch.dtype = torch.bfloat16,
                  mesh=None, generator: torch.Generator | None = None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "expert parallelism (MoEMLP over a mesh) is not ported yet: "
-                "ROADMAP.md queue 1, item 4b"
-            )
+        self.mesh = mesh
         d, e, f = embed_dim, num_experts, mlp_ratio * embed_dim
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         self.num_experts, self.k, self.capacity_factor = e, k, capacity_factor
@@ -140,14 +155,51 @@ class MoEMLP(nn.Module):
         dispatch, combine, top1 = top_k_dispatch(probs, self.k, capacity)
         # computed on every call, so that a checkpointed block's recompute
         # saves the same tensors as its first forward did
-        lb = load_balance_loss(probs, top1)
-        zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        z = torch.logsumexp(logits, dim=-1) ** 2
+        if self.mesh is not None and batch_degree(self.mesh) > 1:
+            lb, zl = self._global_router_losses(probs, top1, z)
+        else:
+            lb, zl = load_balance_loss(probs, top1), torch.mean(z)
         self.router_loss = self.aux_weight * lb + self.z_weight * zl
 
         xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(self.dtype), x.to(self.dtype))
-        y = _experts(xe, self.expert_up_kernel, self.expert_up_bias,
-                     self.expert_down_kernel, self.expert_down_bias)
+        params = (self.expert_up_kernel, self.expert_up_bias,
+                  self.expert_down_kernel, self.expert_down_bias)
+        if self.expert_up_kernel.shape[0] == self.num_experts:
+            y = _experts(xe, *params)
+        else:
+            y = self._expert_parallel(xe, params)
         return torch.einsum("bsec,ebcd->bsd", combine.to(self.dtype), y)
+
+    def _global_router_losses(self, probs, top1, z):
+        """The load-balance and z losses over the batch of every rank of
+        the batch axes: f and p from all-reduced sums (the gradient of p
+        summed back), the same value on every rank."""
+        e = self.num_experts
+        group = mesh_group(self.mesh, batch_axes(self.mesh))
+        local = torch.cat([top1.reshape(-1, e).sum(0), probs.reshape(-1, e).sum(0),
+                           z.sum()[None]])
+        total = coll.all_reduce(local, group)
+        tokens = z.numel() * group.size()
+        f, p = total[:e] / tokens, total[e:2 * e] / tokens
+        return e * torch.sum(f * p), total[2 * e] / tokens
+
+    def _expert_parallel(self, xe, params):
+        """The experts of this rank (E / ep of them) over the slots of
+        every rank of its expert group: all_to_all there and back."""
+        group = mesh_group(self.mesh, EXPERT_AXIS)
+        ep = axis_sizes(self.mesh)[EXPERT_AXIS]
+        e_local = params[0].shape[0]
+        if e_local * ep != self.num_experts:
+            raise ValueError(
+                f"{e_local} local experts on an expert axis of {ep}: the layer has "
+                f"{self.num_experts} (shard it with parallel/train.create_train_state)")
+        _, b, c, d = xe.shape
+        # block j of dim 0: the slots of rank j's experts
+        recv = coll.all_to_all(xe.reshape(ep, e_local, b, c, d), group)
+        h = recv.transpose(0, 1).reshape(e_local, ep * b, c, d)
+        y = _experts(h, *params).reshape(e_local, ep, b, c, d).transpose(0, 1)
+        return coll.all_to_all(y.contiguous(), group).reshape(self.num_experts, b, c, d)
 
 
 def moe_mlp_reference(params: Mapping[str, torch.Tensor], x: torch.Tensor,

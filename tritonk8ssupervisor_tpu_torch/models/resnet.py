@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tritonk8ssupervisor_tpu_torch.ops.conv_backward import conv1x1
 from tritonk8ssupervisor_tpu_torch.ops.pool_backward import max_pool_3x3_s2
+from tritonk8ssupervisor_tpu_torch.parallel import collectives as coll
 
 # flax's lecun_normal is a normal truncated at two standard deviations,
 # rescaled by the std of that truncated normal so the variance is 1/fan_in
@@ -151,6 +152,9 @@ class BatchNorm(nn.Module):
         # cleared while a rematerialised block is recomputed in the
         # backward, so the statistics move once per forward
         self.update_stats = True
+        # the process group of the batch shards (parallel/spmd.distribute
+        # sets it on a mesh): train mode then normalises over the global batch
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -158,6 +162,8 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, _BN_EPSILON,
             )
+        if self.group is not None:
+            return self._global_batch_norm(x)
         n = x.numel() // x.shape[1]
         bessel = n / (n - 1)
         # copies, not the buffers: the op saves the running statistics it
@@ -173,6 +179,29 @@ class BatchNorm(nn.Module):
             with torch.no_grad():
                 self.running_mean.copy_(running_mean)
                 torch.div(running_var, bessel, out=self.running_var)
+        return y
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the batch of every rank of `group`, as flax's
+        BatchNorm under `jit` takes its statistics over the global batch:
+        the f32 per-channel sums of x and x^2 are all-reduced (their
+        gradient too), mean = E[x], biased var = E[x^2] - E[x]^2, and
+        y = (x - mean) * (scale * rsqrt(var + eps)) + bias in f32, cast
+        to x's dtype: flax's own arithmetic. The running statistics move
+        as on one device."""
+        xf = x.float()
+        sums = torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+        sums = coll.all_reduce(sums, self.group)
+        n = x.numel() // x.shape[1] * self.group.size()
+        mean = sums[0] / n
+        var = (sums[1] / n - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + _BN_EPSILON) * self.weight
+        shape = (1, -1, 1, 1)
+        y = ((xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(_BN_MOMENTUM).add_(mean, alpha=1.0 - _BN_MOMENTUM)
+                self.running_var.mul_(_BN_MOMENTUM).add_(var, alpha=1.0 - _BN_MOMENTUM)
         return y
 
 

@@ -15,8 +15,11 @@
   parameters one to one; `_HeadMajorQKV` and `_HeadMajorProj` hold the
   same (out, in) weights as the `Dense` they replace.
 - `attention_fn(q, k, v, causal=..., layout=...)` is pluggable:
-  `dense_attention` (the default, plain torch) or
-  `ops/flash_attention.flash_attention` (kernel K2 on the card).
+  `dense_attention` (the default, plain torch),
+  `ops/flash_attention.flash_attention` (kernel K2 on the card), or
+  under sequence parallelism a closure over
+  `ops/ring_attention.ring_attention` (seq-major only), with the
+  forward's `pos_offset` the shard's global position.
 - Initialisation is the port's own, from an explicit `torch.Generator`
   (lecun-normal kernels, zero biases, N(0, 1/embed) token embedding,
   N(0, 0.02^2) position embedding); it does not reproduce JAX's bits.
@@ -263,11 +266,24 @@ class TransformerLM(nn.Module):
         self.LayerNorm_0 = LayerNorm(embed_dim, dtype)
         self.lm_head = Dense(embed_dim, vocab_size, logits_dtype, gen)
 
-    def forward(self, tokens: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, train: bool = True,
+                pos_offset: int = 0) -> torch.Tensor:
         """`train` is accepted for the reference's signature; the LM has no
-        dropout or batch statistics, so both modes compute the same."""
+        dropout or batch statistics, so both modes compute the same.
+
+        `pos_offset` is the global position of `tokens`' first column: a
+        rank that holds a shard of the sequence (sequence parallelism,
+        with a ring `attention_fn`) reads `pos_embed` at its own
+        positions, as the reference's global array does."""
         s = tokens.shape[1]
-        x = self.tok_embed(tokens).to(self.dtype) + self.pos_embed[:s].to(self.dtype)
+        if pos_offset and self.moe_experts:
+            raise NotImplementedError(
+                "sequence parallelism with mixture-of-experts blocks is not ported yet "
+                "(capacity is per row over the whole sequence, so a shard's slots "
+                "depend on the earlier shards' counts): ROADMAP.md queue 1, item 4c"
+            )
+        pos = self.pos_embed[pos_offset:pos_offset + s]
+        x = self.tok_embed(tokens).to(self.dtype) + pos.to(self.dtype)
         remat = self.remat_blocks and self.training and torch.is_grad_enabled()
         for i in range(self.num_layers):
             block = getattr(self, f"Block_{i}")

@@ -10,13 +10,17 @@ Backward: plain torch, `(softmax(logits) - onehot) * g`, as in the
 reference (`_dlogits`, :237-241): one fused elementwise expression over
 the logits, which a hand kernel would not improve on.
 
-`vocab_parallel_cross_entropy` (:189-234) needs a tensor-parallel
-group and is not ported yet (ROADMAP, queue 1).
+`vocab_parallel_cross_entropy` (:189-234) is the loss over class-sharded
+logits under tensor parallelism: plain torch and collectives over the
+"model" group, as the reference's is plain XLA.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from tritonk8ssupervisor_tpu_torch.parallel import collectives as coll
 
 _LOGIT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _LABEL_DTYPES = (torch.int32, torch.int64)
@@ -153,3 +157,36 @@ def cross_entropy_loss_and_correct(
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-example softmax cross-entropy through K1: (batch,) f32 losses."""
     return _CrossEntropy.apply(logits, labels)[0]
+
+
+def vocab_parallel_cross_entropy(
+    logits_block: torch.Tensor, labels: torch.Tensor, group
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over class-sharded logits (reference :189-234): this
+    rank holds the (batch, C / n) block of classes [rank * C / n, ...) of
+    the same batch rows as every rank of `group`, and every rank gets the
+    same (batch,) f32 losses and correct flags, as if it held all C.
+
+    Three per-example collectives instead of gathering the logits: the
+    max of an all_gather of the shard maxima (outside the gradient: it
+    cancels in lse - picked), the all-reduced partition sum, and the
+    all-reduced logit of the label, which one shard owns. `correct` is
+    `picked >= global max`, and False for a label no shard owns (outside
+    [0, C)). The sums pass their gradients back unreduced
+    (`reduce_from_group`), so the gradient in the local logits is the
+    reference's: softmax - onehot of this rank's classes."""
+    block = logits_block.float()
+    _, c_local = block.shape
+    offset = dist.get_rank(group) * c_local
+    with torch.no_grad():
+        local_max = block.amax(dim=-1)
+        global_max = coll.gather_values(local_max[None], group, 0).amax(dim=0)
+    z_local = torch.exp(block - global_max[:, None]).sum(dim=-1)
+    lse = torch.log(coll.reduce_from_group(z_local, group)) + global_max
+    local_label = labels.long() - offset
+    mine = (local_label >= 0) & (local_label < c_local)
+    picked_here = block.gather(-1, local_label.clamp(0, c_local - 1)[:, None])[:, 0]
+    picked = coll.reduce_from_group(torch.where(mine, picked_here, 0.0), group)
+    any_mine = coll.sum_values(mine.int(), group) > 0
+    correct = (picked.detach() >= global_max) & any_mine
+    return lse - picked, correct

@@ -1,15 +1,21 @@
 """Checkpoint and resume of the training state on
 `torch.distributed.checkpoint` (DCP): the port of
-`tritonk8ssupervisor_tpu/parallel/checkpoint.py` for one process.
+`tritonk8ssupervisor_tpu/parallel/checkpoint.py`, in one process or on a
+mesh of ranks.
 
 A step is saved as `<dir>/<step>/`, one DCP checkpoint, and committed by
 the marker `<dir>/.tk8s-complete/<step>`, written (temp file, then
 `os.replace`) only after the step's save finished. `latest_step` counts
 committed steps only, unless no step has a marker at all (a directory
 written before markers existed, trusted as a whole); `restore` falls back
-past a step that fails to read to the previous one. DCP runs here in one
-process, without `init_process_group` (`no_dist=True`), and saves
-synchronously, so a save's marker is written by the same call.
+past a step that fails to read to the previous one. A state without a
+mesh is saved by DCP in one process, without `init_process_group`
+(`no_dist=True`); a state on a mesh is saved by every rank of the
+process group, each sharded parameter (and the optimizer state that
+follows it) as a DTensor of its placements, so a restore onto another
+mesh (another rank count, other degrees) reshards it. Saves are
+synchronous: rank 0 writes the marker after DCP's commit, and the ranks
+meet at a barrier before the save and after the marker.
 
 What is saved is what a resumed run needs to equal one that never
 stopped, as one flat dict of tensors:
@@ -44,8 +50,10 @@ import warnings
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
+from tritonk8ssupervisor_tpu_torch.parallel.mesh import dtensor_placements
 from tritonk8ssupervisor_tpu_torch.parallel.train import TrainState
 
 # `<ckpt-dir>/.tk8s-complete/<step>`: the commit marker of a whole save
@@ -78,11 +86,39 @@ def _one_process():
         yield
 
 
+def _on_mesh(state: TrainState) -> bool:
+    return state.mesh is not None and dist.is_initialized()
+
+
+def _is_rank0(state: TrainState) -> bool:
+    return not _on_mesh(state) or dist.get_rank() == 0
+
+
+def _sharded(state: TrainState, name: str) -> bool:
+    spec = state.specs.get(name)
+    return _on_mesh(state) and bool(spec) and any(spec)
+
+
+def _global(state: TrainState, name: str, local: torch.Tensor) -> torch.Tensor:
+    """`local` (a shard of parameter `name`, or of state shaped like it)
+    as a DTensor of the parameter's placements; as it is when the
+    parameter is replicated or there is no mesh."""
+    if not _sharded(state, name):
+        return local
+    spec = state.specs[name]
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, state.mesh, dtensor_placements(state.mesh, spec),
+                              run_check=False)
+
+
 def _state_dict(state: TrainState) -> dict[str, torch.Tensor]:
-    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out = {f"model.{k}": _global(state, k, v) for k, v in state.model.state_dict().items()}
     names = {p: n for n, p in state.model.named_parameters()}
     for param, values in state.optimizer.state.items():
         for key, value in values.items():
+            if value.shape == param.shape:  # a per-element state: the parameter's shards
+                value = _global(state, names[param], value)
             out[f"optimizer.{names[param]}.{key}"] = value
     if hasattr(state.optimizer, "count"):
         out["optimizer.count"] = torch.tensor(state.optimizer.count)
@@ -93,22 +129,30 @@ def _state_dict(state: TrainState) -> dict[str, torch.Tensor]:
 def _restore_into(path: Path, state: TrainState) -> None:
     """Load the DCP checkpoint at `path` into `state` in place."""
     stored = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
-    model = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    model = {f"model.{k}": _global(state, k, v) for k, v in state.model.state_dict().items()}
+    params = dict(state.model.named_parameters())
     target: dict[str, torch.Tensor] = dict(model)
     for key, meta in stored.items():
-        if key not in model:  # optimizer state and counters, read on the host
+        if key in model:
+            continue
+        name = key.removeprefix("optimizer.").rpartition(".")[0]
+        if name in params and _sharded(state, name) \
+                and tuple(meta.size) == tuple(model[f"model.{name}"].shape):
+            # a sharded parameter's per-element state: read as its shards
+            target[key] = _global(state, name, torch.zeros_like(params[name]))
+        else:  # replicated optimizer state and counters, read on the host
             target[key] = torch.empty(meta.size, dtype=meta.properties.dtype)
     if set(model) - set(stored):
         raise ValueError(f"{path}: no entry for {sorted(set(model) - set(stored))[:4]}")
     with _one_process():
-        dcp.load(target, checkpoint_id=path, no_dist=True)
+        dcp.load(target, checkpoint_id=path, no_dist=not _on_mesh(state))
 
-    index = {n: i for i, (n, _) in enumerate(state.model.named_parameters())}
+    index = {n: i for i, n in enumerate(params)}
     per_param: dict[int, dict[str, torch.Tensor]] = {}
     for key, value in target.items():
         if key.startswith("optimizer.") and key != "optimizer.count":
             name, _, leaf = key.removeprefix("optimizer.").rpartition(".")
-            per_param.setdefault(index[name], {})[leaf] = value
+            per_param.setdefault(index[name], {})[leaf] = getattr(value, "_local_tensor", value)
     groups = state.optimizer.state_dict()["param_groups"]
     state.optimizer.load_state_dict({"state": per_param, "param_groups": groups})
     if "optimizer.count" in target:
@@ -154,14 +198,21 @@ class TrainCheckpointer:
         the newest `max_to_keep`. The save is synchronous: the reference's
         `wait` for its asynchronous saves has no counterpart."""
         step_dir = self._dir / str(step)
-        self._marker(step).unlink(missing_ok=True)
-        shutil.rmtree(step_dir, ignore_errors=True)
+        on_mesh, rank0 = _on_mesh(state), _is_rank0(state)
+        if rank0:
+            self._marker(step).unlink(missing_ok=True)
+            shutil.rmtree(step_dir, ignore_errors=True)
+        if on_mesh:
+            dist.barrier()
         with _one_process():
-            dcp.save(_state_dict(state), checkpoint_id=step_dir, no_dist=True)
-        _atomic_write_text(self._marker(step), f"{step}\n")
-        for old in self.all_steps()[:-self.max_to_keep]:
-            self._marker(old).unlink(missing_ok=True)
-            shutil.rmtree(self._dir / str(old), ignore_errors=True)
+            dcp.save(_state_dict(state), checkpoint_id=step_dir, no_dist=not on_mesh)
+        if rank0:
+            _atomic_write_text(self._marker(step), f"{step}\n")
+            for old in self.all_steps()[:-self.max_to_keep]:
+                self._marker(old).unlink(missing_ok=True)
+                shutil.rmtree(self._dir / str(old), ignore_errors=True)
+        if on_mesh:
+            dist.barrier()
 
     def restore(self, state: TrainState, step: int | None = None) -> TrainState:
         """Restore into `state` in place and return it. With no explicit

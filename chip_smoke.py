@@ -109,7 +109,7 @@ which raises on failure (exit code not 0, no result line):
    steps straight against 3 with `checkpoint_dir` and 3 more in a fresh
    process that restores them (parameters and momentum bit-equal), then
    a torn step 6 that a restore must skip for step 3; restore_seconds;
-21. (last) where a ViT-S/16 step and a MoE LM step go on the card
+21. where a ViT-S/16 step and a MoE LM step go on the card
    (torch.profiler, by operator; for the MoE LM, the expert products'
    and the dispatch and combine products' shares);
 22. (after 20) the mesh at a world of one over NCCL: a process group of
@@ -127,7 +127,27 @@ which raises on failure (exit code not 0, no result line):
    (128 a rank, BatchNorm over the global batch), each rank's first step
    against this process's step on the whole batch, then the step's wall
    time and the gloo all_reduce's share, as two processes sharing one
-   card (not a two-card number).
+   card (not a two-card number);
+24. (after 21) the pipeline at a world of one over NCCL: the pipelined LM
+   (`parallel/pipeline.create_pp_lm_state` and `make_pp_lm_train_step`)
+   at the LM's published widths on the (1, 1, 1, 1) mesh in 4
+   microbatches; its first update against the dense single-device step's
+   from the same weights, as a relative norm within `VIT_UPDATE_REL`;
+   K1 once and K2 48 + 48 times in the step, at (2, 1024, 12, 64) (K2 at
+   that shape against its plain version in 4); both steps' host-clock
+   times;
+25. the MoE LM at the published widths (every second block 8 experts) on
+   that mesh: its first step with `seq_axis="model"` (one shard, the
+   slot offsets from an all_gather of one) equal to the bit to the step
+   without a sequence axis;
+26. decode over the mesh: `benchmarks.decode.run_benchmark` at its
+   defaults with the int8 cache on that mesh, its tokens equal to phase
+   13's single-device run's, K3 counted; then two processes sharing the
+   card over gloo, 4 of 8 streams each, 128 new tokens (cut from 512 to
+   keep the phase short), each rank's tokens equal to this process's
+   `generate` of its 4 rows (K3 at a rank's (4, 12, 256, 64) against its
+   plain version in 11); tokens/s as two processes sharing one card, not
+   a two-card rate.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -172,6 +192,7 @@ from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import attention_reference, ring_attention
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
 from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
+from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp
 from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
 from tritonk8ssupervisor_tpu_torch.parallel.ranks import run_ranks
 from tritonk8ssupervisor_tpu_torch.serving import SlotEngine
@@ -1001,15 +1022,19 @@ def profile_decode(card: str) -> dict | None:
     return k3
 
 
-def run_decode(card: str, k3_step: dict | None) -> dict:
+def run_decode(card: str, k3_step: dict | None) -> tuple[dict, dict]:
     """The decode benchmark at its defaults three ways, with K3's launches
-    counted around each."""
+    counted around each; returns them and the int8-cache run's result
+    (its tokens kept for phase 26)."""
     launches = {}
     for name, options in (("decode_bf16_cache", {}), ("decode_cache_int8", {"cache_int8": True}),
                           ("decode_int8_weights_cache_int8", {"int8": True, "cache_int8": True})):
         da.decode_attention_kernel.launches = 0
-        result = decode_bench.run_benchmark(**options)
+        result = decode_bench.run_benchmark(keep_tokens=True, **options)
         launches[name] = da.decode_attention_kernel.launches
+        tokens = result.pop("tokens")
+        if name == "decode_cache_int8":
+            single = {**result, "tokens": tokens}
         print(f"{name}: " + json.dumps(result, sort_keys=True), flush=True)
         if result["platform"] != "gpu":
             raise AssertionError(f"{name} ran on {result['platform']}")
@@ -1030,7 +1055,7 @@ def run_decode(card: str, k3_step: dict | None) -> dict:
               f"{result['ms_per_token_per_stream']:.3f} ms a step (ms/token/stream){k3_text}, "
               f"peak memory {result['peak_memory_gb']:.2f} GB, K3 launches "
               f"{launches[name]}, on {card}", flush=True)
-    return launches
+    return launches, single
 
 
 def run_engine(card: str) -> int:
@@ -1726,6 +1751,207 @@ def run_two_ranks(card: str) -> dict:
     return out
 
 
+# slice 10: the pipeline over "pipe", sequence-parallel MoE blocks and
+# decode over a mesh
+PP_MICROBATCHES = 4
+# steps timed on the host clock, each ended by a host copy of its loss
+PP_TIMED_STEPS = 5
+# the two-process decode: 128 new tokens, one timed call after the first
+# (the one-rank run of phase 26 keeps the defaults)
+TWO_RANK_DECODE = dict(new_tokens=128, repeats=1)
+
+
+def _pp_params_as_dense(pp_model) -> dict:
+    """A `PipelinedLM`'s parameters at one rank (every stage) under the
+    dense LM's names."""
+    named = dict(pp_model.named_parameters())
+    out = {k.removeprefix("outer."): p.detach().clone() for k, p in named.items()
+           if k.startswith("outer.")}
+    stages = {k.removeprefix("stages."): p.detach()[0] for k, p in named.items()
+              if k.startswith("stages.")}
+    out.update({k: v.clone() for k, v in pp.unstack_block_params(stages, pp_model.num_layers)
+                .items()})
+    return out
+
+
+def _step_ms(step, batch: tuple, steps: int) -> list[float]:
+    """Host-clock ms of each of `steps` steps, each ended by a host copy of
+    its loss."""
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        step(*batch)["loss"].item()
+        times.append(1e3 * (time.perf_counter() - start))
+    return times
+
+
+def run_pipeline_one_rank(card: str, mesh) -> dict:
+    """Phase 24: the pipelined LM at the LM's published widths on the
+    (1, 1, 1, 1) mesh, 4 microbatches: its first update against the dense
+    single-device step's from the same weights, K1's and K2's launches in
+    it, both steps' host-clock times, then where each step goes on the
+    card (torch.profiler, after the timing)."""
+    single = _first_step("lm")
+    ref_after, before, ref_loss = single["after"], single["before"], single["loss"]
+    dense_ms = _step_ms(single["step"], single["batch"], PP_TIMED_STEPS)
+    state = pp.create_pp_lm_state(_lm_model(), train.default_optimizer(MESH_LR["lm"]), mesh,
+                                  "cuda")
+    step = pp.make_pp_lm_train_step(state, PP_MICROBATCHES)
+    tokens = _lm_tokens()
+    loss, counts = _counted(lambda: step(tokens)["loss"].item())
+    after = _pp_params_as_dense(state.model)
+    num = math.sqrt(sum((after[n] - ref_after[n]).double().norm().item() ** 2 for n in after))
+    den = math.sqrt(sum((ref_after[n] - before[n]).double().norm().item() ** 2 for n in after))
+    rel = num / den
+    pp_ms = _step_ms(step, (tokens,), PP_TIMED_STEPS)
+    profiles = {}
+    for name, run in (("pipelined", lambda: step(tokens)["loss"].item()),
+                      ("dense", lambda: single["step"](*single["batch"])["loss"].item())):
+        wall, busy, ops = _profile_step(run)
+        profiles[name] = {"wall_ms": wall, "device_ms": busy,
+                          "by_operator": dict(list(_by_operator(ops).items())[:8])}
+    del state, step, after, ref_after, before, single
+    torch.cuda.empty_cache()
+    layers = 12
+    expected = (1, layers * PP_MICROBATCHES, layers * PP_MICROBATCHES)
+    got = (counts["k1"], counts["k2_forward"], counts["k2_backward"])
+    print(f"pipeline (phase 24), one rank over NCCL, LM 12L/768/seq 1024/batch 8 bf16 in "
+          f"{PP_MICROBATCHES} microbatches of (2, 1024): first step loss {loss!r} against the "
+          f"dense single-device step's {ref_loss!r}; first update |d_pp - d_dense| / |d_dense| "
+          f"{rel:.3e} (tolerance {VIT_UPDATE_REL}); launches in the step: K1 {got[0]}, K2 "
+          f"forward {got[1]}, backward {got[2]} (expected {expected}), K2 input copies "
+          f"{counts['k2_copies']}, peak memory {counts['peak_memory_bytes'] / 1e9:.2f} GB; "
+          f"step ms (host clock, {PP_TIMED_STEPS} steps) pipelined median "
+          f"{statistics.median(pp_ms):.2f} {[round(t, 2) for t in pp_ms]} against dense median "
+          f"{statistics.median(dense_ms):.2f} {[round(t, 2) for t in dense_ms]}, on {card}",
+          flush=True)
+    for name, r in profiles.items():
+        print(f"profile: {name} LM step (phase 24), wall {r['wall_ms']:.2f} ms, card busy "
+              f"{r['device_ms']:.3f} ms (idle {1 - r['device_ms'] / r['wall_ms']:.1%}, an upper "
+              f"bound: the profiler's own host cost); by operator: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in r["by_operator"].items()) + f" on {card}",
+              flush=True)
+    if got != expected or not rel <= VIT_UPDATE_REL or abs(loss - ref_loss) > PARITY_LOSS_ATOL:
+        raise AssertionError(f"pipeline at one rank: launches {got}, update {rel:.3g}, "
+                             f"loss {loss} against {ref_loss}")
+    return {**counts, "update_rel": rel, "loss": loss, "dense_loss": ref_loss,
+            "step_ms": statistics.median(pp_ms), "step_ms_all": pp_ms,
+            "dense_step_ms": statistics.median(dense_ms), "dense_step_ms_all": dense_ms,
+            "profiles": profiles}
+
+
+def run_moe_seq_one_rank(card: str, mesh) -> dict:
+    """Phase 25: the MoE LM at the LM's published widths (every second
+    block 8 experts) on the (1, 1, 1, 1) mesh, its first step with
+    seq_axis="model" (one shard: the slot offsets from an all_gather of
+    one, all zero) against the step without a sequence axis: equal to the
+    bit."""
+    out = {}
+    for seq_axis in (None, "model"):
+        model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                              max_seq_len=1024, attention_fn=fa.flash_attention,
+                              moe_experts=8, moe_every=2, moe_mesh=mesh)
+        state = train.create_train_state(model, train.default_optimizer(MESH_LR["lm"]),
+                                         "cuda", mesh=mesh)
+        step = train.make_lm_train_step(state, seq_axis=seq_axis)
+        metrics, counts = _counted(lambda: {k: v.item() for k, v in step(_lm_tokens()).items()})
+        out[seq_axis] = {"metrics": metrics, "params": _params(model), "counts": counts}
+        del model, state, step
+        torch.cuda.empty_cache()
+    plain, seq = out[None], out["model"]
+    equal = plain["metrics"] == seq["metrics"] and all(
+        torch.equal(v, seq["params"][k]) for k, v in plain["params"].items())
+    diff = max((v - seq["params"][k]).abs().max().item() for k, v in plain["params"].items())
+    print(f"MoE LM with seq_axis='model' (phase 25), one rank over NCCL, 12L/768/seq 1024/batch "
+          f"8 bf16, 6 blocks of 8 experts: first step {seq['metrics']} against the step without a "
+          f"sequence axis {plain['metrics']}, equal to the bit (metrics and every parameter): "
+          f"{equal}, max |param diff| {diff:.3g}; launches K1 {seq['counts']['k1']}, K2 "
+          f"{seq['counts']['k2_forward']} + {seq['counts']['k2_backward']}, on {card}",
+          flush=True)
+    if not equal:
+        raise AssertionError("MoE LM: the step with a sequence axis of one differs")
+    return {"bit_equal": equal, "metrics": seq["metrics"],
+            **{k: seq["counts"][k] for k in ("k1", "k2_forward", "k2_backward")}}
+
+
+def run_decode_mesh_one_rank(card: str, single: dict) -> dict:
+    """Phase 26, first part: the decode benchmark at its defaults with the
+    int8 cache on the (1, 1, 1, 1) mesh over NCCL: the tokens of phase
+    13's single-device run, K3 12 x 511 times a call."""
+    da.decode_attention_kernel.launches = 0
+    result = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True)
+    launches = da.decode_attention_kernel.launches
+    # the first call and the 3 timed repeats
+    expected = result["num_layers"] * (result["new_tokens"] - 1) * 4
+    equal = result["tokens"] == single["tokens"]
+    print(f"decode over the mesh (phase 26), one rank over NCCL, defaults with the int8 cache: "
+          f"num_chips {result['num_chips']}, {result['tokens_per_sec']:.1f} tokens/s, "
+          f"{result['ms_per_token_per_stream']:.3f} ms a step against the single-device run's "
+          f"{single['ms_per_token_per_stream']:.3f}; tokens equal the single-device run's: "
+          f"{equal}; K3 launches {launches} (expected {expected}), on {card}", flush=True)
+    if not equal or result["num_chips"] != 1 or launches != expected:
+        raise AssertionError(f"decode over the mesh: tokens equal {equal}, launches {launches}")
+    return {"k3": launches, "tokens_per_sec": result["tokens_per_sec"],
+            "ms_per_token_per_stream": result["ms_per_token_per_stream"]}
+
+
+def two_rank_decode(options: dict) -> dict:
+    """One rank of the two-process decode (gloo, both on the one card): the
+    benchmark with the int8 cache on this rank's 4 of the 8 streams."""
+    torch.cuda.set_device(0)
+    da.decode_attention_kernel.launches = 0
+    result = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True, **options)
+    return {**result, "k3": da.decode_attention_kernel.launches}
+
+
+def run_two_rank_decode(card: str) -> dict:
+    """Phase 26, second part: two processes sharing the card over gloo, 4
+    of 8 streams each; each rank's tokens against this process's
+    `generate` of the same 4 rows."""
+    ranks = run_ranks(two_rank_decode, 2, args=(TWO_RANK_DECODE,), backend="gloo", timeout=600,
+                      threads=4)
+    new = TWO_RANK_DECODE["new_tokens"]
+    max_len = 128 + new
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                          max_seq_len=max_len, generator=torch.Generator().manual_seed(1))
+    params = dec.lm_params(model, "cuda")
+    prompt = torch.randint(0, 32768, (8, 128), generator=torch.Generator().manual_seed(0))
+    equal = [dec.generate(model, params, prompt[4 * r:4 * r + 4].cuda(), new, max_len=max_len,
+                          cache_int8=True).cpu().tolist() == ranks[r]["tokens"] for r in range(2)]
+    r = ranks[0]
+    expected = 12 * (new - 1) * (1 + TWO_RANK_DECODE["repeats"])
+    print(f"decode in two processes (gloo) on one card (phase 26), 4 of 8 streams each, "
+          f"{new} new tokens, int8 cache: num_chips {r['num_chips']}, {r['tokens_per_sec']:.1f} "
+          f"tokens/s by two processes sharing one card (not a two-card number; the slowest "
+          f"rank's time), {r['ms_per_token_per_stream']:.3f} ms a step; each rank's tokens equal "
+          f"this process's generate of its 4 rows: {equal}; K3 launches {r['k3']} + "
+          f"{ranks[1]['k3']} (expected {expected} each), on {card}", flush=True)
+    if not all(equal) or r["num_chips"] != 2 or any(x["k3"] != expected for x in ranks):
+        raise AssertionError(f"two-process decode: equal {equal}, ranks {ranks}")
+    return {"k3": [x["k3"] for x in ranks], "tokens_per_sec": r["tokens_per_sec"],
+            "ms_per_token_per_stream": r["ms_per_token_per_stream"]}
+
+
+def run_slice10(card: str, decode_single: dict) -> dict:
+    """Phases 24-26: a process group of one rank over NCCL for the
+    pipeline, the MoE LM's sequence axis and decode over the mesh; then
+    decode in two processes over gloo."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = mesh_lib.make_mesh(device_type="cuda")
+            out["pipeline"] = run_pipeline_one_rank(card, mesh)
+            out["moe_seq_axis"] = run_moe_seq_one_rank(card, mesh)
+            out["decode_mesh"] = run_decode_mesh_one_rank(card, decode_single)
+        finally:
+            dist.destroy_process_group()
+    out["decode_two_ranks"] = run_two_rank_decode(card)
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -1770,6 +1996,8 @@ def main() -> int:
         check_k2(2, 512, 4, 128, causal=False, layout="bshd", seed=3),
         # ViT-S/16's attention: non-causal, 197 tokens, 256 x 6 heads of 64
         check_k2(256, 197, 6, 64, causal=False, layout="bshd", seed=4),
+        # the pipelined LM's microbatch (phase 24: 8 rows in 4 microbatches)
+        check_k2(2, 1024, 12, 64, causal=True, layout="bshd", seed=5),
     ]
     k2_vit = k2_rows[4]
     for row in k2_rows:
@@ -1858,6 +2086,8 @@ def main() -> int:
                  layout="paged", seed=11),
         # past the first design's 227 KB of scores in shared memory
         check_k3("one query over 65,536 positions", 1, 1, 12, 65536, 64, 65535, seed=12),
+        # a rank's half of the batch in the two-process decode of phase 26
+        check_k3("two-process decode rank, pos 255", 4, 1, 12, 256, 64, 255, seed=13),
     ]
     for row in k3_rows:
         device = {k: "not measured" if row[k] is None else f"{row[k]:.4f}"
@@ -1878,10 +2108,11 @@ def main() -> int:
     check_decode_parity()
     check_engine_parity()
     k3_step = profile_decode(card)
-    decode_launches = run_decode(card, k3_step)
+    decode_launches, decode_single = run_decode(card, k3_step)
     engine_launches = run_engine(card)
     engine_step = profile_engine_step(card)
     breakdowns = profile_breakdowns(card)
+    slice10 = run_slice10(card, decode_single)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -1897,6 +2128,8 @@ def main() -> int:
                                  "vit_flash_attention": vit["flash_k1"],
                                  "moe_lm": moe_lm["k1"],
                                  "mesh_lm": mesh_one["lm_path"]["k1"],
+                                 "pp_lm_first_step": slice10["pipeline"]["k1"],
+                                 "moe_lm_seq_axis_first_step": slice10["moe_seq_axis"]["k1"],
                                  "mesh_resnet50_fused_1x1_bwd":
                                      mesh_one["resnet50_fused_1x1_bwd_path"]["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
@@ -1925,9 +2158,12 @@ def main() -> int:
             "launches_by_path": {"lm": lm_launches["k2_forward"],
                                  "moe_lm": moe_lm["k2_forward"],
                                  "vit_flash_attention": vit["flash_k2_forward"], "vit": 0,
-                                 "mesh_lm": mesh_one["lm_path"]["k2_forward"]},
+                                 "mesh_lm": mesh_one["lm_path"]["k2_forward"],
+                                 "pp_lm_first_step": slice10["pipeline"]["k2_forward"],
+                                 "moe_lm_seq_axis_first_step":
+                                     slice10["moe_seq_axis"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["forward"]} for r in k2_rows[1:4]],
+                              **r["forward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
         {
             "name": "flash_attn_bwd (K2)",
@@ -1951,9 +2187,12 @@ def main() -> int:
             "launches_by_path": {"lm": lm_launches["k2_backward"],
                                  "moe_lm": moe_lm["k2_backward"],
                                  "vit_flash_attention": vit["flash_k2_backward"], "vit": 0,
-                                 "mesh_lm": mesh_one["lm_path"]["k2_backward"]},
+                                 "mesh_lm": mesh_one["lm_path"]["k2_backward"],
+                                 "pp_lm_first_step": slice10["pipeline"]["k2_backward"],
+                                 "moe_lm_seq_axis_first_step":
+                                     slice10["moe_seq_axis"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["backward"]} for r in k2_rows[1:4]],
+                              **r["backward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
         *({
             "name": f"flash_attn_{part[0]}w{part[-1]} (K2), ViT-S/16 shape",  # fwd, bwd
@@ -1994,7 +2233,10 @@ def main() -> int:
             "source": "tritonk8ssupervisor_tpu_torch/csrc/decode_attention.cu",
             "replaces": "tritonk8ssupervisor_tpu/ops/decode_attention.py:58",
             "launches": decode_launches["decode_cache_int8"],
-            "launches_by_path": {**decode_launches, "engine_cache_int8": engine_launches},
+            "launches_by_path": {**decode_launches, "engine_cache_int8": engine_launches,
+                                 "mesh_decode_cache_int8": slice10["decode_mesh"]["k3"],
+                                 "two_process_decode_cache_int8_per_rank":
+                                     slice10["decode_two_ranks"]["k3"]},
             "library_none_reason": "no PyTorch call computes attention over an int8 cache "
                                    "with per-token scales",
             "library_ratio": None,
@@ -2023,6 +2265,7 @@ def main() -> int:
                                     "profiles": breakdowns}, sort_keys=True), flush=True)
     print("slice 9: " + json.dumps({"mesh_one_rank": mesh_one, "two_ranks": two_ranks},
                                    sort_keys=True, default=str), flush=True)
+    print("slice 10: " + json.dumps(slice10, sort_keys=True, default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -53,6 +53,7 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.parallel.collectives, "
         "tritonk8ssupervisor_tpu_torch.parallel.distributed, "
         "tritonk8ssupervisor_tpu_torch.parallel.ranks, "
+        "tritonk8ssupervisor_tpu_torch.parallel.pipeline, "
         "tritonk8ssupervisor_tpu_torch.ops.ring_attention, "
         "tritonk8ssupervisor_tpu_torch.utils.data, "
         "tritonk8ssupervisor_tpu_torch.utils.convert; "
@@ -80,6 +81,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.run_benchmark(vocab_size=64, num_layers=2, num_heads=2, embed_dim=64, seq_len=16,
                          batch_per_data_shard=2, steps=1, warmup=1, windows=1, moe_experts=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.run_benchmark(vocab_size=64, num_layers=2, num_heads=2, embed_dim=64, seq_len=16,
+                         batch_per_data_shard=2, steps=1, warmup=1, windows=1,
+                         pipeline_parallelism=2, num_microbatches=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.create_train_state(torch.nn.Linear(2, 2), train.default_optimizer())
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -246,16 +246,31 @@ def test_next_token_metrics_mask_the_wrapped_position():
     {"seq_axis": "model"}, {"forward_fn": lambda p, t: None}, {"mesh": object()},
 ])
 def test_unported_step_options_raise(kwargs):
-    """The pipeline's hook is not ported (item 4c); a sequence axis needs
-    a state made on a mesh, and the step runs on the state's mesh only
-    (tests/test_torch_mesh_train.py drives the mesh)."""
-    state = _port_state(_variables(JaxLM(**CONFIG), seed=8), train.default_optimizer())
-    if "forward_fn" in kwargs:
-        expected = pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4c")
-    else:
-        expected = pytest.raises(ValueError, match="mesh")
-    with expected:
-        train.make_lm_train_step(state, **kwargs)
+    """A sequence axis needs a state made on a mesh, and the step runs on
+    the state's mesh only (tests/test_torch_mesh_train.py drives the
+    mesh). The pipeline's hook `forward_fn` ((model, tokens) -> logits,
+    tests/test_torch_pipeline.py) runs: a hook that calls the model gives
+    the default step's metrics and update to the bit."""
+    variables = _variables(JaxLM(**CONFIG), seed=8)
+    state = _port_state(variables, train.default_optimizer())
+    if "forward_fn" not in kwargs:
+        with pytest.raises(ValueError, match="mesh"):
+            train.make_lm_train_step(state, **kwargs)
+        return
+    calls = []
+
+    def forward_fn(model, tokens):
+        calls.append(tokens.shape)
+        return model(tokens)
+
+    tokens = torch.from_numpy(_tokens(2))
+    hooked = train.make_lm_train_step(state, forward_fn=forward_fn)(tokens)
+    plain_state = _port_state(variables, train.default_optimizer())
+    plain = train.make_lm_train_step(plain_state)(tokens)
+    assert calls == [tokens.shape]
+    assert {k: float(v) for k, v in hooked.items()} == {k: float(v) for k, v in plain.items()}
+    for key, value in plain_state.model.state_dict().items():
+        assert torch.equal(state.model.state_dict()[key], value), key
 
 
 def test_run_benchmark_on_cpu_reports_the_reference_fields():
@@ -289,14 +304,15 @@ def test_run_benchmark_on_cpu_reports_the_reference_fields():
     {"pipeline_parallelism": 2}, {"checkpoint_dir": "gs://bucket/ckpt"},
 ])
 def test_run_benchmark_unported_options_raise(kwargs):
-    """Pipeline parallelism (item 4c) and object-store checkpoints (item
-    7) are not ported; a sequence or expert degree of 2 does not divide
-    one process's single rank, which the mesh refuses as the reference's
-    make_mesh does (tests/test_torch_mesh_train.py runs them on 4 ranks)."""
-    if "sequence_parallelism" in kwargs or "expert_parallelism" in kwargs:
+    """Object-store checkpoints (item 7) are not ported; a sequence,
+    expert or pipeline degree of 2 does not divide one process's single
+    rank, which the mesh refuses as the reference's make_mesh does
+    (tests/test_torch_mesh_train.py and tests/test_torch_pipeline.py run
+    them on gloo ranks)."""
+    if "checkpoint_dir" not in kwargs:
         expected = pytest.raises(ValueError, match="do not divide device count 1")
     else:
-        expected = pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item (4c|7)")
+        expected = pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7")
     with expected:
         lm.run_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32, seq_len=16,
                          batch_per_data_shard=2, steps=1, warmup=1, windows=1, device="cpu",

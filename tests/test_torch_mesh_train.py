@@ -127,14 +127,17 @@ def benchmark_ranks():
             warmup=1, windows=1, model_parallelism=2, device="cpu"),
         "lm_sp2": lm_bench.run_benchmark(sequence_parallelism=2, **tiny_lm),
         "lm_ep2": lm_bench.run_benchmark(expert_parallelism=2, moe_experts=4, **tiny_lm),
+        "pp2": lm_bench.run_benchmark(pipeline_parallelism=2, num_microbatches=2, **tiny_lm),
+        "sp_moe": lm_bench.run_benchmark(sequence_parallelism=2, moe_experts=4, **tiny_lm),
     }
     for name, call in (
         ("mp3", lambda: resnet_bench.run_benchmark(
             model_name="resnet18", batch_per_chip=2, image_size=32, num_classes=10,
             steps=1, warmup=1, windows=1, model_parallelism=3, device="cpu")),
-        ("pp2", lambda: lm_bench.run_benchmark(pipeline_parallelism=2, **tiny_lm)),
-        ("sp_moe", lambda: lm_bench.run_benchmark(sequence_parallelism=2, moe_experts=4,
+        ("pp_moe", lambda: lm_bench.run_benchmark(pipeline_parallelism=2, moe_experts=4,
                                                   **tiny_lm)),
+        ("pp_sp", lambda: lm_bench.run_benchmark(pipeline_parallelism=2,
+                                                 sequence_parallelism=2, **tiny_lm)),
     ):
         try:
             call()
@@ -367,13 +370,16 @@ def test_expert_parallel_moe_lm_step_matches_the_reference():
 
 def test_benchmarks_run_their_mesh_paths_on_four_ranks():
     """`run_benchmark(model_parallelism=2)`, the LM's
-    `sequence_parallelism=2` and `expert_parallelism=2, moe_experts=4` run
-    to their metrics on 4 gloo ranks; a degree that does not divide the
-    ranks raises ValueError, pipeline parallelism and sequence x MoE
-    raise NotImplementedError naming ROADMAP item 4c."""
+    `sequence_parallelism=2`, `expert_parallelism=2, moe_experts=4`,
+    `pipeline_parallelism=2` (data 2 x pipe 2, 2 microbatches) and
+    `sequence_parallelism=2, moe_experts=4` run to their metrics on 4 gloo
+    ranks; a degree that does not divide the ranks raises ValueError, and
+    so do the pipeline with MoE blocks and with sequence parallelism, as
+    the reference's benchmark refuses them."""
     results = run_ranks(benchmark_ranks, RANKS, timeout=TIMEOUT, threads=1)
     for r in results:
-        for name, ranks, batch in (("resnet_mp2", 4, 4), ("lm_sp2", 4, 4), ("lm_ep2", 4, 8)):
+        for name, ranks, batch in (("resnet_mp2", 4, 4), ("lm_sp2", 4, 4), ("lm_ep2", 4, 8),
+                                   ("pp2", 4, 4), ("sp_moe", 4, 4)):
             result = r[name]
             assert np.isfinite(result["final_loss"]), name
             assert result["num_chips"] == ranks and result["global_batch"] == batch, name
@@ -382,8 +388,10 @@ def test_benchmarks_run_their_mesh_paths_on_four_ranks():
         assert r["lm_sp2"]["attention"] == "ring"
         assert r["lm_ep2"]["expert_parallelism"] == 2 and r["lm_ep2"]["router_loss"] > 0
         assert r["mp3"][0] == "ValueError" and "do not divide device count 4" in r["mp3"][1]
-        for name in ("pp2", "sp_moe"):
-            assert r[name][0] == "NotImplementedError" and "item 4c" in r[name][1], r[name]
+        assert (r["pp2"]["pipeline_parallelism"], r["pp2"]["num_microbatches"]) == (2, 2)
+        assert r["sp_moe"]["attention"] == "ring" and r["sp_moe"]["router_loss"] > 0
+        assert r["pp_moe"][0] == "ValueError" and "--moe-experts" in r["pp_moe"][1]
+        assert r["pp_sp"][0] == "ValueError" and "separate strategies" in r["pp_sp"][1]
 
 
 def test_lm_optimizer_clips_by_the_norm_of_the_whole_parameters_on_a_mesh():

@@ -199,20 +199,42 @@ def test_router_loss_is_kept_from_the_last_forward():
     torch.testing.assert_close(layer.router_loss.detach(), first, rtol=0, atol=0)
 
 
-def test_a_mesh_raises_naming_item_4b():
-    """A mesh is taken now (expert parallelism, tests/test_torch_mesh_train.py);
-    what still raises is sequence parallelism over a MoE model, whose
-    capacity counts run over the whole sequence: ROADMAP item 4c."""
+def test_a_mesh_raises_naming_item_4b(tmp_path):
+    """A MoE layer takes a mesh (expert parallelism,
+    tests/test_torch_mesh_train.py), and a MoE LM steps with its sequence
+    over "model" (tests/test_torch_moe_seq.py on 2 and 4 ranks): the step
+    points the MoE layers at the axis. On a gloo group of one rank (one
+    shard, zero offsets) the step with the sequence axis equals the step
+    without it to the bit."""
+    import torch.distributed as dist
+
+    from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
     from tritonk8ssupervisor_tpu_torch.parallel import train
 
-    mesh = object()
-    assert moe.MoEMLP(16, 4, mesh=mesh).mesh is mesh
-    model = TransformerLM(vocab_size=32, num_layers=2, num_heads=2, embed_dim=16,
-                          max_seq_len=8, moe_experts=4, moe_mesh=mesh)
-    assert model.Block_1.moe_mlp.mesh is mesh
-    state = train.TrainState(model=model, optimizer=None, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4c"):
-        train.make_lm_train_step(state, seq_axis="model")
+    marker = object()
+    assert moe.MoEMLP(16, 4, mesh=marker).mesh is marker
+    cfg = dict(vocab_size=32, num_layers=2, num_heads=2, embed_dim=16, max_seq_len=8,
+               moe_experts=4, moe_capacity_factor=0.5, dtype=torch.float32,
+               logits_dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 32, (2, 8)))
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh(device_type="cpu")
+        out = {}
+        for seq_axis in (None, "model"):
+            model = TransformerLM(**cfg, moe_mesh=mesh)
+            assert model.Block_1.moe_mlp.mesh is mesh
+            state = train.create_train_state(model, train.default_optimizer(0.1), mesh=mesh)
+            step = train.make_lm_train_step(state, seq_axis=seq_axis)
+            assert model.Block_1.moe_mlp.seq_axis == seq_axis
+            out[seq_axis] = (step(tokens), model.state_dict())
+    finally:
+        dist.destroy_process_group()
+    (plain, plain_sd), (seq, seq_sd) = out[None], out["model"]
+    assert {k: float(v) for k, v in plain.items()} == {k: float(v) for k, v in seq.items()}
+    for key, value in plain_sd.items():
+        assert torch.equal(seq_sd[key], value), key
 
 
 UPCYCLE = {

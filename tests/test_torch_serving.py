@@ -344,14 +344,17 @@ def test_sampled_engines_are_seeded_deterministic(lm):
 def test_decode_benchmark_on_the_cpu_returns_the_reference_fields():
     result = bench.run_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32,
                                  prompt_len=8, new_tokens=6, batch=2, repeats=1,
-                                 cache_int8=True, int8=True, device="cpu")
+                                 cache_int8=True, int8=True, num_chips=1, device="cpu")
     for key in ("tokens_per_sec", "tokens_per_sec_per_chip", "ms_per_token_per_stream",
                 "seconds_median", "compile_seconds", "decode_tokens_per_sec"):
         assert result[key] > 0, key
     assert (result["platform"], result["device_kind"], result["num_chips"]) == ("cpu", "cpu", 1)
     assert result["peak_memory_gb"] is None and result["cache_int8"] and result["int8"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    # more cards are more ranks (tests/test_torch_decode_mesh.py): one process is one
+    with pytest.raises(ValueError, match="num_chips=2: decode runs on the process group's 1"):
         bench.run_benchmark(num_chips=2, device="cpu")
+    with pytest.raises(ValueError, match="num_chips=2: the engine runs on"):
+        bench.run_engine_benchmark(num_chips=2, device="cpu")
 
 
 def test_engine_benchmark_on_the_cpu_is_exact():

@@ -151,17 +151,24 @@ def test_moe_lm_logits_match_jax(dtype):
 
 
 def test_moe_block_with_a_mesh_raises_naming_item_4b():
-    """A MoE block takes a mesh now; a sequence shard (pos_offset > 0) of a
-    MoE LM raises, naming ROADMAP item 4c: its capacity counts would need
-    the earlier shards'."""
+    """A MoE block takes a mesh, and a MoE LM takes a sequence shard
+    (pos_offset > 0; the shards' slot offsets are the MoE layers' own,
+    tests/test_torch_moe_seq.py): the offset reads `pos_embed` at the
+    shard's positions, so it computes what the model whose first
+    positions hold those embeddings computes at offset 0."""
     mesh = object()
     block = transformer.Block(64, 2, transformer.dense_attention, 4, torch.float32,
                               moe_experts=2, moe_mesh=mesh)
     assert block.moe_mlp.mesh is mesh
-    model = TransformerLM(vocab_size=32, num_layers=2, num_heads=2, embed_dim=16,
-                          max_seq_len=8, moe_experts=2, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4c"):
-        model(torch.zeros(1, 4, dtype=torch.long), pos_offset=4)
+    cfg = dict(vocab_size=32, num_layers=2, num_heads=2, embed_dim=16, max_seq_len=8,
+               moe_experts=2, dtype=torch.float32, logits_dtype=torch.float32)
+    model = TransformerLM(**cfg)
+    shifted = TransformerLM(**cfg)
+    shifted.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        shifted.pos_embed[:4] = model.pos_embed[4:]
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 32, (1, 4)))
+    torch.testing.assert_close(model(tokens, pos_offset=4), shifted(tokens), rtol=0, atol=0)
 
 
 def test_layer_norm_and_dense_follow_flax():

@@ -1,6 +1,6 @@
 """Autoregressive decode throughput benchmark (tokens/sec, ms/token) and the
 serving engine's A/B: the port of
-`tritonk8ssupervisor_tpu/benchmarks/decode.py`, on one NVIDIA card.
+`tritonk8ssupervisor_tpu/benchmarks/decode.py`, on NVIDIA cards.
 
     python -m tritonk8ssupervisor_tpu_torch.benchmarks.decode --json [--cache-int8] [--int8]
     python -m tritonk8ssupervisor_tpu_torch.benchmarks.decode --engine --json [--cache-int8]
@@ -19,8 +19,18 @@ re-prefilling none of the shared prefix) and `spec_base`/`spec` (a
 decode-heavy stream without and with a drafter proposing `spec_k` tokens a
 round: exact acceptance, so `spec` must be token-identical).
 
-One card: a request for more raises (ROADMAP.md queue 1, item 4c), and the
-multi-host rendezvous (`initialize_from_env`) is not ported (item 5b).
+    torchrun --nproc-per-node N -m tritonk8ssupervisor_tpu_torch.benchmarks.decode --json
+
+In a process group (torchrun, or `parallel/ranks.run_ranks`) `run_benchmark`
+decodes data parallel over the mesh (`parallel/mesh.make_workload_mesh`), as
+the reference does over every chip of its slice: the parameters are
+replicated, each rank generates its `batch / batch degree` rows of the
+prompts, `num_chips` is the mesh's size, `tokens_per_sec` counts every
+rank's streams over the slowest rank's time and the `*_per_chip` rates
+divide it by `num_chips`. A batch the degree does not divide raises
+ValueError. The engine benchmark runs on one card, as the reference's
+engine does. The multi-host rendezvous (`initialize_from_env`) is not
+ported (ROADMAP.md queue 1, item 5b): the group is the launcher's.
 """
 
 from __future__ import annotations
@@ -31,29 +41,35 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.models import TransformerLM
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
+from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
+from tritonk8ssupervisor_tpu_torch.parallel.distributed import init_from_launcher
 from tritonk8ssupervisor_tpu_torch.serving.engine import SlotEngine
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
+from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
 
 
-def _one_card(num_chips: int) -> None:
-    if num_chips != 1:
-        raise NotImplementedError(
-            f"num_chips={num_chips}: decode runs on one card; data-parallel decode over "
-            "several is not ported yet: ROADMAP.md queue 1, item 4c"
-        )
+def _check_chips(num_chips: int | None, ranks: int, what: str) -> None:
+    """`num_chips`, where the caller names it, must be the cards the run
+    has: the process group's ranks (one without a group)."""
+    if num_chips is not None and num_chips != ranks:
+        raise ValueError(
+            f"num_chips={num_chips}: {what} runs on the process group's {ranks} "
+            "rank(s), one card each; start that many ranks (torchrun "
+            "--nproc-per-node N) to decode on N cards")
 
 
-def _device_fields(device: torch.device) -> dict:
+def _device_fields(device: torch.device, num_chips: int = 1) -> dict:
     on_card = device.type == "cuda"
     return {
         "platform": "gpu" if on_card else device.type,
         "device": str(device),
         "device_kind": torch.cuda.get_device_name(device) if on_card else device.type,
-        "num_chips": 1,
+        "num_chips": num_chips,
         "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
     }
 
@@ -76,15 +92,29 @@ def run_benchmark(
     int8: bool = False,
     cache_int8: bool = False,
     unroll: int = 1,
-    num_chips: int = 1,
+    num_chips: int | None = None,
+    keep_tokens: bool = False,
     device: str | torch.device | None = None,
 ) -> dict:
     """Time `generate` on a batch of random prompts; returns the reference's
     metrics plus `device`, `device_kind` and `peak_memory_gb`.
     `compile_seconds` is the first call (it builds K3 and warms the
-    libraries; there is no compilation step otherwise)."""
-    _one_card(num_chips)
+    libraries; there is no compilation step otherwise). In a process
+    group the batch is decoded data parallel over the mesh (the module's
+    docstring); `num_chips`, when given, must be the group's size.
+    `keep_tokens` adds `tokens`, this rank's rows of the last call's
+    output, as a list of lists."""
     device = resolve_device(device)
+    mesh = None
+    if dist.is_initialized():
+        mesh = mesh_lib.make_workload_mesh(device_type=device.type)
+    ranks = mesh.size() if mesh is not None else 1
+    _check_chips(num_chips, ranks, "decode")
+    degree = mesh_lib.batch_degree(mesh) if mesh is not None else 1
+    if batch % degree:
+        raise ValueError(
+            f"--batch {batch} must be divisible by the {ranks}-chip data-parallel "
+            "degree (each chip decodes batch/chips streams)")
     _reset_peak(device)
     max_len = prompt_len + new_tokens
     model = TransformerLM(
@@ -100,8 +130,12 @@ def run_benchmark(
         # weight-only int8: halves the per-token weight read
         params = dec.quantize_params_int8(params)
     prompt = torch.randint(0, vocab_size, (batch, prompt_len),
-                           generator=torch.Generator().manual_seed(0)).to(device)
+                           generator=torch.Generator().manual_seed(0))
+    if mesh is not None:  # this rank's streams
+        prompt = batch_shard(mesh, prompt)
+    prompt = prompt.to(device)
     rng = torch.Generator(device=device).manual_seed(2)
+    last = {}
 
     def timed_call():
         # fenced by a host copy of the tokens: they exist when it returns
@@ -110,9 +144,15 @@ def run_benchmark(
                            temperature=temperature, rng=rng, max_len=max_len,
                            cache_int8=cache_int8, unroll=unroll).cpu()
         elapsed = time.monotonic() - start
-        if tuple(out.shape) != (batch, new_tokens):
+        if tuple(out.shape) != (batch // degree, new_tokens):
             raise AssertionError(f"generate returned {tuple(out.shape)}")
-        return elapsed
+        last["tokens"] = out
+        if mesh is None:
+            return elapsed
+        # the slowest rank's time: every stream of the batch exists then
+        slowest = torch.tensor([elapsed], dtype=torch.float64, device=device)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+        return slowest.item()
 
     compile_seconds = timed_call()
     times = sorted(timed_call() for _ in range(repeats))
@@ -120,7 +160,7 @@ def run_benchmark(
     total_tokens = batch * new_tokens
     return {
         "model": "transformer_lm_decode",
-        **_device_fields(device),
+        **_device_fields(device, ranks),
         "batch": batch,
         "prompt_len": prompt_len,
         "new_tokens": new_tokens,
@@ -130,13 +170,14 @@ def run_benchmark(
         "cache_int8": bool(cache_int8),
         "unroll": unroll,
         "decode_tokens_per_sec": total_tokens / median,
-        "decode_tokens_per_sec_per_chip": total_tokens / median,
+        "decode_tokens_per_sec_per_chip": total_tokens / median / ranks,
         "tokens_per_sec": total_tokens / median,
-        "tokens_per_sec_per_chip": total_tokens / median,
+        "tokens_per_sec_per_chip": total_tokens / median / ranks,
         "ms_per_token_per_stream": median / new_tokens * 1000,
         "seconds_median": median,
         "seconds_min": times[0],
         "compile_seconds": compile_seconds,
+        **({"tokens": last["tokens"].tolist()} if keep_tokens else {}),
     }
 
 
@@ -200,8 +241,9 @@ def run_engine_benchmark(
     puts drafter and target in the high-acceptance regime, and the
     measured speed-up is the engine mechanics', not a drafter's quality.
     The warm-up request of each engine seeds the warm engine's store, so
-    the timed window is the steady state."""
-    _one_card(num_chips)
+    the timed window is the steady state. It runs on one card, as the
+    reference's engine does: `num_chips` other than 1 raises ValueError."""
+    _check_chips(num_chips, 1, "the engine")
     device = resolve_device(device)
     _reset_peak(device)
     model = TransformerLM(
@@ -401,8 +443,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "the speculative modes)")
     parser.add_argument("--page-size", type=int, default=16,
                         help="--engine: KV page size in tokens")
-    parser.add_argument("--num-chips", type=int, default=1,
-                        help="cards to decode on (only 1 is ported)")
+    parser.add_argument("--num-chips", type=int, default=None,
+                        help="cards to decode on: the launcher's ranks (checked when "
+                        "given; the engine runs on one)")
     parser.add_argument("--json", action="store_true")
     return parser
 
@@ -441,26 +484,34 @@ def main(argv: list[str] | None = None) -> int:
                     f"token-identical={spec['token_identical']}"
                 )
         return 0 if result["passes"] else 1
-    result = run_benchmark(
-        vocab_size=args.vocab_size,
-        num_layers=args.num_layers,
-        num_heads=args.num_heads,
-        embed_dim=args.embed_dim,
-        prompt_len=args.prompt_len,
-        new_tokens=args.new_tokens,
-        batch=args.batch,
-        temperature=args.temperature,
-        repeats=args.repeats,
-        int8=args.int8,
-        cache_int8=args.cache_int8,
-        unroll=args.unroll,
-        num_chips=args.num_chips,
-    )
+    joined = init_from_launcher()  # under torchrun: every rank decodes its streams
+    rank = dist.get_rank() if joined else 0
+    try:
+        result = run_benchmark(
+            vocab_size=args.vocab_size,
+            num_layers=args.num_layers,
+            num_heads=args.num_heads,
+            embed_dim=args.embed_dim,
+            prompt_len=args.prompt_len,
+            new_tokens=args.new_tokens,
+            batch=args.batch,
+            temperature=args.temperature,
+            repeats=args.repeats,
+            int8=args.int8,
+            cache_int8=args.cache_int8,
+            unroll=args.unroll,
+            num_chips=args.num_chips,
+        )
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if rank:
+        return 0
     if args.json:
         print(json.dumps(result, sort_keys=True))
     else:
         print(
-            f"decode on {result['device_kind']}: batch {result['batch']}, "
+            f"decode on {result['num_chips']} {result['device_kind']}: batch {result['batch']}, "
             f"{result['decode_tokens_per_sec']:.0f} tok/s, "
             f"{result['ms_per_token_per_stream']:.2f} ms/token/stream "
             f"(prompt {result['prompt_len']}, {result['new_tokens']} new, "

@@ -25,9 +25,14 @@ shard of a global batch of `--batch-per-data-shard` x the batch degree:
 `--sequence-parallelism S` shards the sequence over S ranks of the
 "model" axis with ring attention (ops/ring_attention.py), and
 `--expert-parallelism E` shards the experts of `--moe-experts` over the
-"expert" axis (all_to_all dispatch). A degree that does not divide the
-ranks raises ValueError, also without a process group (one rank).
-Pipeline parallelism raises (ROADMAP.md queue 1, item 4c).
+"expert" axis (all_to_all dispatch), and `--pipeline-parallelism P` stages
+the block stack over P ranks of the "pipe" axis (parallel/pipeline.py,
+GPipe with `--num-microbatches` microbatches a step, K2 once a layer and
+microbatch). A degree that does not divide the ranks raises ValueError,
+also without a process group (one rank), as do the reference's refused
+combinations: the pipeline with sequence parallelism, MoE blocks,
+`--head-major` or `--grad-accum`. The FLOP count is what the ranks run,
+the pipeline's fill and drain ticks included.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from tritonk8ssupervisor_tpu_torch.ops.flash_attention import flash_attention
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import ring_attention
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
 from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
+from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp_lib
 from tritonk8ssupervisor_tpu_torch.parallel import train as train_lib
 from tritonk8ssupervisor_tpu_torch.parallel.distributed import init_from_launcher
 from tritonk8ssupervisor_tpu_torch.parallel.mesh import MODEL_AXIS
@@ -56,26 +62,39 @@ from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
 def _check_options(seq_len: int, sequence_parallelism: int, expert_parallelism: int,
                    moe_experts: int, pipeline_parallelism: int, head_major: bool,
                    grad_accum: int) -> None:
-    """The reference's refusals (:73-119), and the pipeline, not ported."""
+    """The reference's refusals (:73-119)."""
     if seq_len % max(sequence_parallelism, 1):
         raise ValueError(
             f"--seq-len {seq_len} must be divisible by --sequence-parallelism "
             f"{sequence_parallelism} (the sequence axis shards evenly across the ring)")
+    if pipeline_parallelism > 1 and sequence_parallelism > 1:
+        raise ValueError(
+            "--pipeline-parallelism and --sequence-parallelism are separate strategies "
+            "in this benchmark: the pipeline stages the block stack, the ring shards "
+            "inside every block")
+    if pipeline_parallelism > 1 and moe_experts:
+        raise ValueError(
+            "--pipeline-parallelism with --moe-experts is not wired: the pipeline's "
+            "stage function runs the dense block")
     if head_major and sequence_parallelism > 1:
         raise ValueError(
             "--head-major with --sequence-parallelism is not wired: the ring "
             "attention path is seq-major")
+    if head_major and pipeline_parallelism > 1:
+        raise ValueError(
+            "--head-major with --pipeline-parallelism is not wired: the pipeline's "
+            "stage function runs the seq-major block")
     if grad_accum < 1:
         raise ValueError(f"--grad-accum {grad_accum} must be >= 1 (1 = no accumulation)")
+    if pipeline_parallelism > 1 and grad_accum > 1:
+        raise ValueError(
+            "--grad-accum with --pipeline-parallelism is not wired: the pipeline "
+            "already microbatches inside the step (--num-microbatches)")
     if moe_experts and moe_experts % expert_parallelism:
         raise ValueError(
             f"--moe-experts {moe_experts} must be divisible by --expert-parallelism "
             f"{expert_parallelism}: a non-dividing expert count would replicate every "
             "expert weight while the run reports itself expert-parallel")
-    if pipeline_parallelism != 1:
-        raise NotImplementedError(
-            f"pipeline_parallelism={pipeline_parallelism!r} (the GPipe schedule) is not "
-            "ported yet: ROADMAP.md queue 1, item 4c")
 
 
 def run_benchmark(
@@ -114,7 +133,9 @@ def run_benchmark(
     run also returns `router_loss`, the router losses of the last step.
     With `checkpoint_dir`, the latest step there is restored first (its
     time is `restore_seconds`, not start-up time), every window boundary
-    saves, and the run ends with a save.
+    saves, and the run ends with a save. `pipeline_parallelism` > 1 runs
+    the block stack through the pipeline (`parallel/pipeline.py`) with
+    `num_microbatches` microbatches a step.
     """
     _check_options(seq_len, sequence_parallelism, expert_parallelism, moe_experts,
                    pipeline_parallelism, head_major, grad_accum)
@@ -125,9 +146,11 @@ def run_benchmark(
     if attention == "auto":
         attention = "flash" if on_card else "dense"
     mesh = None
-    if dist.is_initialized() or sequence_parallelism != 1 or expert_parallelism != 1:
+    if (dist.is_initialized() or sequence_parallelism != 1 or expert_parallelism != 1
+            or pipeline_parallelism != 1):
         mesh = mesh_lib.make_workload_mesh(model_parallelism=sequence_parallelism,
                                            expert_parallelism=expert_parallelism,
+                                           pipeline_parallelism=pipeline_parallelism,
                                            device_type=device.type)
     num_chips = mesh.size() if mesh is not None else 1
     global_batch = batch_per_data_shard * (mesh_lib.batch_degree(mesh) if mesh is not None else 1)
@@ -154,10 +177,13 @@ def run_benchmark(
         remat_blocks=remat,
         head_major=head_major,
     )
-    state = train_lib.create_train_state(
-        model, train_lib.default_optimizer(learning_rate=learning_rate), device, mesh=mesh
-    )
-    step = train_lib.make_lm_train_step(state, seq_axis=seq_axis, grad_accum=grad_accum)
+    tx = train_lib.default_optimizer(learning_rate=learning_rate)
+    if pipeline_parallelism > 1:
+        state = pp_lib.create_pp_lm_state(model, tx, mesh, device)
+        step = pp_lib.make_pp_lm_train_step(state, num_microbatches)
+    else:
+        state = train_lib.create_train_state(model, tx, device, mesh=mesh)
+        step = train_lib.make_lm_train_step(state, seq_axis=seq_axis, grad_accum=grad_accum)
     ckpt, state, start_step, restore_seconds = ckpt_lib.maybe_restore(checkpoint_dir, state)
     gen = torch.Generator(device=device).manual_seed(1)
     tokens = torch.randint(0, vocab_size, (global_batch, seq_len), generator=gen,
@@ -199,6 +225,7 @@ def run_benchmark(
         "expert_parallelism": expert_parallelism,
         "moe_experts": moe_experts,
         "pipeline_parallelism": pipeline_parallelism,
+        "num_microbatches": num_microbatches,
         "attention": attention,
         "global_batch": global_batch,
         "seq_len": seq_len,
@@ -242,8 +269,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "experts (models/moe.py); 0 = dense MLPs")
     parser.add_argument("--moe-every", type=int, default=2)
     parser.add_argument("--pipeline-parallelism", type=int, default=1,
-                        help="(not ported yet: ROADMAP.md queue 1, item 4c)")
-    parser.add_argument("--num-microbatches", type=int, default=4)
+                        help="stage the block stack over this many ranks of the 'pipe' "
+                        "axis (parallel/pipeline.py, GPipe)")
+    parser.add_argument("--num-microbatches", type=int, default=4,
+                        help="microbatches a step when --pipeline-parallelism > 1")
     parser.add_argument("--remat", action="store_true",
                         help="recompute blocks in the backward (torch.utils.checkpoint)")
     parser.add_argument("--head-major", action="store_true",

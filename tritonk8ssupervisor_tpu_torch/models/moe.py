@@ -38,6 +38,19 @@
   its expert group, and a second all_to_all brings the results back
   before the combine: the reference's two all_to_alls, which XLA places
   there.
+- Under sequence parallelism (`seq_axis`, which the LM steps set: the
+  sequence in contiguous shards over that axis) the reference ranks the
+  slots over the whole sequence, choice-major, and sizes the capacity by
+  the whole length. A shard's slot for choice j of expert e therefore
+  starts after the counts of choices < j on every shard and of choice j
+  on the earlier shards: each rank all_gathers the shards' per-row
+  (k, E) counts over the axis and adds that offset to its own ranks
+  (`top_k_dispatch(seq_group=)`). A slot holds at most one token of the
+  whole sequence, so each rank runs the experts on its partial slots and
+  combines its own tokens with no further collective; the expert
+  parameters' gradients are summed over the axis with the others. The
+  router losses are means over every token: reduced over the batch axes
+  and the sequence axis.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import math
 from typing import Mapping
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -53,9 +67,9 @@ from tritonk8ssupervisor_tpu_torch.models.resnet import lecun_normal_
 from tritonk8ssupervisor_tpu_torch.parallel import collectives as coll
 from tritonk8ssupervisor_tpu_torch.parallel.mesh import (
     EXPERT_AXIS,
+    axes_size,
     axis_sizes,
     batch_axes,
-    batch_degree,
     mesh_group,
 )
 
@@ -71,7 +85,21 @@ def top_k_experts(probs: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def top_k_dispatch(router_probs: torch.Tensor, k: int, capacity: int
+def _slot_offsets(counts: torch.Tensor, seq_group) -> torch.Tensor:
+    """(b, k, E) counts of this shard's choices -> the slot each choice's
+    first claim takes: the claims of every earlier choice on every shard
+    and of the same choice on the earlier shards (choice-major over the
+    whole sequence). Without `seq_group` the sequence is whole."""
+    if seq_group is None:
+        shards, me = counts[None], 0
+    else:
+        shards = coll.gather_values(counts[None], seq_group, 0)  # (n, b, k, E)
+        me = dist.get_rank(seq_group)
+    total = shards.sum(0)
+    return torch.cumsum(total, dim=1) - total + shards[:me].sum(0)
+
+
+def top_k_dispatch(router_probs: torch.Tensor, k: int, capacity: int, seq_group=None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Static-shaped top-k routing with per-(row, expert) capacity.
 
@@ -80,16 +108,18 @@ def top_k_dispatch(router_probs: torch.Tensor, k: int, capacity: int
     by the gate renormalised over the kept choices, top1_mask (b, s, E)
     the one-hot of each token's first choice. Slots are ranked
     choice-major: every token's first choice before any second choice,
-    then by position."""
+    then by position. With `seq_group` the sequence is this rank's
+    contiguous shard of one sharded over the group (in group rank order)
+    and the slots are ranked over the whole sequence."""
     b, s, e = router_probs.shape
     idx = top_k_experts(router_probs, k)  # (b, s, k)
     gates = router_probs.gather(-1, idx)
     masks = F.one_hot(idx, e).to(router_probs.dtype)  # (b, s, k, E)
 
-    cm = masks.transpose(1, 2).reshape(b, k * s, e)
-    pos_cm = torch.cumsum(cm, dim=1) - cm
-    pos = pos_cm.reshape(b, k, s, e).transpose(1, 2)  # (b, s, k, E)
-    sel_pos = (pos * masks).sum(-1)  # (b, s, k)
+    by_choice = masks.transpose(1, 2)  # (b, k, s, E)
+    pos = torch.cumsum(by_choice, dim=2) - by_choice
+    pos = pos + _slot_offsets(by_choice.sum(2), seq_group)[:, :, None, :]
+    sel_pos = (pos.transpose(1, 2) * masks).sum(-1)  # (b, s, k)
     kept = (sel_pos < capacity).to(masks.dtype) * masks.sum(-1)
 
     kept_gate = gates * kept
@@ -135,6 +165,8 @@ class MoEMLP(nn.Module):
                  mesh=None, generator: torch.Generator | None = None):
         super().__init__()
         self.mesh = mesh
+        # the mesh axis the sequence is sharded over (set by the LM steps)
+        self.seq_axis: str | None = None
         d, e, f = embed_dim, num_experts, mlp_ratio * embed_dim
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         self.num_experts, self.k, self.capacity_factor = e, k, capacity_factor
@@ -148,16 +180,22 @@ class MoEMLP(nn.Module):
         self.router_loss: torch.Tensor | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.shape[1]
+        seq_group, seq_shards = None, 1
+        if self.mesh is not None and self.seq_axis is not None:
+            seq_group = mesh_group(self.mesh, self.seq_axis)
+            seq_shards = axes_size(self.mesh, self.seq_axis)
+        s = x.shape[1] * seq_shards  # the whole sequence's length
         capacity = compute_capacity(s, self.num_experts, self.k, self.capacity_factor)
         logits = torch.einsum("bsd,de->bse", x.float(), self.router_kernel)
         probs = torch.softmax(logits, dim=-1)
-        dispatch, combine, top1 = top_k_dispatch(probs, self.k, capacity)
+        dispatch, combine, top1 = top_k_dispatch(probs, self.k, capacity, seq_group)
         # computed on every call, so that a checkpointed block's recompute
         # saves the same tensors as its first forward did
         z = torch.logsumexp(logits, dim=-1) ** 2
-        if self.mesh is not None and batch_degree(self.mesh) > 1:
-            lb, zl = self._global_router_losses(probs, top1, z)
+        token_axes = () if self.mesh is None else batch_axes(self.mesh) + (
+            (self.seq_axis,) if self.seq_axis is not None else ())
+        if token_axes and axes_size(self.mesh, token_axes) > 1:
+            lb, zl = self._global_router_losses(probs, top1, z, token_axes)
         else:
             lb, zl = load_balance_loss(probs, top1), torch.mean(z)
         self.router_loss = self.aux_weight * lb + self.z_weight * zl
@@ -171,12 +209,13 @@ class MoEMLP(nn.Module):
             y = self._expert_parallel(xe, params)
         return torch.einsum("bsec,ebcd->bsd", combine.to(self.dtype), y)
 
-    def _global_router_losses(self, probs, top1, z):
-        """The load-balance and z losses over the batch of every rank of
-        the batch axes: f and p from all-reduced sums (the gradient of p
-        summed back), the same value on every rank."""
+    def _global_router_losses(self, probs, top1, z, axes):
+        """The load-balance and z losses over the tokens of every rank of
+        `axes` (the batch axes, and the sequence axis when it is sharded):
+        f and p from all-reduced sums (the gradient of p summed back), the
+        same value on every rank."""
         e = self.num_experts
-        group = mesh_group(self.mesh, batch_axes(self.mesh))
+        group = mesh_group(self.mesh, axes)
         local = torch.cat([top1.reshape(-1, e).sum(0), probs.reshape(-1, e).sum(0),
                            z.sum()[None]])
         total = coll.all_reduce(local, group)

@@ -248,6 +248,8 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.logits_dtype = logits_dtype
         self.remat_blocks = remat_blocks
+        self.head_major = head_major
+        self.attention_fn = attention_fn
         self.moe_experts = moe_experts
         self.moe_every = moe_every
         self.tok_embed = nn.Embedding(vocab_size, embed_dim)
@@ -276,12 +278,6 @@ class TransformerLM(nn.Module):
         with a ring `attention_fn`) reads `pos_embed` at its own
         positions, as the reference's global array does."""
         s = tokens.shape[1]
-        if pos_offset and self.moe_experts:
-            raise NotImplementedError(
-                "sequence parallelism with mixture-of-experts blocks is not ported yet "
-                "(capacity is per row over the whole sequence, so a shard's slots "
-                "depend on the earlier shards' counts): ROADMAP.md queue 1, item 4c"
-            )
         pos = self.pos_embed[pos_offset:pos_offset + s]
         x = self.tok_embed(tokens).to(self.dtype) + pos.to(self.dtype)
         remat = self.remat_blocks and self.training and torch.is_grad_enabled()

@@ -9,7 +9,10 @@ The axes are the reference's, in its order:
   (models/moe.py): expert parameters shard their leading expert dim here
   and the dispatched tokens travel by all_to_all. For every other layer
   it is more batch parallelism: the batch shards over (data, expert);
-- "pipe": pipeline stages (not ported yet: ROADMAP.md queue 1, item 4c);
+- "pipe": pipeline stages (parallel/pipeline.py): the pipelined LM's
+  stage parameters shard their leading stage dim here, activations hop
+  between neighbours. It splits no data and gathers no parameter: for
+  every other parameter and for the batch it is replicated;
 - "model": tensor parallelism (the classifier's classes, wide kernels)
   and the ring-attention sequence axis; innermost.
 

@@ -63,10 +63,12 @@ class _GatheredParam:
         module._parameters[self.leaf] = self.shard
 
 
-def distribute(model: nn.Module, mesh) -> tuple[dict[str, tuple], list[_GatheredParam]]:
+def distribute(model: nn.Module, mesh, specs: dict[str, tuple] | None = None
+               ) -> tuple[dict[str, tuple], list[_GatheredParam]]:
     """Shard `model` (its parameters already on this rank's device) onto
-    `mesh` in place; returns (every parameter's spec, the gathers)."""
-    specs = param_shardings(model, mesh)
+    `mesh` in place, by `specs` (default `mesh.param_shardings`); returns
+    (every parameter's spec, the gathers)."""
+    specs = param_shardings(model, mesh) if specs is None else specs
     modules = dict(model.named_modules())
     gathers = []
     model_group = mesh_group(mesh, MODEL_AXIS)

@@ -21,8 +21,9 @@ axes that split the data (one bucketed all_reduce per group). Under
 tensor parallelism the image step's classifier is class-sharded over
 "model" and its loss is `vocab_parallel_cross_entropy`; the LM step's
 `seq_axis` shards the sequence (ring attention as `attention_fn`, a halo
-for the next-token shift). The pipeline's `forward_fn` hook is ROADMAP.md
-queue 1, item 4c.
+for the next-token shift), and its mixture-of-experts blocks rank their
+slots over the whole sequence (`models/moe.py`). The LM step's
+`forward_fn` hook runs the pipelined LM (`parallel/pipeline.py`).
 """
 
 from __future__ import annotations
@@ -96,7 +97,7 @@ def default_optimizer(learning_rate: float = 0.1, momentum: float = 0.9) -> Opti
 
 def create_train_state(
     model: nn.Module, tx: Optimizer, device: str | torch.device | None = None,
-    mesh=None,
+    mesh=None, specs: dict | None = None,
 ) -> TrainState:
     """Move `model` to the device (the card unless `device`, or the mesh's
     device type, says otherwise) and build its optimizer with `tx`.
@@ -104,11 +105,13 @@ def create_train_state(
     With a `mesh` (every rank calls this with the same model, so the
     same weights) each rank keeps its shard of every parameter that
     `mesh.param_shardings` shards, and the optimizer state follows those
-    shards."""
+    shards. `specs` (name -> spec) replaces `mesh.param_shardings`'
+    rules for a model that lays its parameters out itself (the
+    pipeline's stages, `parallel/pipeline.pp_state_shardings`)."""
     if mesh is not None and device is None:
         device = mesh.device_type
     model.to(resolve_device(device))
-    specs, gathers = spmd.distribute(model, mesh) if mesh is not None else ({}, [])
+    specs, gathers = spmd.distribute(model, mesh, specs) if mesh is not None else ({}, [])
     optimizer = tx(model.parameters())
     if mesh is not None and isinstance(optimizer, ClippedAdamW):
         optimizer.norm_groups = {
@@ -116,13 +119,6 @@ def create_train_state(
             for n, p in model.named_parameters() if any(specs[n])}
     return TrainState(model=model, optimizer=optimizer, mesh=mesh, specs=specs,
                       gathers=gathers)
-
-
-def _unported_mesh_axes(mesh) -> None:
-    if mesh is not None and mesh_lib.axis_sizes(mesh).get(mesh_lib.PIPE_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "a pipe axis (the pipeline schedule) is not ported yet: "
-            "ROADMAP.md queue 1, item 4c")
 
 
 def _finish_step(state: TrainState, split_axes: tuple[str, ...]) -> None:
@@ -160,7 +156,6 @@ def make_train_step(
     if loss_fn is not None and metrics_fn is not None:
         raise ValueError("pass loss_fn or metrics_fn, not both")
     mesh = state.mesh
-    _unported_mesh_axes(mesh)
     tp_size = mesh_lib.axis_sizes(mesh).get(mesh_lib.MODEL_AXIS, 1) if mesh is not None else 1
     if tp_size > 1 and (loss_fn is not None or metrics_fn is not None):
         raise ValueError(
@@ -372,28 +367,22 @@ def _lm_pair_fn(state: TrainState, loss_fn: Callable | None,
     return metrics_fn or _default_metrics_fn(device)
 
 
-def _lm_mesh(state: TrainState, mesh, seq_axis: str | None, forward_fn) -> None:
+def _lm_mesh(state: TrainState, mesh, seq_axis: str | None) -> None:
     """The checks the LM steps share: the reference's `mesh` argument may
     only name the state's mesh (the port shards the state when it is
-    made), a sequence axis needs a mesh, and what is not ported raises."""
-    if forward_fn is not None:
-        raise NotImplementedError(
-            "forward_fn (the pipeline schedule's hook) is not ported yet: "
-            "ROADMAP.md queue 1, item 4c")
+    made) and a sequence axis needs a mesh. Points the model's gathers
+    and MoE layers at the sequence axis (None without one)."""
     if mesh is not None and mesh is not state.mesh:
         raise ValueError("the step runs on the state's mesh: pass the mesh to "
                          "create_train_state(..., mesh=)")
     if seq_axis is not None and state.mesh is None:
         raise ValueError(f"seq_axis={seq_axis!r} needs a state made on a mesh "
                          "(create_train_state(..., mesh=))")
-    if seq_axis is not None and any(isinstance(m, MoEMLP) for m in state.model.modules()):
-        raise NotImplementedError(
-            "sequence parallelism with mixture-of-experts blocks is not ported yet "
-            "(capacity is per row over the whole sequence, so a shard's slots depend "
-            "on the earlier shards' counts): ROADMAP.md queue 1, item 4c")
-    _unported_mesh_axes(state.mesh)
     for gather in state.gathers:  # "model" splits the data when it is the ring
         gather.reduce_grad = seq_axis == mesh_lib.MODEL_AXIS
+    for m in state.model.modules():  # slots ranked over the whole sequence
+        if isinstance(m, MoEMLP):
+            m.seq_axis = seq_axis
 
 
 def _global_metrics(state: TrainState, split: tuple[str, ...], loss: torch.Tensor,
@@ -440,9 +429,15 @@ def make_lm_train_step(
     (batch, seq) grid, split over the batch axes and, with `seq_axis`,
     the sequence over that axis (the model's `attention_fn` must then be
     the ring over it, as the reference's benchmark builds it); the
-    metrics are the global ones. `forward_fn` (the pipeline's hook) is
-    not ported yet and raises."""
-    _lm_mesh(state, mesh, seq_axis, forward_fn)
+    metrics are the global ones.
+
+    `forward_fn` ((model, tokens) -> logits) replaces the model's own
+    forward: the hook `parallel/pipeline.make_pp_lm_train_step` runs the
+    block stack through the pipeline with. The reference's hook takes
+    the parameters and returns the sown router losses beside the
+    logits; here the parameters are the model's and the router losses
+    its MoE layers' (`_moe_aux_total`)."""
+    _lm_mesh(state, mesh, seq_axis)
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} must be >= 1")
     pair_fn = _lm_pair_fn(state, loss_fn, metrics_fn)
@@ -459,13 +454,14 @@ def make_lm_train_step(
         loss_sum = acc_sum = 0.0
         aux_sum = None
         for chunk in tokens.reshape(grad_accum, b // grad_accum, -1):
-            logits = _lm_forward(state, chunk, layout)
+            logits = (_lm_forward(state, chunk, layout) if forward_fn is None
+                      else forward_fn(state.model, chunk))
             loss, accuracy = _next_token_metrics(pair_fn, logits, chunk, layout)
             aux = _moe_aux_total(state.model)
             if aux is None:
                 loss.backward()
             else:  # on a mesh, this rank's part of the global router loss
-                (loss + aux / layout.batch_shards).backward()
+                (loss + aux / (layout.batch_shards * layout.seq_shards)).backward()
             loss_sum = loss_sum + loss.detach()
             acc_sum = acc_sum + accuracy
             if aux is not None:
@@ -495,7 +491,7 @@ def make_lm_eval_step(
     without the backward or the update, and without the router losses
     (the reference's eval collects none). exp(loss) is the perplexity.
     On a mesh, as the train step."""
-    _lm_mesh(state, mesh, seq_axis, None)
+    _lm_mesh(state, mesh, seq_axis)
     pair_fn = _lm_pair_fn(state, None, metrics_fn)
     layout = _token_layout(state.mesh, seq_axis)
     split = spmd.split_axes(state.mesh, seq_axis) if state.mesh is not None else ()

@@ -16,6 +16,12 @@ differ:
     batch_stats .../mean                      -> .../running_mean
     batch_stats .../var                       -> .../running_var
 
+The pipelined LM's parameters (`parallel/pipeline.py`) carry the same
+way: the reference's {"outer": ..., "stages": ...} tree maps onto a
+`PipelinedLM`'s `outer.*` and `stages.*`, and under `stages` every leaf
+leads with the (P, L/P) stack dims, which the layout change leaves in
+front (a stacked Dense kernel (P, L/P, in, out) -> (P, L/P, out, in)).
+
 The last params row is a parameter that a module declares itself rather
 than through a submodule: the LM's and the ViT's `pos_embed`, the ViT's
 `cls_token` (1, 1, D), and the five leaves of a `moe_mlp`
@@ -54,11 +60,14 @@ def _walk(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
             yield prefix + (key,), value
 
 
-def _to_torch_layout(leaf: str, value: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and value.ndim == 4:
+def _to_torch_layout(leaf: str, value: np.ndarray, stack_dims: int = 0) -> np.ndarray:
+    """`value` in the port's layout; its first `stack_dims` dims (the
+    pipeline's stage stack) stay in front."""
+    k = value.ndim - stack_dims
+    if leaf == "kernel" and k == 4:
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    if leaf == "kernel" and value.ndim == 2:
-        return value.T  # (in, out) -> (out, in)
+    if leaf == "kernel" and k == 2:
+        return np.swapaxes(value, -1, -2)  # (in, out) -> (out, in)
     return value
 
 
@@ -86,7 +95,8 @@ def state_dict_from_flax(
                     f"{collection}/{'/'.join(path)} maps to {key!r}, which "
                     "the port's model does not have"
                 )
-            array = _to_torch_layout(leaf, np.asarray(value, dtype=np.float32))
+            stack_dims = 2 if collection == "params" and path[0] == "stages" else 0
+            array = _to_torch_layout(leaf, np.asarray(value, dtype=np.float32), stack_dims)
             if tuple(array.shape) != tuple(expected[key].shape):
                 raise ValueError(
                     f"{key}: flax shape {tuple(array.shape)} after layout "

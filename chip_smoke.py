@@ -147,7 +147,27 @@ which raises on failure (exit code not 0, no result line):
    keep the phase short), each rank's tokens equal to this process's
    `generate` of its 4 rows (K3 at a rank's (4, 12, 256, 64) against its
    plain version in 11); tokens/s as two processes sharing one card, not
-   a two-card rate.
+   a two-card rate; then the same two processes sampled at temperature
+   1.5, each rank's tokens equal to its rows of this process's run on all
+   8 streams with the same seed;
+27. (after 26) the elastic trainer at full width: `parallel/elastic
+   .ElasticTrainer` drives the LM of 7 on a one-rank mesh over NCCL,
+   with a real `TrainCheckpointer`; a scripted fleet status bumps the
+   generation 1 -> 2 at step 3 of 6, and the trainer flushes, leaves the
+   group, forms a new one, rebuilds and restores: one resume, 0 steps
+   lost, acks notified -> resumed, the final parameters and momentum
+   bit-equal to an uninterrupted 6-step run, K1 6 and K2 72 + 72 times;
+   the step, save, restore and reconfigure seconds;
+28. the SIGKILL drill: two processes of `python -m
+   tritonk8ssupervisor_tpu_torch.cli.main train --device cuda --backend
+   gloo` on the card (NCCL refuses two ranks on one card), coordinates
+   from the `JAX_*` env contract; process 1 SIGKILLed as a process group
+   after the first committed checkpoint; once the survivor acknowledges
+   notified, the fleet status says generation 2 with slice 1 degraded
+   and the env file names one process; the survivor must rejoin at
+   world size 1, restore the state the two saved, and reach step 400
+   having lost at most 25 steps; the seconds from the kill to its
+   notified ack and to its resume.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -160,7 +180,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -191,6 +214,7 @@ from tritonk8ssupervisor_tpu_torch.ops import decode_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import attention_reference, ring_attention
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
+from tritonk8ssupervisor_tpu_torch.parallel import distributed, elastic
 from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp
 from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
@@ -1759,6 +1783,8 @@ PP_TIMED_STEPS = 5
 # the two-process decode: 128 new tokens, one timed call after the first
 # (the one-rank run of phase 26 keeps the defaults)
 TWO_RANK_DECODE = dict(new_tokens=128, repeats=1)
+# the sampled run of the two-process decode
+DECODE_TEMPERATURE = 1.5
 
 
 def _pp_params_as_dense(pp_model) -> dict:
@@ -1898,11 +1924,15 @@ def run_decode_mesh_one_rank(card: str, single: dict) -> dict:
 
 def two_rank_decode(options: dict) -> dict:
     """One rank of the two-process decode (gloo, both on the one card): the
-    benchmark with the int8 cache on this rank's 4 of the 8 streams."""
+    benchmark with the int8 cache on this rank's 4 of the 8 streams, greedy
+    and then sampled at DECODE_TEMPERATURE."""
     torch.cuda.set_device(0)
     da.decode_attention_kernel.launches = 0
     result = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True, **options)
-    return {**result, "k3": da.decode_attention_kernel.launches}
+    k3 = da.decode_attention_kernel.launches
+    sampled = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True,
+                                         temperature=DECODE_TEMPERATURE, **options)
+    return {**result, "k3": k3, "sampled_tokens": sampled["tokens"]}
 
 
 def run_two_rank_decode(card: str) -> dict:
@@ -1919,6 +1949,20 @@ def run_two_rank_decode(card: str) -> dict:
     prompt = torch.randint(0, 32768, (8, 128), generator=torch.Generator().manual_seed(0))
     equal = [dec.generate(model, params, prompt[4 * r:4 * r + 4].cuda(), new, max_len=max_len,
                           cache_int8=True).cpu().tolist() == ranks[r]["tokens"] for r in range(2)]
+    # sampled: each rank's rows of one process's run on the 8 streams with
+    # the same seed (every rank draws the whole batch's noise)
+    single = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True,
+                                        temperature=DECODE_TEMPERATURE, **TWO_RANK_DECODE)
+    sampled_equal = [single["tokens"][4 * r:4 * r + 4] == ranks[r]["sampled_tokens"]
+                     for r in range(2)]
+    distinct = single["tokens"][:4] != single["tokens"][4:]
+    print(f"sampled decode in two processes (gloo) on one card (phase 26), temperature "
+          f"{DECODE_TEMPERATURE}: each rank's tokens equal its rows of one process's run on the 8 "
+          f"streams with the same seed: {sampled_equal}; the halves differ: {distinct}, on "
+          f"{card}", flush=True)
+    if not (all(sampled_equal) and distinct):
+        raise AssertionError(f"sampled two-process decode: equal {sampled_equal}, halves "
+                             f"differ {distinct}")
     r = ranks[0]
     expected = 12 * (new - 1) * (1 + TWO_RANK_DECODE["repeats"])
     print(f"decode in two processes (gloo) on one card (phase 26), 4 of 8 streams each, "
@@ -1930,7 +1974,8 @@ def run_two_rank_decode(card: str) -> dict:
     if not all(equal) or r["num_chips"] != 2 or any(x["k3"] != expected for x in ranks):
         raise AssertionError(f"two-process decode: equal {equal}, ranks {ranks}")
     return {"k3": [x["k3"] for x in ranks], "tokens_per_sec": r["tokens_per_sec"],
-            "ms_per_token_per_stream": r["ms_per_token_per_stream"]}
+            "ms_per_token_per_stream": r["ms_per_token_per_stream"],
+            "sampled_equal": sampled_equal}
 
 
 def run_slice10(card: str, decode_single: dict) -> dict:
@@ -1950,6 +1995,275 @@ def run_slice10(card: str, decode_single: dict) -> dict:
             dist.destroy_process_group()
     out["decode_two_ranks"] = run_two_rank_decode(card)
     return out
+
+
+# slice 11: the elastic trainer at full width, and the train drill's SIGKILL
+ELASTIC_STEPS = 6
+# the generation goes 1 -> 2 at this step's boundary
+ELASTIC_BUMP_AT = 3
+ELASTIC_EVERY = 2
+# the drill in two processes: long enough that the kill lands mid-run
+DRILL_STEPS = 400
+DRILL_EVERY = 25
+# a phase of the drill that does not finish in this time fails
+DRILL_TIMEOUT_S = 300.0
+
+
+def _elastic_tokens(step: int) -> torch.Tensor:
+    """Step `step`'s batch of the LM of 7: the same in every run."""
+    return torch.randint(0, 32768, (8, 1024), generator=torch.Generator(device="cuda")
+                         .manual_seed(1000 + step), device="cuda", dtype=torch.int32)
+
+
+def _lm_values(state) -> dict:
+    out = {f"param.{n}": p.detach().clone() for n, p in state.model.named_parameters()}
+    for n, p in state.model.named_parameters():
+        out[f"momentum.{n}"] = state.optimizer.state[p]["momentum_buffer"].clone()
+    return out
+
+
+class _AckLog(elastic.JobAck):
+    """The job-ack file, with the phases written in order."""
+
+    def __init__(self, path) -> None:
+        super().__init__(path)
+        self.phases: list[str] = []
+
+    def write(self, phase: str, *args, **kwargs) -> None:
+        super().write(phase, *args, **kwargs)
+        self.phases.append(phase)
+
+
+class _TimedCheckpoint(elastic.ElasticCheckpoint):
+    """ElasticCheckpoint with its saves' and restores' seconds kept."""
+
+    def __init__(self, factory) -> None:
+        super().__init__(factory)
+        self.seconds: dict[str, list[float]] = {"save": [], "restore": []}
+
+    def save(self, step: int, state) -> None:
+        t0 = time.monotonic()
+        super().save(step, state)
+        torch.cuda.synchronize()
+        self.seconds["save"].append(time.monotonic() - t0)
+
+    def restore(self, state, shardings=None, step=None):
+        t0 = time.monotonic()
+        out = super().restore(state, shardings, step)
+        torch.cuda.synchronize()
+        self.seconds["restore"].append(time.monotonic() - t0)
+        return out
+
+
+def run_elastic_one_rank(card: str) -> dict:
+    """Phase 27: `parallel/elastic.ElasticTrainer` driving the LM of 7 at its
+    published widths (K1, K2) on a one-rank mesh over NCCL. A scripted
+    fleet status bumps the generation 1 -> 2 at the step-3 boundary of 6:
+    the trainer flushes a real `TrainCheckpointer` checkpoint, leaves the
+    group (`distributed.shutdown`), forms a new one-rank group, rebuilds
+    the state from fresh weights and restores. Its final parameters and
+    momentum must equal an uninterrupted 6-step run's to the bit, with one
+    resume, 0 steps lost, acks notified -> resumed, and K1 once and K2
+    12 + 12 times a step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        stores = iter(range(1000))
+
+        def join():
+            dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store{next(stores)}", 1),
+                                    rank=0, world_size=1)
+            return None  # the world of one the trainer reports
+
+        def setup() -> elastic.TrainSession:
+            mesh = mesh_lib.make_mesh(device_type="cuda")
+            state = train.create_train_state(_lm_model(), train.default_optimizer(MESH_LR["lm"]),
+                                             "cuda", mesh=mesh)
+            return elastic.TrainSession(state, None,
+                                        elastic.state_step_fn(train.make_lm_train_step(state)),
+                                        mesh)
+
+        def batch_fn(session, step: int) -> tuple:
+            return (_elastic_tokens(step),)
+
+        # the uninterrupted run, on the same mesh path
+        join()
+        try:
+            session = setup()
+            times = []
+            for i in range(ELASTIC_STEPS):
+                t0 = time.monotonic()
+                session.step_fn(session.state, *batch_fn(session, i))[1]["loss"].item()
+                times.append(1e3 * (time.monotonic() - t0))
+            straight = _lm_values(session.state)
+            del session
+        finally:
+            distributed.shutdown()
+        torch.cuda.empty_cache()
+
+        views = ([elastic.FleetView(generation=1, heal_in_progress=False, verdict="healthy")]
+                 * (ELASTIC_BUMP_AT + 1)
+                 + [elastic.FleetView(generation=2, heal_in_progress=False, verdict="healthy")])
+        ack = _AckLog(f"{tmp}/job-ack.json")
+        ckpt = _TimedCheckpoint(lambda: ckpt_lib.TrainCheckpointer(f"{tmp}/ckpt"))
+        trainer = elastic.ElasticTrainer(
+            setup, batch_fn, checkpoint=ckpt, health=elastic.ScriptedHealthSource(views),
+            policy=elastic.ElasticPolicy(checkpoint_every=ELASTIC_EVERY), ack=ack,
+            init_fn=join, shutdown_fn=distributed.shutdown, drain_fn=None,
+            echo=lambda line: print(f"phase 27: {line}", flush=True))
+        try:
+            report, counts = _counted(lambda: trainer.run(ELASTIC_STEPS))
+            resumed = _lm_values(trainer.session.state)
+            final_step = trainer.session.state.step
+        finally:
+            trainer.session = None
+            distributed.shutdown()
+    diffs = [(resumed[k] - v).abs().max().item() for k, v in straight.items()]
+    max_diff = max(diffs)
+    resume = report["resumes"][0] if report["resumes"] else None
+    reconfigure_s = resume["ts"] - resume["notice_ts"] if resume else float("nan")
+    out = {"report": report, "ack_phases": ack.phases, "max_abs_diff": max_diff,
+           "bit_equal": max_diff == 0.0, "final_step": final_step, "launches": counts,
+           "step_ms": times, "save_s": ckpt.seconds["save"],
+           "restore_s": ckpt.seconds["restore"], "reconfigure_s": reconfigure_s}
+    print(f"elastic trainer (phase 27), LM 12L/768/seq 1024/batch 8 bf16 on a one-rank NCCL mesh, "
+          f"generation 1 -> 2 at step {ELASTIC_BUMP_AT} of {ELASTIC_STEPS}: resumes "
+          f"{len(report['resumes'])}, steps lost {report['steps_lost']}, acks {ack.phases}; final "
+          f"parameters and momentum against an uninterrupted run: max |diff| {max_diff!r} "
+          f"(tolerance 0); launches in the trainer's run {counts}; uninterrupted step ms "
+          f"{[round(t, 2) for t in times]} (host clock, each ended by loss.item()); saves "
+          f"{[round(t, 3) for t in ckpt.seconds['save']]} s, restore "
+          f"{[round(t, 3) for t in ckpt.seconds['restore']]} s, reconfigure (flush, leave, "
+          f"rejoin, rebuild, restore) {reconfigure_s:.3f} s, on {card}", flush=True)
+    if (len(report["resumes"]) != 1 or report["steps_lost"] != 0 or final_step != ELASTIC_STEPS
+            or ack.phases != ["notified", "resumed"] or max_diff != 0.0):
+        raise AssertionError(f"elastic trainer at a world of one: {out}")
+    if (counts["k1"], counts["k2_forward"], counts["k2_backward"]) != (
+            ELASTIC_STEPS, 12 * ELASTIC_STEPS, 12 * ELASTIC_STEPS):
+        raise AssertionError(f"elastic trainer: launches {counts} in {ELASTIC_STEPS} steps")
+    return out
+
+
+def _write_json(path: pathlib.Path, doc: dict) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(doc))
+    tmp.replace(path)
+
+
+def _fleet_status(generation: int, degraded: list[int]) -> dict:
+    return {"verdict": "degraded" if degraded else "healthy", "updated": time.time(),
+            "membership": {"generation": generation, "heal_in_progress": False,
+                           "draining": []}, "degraded": degraded}
+
+
+def _wait_for(predicate, what: str, procs) -> float:
+    """Poll `predicate` until it holds; its time on the monotonic clock.
+    Fails at DRILL_TIMEOUT_S or when a process ends first."""
+    deadline = time.monotonic() + DRILL_TIMEOUT_S
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"SIGKILL drill: {what} did not happen in {DRILL_TIMEOUT_S} s")
+        if any(p.poll() is not None for p in procs):
+            raise AssertionError(f"SIGKILL drill: a process ended before {what}: "
+                                 + "\n".join(p.communicate()[0][-3000:] for p in procs
+                                             if p.poll() is not None))
+        time.sleep(0.01)
+    return time.monotonic()
+
+
+def run_sigkill_drill(card: str) -> dict:
+    """Phase 28: two processes of `cli.main train --device cuda --backend
+    gloo` (NCCL refuses two ranks on one card), their coordinates from the
+    `JAX_*` env contract. After the first committed checkpoint, process 1
+    is SIGKILLed as a process group. Once the survivor acknowledges
+    `notified` (its step's gloo all_reduce failed), the fleet status says
+    generation 2 with slice 1 degraded and the env file names one process.
+    The survivor must rejoin at world size 1, restore the state two ranks
+    saved, and reach the last step having lost at most one checkpoint
+    interval, acknowledging degraded or resumed."""
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        status, env_file, ckpt = tmp / "fleet-status.json", tmp / "cluster.env", tmp / "ckpt"
+        _write_json(status, _fleet_status(1, []))
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        base = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "TK8S_"))}
+        procs = []
+        try:
+            for pid in (0, 1):
+                argv = [sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.cli.main", "train",
+                        "--device", "cuda", "--backend", "gloo", "--workdir", str(tmp),
+                        "--checkpoint-dir", str(ckpt), "--steps", str(DRILL_STEPS),
+                        "--checkpoint-every", str(DRILL_EVERY), "--status-file", str(status),
+                        "--ack-file", str(tmp / f"ack-{pid}.json"), "--env-file", str(env_file),
+                        "--max-wait", "60", "--max-degraded", "1",
+                        "--train-report", str(tmp / f"report-{pid}.json"), "--yes"]
+                env = {**base, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                       "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(pid),
+                       "OMP_NUM_THREADS": "2"}
+                procs.append(subprocess.Popen(argv, env=env, cwd=root, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True,
+                                              start_new_session=True))
+            markers = ckpt / ckpt_lib.COMMIT_DIR
+            started = time.monotonic()
+            _wait_for(lambda: markers.is_dir() and any(int(m.name) >= DRILL_EVERY
+                                                        for m in markers.iterdir()),
+                      "a committed checkpoint", procs)
+            committed = max(int(m.name) for m in markers.iterdir())
+            os.killpg(procs[1].pid, signal.SIGKILL)
+            killed = time.monotonic()
+            # the step both processes saved (the survivor prunes it later)
+            two_rank_files = len(list((ckpt / str(committed)).glob("*.distcp")))
+            ack = tmp / "ack-0.json"
+
+            def acked(phase: str) -> bool:
+                try:
+                    return json.loads(ack.read_text())["phase"] == phase
+                except (OSError, ValueError):
+                    return False
+
+            notified = _wait_for(lambda: acked("notified"), "the survivor's notified ack",
+                                 procs[:1])
+            # the supervisor's side: slice 1 gone, no heal coming, one process
+            env_file.write_text("JAX_NUM_PROCESSES=1\nJAX_PROCESS_ID=0\n")
+            _write_json(status, _fleet_status(2, [1]))
+            out = procs[0].communicate(timeout=DRILL_TIMEOUT_S)[0]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+        if procs[0].returncode != 0:
+            raise AssertionError(f"SIGKILL drill: the survivor failed:\n{out[-4000:]}")
+        report = json.loads((tmp / "report-0.json").read_text())
+        final_ack = json.loads(ack.read_text())
+    resume = report["resumes"][0] if report["resumes"] else {}
+    result = {"report": report, "final_ack": final_ack["phase"],
+              "first_committed_step": committed, "killed_after_s": killed - started,
+              "kill_to_notified_s": notified - killed,
+              # the survivor's resume stamp is on the host's monotonic clock
+              "kill_to_resume_s": resume.get("ts", float("nan")) - killed,
+              "files_in_two_rank_step": two_rank_files}
+    print(f"SIGKILL drill (phase 28), two processes of cli.main train --device cuda "
+          f"--backend gloo on one card, {DRILL_STEPS} steps, checkpoint every {DRILL_EVERY}: "
+          f"process 1 killed after step {committed} committed; the survivor acknowledged "
+          f"notified {result['kill_to_notified_s']:.3f} s after the kill (its failed all_reduce), "
+          f"resumed {result['kill_to_resume_s']:.3f} s after it (the fleet status was rewritten "
+          f"once it acknowledged), at step {resume.get('resumed_step')} of "
+          f"{resume.get('at_step')} (lost {report['steps_lost']}), world size "
+          f"{report['world']}, final step {report['final_step']}, last ack "
+          f"{final_ack['phase']}, on {card}", flush=True)
+    if not (report["final_step"] == DRILL_STEPS and report["world"] == 1
+            and len(report["resumes"]) == 1 and report["steps_lost"] <= DRILL_EVERY
+            and final_ack["phase"] in ("degraded", "resumed") and two_rank_files == 2
+            and resume.get("resumed_step", -1) >= committed):
+        raise AssertionError(f"SIGKILL drill: {result}")
+    return result
+
+
+def run_slice11(card: str) -> dict:
+    """Phases 27-28."""
+    return {"elastic_one_rank": run_elastic_one_rank(card), "sigkill_drill": run_sigkill_drill(card)}
 
 
 def _times_text(r: dict, library: str) -> str:
@@ -2113,6 +2427,7 @@ def main() -> int:
     engine_step = profile_engine_step(card)
     breakdowns = profile_breakdowns(card)
     slice10 = run_slice10(card, decode_single)
+    slice11 = run_slice11(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -2131,7 +2446,8 @@ def main() -> int:
                                  "pp_lm_first_step": slice10["pipeline"]["k1"],
                                  "moe_lm_seq_axis_first_step": slice10["moe_seq_axis"]["k1"],
                                  "mesh_resnet50_fused_1x1_bwd":
-                                     mesh_one["resnet50_fused_1x1_bwd_path"]["k1"]},
+                                     mesh_one["resnet50_fused_1x1_bwd_path"]["k1"],
+                                 "elastic_lm": slice11["elastic_one_rank"]["launches"]["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
             "launch_floor_ms": floor_ms,
@@ -2161,7 +2477,9 @@ def main() -> int:
                                  "mesh_lm": mesh_one["lm_path"]["k2_forward"],
                                  "pp_lm_first_step": slice10["pipeline"]["k2_forward"],
                                  "moe_lm_seq_axis_first_step":
-                                     slice10["moe_seq_axis"]["k2_forward"]},
+                                     slice10["moe_seq_axis"]["k2_forward"],
+                                 "elastic_lm":
+                                     slice11["elastic_one_rank"]["launches"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -2190,7 +2508,9 @@ def main() -> int:
                                  "mesh_lm": mesh_one["lm_path"]["k2_backward"],
                                  "pp_lm_first_step": slice10["pipeline"]["k2_backward"],
                                  "moe_lm_seq_axis_first_step":
-                                     slice10["moe_seq_axis"]["k2_backward"]},
+                                     slice10["moe_seq_axis"]["k2_backward"],
+                                 "elastic_lm":
+                                     slice11["elastic_one_rank"]["launches"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -2266,6 +2586,7 @@ def main() -> int:
     print("slice 9: " + json.dumps({"mesh_one_rank": mesh_one, "two_ranks": two_ranks},
                                    sort_keys=True, default=str), flush=True)
     print("slice 10: " + json.dumps(slice10, sort_keys=True, default=str), flush=True)
+    print("slice 11: " + json.dumps(slice11, sort_keys=True, default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

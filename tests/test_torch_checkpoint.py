@@ -5,9 +5,9 @@ resumed run bit-equal to one that never stopped.
 
 The round trip, an unmarked torn step skipped, a marked but torn step
 falling back, a directory without markers, a restore with nothing to
-restore, pruning by `max_to_keep`, `gs://` kept as it is (and refused by
-the checkpointer: item 7), and both benchmarks resuming from their
-`checkpoint_dir`. All on the CPU, in one process.
+restore, pruning by `max_to_keep`, `gs://` kept as it is (and a URL
+opened through fsspec: tests/test_torch_checkpoint_url.py), and both
+benchmarks resuming from their `checkpoint_dir`. All on the CPU, in one process.
 """
 
 import shutil
@@ -153,8 +153,16 @@ def test_resolve_checkpoint_dir_keeps_gcs_urls_and_the_checkpointer_refuses_them
     assert resolve_checkpoint_dir("gs://bucket/ckpt") == "gs://bucket/ckpt"
     local = resolve_checkpoint_dir("relative/ckpt")
     assert local.is_absolute()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        TrainCheckpointer("gs://bucket/ckpt")
+    # a URL is no longer refused: the checkpointer opens it through fsspec
+    # (memory:// here; tests/test_torch_checkpoint_url.py saves and restores)
+    import fsspec
+
+    url = "memory://tk8s-resolve-test/ckpt"
+    try:
+        ckpt = TrainCheckpointer(url)
+        assert ckpt.all_steps() == [] and ckpt.latest_step() is None
+    finally:
+        fsspec.filesystem("memory").rm("/tk8s-resolve-test", recursive=True)
 
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adamw"])

@@ -3,7 +3,10 @@ package: each of 2 gloo ranks generates its half of the batch, and the
 halves equal the reference's `generate` of the whole batch token for
 token (tests/test_decode.py's mesh contract), with the bf16 and the int8
 cache; the decode benchmark on 2 ranks reports 2 chips and refuses a
-batch that does not split over them.
+batch that does not split over them. Sampled decode over the 2 ranks
+(temperature 1.5) gives exactly the rows of one process's run on the whole
+batch with the same seed, through `generate` and through the benchmark:
+every rank draws the whole batch's noise and keeps its rows.
 
 f32 models with head_dim 16, as tests/test_torch_decode.py: both sides
 differ only in the order of summation.
@@ -24,11 +27,18 @@ CONFIG = dict(vocab_size=64, num_layers=2, num_heads=2, embed_dim=32, max_seq_le
 NEW_TOKENS = 8
 TINY = dict(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32, prompt_len=8, new_tokens=4,
             repeats=1, device="cpu")
+TEMPERATURE = 1.5
+
+
+def _sampled(model, params, prompt, m=None):
+    return dec.generate(model, params, prompt, NEW_TOKENS, temperature=TEMPERATURE,
+                        rng=torch.Generator().manual_seed(3), mesh=m)
 
 
 def decode_ranks(sd, prompt):
     """This rank's rows of `prompt` through `generate` with each cache; then
-    the benchmark on the mesh, and its refusal of a batch of 3."""
+    the benchmark on the mesh, and its refusal of a batch of 3; then both
+    sampled at TEMPERATURE."""
     m = mesh.make_mesh(device_type="cpu")
     model = TransformerLM(**CONFIG, dtype=torch.float32, logits_dtype=torch.float32)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
@@ -42,11 +52,16 @@ def decode_ranks(sd, prompt):
         refused = None
     except ValueError as e:
         refused = str(e)
-    return tokens, result, refused
+    sampled = {"generate": _sampled(model, params, local, m),
+               "benchmark": bench.run_benchmark(batch=4, temperature=TEMPERATURE,
+                                                keep_tokens=True, **TINY)["tokens"]}
+    return tokens, result, refused, sampled
 
 
 @pytest.fixture(scope="module")
-def decoded():
+def reference():
+    """The JAX model's weights as a state dict, the prompts, and the
+    reference's greedy tokens of the whole batch with each cache."""
     import jax.numpy as jnp
     from test_torch_transformer import lm_variables
 
@@ -62,13 +77,19 @@ def decoded():
             for int8 in (False, True)}
     model = TransformerLM(**CONFIG, dtype=torch.float32, logits_dtype=torch.float32)
     sd = {k: v.numpy() for k, v in state_dict_from_flax(variables, model).items()}
+    return sd, prompt, want
+
+
+@pytest.fixture(scope="module")
+def decoded(reference):
+    sd, prompt, want = reference
     return run_ranks(decode_ranks, 2, args=(sd, prompt), timeout=240.0, threads=1), want
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
 def test_data_parallel_generate_equals_the_reference_on_the_whole_batch(decoded, int8):
     results, want = decoded
-    got = np.concatenate([tokens[int8].numpy() for tokens, _, _ in results])
+    got = np.concatenate([tokens[int8].numpy() for tokens, *_ in results])
     np.testing.assert_array_equal(got, want[int8])
 
 
@@ -84,7 +105,7 @@ def test_decode_benchmark_runs_on_two_ranks(decoded):
                           max_seq_len=max_len, generator=torch.Generator().manual_seed(1))
     prompt = torch.randint(0, 64, (4, TINY["prompt_len"]),
                            generator=torch.Generator().manual_seed(0))
-    for rank, (_, result, refused) in enumerate(results):
+    for rank, (_, result, refused, _) in enumerate(results):
         assert result["num_chips"] == 2 and result["batch"] == 4, rank
         rows = dec.generate(model, dec.lm_params(model, "cpu"), prompt[2 * rank:2 * rank + 2],
                             TINY["new_tokens"], max_len=max_len, cache_int8=True)
@@ -92,3 +113,22 @@ def test_decode_benchmark_runs_on_two_ranks(decoded):
         assert result["tokens_per_sec_per_chip"] == pytest.approx(result["tokens_per_sec"] / 2)
         assert result["tokens_per_sec"] == results[0][1]["tokens_per_sec"]  # one rate, the slowest
         assert "must be divisible by the 2-chip data-parallel degree" in refused
+
+
+@pytest.mark.parametrize("path", ["generate", "benchmark"])
+def test_sampled_decode_over_two_ranks_equals_one_process(reference, decoded, path):
+    """Each rank's sampled rows equal its rows of one process's run on the
+    whole batch with the same seed (F4: each rank drew noise for its own
+    rows only, so rank 1's row i repeated rank 0's draws)."""
+    results, _ = decoded
+    got = torch.cat([torch.as_tensor(sampled[path]) for *_, sampled in results])
+    if path == "generate":
+        sd, prompt, _ = reference
+        model = TransformerLM(**CONFIG, dtype=torch.float32, logits_dtype=torch.float32)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        want = _sampled(model, dec.lm_params(model), torch.from_numpy(prompt))
+    else:
+        want = torch.tensor(bench.run_benchmark(batch=4, temperature=TEMPERATURE,
+                                                keep_tokens=True, **TINY)["tokens"])
+    assert got.shape == want.shape
+    assert torch.equal(got, want.to(got.dtype))

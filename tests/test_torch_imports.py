@@ -56,7 +56,12 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.parallel.pipeline, "
         "tritonk8ssupervisor_tpu_torch.ops.ring_attention, "
         "tritonk8ssupervisor_tpu_torch.utils.data, "
-        "tritonk8ssupervisor_tpu_torch.utils.convert; "
+        "tritonk8ssupervisor_tpu_torch.utils.convert, "
+        "tritonk8ssupervisor_tpu_torch.provision.fleetview, "
+        "tritonk8ssupervisor_tpu_torch.provision.retry, "
+        "tritonk8ssupervisor_tpu_torch.provision.state, "
+        "tritonk8ssupervisor_tpu_torch.parallel.elastic, "
+        "tritonk8ssupervisor_tpu_torch.cli.main; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -96,6 +101,23 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         decode.run_engine_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32,
                                     max_len=32, prompt_len=8, shared_prefix_len=4)
     assert tritonk8ssupervisor_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_the_train_drill_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
+    """`cli.main train` runs on the card unless `--device cpu`: without a
+    card it raises before it joins, trains or writes anything; without a
+    checkpoint directory it refuses to run, as the reference's does."""
+    from tritonk8ssupervisor_tpu_torch.cli import main as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("TK8S_CHECKPOINT_DIR", raising=False)
+    argv = ["train", "--workdir", str(tmp_path), "--checkpoint-dir", str(tmp_path / "ckpt"),
+            "--steps", "1", "--yes"]
+    assert cli.build_parser().parse_args(argv).device is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    assert sorted(p.name for p in tmp_path.iterdir()) == []
+    assert cli.main(["train", "--workdir", str(tmp_path), "--device", "cpu"]) == 1
 
 
 def test_chip_smoke_fails_without_the_card_and_alone(tmp_path):

@@ -9,6 +9,8 @@ K2's plain version. Models are f32 so that the comparison is of the
 algorithm, not of bf16 rounding.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -301,22 +303,32 @@ def test_run_benchmark_on_cpu_reports_the_reference_fields():
 
 @pytest.mark.parametrize("kwargs", [
     {"sequence_parallelism": 2}, {"expert_parallelism": 2},
-    {"pipeline_parallelism": 2}, {"checkpoint_dir": "gs://bucket/ckpt"},
+    {"pipeline_parallelism": 2}, {"checkpoint_dir": "memory://tk8s-lm-bench-test/ckpt"},
 ])
 def test_run_benchmark_unported_options_raise(kwargs):
-    """Object-store checkpoints (item 7) are not ported; a sequence,
-    expert or pipeline degree of 2 does not divide one process's single
-    rank, which the mesh refuses as the reference's make_mesh does
-    (tests/test_torch_mesh_train.py and tests/test_torch_pipeline.py run
-    them on gloo ranks)."""
+    """A sequence, expert or pipeline degree of 2 does not divide one
+    process's single rank, which the mesh refuses as the reference's
+    make_mesh does (tests/test_torch_mesh_train.py and
+    tests/test_torch_pipeline.py run them on gloo ranks). A URL checkpoint
+    directory, once refused, is now taken: the run commits its last step
+    there (an fsspec `memory://` URL; no bucket is reachable from the test
+    machines)."""
+    run = functools.partial(
+        lm.run_benchmark, vocab_size=64, num_layers=1, num_heads=2, embed_dim=32, seq_len=16,
+        batch_per_data_shard=2, steps=1, warmup=1, windows=1, device="cpu", **kwargs)
     if "checkpoint_dir" not in kwargs:
-        expected = pytest.raises(ValueError, match="do not divide device count 1")
-    else:
-        expected = pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7")
-    with expected:
-        lm.run_benchmark(vocab_size=64, num_layers=1, num_heads=2, embed_dim=32, seq_len=16,
-                         batch_per_data_shard=2, steps=1, warmup=1, windows=1, device="cpu",
-                         **kwargs)
+        with pytest.raises(ValueError, match="do not divide device count 1"):
+            run()
+        return
+    import fsspec
+
+    from tritonk8ssupervisor_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+    try:
+        result = run()
+        assert TrainCheckpointer(kwargs["checkpoint_dir"]).latest_step() == result["final_step"]
+    finally:
+        fsspec.filesystem("memory").rm("/tk8s-lm-bench-test", recursive=True)
 
 
 def test_run_benchmark_trains_a_moe_lm_on_cpu():

@@ -165,20 +165,33 @@ def test_run_benchmark_on_cpu_reports_the_reference_fields():
 
 @pytest.mark.parametrize("kwargs", [
     {"model_parallelism": 2},
-    {"checkpoint_dir": "gs://bucket/ckpt"},
+    {"checkpoint_dir": "memory://tk8s-resnet-bench-test/ckpt"},
 ])
 def test_run_benchmark_unported_options_raise(kwargs):
-    """Object-store checkpoints are not ported (item 7); a model degree of 2
-    does not divide one process's single rank, which the mesh refuses as
-    the reference's make_mesh does (tests/test_torch_mesh_train.py runs
-    it on 4 ranks)."""
+    """A model degree of 2 does not divide one process's single rank, which
+    the mesh refuses as the reference's make_mesh does
+    (tests/test_torch_mesh_train.py runs it on 4 ranks). A URL checkpoint
+    directory, once refused, is now taken: the run commits its last step
+    there (an fsspec `memory://` URL; no bucket is reachable from the test
+    machines)."""
+    def run():
+        return run_benchmark(model_name="resnet18", batch_per_chip=2, image_size=32,
+                             num_classes=10, steps=1, warmup=1, windows=1, device="cpu",
+                             **kwargs)
+
     if "model_parallelism" in kwargs:
-        expected = pytest.raises(ValueError, match="do not divide device count 1")
-    else:
-        expected = pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7")
-    with expected:
-        run_benchmark(model_name="resnet18", batch_per_chip=2, image_size=32, num_classes=10,
-                      steps=1, warmup=1, windows=1, device="cpu", **kwargs)
+        with pytest.raises(ValueError, match="do not divide device count 1"):
+            run()
+        return
+    import fsspec
+
+    from tritonk8ssupervisor_tpu_torch.parallel.checkpoint import TrainCheckpointer
+
+    try:
+        result = run()
+        assert TrainCheckpointer(kwargs["checkpoint_dir"]).latest_step() == result["final_step"]
+    finally:
+        fsspec.filesystem("memory").rm("/tk8s-resnet-bench-test", recursive=True)
 
 
 def test_run_benchmark_trains_vit_on_cpu():

@@ -28,9 +28,12 @@ replicated, each rank generates its `batch / batch degree` rows of the
 prompts, `num_chips` is the mesh's size, `tokens_per_sec` counts every
 rank's streams over the slowest rank's time and the `*_per_chip` rates
 divide it by `num_chips`. A batch the degree does not divide raises
-ValueError. The engine benchmark runs on one card, as the reference's
-engine does. The multi-host rendezvous (`initialize_from_env`) is not
-ported (ROADMAP.md queue 1, item 5b): the group is the launcher's.
+ValueError. With a temperature every rank draws the whole batch's noise
+from one seed and keeps its rows, so the ranks' tokens are one process's.
+The engine benchmark runs on one card, as the reference's engine does.
+`main` joins the group from the cluster environment's coordinates
+(`parallel/distributed.initialize_from_env`) where it names them, as the
+reference's benchmarks do, else the launcher's (torchrun).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.models import TransformerLM
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
 from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
-from tritonk8ssupervisor_tpu_torch.parallel.distributed import init_from_launcher
+from tritonk8ssupervisor_tpu_torch.parallel import distributed
 from tritonk8ssupervisor_tpu_torch.serving.engine import SlotEngine
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
 from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
@@ -142,7 +145,7 @@ def run_benchmark(
         start = time.monotonic()
         out = dec.generate(model, params, prompt, max_new_tokens=new_tokens,
                            temperature=temperature, rng=rng, max_len=max_len,
-                           cache_int8=cache_int8, unroll=unroll).cpu()
+                           cache_int8=cache_int8, unroll=unroll, mesh=mesh).cpu()
         elapsed = time.monotonic() - start
         if tuple(out.shape) != (batch // degree, new_tokens):
             raise AssertionError(f"generate returned {tuple(out.shape)}")
@@ -484,7 +487,8 @@ def main(argv: list[str] | None = None) -> int:
                     f"token-identical={spec['token_identical']}"
                 )
         return 0 if result["passes"] else 1
-    joined = init_from_launcher()  # under torchrun: every rank decodes its streams
+    # the cluster env's coordinates (initialize_from_env), else torchrun's
+    joined = distributed.join()  # in a group: every rank decodes its streams
     rank = dist.get_rank() if joined else 0
     try:
         result = run_benchmark(

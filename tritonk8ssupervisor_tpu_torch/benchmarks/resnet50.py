@@ -40,7 +40,7 @@ from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50, ViT
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
 from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import train as train_lib
-from tritonk8ssupervisor_tpu_torch.parallel.distributed import init_from_launcher
+from tritonk8ssupervisor_tpu_torch.parallel import distributed
 from tritonk8ssupervisor_tpu_torch.utils import perf
 from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
 
@@ -229,7 +229,8 @@ def _run(args) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    joined = init_from_launcher()  # under torchrun: every rank runs the mesh path
+    # the cluster env's coordinates (initialize_from_env), else torchrun's
+    joined = distributed.join()  # in a group: every rank runs the mesh path
     rank = dist.get_rank() if joined else 0
     try:
         result = _run(args)

@@ -41,6 +41,7 @@ from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.models.transformer import dense, layer_norm
 from tritonk8ssupervisor_tpu_torch.ops.decode_attention import decode_attention_int8
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import attention_reference
+from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 
 NEG_INF = -1e30
 DENSE_NAMES = ("qkv", "proj", "mlp_up", "mlp_down", "lm_head")
@@ -330,11 +331,20 @@ def decode_step(model, params, cache, token, pos: int):
     return _head(params, x, model)[:, 0]
 
 
-def _pick(logits, temperature: float, rng):
-    if temperature > 0:
-        probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=rng)[:, 0].to(torch.int32)
-    return logits.argmax(dim=-1).to(torch.int32)
+def _pick(logits, temperature: float, rng, rows: tuple[int, int] | None = None):
+    """Greedy, or a draw from softmax(logits / temperature) by the Gumbel-max
+    rule: argmax(logits / temperature + g), g Gumbel noise from `rng`.
+    `rows` (offset, global batch) puts these rows in a larger batch: the
+    noise is drawn for every row of it, as each of its ranks draws it, and
+    these rows keep theirs, so a rank's tokens are its rows of the whole
+    batch's draw."""
+    if temperature <= 0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    b, v = logits.shape
+    offset, total = rows if rows is not None else (0, b)
+    u = torch.rand((total, v), generator=rng, device=logits.device)[offset:offset + b]
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return (logits.float() / temperature + gumbel).argmax(dim=-1).to(torch.int32)
 
 
 @torch.no_grad()
@@ -348,6 +358,7 @@ def generate(
     max_len: int | None = None,
     cache_int8: bool = False,
     unroll: int = 1,
+    mesh=None,
 ) -> torch.Tensor:
     """Greedy (temperature=0) or sampled continuation of `prompt` (B, S), on
     the prompt's device (which is the parameters').
@@ -360,9 +371,15 @@ def generate(
 
     Sampling draws from softmax(logits / temperature) with `rng`, a
     `torch.Generator` on the prompt's device: deterministic per generator,
-    but not JAX's random bits. `unroll` is accepted and changes nothing:
-    the reference's unrolled scan is token-identical by its own contract,
-    and a Python loop has no scan iterations to amortise.
+    but not JAX's random bits. With a `mesh`, `prompt` is this rank's
+    shard of a global batch split over the mesh's batch axes
+    (`utils/data.batch_shard`), and every rank draws the noise of the whole
+    batch from its `rng` (seeded alike on every rank) and keeps its own
+    rows, so the ranks' tokens are the rows of one process's run on the
+    whole batch, as the reference's one key over the global batch gives.
+    `unroll` is accepted and changes nothing: the reference's unrolled
+    scan is token-identical by its own contract, and a Python loop has no
+    scan iterations to amortise.
 
     cache_int8 stores the cache as int8 with per-(token, head) f32 scales;
     greedy continuations can diverge from the bf16 cache where the top-2
@@ -381,10 +398,14 @@ def generate(
         raise ValueError(f"prompt {s} + new {max_new_tokens} exceeds cache {max_len}")
     if temperature > 0 and rng is None:
         raise ValueError("sampling (temperature > 0) needs an rng (a torch.Generator)")
+    rows = None
+    if mesh is not None:
+        axes = mesh_lib.batch_axes(mesh)
+        rows = (mesh_lib.axis_index(mesh, axes) * b, mesh_lib.axes_size(mesh, axes) * b)
     cache, logits = prefill(model, params, prompt, max_len, cache_int8=cache_int8)
     tokens = torch.empty((b, max_new_tokens), dtype=torch.int32, device=prompt.device)
     for t in range(max_new_tokens):
-        token = _pick(logits, temperature, rng)
+        token = _pick(logits, temperature, rng, rows)
         tokens[:, t] = token
         if t == max_new_tokens - 1:
             break

@@ -1,5 +1,6 @@
 """The training steps of the port on one device or a mesh of ranks, the
-mesh, its collectives, checkpoints and a local launcher of ranks.
+mesh, its collectives, checkpoints, cluster formation from the env
+contract, the elastic trainer and a local launcher of ranks.
 
 The names below load on first use, so that the kernels' modules can
 import `parallel.collectives` and `parallel.mesh` without importing the
@@ -23,6 +24,14 @@ _EXPORTS = {
     "make_workload_mesh": "mesh",
     "param_shardings": "mesh",
     "cluster_env": "distributed",
+    "initialize_from_env": "distributed",
+    "ElasticCheckpoint": "elastic",
+    "ElasticPolicy": "elastic",
+    "ElasticTrainer": "elastic",
+    "FileHealthSource": "elastic",
+    "JobAck": "elastic",
+    "ScriptedHealthSource": "elastic",
+    "TrainSession": "elastic",
     "run_ranks": "ranks",
 }
 

@@ -8,10 +8,19 @@ the marker `<dir>/.tk8s-complete/<step>`, written (temp file, then
 `os.replace`) only after the step's save finished. `latest_step` counts
 committed steps only, unless no step has a marker at all (a directory
 written before markers existed, trusted as a whole); `restore` falls back
-past a step that fails to read to the previous one. A state without a
-mesh is saved by DCP in one process, without `init_process_group`
-(`no_dist=True`); a state on a mesh is saved by every rank of the
-process group, each sharded parameter (and the optimizer state that
+past a step that fails to read to the previous one.
+
+The directory may also be a URL (`gs://bucket/run`, or any scheme
+`fsspec` knows, such as `file://` and `memory://`): DCP's `FsspecWriter`
+and `FsspecReader` write and read it. As in the reference, which leaves
+a URL's commit to orbax, no marker is written there: a step counts as
+committed when its DCP `.metadata` exists, which DCP writes last.
+Listing, pruning and the fall-back past a torn step go through `fsspec`
+the same way.
+
+A state without a mesh is saved by DCP in one process, without
+`init_process_group` (`no_dist=True`); a state on a mesh is saved by
+every rank of the process group, each sharded parameter (and the optimizer state that
 follows it) as a DTensor of its placements, so a restore onto another
 mesh (another rank count, other degrees) reshards it. Saves are
 synchronous: rank 0 writes the marker after DCP's commit, and the ranks
@@ -33,18 +42,13 @@ A restore copies into the live state in place: the model's tensors
 directly, the optimizer's state through `load_state_dict`, which puts
 each tensor where torch keeps it. So the port needs no counterpart of
 the reference's `abstract_like`.
-
-`resolve_checkpoint_dir` keeps a URL (`gs://...`) as it is, as the
-reference does; a `TrainCheckpointer` on a URL raises: object-store
-checkpoints are ROADMAP.md queue 1, item 7.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import posixpath
 import shutil
-import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -55,9 +59,12 @@ import torch.distributed.checkpoint as dcp
 
 from tritonk8ssupervisor_tpu_torch.parallel.mesh import dtensor_placements
 from tritonk8ssupervisor_tpu_torch.parallel.train import TrainState
+from tritonk8ssupervisor_tpu_torch.provision.state import atomic_write_text
 
 # `<ckpt-dir>/.tk8s-complete/<step>`: the commit marker of a whole save
 COMMIT_DIR = ".tk8s-complete"
+# the file DCP writes last, which commits a step at a URL
+METADATA_FILE = ".metadata"
 
 
 def resolve_checkpoint_dir(directory: Path | str) -> Path | str:
@@ -69,21 +76,38 @@ def resolve_checkpoint_dir(directory: Path | str) -> Path | str:
     return Path(directory).absolute()
 
 
-def _atomic_write_text(path: Path, text: str) -> None:
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.name}.")
-    with os.fdopen(fd, "w") as f:
-        f.write(text)
-    os.replace(tmp, path)
+def _writer(location: Path | str):
+    """DCP's writer for a step: the file-system one for a local path,
+    fsspec's for a URL."""
+    if isinstance(location, Path):
+        return dcp.FileSystemWriter(location)
+    from torch.distributed.checkpoint._fsspec_filesystem import FsspecWriter
+
+    return FsspecWriter(location)
+
+
+def _reader(location: Path | str):
+    if isinstance(location, Path):
+        return dcp.FileSystemReader(location)
+    from torch.distributed.checkpoint._fsspec_filesystem import FsspecReader
+
+    return FsspecReader(location)
 
 
 @contextlib.contextmanager
-def _one_process():
-    """DCP without a process group warns on every call that it assumes one
-    process, which is this module's design."""
+def _dcp_call():
+    """Around every DCP save and load. DCP without a process group warns on
+    every call that it assumes one process, which is this module's design.
+    A failure inside DCP (a torn file, a peer lost mid-save) is a
+    `CheckpointException`, which is not an `Exception`: it is raised as a
+    RuntimeError, which the fall-back past a torn step and the elastic
+    trainer's best-effort saves catch."""
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="torch.distributed is disabled")
-        yield
+        try:
+            yield
+        except dcp.CheckpointException as e:
+            raise RuntimeError(f"checkpoint {e}") from e
 
 
 def _on_mesh(state: TrainState) -> bool:
@@ -126,9 +150,10 @@ def _state_dict(state: TrainState) -> dict[str, torch.Tensor]:
     return out
 
 
-def _restore_into(path: Path, state: TrainState) -> None:
-    """Load the DCP checkpoint at `path` into `state` in place."""
-    stored = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+def _restore_into(path: Path | str, state: TrainState) -> None:
+    """Load the DCP checkpoint at `path` (a directory or a URL) into
+    `state` in place."""
+    stored = _reader(path).read_metadata().state_dict_metadata
     model = {f"model.{k}": _global(state, k, v) for k, v in state.model.state_dict().items()}
     params = dict(state.model.named_parameters())
     target: dict[str, torch.Tensor] = dict(model)
@@ -144,8 +169,8 @@ def _restore_into(path: Path, state: TrainState) -> None:
             target[key] = torch.empty(meta.size, dtype=meta.properties.dtype)
     if set(model) - set(stored):
         raise ValueError(f"{path}: no entry for {sorted(set(model) - set(stored))[:4]}")
-    with _one_process():
-        dcp.load(target, checkpoint_id=path, no_dist=not _on_mesh(state))
+    with _dcp_call():
+        dcp.load(target, storage_reader=_reader(path), no_dist=not _on_mesh(state))
 
     index = {n: i for i, n in enumerate(params)}
     per_param: dict[int, dict[str, torch.Tensor]] = {}
@@ -161,33 +186,64 @@ def _restore_into(path: Path, state: TrainState) -> None:
 
 
 class TrainCheckpointer:
-    """Saves and restores a `TrainState` under `directory`, keeping the
-    newest `max_to_keep` committed steps."""
+    """Saves and restores a `TrainState` under `directory` (a local path or
+    a URL), keeping the newest `max_to_keep` committed steps."""
 
     def __init__(self, directory: Path | str, max_to_keep: int = 3):
         self._dir = resolve_checkpoint_dir(directory)
-        if not isinstance(self._dir, Path):
-            raise NotImplementedError(
-                f"checkpoints at {self._dir}: object-store checkpoints are not "
-                "ported yet: ROADMAP.md queue 1, item 7"
-            )
-        self._dir.mkdir(parents=True, exist_ok=True)
+        if isinstance(self._dir, Path):
+            self._fs = None
+            self._dir.mkdir(parents=True, exist_ok=True)
+        else:
+            from fsspec.core import url_to_fs
+
+            self._dir = self._dir.rstrip("/")
+            self._fs, self._root = url_to_fs(self._dir)
+            self._fs.makedirs(self._root, exist_ok=True)
         self.max_to_keep = max_to_keep
+
+    def _location(self, step: int) -> Path | str:
+        """Where `step` is saved: a directory, or a URL."""
+        if self._fs is None:
+            return self._dir / str(step)
+        return f"{self._dir}/{step}"
 
     def _marker(self, step: int) -> Path:
         return self._dir / COMMIT_DIR / str(step)
 
+    def _committed(self, step: int) -> bool:
+        if self._fs is None:
+            return self._marker(step).exists()
+        return self._fs.exists(f"{self._root}/{step}/{METADATA_FILE}")
+
+    def _remove(self, step: int) -> None:
+        """Drop `step`: its marker first (a local step), then its files."""
+        if self._fs is None:
+            self._marker(step).unlink(missing_ok=True)
+            shutil.rmtree(self._dir / str(step), ignore_errors=True)
+        elif self._fs.exists(f"{self._root}/{step}"):
+            self._fs.rm(f"{self._root}/{step}", recursive=True)
+
     def all_steps(self) -> list[int]:
         """Every step with a directory, committed or not, ascending."""
-        return sorted(int(p.name) for p in self._dir.iterdir()
-                      if p.is_dir() and p.name.isdigit())
+        if self._fs is None:
+            return sorted(int(p.name) for p in self._dir.iterdir()
+                          if p.is_dir() and p.name.isdigit())
+        try:
+            entries = self._fs.ls(self._root, detail=True)
+        except FileNotFoundError:
+            return []
+        names = [posixpath.basename(e["name"].rstrip("/")) for e in entries
+                 if e["type"] == "directory"]
+        return sorted(int(n) for n in names if n.isdigit())
 
     def _committed_steps(self) -> list[int]:
         """Steps safe to restore, ascending: those with a marker, or every
-        step when none has one (a directory from before the markers)."""
+        step when none has one (a directory from before the markers); at
+        a URL, those whose DCP metadata exists."""
         steps = self.all_steps()
-        committed = [s for s in steps if self._marker(s).exists()]
-        return committed if committed else steps
+        committed = [s for s in steps if self._committed(s)]
+        return committed if committed or self._fs is not None else steps
 
     def latest_step(self) -> int | None:
         steps = self._committed_steps()
@@ -197,20 +253,19 @@ class TrainCheckpointer:
         """Save `state` as `step` and commit it; then drop the steps beyond
         the newest `max_to_keep`. The save is synchronous: the reference's
         `wait` for its asynchronous saves has no counterpart."""
-        step_dir = self._dir / str(step)
         on_mesh, rank0 = _on_mesh(state), _is_rank0(state)
         if rank0:
-            self._marker(step).unlink(missing_ok=True)
-            shutil.rmtree(step_dir, ignore_errors=True)
+            self._remove(step)
         if on_mesh:
             dist.barrier()
-        with _one_process():
-            dcp.save(_state_dict(state), checkpoint_id=step_dir, no_dist=not on_mesh)
+        with _dcp_call():
+            dcp.save(_state_dict(state), storage_writer=_writer(self._location(step)),
+                     no_dist=not on_mesh)
         if rank0:
-            _atomic_write_text(self._marker(step), f"{step}\n")
+            if self._fs is None:
+                atomic_write_text(self._marker(step), f"{step}\n")
             for old in self.all_steps()[:-self.max_to_keep]:
-                self._marker(old).unlink(missing_ok=True)
-                shutil.rmtree(self._dir / str(old), ignore_errors=True)
+                self._remove(old)
         if on_mesh:
             dist.barrier()
 
@@ -219,7 +274,7 @@ class TrainCheckpointer:
         step, tries the latest committed step and falls back past any that
         fails to read (a torn save) to the previous complete one."""
         if step is not None:
-            _restore_into(self._dir / str(step), state)
+            _restore_into(self._location(step), state)
             return state
         candidates = self._committed_steps()
         if not candidates:
@@ -227,7 +282,7 @@ class TrainCheckpointer:
         last_error: Exception | None = None
         for candidate in reversed(candidates):
             try:
-                _restore_into(self._dir / str(candidate), state)
+                _restore_into(self._location(candidate), state)
                 return state
             except Exception as e:  # noqa: BLE001 - a torn step may fail anywhere in DCP's read
                 last_error = e

@@ -142,13 +142,17 @@ def make_cross_slice_mesh(num_slices: int | None = None, ranks: Sequence[int] | 
 
 
 def make_workload_mesh(model_parallelism: int = 1, expert_parallelism: int = 1,
-                       pipeline_parallelism: int = 1,
-                       device_type: str | None = None) -> DeviceMesh:
+                       pipeline_parallelism: int = 1, device_type: str | None = None,
+                       num_slices: int | None = None) -> DeviceMesh:
     """The mesh a workload builds: the cross-slice mesh when the cluster
     environment (`parallel/distributed.cluster_env`) names more than one
-    slice, else `make_mesh`."""
-    env = cluster_env()
-    env_slices = env.num_slices if env is not None else 1
+    slice, else `make_mesh`. `num_slices` replaces the environment's count:
+    after a membership change the process environment still describes the
+    old world, and the elastic trainer passes the rejoin's count."""
+    if num_slices is None:
+        env = cluster_env()
+        num_slices = env.num_slices if env is not None else 1
+    env_slices = num_slices
     degrees = (model_parallelism, expert_parallelism, pipeline_parallelism)
     if env_slices > 1 or _hardware_multislice(world_ranks()):
         return make_cross_slice_mesh(env_slices if env_slices > 1 else None, None, *degrees,

@@ -167,7 +167,26 @@ which raises on failure (exit code not 0, no result line):
    and the env file names one process; the survivor must rejoin at
    world size 1, restore the state the two saved, and reach step 400
    having lost at most 25 steps; the seconds from the kill to its
-   notified ack and to its resume.
+   notified ack and to its resume;
+29. the serving plane at full width: a `Gateway` over a `SlotEngine` of
+   the LM at its published widths (512 positions, pages of 16, 4 slots,
+   the int8 cache) with the engine benchmark's drafter (spec_k 4; not its
+   shared head bias), its request journal and spans fsync'd in a
+   temporary workdir as `cli.main serve` wires them; the prefix store
+   seeded by one warm-up request; `server.run_drill` with 16 requests of
+   64-256 prompt tokens opening with 48-192 tokens of a shared 192-token
+   prefix, 64 new tokens each at temperature 0,
+   with K3 counted around it, each request's tokens equal to a fresh
+   engine's with the prompts run one at a time; then `make_handler` on a
+   ThreadingHTTPServer on port 0 (/healthz 200, a plain and a streamed
+   /generate equal to the engine alone, 400 for an over-long prompt,
+   /metrics); a gateway restarted on the journal answering a completed
+   key `replayed` with its tokens and no engine step; `cli.main serve
+   --drill 8` on the card. It fails on an engine crash (the loop's
+   `crashed`, the `serving_engine_crashed` gauge), an expiry or a
+   requeue. It prints the drill's p50 and p99 latency, tokens/s, TTFT,
+   the engine-step histogram's count and mean, the span count and K3's
+   launches. With `--serving-plane` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -178,6 +197,9 @@ It prints the card line, one JSON line with every kernel of the paths
 
 from __future__ import annotations
 
+import contextlib
+import http.client
+import io
 import json
 import math
 import os
@@ -190,6 +212,7 @@ import sys
 import tempfile
 import threading
 import time
+from http.server import ThreadingHTTPServer
 
 import torch
 import torch.distributed as dist
@@ -197,9 +220,11 @@ import torch.nn.functional as F
 
 import numpy as np
 
+from tritonk8ssupervisor_tpu_torch import obs
 from tritonk8ssupervisor_tpu_torch.benchmarks import decode as decode_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
+from tritonk8ssupervisor_tpu_torch.cli import main as cli
 from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50, TransformerLM, ViT
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
 from tritonk8ssupervisor_tpu_torch.models import moe
@@ -219,7 +244,9 @@ from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp
 from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
 from tritonk8ssupervisor_tpu_torch.parallel.ranks import run_ranks
-from tritonk8ssupervisor_tpu_torch.serving import SlotEngine
+from tritonk8ssupervisor_tpu_torch.provision.state import RunPaths
+from tritonk8ssupervisor_tpu_torch.serving import SlotEngine, reqlog, server
+from tritonk8ssupervisor_tpu_torch.serving import gateway as gateway_mod
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
 from tritonk8ssupervisor_tpu_torch.utils import perf
 from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
@@ -2266,6 +2293,298 @@ def run_slice11(card: str) -> dict:
     return {"elastic_one_rank": run_elastic_one_rank(card), "sigkill_drill": run_sigkill_drill(card)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the serving plane at full width on the card
+
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 512
+SERVE_PREFIX = 192  # the shared system prompt, as the engine benchmark's
+SERVE_NEW_TOKENS = 64
+SERVE_SPEC_K = 4
+SERVE_REQUESTS = 16
+# the drill's prompts, cycled over its requests: (tokens of the shared
+# prefix, a whole number of pages; then tokens of its own), 64-256 in all
+SERVE_PROMPTS = ((48, 16), (112, 16), (192, 8), (192, 64))
+# a drill that has not settled in this time fails the phase
+SERVE_TIMEOUT_S = 180.0
+HTTP_TIMEOUT_S = 120
+
+
+def _serving_models():
+    """The LM at its published widths and the engine benchmark's drafter
+    (1 layer, 2 heads, embed 32, from the same seeds), on the card. The
+    benchmark's shared lm_head bias is left out: it makes every greedy
+    token the bias's top token, which would leave the token-identity
+    check nothing to compare. Without it the drafter's proposals are
+    rejected and every round rolls back."""
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                          max_seq_len=SERVE_MAX_LEN, generator=torch.Generator().manual_seed(1))
+    draft = TransformerLM(vocab_size=32768, num_layers=1, num_heads=2, embed_dim=32,
+                          max_seq_len=SERVE_MAX_LEN, generator=torch.Generator().manual_seed(5))
+    return model, dec.lm_params(model, "cuda"), draft, dec.lm_params(draft, "cuda")
+
+
+def _serving_prompts() -> tuple[list, np.ndarray]:
+    """The drill's prompts and the warm-up prompt (the whole prefix and 16
+    tokens of its own) that seeds the prefix store before either run, so
+    that every request matches the same prefix pages in the drill and in
+    the engine alone, and prefills the same chunks."""
+    rng = np.random.default_rng(29)
+    prefix = rng.integers(0, 32768, SERVE_PREFIX)
+
+    def prompt(shared: int, own: int) -> np.ndarray:
+        return np.concatenate([prefix[:shared], rng.integers(0, 32768, own)]).astype(np.int32)
+
+    prompts = [prompt(*SERVE_PROMPTS[i % len(SERVE_PROMPTS)]) for i in range(SERVE_REQUESTS)]
+    return prompts, prompt(SERVE_PREFIX, 16)
+
+
+def _serving_engine(model, params, draft, draft_params, tracer=None) -> SlotEngine:
+    return SlotEngine(model, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      prefill_chunk=64, page_size=K3_PAGE_SIZE, cache_int8=True,
+                      draft_model=draft, draft_params=draft_params, spec_k=SERVE_SPEC_K,
+                      tracer=tracer, slice_index=0)
+
+
+def _percentile(values: list, q: float) -> float:
+    """The gateway's percentile (`GatewayMetrics.percentile`): the sample
+    at round(q * (n - 1)) of the sorted values."""
+    values = sorted(values)
+    return values[min(len(values) - 1, max(0, int(round(q * (len(values) - 1)))))]
+
+
+def _serving_policy():
+    return gateway_mod.GatewayPolicy(
+        max_seq_len=SERVE_MAX_LEN, slots_per_slice=SERVE_SLOTS, prefill_chunk=64,
+        bucket_bounds=(64, 128, 256), page_size=K3_PAGE_SIZE, spec_k=SERVE_SPEC_K)
+
+
+def _check_serving(what: str, report: dict, crashed) -> None:
+    """The phase fails on an engine crash, an expiry or a requeue: the
+    engine loop's containment must not hide a CUDA error on the card."""
+    if (crashed is not None or report["serving"]["engine_failures"]
+            or report["expired"] or report["requeued_after_slice_loss"]):
+        raise AssertionError(
+            f"{what}: engine crashed {crashed!r}, engine failures "
+            f"{report['serving']['engine_failures']}, expired {report['expired']}, requeued "
+            f"{report['requeued_after_slice_loss']}")
+
+
+def _http_generate(port: int, doc: dict) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("POST", "/generate", body=json.dumps(doc),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _http_get(port: int, path: str) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def check_http(gateway, prompts: list, alone: list) -> dict:
+    """`make_handler` on a ThreadingHTTPServer on port 0 over the drill's
+    gateway, as tests/test_serving.py starts it: /healthz 200, a plain and
+    a streamed /generate equal to the engine alone for their prompt, a 400
+    for an over-long prompt, /metrics with the completion counter and the
+    step histogram."""
+    lock = threading.Lock()
+    loop = server.EngineLoop(gateway, lock)
+    http_server = ThreadingHTTPServer(("127.0.0.1", 0),
+                                      server.make_handler(gateway, lock, loop=loop))
+    port = http_server.server_address[1]
+    thread = threading.Thread(target=http_server.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    # the 200- and 64-token prompts: the pages of their own tokens that the
+    # drill registered lie past their match cap (prompt_len - 1 tokens), so
+    # they match the same prefix pages as in the engine alone and prefill
+    # the same chunks. A longer match moves the chunk boundaries, and a
+    # position inside the chunk attends its fresh K/V where it would read
+    # the int8 pool: other bits, and bf16 logits tie often enough at this
+    # width for that to change a greedy token
+    plain_i = SERVE_PROMPTS.index((192, 8))
+    stream_i = SERVE_PROMPTS.index((48, 16))
+    loop.start()
+    thread.start()
+    try:
+        health, _ = _http_get(port, "/healthz")
+        status, body = _http_generate(port, {"tokens": prompts[plain_i].tolist(),
+                                             "max_new_tokens": SERVE_NEW_TOKENS})
+        plain = json.loads(body)["tokens"] if status == 200 else None
+        stream_status, body = _http_generate(port, {"tokens": prompts[stream_i].tolist(),
+                                                    "max_new_tokens": SERVE_NEW_TOKENS,
+                                                    "stream": True})
+        lines = [json.loads(line) for line in body.decode().splitlines()]
+        streamed = [t for line in lines[:-1] for t in line["tokens"]]
+        streamed_tail = lines[-1].get("tokens") if lines else None
+        too_long, _ = _http_generate(port, {"tokens": [1] * (SERVE_MAX_LEN + 1),
+                                            "max_new_tokens": 4})
+        metrics_status, metrics_body = _http_get(port, "/metrics")
+    finally:
+        http_server.shutdown()
+        http_server.server_close()
+        loop.stop()
+    text = metrics_body.decode()
+    out = {"healthz": health, "plain_status": status, "stream_status": stream_status,
+           "too_long": too_long, "metrics_status": metrics_status,
+           "plain_equal": plain == alone[plain_i],
+           "stream_equal": streamed == streamed_tail == alone[stream_i],
+           "stream_chunks": len(lines) - 1,
+           "metrics_has": all(name in text for name in ("serving_requests_completed_total",
+                                                         "serving_engine_step_seconds"))}
+    if not (health == status == stream_status == metrics_status == 200 and too_long == 400
+            and out["plain_equal"] and out["stream_equal"] and out["metrics_has"]):
+        raise AssertionError(f"HTTP over the full-width gateway: {out}")
+    _check_serving("HTTP", gateway.report(), loop.crashed)
+    return out
+
+
+def check_recover(workdir: pathlib.Path, engine, results: dict) -> dict:
+    """A gateway restarted on the drill's request log: `recover()` makes the
+    completed keys answerable; a resubmitted key is answered `replayed`
+    with the recorded tokens (`results`: key -> the journal's tokens), and
+    the engine takes no step for it."""
+    gateway = gateway_mod.Gateway(
+        {0: engine}, None, policy=_serving_policy(),
+        reqlog=reqlog.RequestLog(RunPaths(workdir).request_log, echo=lambda line: None))
+    counts = gateway.recover(time.monotonic())
+    key = sorted(results)[0]
+    steps, launches = engine.steps, da.decode_attention_kernel.launches
+    admission = gateway.submit(gateway_mod.Request(
+        rid=99, prompt_len=4, max_new_tokens=SERVE_NEW_TOKENS,
+        tokens=np.arange(4, dtype=np.int32), key=key), time.monotonic())
+    out = {"recover": counts, "key": key, "reason": admission.reason,
+           "tokens_equal": (admission.result or {}).get("tokens") == results[key],
+           "engine_steps": engine.steps - steps,
+           "k3_launches": da.decode_attention_kernel.launches - launches}
+    if not (admission.reason == gateway_mod.REPLAYED and out["tokens_equal"]
+            and out["engine_steps"] == out["k3_launches"] == 0
+            and counts["completed_cached"] == SERVE_REQUESTS and counts["redone"] == 0):
+        raise AssertionError(f"recover over the drill's journal: {out}")
+    return out
+
+
+def run_cli_drill(workdir: pathlib.Path) -> dict:
+    """`cli.main serve --drill 8` on the card at the reference's drill size
+    (its own f32 model and drafter); its output goes to a buffer, its last
+    line is printed."""
+    report_path = workdir / "cli-report.json"
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        rc = cli.main(["serve", "--drill", "8", "--workdir", str(workdir),
+                       "--serve-report", str(report_path)])
+    report = json.loads(report_path.read_text())
+    out = {"rc": rc, "completed": report["completed"], "submitted": report["submitted"],
+           "tokens_generated": report["tokens_generated"],
+           "p50_latency_s": report["p50_latency_s"], "last_line": buffer.getvalue()
+           .strip().splitlines()[-1]}
+    if rc != 0 or not report["completed"] == report["submitted"] == 8:
+        raise AssertionError(f"cli.main serve --drill 8: {out}")
+    _check_serving("the CLI drill", report, None)
+    return out
+
+
+def run_serving_plane(card: str) -> dict:
+    """Phase 29: the gateway over the full-width int8-cache `SlotEngine` with
+    a drafter, journal and telemetry wired as `cli.main serve` wires them
+    (spans and journal records fsync'd): a 16-request drill token-identical
+    to the engine alone, K3 counted around it; HTTP; recover; the CLI
+    drill."""
+    started = time.monotonic()
+    model, params, draft, draft_params = _serving_models()
+    prompts, warm = _serving_prompts()
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = pathlib.Path(tmp)
+        paths = RunPaths(workdir)
+        telemetry = obs.Telemetry.for_run(paths, clock=time.monotonic, incarnation=os.getpid(),
+                                          echo=lambda line: print(line, flush=True))
+        engine = _serving_engine(model, params, draft, draft_params, telemetry.tracer)
+        decode_bench.drive(engine, [warm], 1)  # seeds the prefix store
+        gateway = gateway_mod.Gateway(
+            {0: engine}, None, policy=_serving_policy(),
+            reqlog=reqlog.RequestLog(paths.request_log, echo=lambda line: print(line)),
+            telemetry=telemetry, demand_path=paths.demand_signal)
+        gateway.recover(time.monotonic())
+        da.decode_attention_kernel.launches = 0
+        drill_start = time.monotonic()
+        report = server.run_drill(gateway, SERVE_REQUESTS, vocab_size=32768,
+                                  max_new_tokens=SERVE_NEW_TOKENS, prompts=prompts,
+                                  timeout_s=SERVE_TIMEOUT_S)
+        drill_s = time.monotonic() - drill_start
+        launched = da.decode_attention_kernel.launches
+        crashed = telemetry.metrics.get("serving_engine_crashed").value()
+        _check_serving("the drill", report, None if not crashed else "the crash gauge is 1")
+        if report["completed"] != SERVE_REQUESTS or launched == 0:
+            raise AssertionError(f"drill: {report['completed']} of {SERVE_REQUESTS} completed, "
+                                 f"K3 launches {launched}")
+        served = [r["tokens"] for r in report["results"]]
+        completed = gateway.metrics.completed
+        ttft = [r.first_token_at - r.arrival for r in completed]
+        # read now: the HTTP check's engine loop adds its steps to the same
+        # histogram
+        step = telemetry.metrics.get("serving_engine_step_seconds")
+        step_count, step_seconds = step.count(), step.sum()
+        spans = len(telemetry.tracer.log.spans())
+        results = {r["key"]: r["result"]["tokens"] for r in gateway.reqlog.replay()
+                   if r["kind"] == reqlog.COMPLETED}
+
+        alone_engine = _serving_engine(model, params, draft, draft_params)
+        decode_bench.drive(alone_engine, [warm], 1)
+        alone_start = time.monotonic()
+        alone = [decode_bench.drive(alone_engine, [p], SERVE_NEW_TOKENS)[0] for p in prompts]
+        alone_s = time.monotonic() - alone_start
+        diverging = [i for i, (a, b) in enumerate(zip(served, alone)) if a != b]
+        if diverging:
+            i = diverging[0]
+            at = next(j for j, (a, b) in enumerate(zip(served[i], alone[i])) if a != b)
+            raise AssertionError(
+                f"drill request {i} (prompt {prompts[i].size} tokens) diverges from the engine "
+                f"alone at token {at}: {served[i][at]} against {alone[i][at]}; "
+                f"{len(diverging)} of {SERVE_REQUESTS} requests differ")
+
+        http = check_http(gateway, prompts, alone)
+        recovered = check_recover(workdir, engine, results)
+        cli_drill = run_cli_drill(workdir / "cli")
+    spec = report["engine"]["spec"]
+    out = {
+        "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+        "prompts": [list(p) for p in SERVE_PROMPTS], "shared_prefix": SERVE_PREFIX,
+        "drill_seconds": drill_s, "tokens_generated": report["tokens_generated"],
+        "tokens_per_sec": report["tokens_generated"] / drill_s,
+        "p50_latency_s": report["p50_latency_s"], "p99_latency_s": report["p99_latency_s"],
+        "ttft_p50_s": _percentile(ttft, 0.5), "ttft_p99_s": _percentile(ttft, 0.99),
+        "engine_step_count": step_count, "engine_step_mean_s": step_seconds / step_count,
+        "spans": spans, "k3_launches": launched, "spec": spec,
+        "prefix": report["engine"]["prefix"],
+        "distinct_tokens": len({t for toks in served for t in toks}),
+        "engine_alone_seconds": alone_s, "token_identical": True,
+        "http": http, "recover": recovered, "cli_drill": cli_drill,
+        "phase_seconds": time.monotonic() - started,
+    }
+    print("serving plane: " + json.dumps(out, sort_keys=True, default=str), flush=True)
+    print(f"serving plane (phase 29): gateway over the LM 12L/768/vocab 32768 SlotEngine, int8 "
+          f"cache, {SERVE_SLOTS} slots, drafter k={SERVE_SPEC_K} (acceptance "
+          f"{spec['acceptance_rate']}), journal and spans fsync'd; drill of {SERVE_REQUESTS} x "
+          f"{SERVE_NEW_TOKENS} tokens: p50 {out['p50_latency_s']:.4f} s, p99 "
+          f"{out['p99_latency_s']:.4f} s, {out['tokens_per_sec']:.1f} tokens/s, TTFT p50 "
+          f"{out['ttft_p50_s']:.4f} s p99 {out['ttft_p99_s']:.4f} s; engine step histogram "
+          f"{out['engine_step_count']} steps, mean {out['engine_step_mean_s'] * 1e3:.3f} ms; "
+          f"{spans} spans; K3 {launched} launches; token-identical to the engine alone "
+          f"({out['distinct_tokens']} distinct tokens); HTTP plain = streamed = alone; "
+          f"recover replays; CLI drill {cli_drill['completed']}/{cli_drill['submitted']}; "
+          f"{out['phase_seconds']:.1f} s; on {card}", flush=True)
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -2428,6 +2747,7 @@ def main() -> int:
     breakdowns = profile_breakdowns(card)
     slice10 = run_slice10(card, decode_single)
     slice11 = run_slice11(card)
+    serving_plane = run_serving_plane(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -2556,7 +2876,8 @@ def main() -> int:
             "launches_by_path": {**decode_launches, "engine_cache_int8": engine_launches,
                                  "mesh_decode_cache_int8": slice10["decode_mesh"]["k3"],
                                  "two_process_decode_cache_int8_per_rank":
-                                     slice10["decode_two_ranks"]["k3"]},
+                                     slice10["decode_two_ranks"]["k3"],
+                                 "serving_plane_drill": serving_plane["k3_launches"]},
             "library_none_reason": "no PyTorch call computes attention over an int8 cache "
                                    "with per-token scales",
             "library_ratio": None,
@@ -2587,6 +2908,7 @@ def main() -> int:
                                    sort_keys=True, default=str), flush=True)
     print("slice 10: " + json.dumps(slice10, sort_keys=True, default=str), flush=True)
     print("slice 11: " + json.dumps(slice11, sort_keys=True, default=str), flush=True)
+    print("slice 12: " + json.dumps(serving_plane, sort_keys=True, default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2603,5 +2925,13 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit(2)
         profile_engine_step(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--serving-plane"]:  # phase 29 alone, K3 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        torch.backends.cudnn.allow_tf32 = False  # as main() runs it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cuda_build.load(K3_SOURCE)
+        run_serving_plane(_card_line())
         sys.exit(0)
     sys.exit(main())

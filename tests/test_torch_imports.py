@@ -32,7 +32,7 @@ def _imported_modules(path):
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    assert len(PORT_FILES) >= 14
+    assert len(PORT_FILES) >= 55
     for path in PORT_FILES:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -61,6 +61,13 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.provision.retry, "
         "tritonk8ssupervisor_tpu_torch.provision.state, "
         "tritonk8ssupervisor_tpu_torch.parallel.elastic, "
+        "tritonk8ssupervisor_tpu_torch.provision.events, "
+        "tritonk8ssupervisor_tpu_torch.obs, tritonk8ssupervisor_tpu_torch.obs.metrics, "
+        "tritonk8ssupervisor_tpu_torch.obs.trace, "
+        "tritonk8ssupervisor_tpu_torch.serving.gateway, "
+        "tritonk8ssupervisor_tpu_torch.serving.reqlog, "
+        "tritonk8ssupervisor_tpu_torch.serving.traffic, "
+        "tritonk8ssupervisor_tpu_torch.serving.server, "
         "tritonk8ssupervisor_tpu_torch.cli.main; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
@@ -118,6 +125,21 @@ def test_the_train_drill_defaults_to_the_card_and_raises_without_one(monkeypatch
         cli.main(argv)
     assert sorted(p.name for p in tmp_path.iterdir()) == []
     assert cli.main(["train", "--workdir", str(tmp_path), "--device", "cpu"]) == 1
+
+
+def test_the_serve_command_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
+    """`cli.main serve` runs on the card unless `--device cpu`: without a
+    card it raises before it builds a model, listens or writes anything,
+    in both modes (a drill and the HTTP server)."""
+    from tritonk8ssupervisor_tpu_torch.cli import main as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["serve", "--drill", "2"], ["serve", "--port", "0"]):
+        argv = argv + ["--workdir", str(tmp_path)]
+        assert cli.build_parser().parse_args(argv).device is None
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert sorted(p.name for p in tmp_path.iterdir()) == []
 
 
 def test_chip_smoke_fails_without_the_card_and_alone(tmp_path):

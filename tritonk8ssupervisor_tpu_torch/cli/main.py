@@ -5,6 +5,11 @@
         [--workdir W] [--steps N] [--checkpoint-every N] [--status-file F] \
         [--ack-file F] [--env-file F] [--max-wait S] [--max-degraded N] \
         [--train-report F] [--device cuda|cpu] [--backend nccl|gloo] [--yes]
+    python -m tritonk8ssupervisor_tpu_torch.cli.main serve [--drill N] [--port P] \
+        [--workdir W] [--slots N] [--prefill-chunk T] [--tenant-weights T=W,...] \
+        [--queue-budget N] [--serve-report F] [--deadline S] [--allow-no-fleet-view] \
+        [--kv-page-size T] [--kv-pages N] [--no-prefix-cache] [--draft-model tiny|none] \
+        [--spec-k K] [--no-spec] [--status-file F] [--device cuda|cpu]
 
 `train` is the elastic-training drill (the reference's `train_cmd`): a
 small causal LM driven by `parallel/elastic.ElasticTrainer` through the
@@ -16,6 +21,17 @@ unless `--device cpu` asks for the host, and raises without a card
 otherwise. The process group is NCCL on the card and gloo on the CPU;
 `--backend gloo` on the card lets two processes share one card, which
 NCCL refuses.
+
+`serve` is the reference's `serve_cmd`: the continuous-batching gateway
+(`serving/gateway.py`) over the port's `SlotEngine`, routed by the
+workdir's `fleet-status.json`, journaling every request to
+`serve-requests.jsonl` and its spans to `telemetry-spans.jsonl`. It
+recovers the journal first (incomplete work re-admitted, completed keys
+answerable). `--drill N` sends N seeded requests with no network, prints
+the report and exits 0 when every request completed; without it, it
+listens on 127.0.0.1:`--port` (POST /generate, GET /healthz, GET
+/metrics). The model is the reference's drill model, randomly
+initialised from fixed seeds; it runs on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -39,14 +55,16 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch port's commands.",
     )
     parser.add_argument(
-        "command", choices=["train"],
+        "command", choices=["train", "serve"],
         help="`train` runs the elastic-training drill: a small causal LM "
-        "that survives membership changes by checkpoint, rejoin and restore",
+        "that survives membership changes by checkpoint, rejoin and restore; "
+        "`serve` runs the inference gateway over the slot engine (HTTP, or "
+        "a drill with --drill N)",
     )
     parser.add_argument(
         "--workdir", type=Path, default=Path.cwd(),
-        help="the supervisor's workdir, holding fleet-status.json and "
-        "job-ack.json (default: cwd)",
+        help="the supervisor's workdir, holding fleet-status.json, "
+        "job-ack.json and the serving journal and spans (default: cwd)",
     )
     parser.add_argument(
         "--checkpoint-dir", default=os.environ.get("TK8S_CHECKPOINT_DIR") or None,
@@ -66,8 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--status-file", type=Path, default=None, metavar="FILE",
-        help="train: fleet-status.json to watch (default: the workdir's; a "
-        "missing or mid-rewrite file reads as unknown, never healthy)",
+        help="train, serve: fleet-status.json to watch (default: the "
+        "workdir's; a missing or mid-rewrite file reads as unknown, never "
+        "healthy)",
     )
     parser.add_argument(
         "--ack-file", type=Path, default=None, metavar="FILE",
@@ -96,8 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--device", default=None, metavar="DEVICE",
-        help="train: where to train (default: the CUDA card; `cpu` asks for "
-        "the host)",
+        help="train, serve: where to run (default: the CUDA card; `cpu` asks "
+        "for the host)",
     )
     parser.add_argument(
         "--backend", choices=["nccl", "gloo"], default=None,
@@ -105,6 +124,76 @@ def build_parser() -> argparse.ArgumentParser:
         "gloo on the CPU)",
     )
     parser.add_argument("--yes", action="store_true", help="skip confirmation gates (CI use)")
+    # ----------------------------------------------------- serving gateway
+    parser.add_argument(
+        "--port", type=int, default=8777, metavar="PORT",
+        help="serve: HTTP port for the gateway (default 8777; POST /generate, "
+        "GET /healthz, GET /metrics)",
+    )
+    parser.add_argument(
+        "--slots", type=int, default=8, metavar="N",
+        help="serve: continuous-batching decode slots per engine (default 8)",
+    )
+    parser.add_argument(
+        "--prefill-chunk", type=int, default=32, metavar="TOKENS",
+        help="serve: prompt tokens advanced per step boundary (default 32)",
+    )
+    parser.add_argument(
+        "--tenant-weights", type=str, default="", metavar="T=W,...",
+        help="serve: per-tenant WFQ weights, e.g. 'interactive=3,batch=1'; "
+        "empty = one homogeneous stream",
+    )
+    parser.add_argument(
+        "--queue-budget", type=int, default=64, metavar="N",
+        help="serve: queued requests before the gateway sheds with a "
+        "429-style retry-after (default 64)",
+    )
+    parser.add_argument(
+        "--drill", type=int, default=0, metavar="N",
+        help="serve: run N seeded requests through the gateway and engine and "
+        "print a JSON report instead of listening on --port",
+    )
+    parser.add_argument(
+        "--serve-report", type=Path, default=None, metavar="FILE",
+        help="serve --drill: also write the JSON report to FILE",
+    )
+    parser.add_argument(
+        "--deadline", type=float, default=None, metavar="S",
+        help="serve: default per-request deadline in seconds (past it the "
+        "request settles as a 504-class expiry)",
+    )
+    parser.add_argument(
+        "--allow-no-fleet-view", action="store_true",
+        help="serve: admit traffic even before fleet-status.json has ever "
+        "been read (default: shed no-fleet-view 429s on cold start)",
+    )
+    parser.add_argument(
+        "--kv-page-size", type=int, default=16, metavar="TOKENS",
+        help="serve: KV-cache page size in tokens (default 16)",
+    )
+    parser.add_argument(
+        "--kv-pages", type=int, default=0, metavar="N",
+        help="serve: total KV pages in the engine's pool (0 = memory-equal to "
+        "the dense cache: slots * ceil(max_len / page_size))",
+    )
+    parser.add_argument(
+        "--no-prefix-cache", action="store_true",
+        help="serve: disable cross-request prefix/KV reuse",
+    )
+    parser.add_argument(
+        "--draft-model", type=str, default="tiny", choices=("tiny", "none"),
+        help="serve: drafter for speculative decoding ('none' disables, same "
+        "as --no-spec)",
+    )
+    parser.add_argument(
+        "--spec-k", type=int, default=4, metavar="K",
+        help="serve: drafter tokens proposed per speculative round (default "
+        "4; 0 disables)",
+    )
+    parser.add_argument(
+        "--no-spec", action="store_true",
+        help="serve: disable speculative decoding",
+    )
     return parser
 
 
@@ -201,11 +290,156 @@ def train_cmd(args, say=print) -> int:
     return 0
 
 
+def _parse_tenant_weights(raw: str) -> dict | None:
+    """'interactive=3,batch=1' -> {'interactive': 3.0, 'batch': 1.0};
+    empty/blank -> None (WFQ off). A malformed entry is a usage error,
+    not a silently-dropped tenant."""
+    raw = (raw or "").strip()
+    if not raw:
+        return None
+    weights: dict = {}
+    for part in raw.split(","):
+        name, sep, value = part.partition("=")
+        if not sep or not name.strip():
+            raise SystemExit(
+                f"--tenant-weights: expected TENANT=WEIGHT, got {part!r}"
+            )
+        try:
+            weight = float(value)
+        except ValueError:
+            raise SystemExit(
+                f"--tenant-weights: weight for {name.strip()!r} is not "
+                f"a number: {value!r}"
+            ) from None
+        if weight <= 0:
+            raise SystemExit(
+                f"--tenant-weights: weight for {name.strip()!r} must "
+                f"be positive, got {weight}"
+            )
+        weights[name.strip()] = weight
+    return weights
+
+
+def serve_cmd(args, say=print) -> int:
+    """The continuous-batching gateway over the port's `SlotEngine`,
+    routed by the workdir's fleet-status.json. The drill model is the
+    reference's (vocab 256, 2 layers, 2 heads, embed 64, max seq 256, f32;
+    the drafter 1 layer, embed 32), randomly initialised from fixed seeds:
+    the machinery is the product, the weights are not."""
+    import time
+
+    import torch
+
+    from tritonk8ssupervisor_tpu_torch import obs as obs_mod
+    from tritonk8ssupervisor_tpu_torch.models import TransformerLM
+    from tritonk8ssupervisor_tpu_torch.models import decode as dec
+    from tritonk8ssupervisor_tpu_torch.provision import state
+    from tritonk8ssupervisor_tpu_torch.provision.fleetview import FileHealthSource
+    from tritonk8ssupervisor_tpu_torch.serving import engine as engine_mod
+    from tritonk8ssupervisor_tpu_torch.serving import gateway as gateway_mod
+    from tritonk8ssupervisor_tpu_torch.serving import reqlog as reqlog_mod
+    from tritonk8ssupervisor_tpu_torch.serving import server as server_mod
+
+    device = resolve_device(args.device)
+    paths = state.RunPaths(args.workdir)
+    vocab, max_seq = 256, 256
+    model = TransformerLM(
+        vocab_size=vocab, num_layers=2, num_heads=2, embed_dim=64,
+        max_seq_len=max_seq, dtype=torch.float32, logits_dtype=torch.float32,
+        generator=torch.Generator().manual_seed(1),
+    )
+    params = dec.lm_params(model, device)
+    # speculative decoding: a smaller drafter proposes --spec-k tokens a
+    # round and the target verifies them in one forward with exact
+    # accept/reject, so greedy serving stays token-identical to plain decode
+    spec_on = (not args.no_spec and args.spec_k > 0
+               and args.draft_model != "none")
+    draft_model = draft_params = None
+    if spec_on:
+        draft_model = TransformerLM(
+            vocab_size=vocab, num_layers=1, num_heads=2, embed_dim=32,
+            max_seq_len=max_seq, dtype=torch.float32, logits_dtype=torch.float32,
+            generator=torch.Generator().manual_seed(2),
+        )
+        draft_params = dec.lm_params(draft_model, device)
+    policy = gateway_mod.GatewayPolicy(
+        max_seq_len=max_seq,
+        slots_per_slice=max(1, args.slots),
+        prefill_chunk=max(1, args.prefill_chunk),
+        queue_budget=max(1, args.queue_budget),
+        bucket_bounds=(32, 64, 128, max_seq - 32),
+        default_deadline_s=args.deadline,
+        # a standalone drill has no fleet to take advice from; the HTTP
+        # mode fronting a supervised workdir sheds no-fleet-view 429s
+        # until the supervisor's first publish
+        allow_no_view=bool(args.allow_no_fleet_view or args.drill > 0),
+        page_size=max(1, args.kv_page_size),
+        pages_per_slice=(args.kv_pages if args.kv_pages > 0 else None),
+        prefix_cache=not args.no_prefix_cache,
+        tenant_weights=_parse_tenant_weights(args.tenant_weights),
+        spec_k=(args.spec_k if spec_on else 0),
+    )
+    # spans fsync'd to the workdir's span log, the registry scraped by GET
+    # /metrics and snapshotted at drill exit; incarnation = pid, so a
+    # restarted gateway's spans are told apart
+    telemetry = obs_mod.Telemetry.for_run(
+        paths, clock=time.monotonic, plane=obs_mod.SERVING,
+        incarnation=os.getpid(), echo=say,
+    )
+    # one local engine: this process serves as slice 0 of whatever fleet
+    # the status file describes
+    eng = engine_mod.SlotEngine(
+        model, params, slots=policy.slots_per_slice, max_len=max_seq,
+        prefill_chunk=policy.prefill_chunk,
+        page_size=policy.page_size,
+        num_pages=policy.pages_per_slice,
+        prefix_cache=policy.prefix_cache,
+        tracer=telemetry.tracer, slice_index=0,
+        draft_model=draft_model, draft_params=draft_params,
+        spec_k=policy.spec_k,
+    )
+    if spec_on:
+        say(f"[serve] speculative decoding ON: drafter '{args.draft_model}' "
+            f"proposes k={policy.spec_k} tokens per round, exact accept/reject "
+            "(--no-spec to disable)")
+    gw = gateway_mod.Gateway(
+        {0: eng},
+        FileHealthSource(args.status_file or paths.fleet_status),
+        policy=policy,
+        echo=say,
+        reqlog=reqlog_mod.RequestLog(paths.request_log, echo=say),
+        telemetry=telemetry,
+        demand_path=paths.demand_signal,
+    )
+    # crash-resume: incomplete work re-admitted front-of-queue, completed
+    # keys answered from the recorded result
+    gw.recover(time.monotonic())
+    if args.drill > 0:
+        report = server_mod.run_drill(gw, args.drill, vocab)
+        doc = json.dumps(report, indent=2, sort_keys=True)
+        say(doc)
+        if args.serve_report:
+            state.atomic_write_text(args.serve_report, doc + "\n")
+        say(f"serve drill done: {report['completed']}/{report['submitted']} "
+            f"completed, {report['tokens_generated']} tokens, p50 "
+            f"{report['p50_latency_s']:.3f}s")
+        spec = (report.get("engine") or {}).get("spec")
+        if spec and spec.get("drafted"):
+            say(f"speculative: k={spec['spec_k']}, acceptance "
+                f"{spec['acceptance_rate']:.0%} ({spec['accepted']}/"
+                f"{spec['drafted']} drafted accepted, "
+                f"{spec['rolled_back']} rolled back)")
+        return 0 if report["completed"] == report["submitted"] else 1
+    return server_mod.serve_http(gw, "127.0.0.1", args.port, echo=say)
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
         if args.command == "train":
             return train_cmd(args, lambda line: print(line, flush=True))
+        if args.command == "serve":
+            return serve_cmd(args, lambda line: print(line, flush=True))
     except ConfigError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1

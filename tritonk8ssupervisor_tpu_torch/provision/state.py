@@ -1,8 +1,10 @@
-"""Atomic rewrite of a polled state file: the port's copy of
-`tritonk8ssupervisor_tpu/provision/state.py::atomic_write_text`."""
+"""The state files of a workdir that the port reads and writes: the port's
+copy of `tritonk8ssupervisor_tpu/provision/state.py::atomic_write_text` and
+of the part of `RunPaths` (:116-275) that `serve` uses."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 from pathlib import Path
@@ -19,3 +21,40 @@ def atomic_write_text(path: Path | str, text: str) -> None:
     tmp = path.with_name(f".{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     tmp.write_text(text)
     os.replace(tmp, path)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunPaths:
+    """The serving plane's files under a workdir, with the reference's
+    file names, so the port and the reference read and write one layout."""
+
+    root: Path
+
+    @property
+    def fleet_status(self) -> Path:
+        # the supervisor's atomically rewritten fleet-status document: the
+        # gateway routes and sheds by it
+        return self.root / "fleet-status.json"
+
+    @property
+    def request_log(self) -> Path:
+        # the gateway's durable request journal (serving/reqlog.py),
+        # replayed by `Gateway.recover` after a restart
+        return self.root / "serve-requests.jsonl"
+
+    @property
+    def demand_signal(self) -> Path:
+        # the gateway's atomically rewritten demand signal (queue depth,
+        # completion rate, recent p99 and sheds, per-slice in-flight)
+        return self.root / "demand-signal.json"
+
+    @property
+    def span_log(self) -> Path:
+        # the telemetry plane's span ledger (obs/trace.py)
+        return self.root / "telemetry-spans.jsonl"
+
+    @property
+    def metrics_snapshot(self) -> Path:
+        # the metrics registry's atomic JSON snapshot (obs/metrics.py),
+        # written by serve drills at exit
+        return self.root / "metrics.json"

@@ -43,8 +43,11 @@ Positions past `max_seq_len` (only over-budget speculative candidates,
 whose emissions the host truncates, reach them) read the last position
 embedding: the reference's `jnp.take` there fills NaN.
 
-Not ported: `tracer=` and `slice_index=` (the span plane of `obs/`),
-ROADMAP.md queue 1, item 7.
+With a `tracer=` (`obs/trace.Tracer`, wired by `cli.main serve`), each
+prefill chunk is one `"prefill-chunk"` span on the tracer's clock, with
+the request's key, rid, slot, `slice_index`, first token and token count,
+as the reference's. The span reads the tracer's clock around the chunk's
+calls and adds no synchronisation of its own.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
+from tritonk8ssupervisor_tpu_torch.obs.trace import Tracer
 from tritonk8ssupervisor_tpu_torch.ops.decode_attention import decode_attention_int8
 from tritonk8ssupervisor_tpu_torch.serving import kvpool
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request, StepResult
@@ -85,7 +89,9 @@ class SlotEngine:
                  cache_int8: bool = False,
                  prefix_cache: bool = True,
                  draft_model=None, draft_params=None, spec_k: int = 0,
-                 temperature: float = 0.0, seed: int = 0) -> None:
+                 temperature: float = 0.0, seed: int = 0,
+                 tracer: Tracer | None = None,
+                 slice_index: int | None = None) -> None:
         if max_len > model.max_seq_len:
             raise ValueError(
                 f"max_len {max_len} exceeds model.max_seq_len "
@@ -165,6 +171,10 @@ class SlotEngine:
         self.spec_drafted = 0  # drafter proposals offered to verify
         self.spec_accepted = 0  # proposals that survived
         self.spec_rolled_back = 0  # proposals truncated by a reject
+        # per-chunk prefill spans; a disabled tracer costs one attribute
+        # test a chunk
+        self._tracer = tracer if tracer is not None else Tracer(None)
+        self._slice_index = slice_index
 
     # ------------------------------------------------------- step bodies
 
@@ -387,12 +397,20 @@ class SlotEngine:
             take = min(self.prefill_chunk, remaining)
             chunk = np.zeros((self.prefill_chunk,), np.int64)  # padded
             chunk[:take] = st["tokens"][start:start + take]
+            t0 = self._tracer.now() if self._tracer.enabled else 0.0
             logits = self._prefill(self.model, self.params, self.pool, chunk, slot,
                                    start, take - 1)
             if self.spec:
                 # the drafter shadows the target chunk for chunk
                 self._prefill(self.draft_model, self.draft_params, self.draft_pool,
                               chunk, slot, start, take - 1)
+            if self._tracer.enabled:
+                self._tracer.emit(
+                    "prefill-chunk", t0, self._tracer.now(),
+                    key=st["key"], rid=st["rid"], slot=slot,
+                    slice=self._slice_index, start_token=start,
+                    tokens=take,
+                )
             st["done"] += take
             self.prefill_tokens += take
             if st["done"] >= st["tokens"].size:

@@ -186,7 +186,26 @@ which raises on failure (exit code not 0, no result line):
    `crashed`, the `serving_engine_crashed` gauge), an expiry or a
    requeue. It prints the drill's p50 and p99 latency, tokens/s, TTFT,
    the engine-step histogram's count and mean, the span count and K3's
-   launches. With `--serving-plane` this phase runs alone.
+   launches. With `--serving-plane` this phase runs alone;
+30. the gateway fleet at full width: `serving/fleet.GatewayFleet` with two
+   replicas over two `SlotEngine`s as in 29 (one set of weights, a KV
+   pool each, slice leases on the fsync'd event ledger, journal shards
+   fsync'd), driven by `drive_fleet` on a wall clock: 8 keyed greedy
+   requests, then 16 more (prompts of 64-256 tokens from seed 30, sharing
+   no prefix, 64 new tokens each), replica g1 killed at the first step
+   boundary at which it holds an in-flight slot and a queued key and
+   revived a few seconds later as a standby, and 4 duplicates of
+   first-wave keys resubmitted. It fails unless every key settles
+   exactly once and none expires, `ServeInvariantChecker.check_fleet`
+   over the shards and the ledger finds nothing, the successor's
+   adoption re-admitted at least one key, the duplicates are answered
+   from the journal with no engine step, every key's tokens equal a
+   fresh engine's, g1's slices are revoked and granted again at higher
+   epochs, the reassignment comes within one fleet tick and one drive
+   pass of the kill, and `cli.main status --json --all` exits 0 with the
+   ledger's grant and revoke counts. It prints p50 and p99 latency, TTFT,
+   tokens/s, kill-to-reassignment, keys redone and K3's launches. With
+   `--gateway-fleet` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -244,9 +263,12 @@ from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp
 from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
 from tritonk8ssupervisor_tpu_torch.parallel.ranks import run_ranks
+from tritonk8ssupervisor_tpu_torch.provision import events
 from tritonk8ssupervisor_tpu_torch.provision.state import RunPaths
-from tritonk8ssupervisor_tpu_torch.serving import SlotEngine, reqlog, server
+from tritonk8ssupervisor_tpu_torch.serving import SlotEngine, reqlog, server, traffic
+from tritonk8ssupervisor_tpu_torch.serving import fleet as fleet_mod
 from tritonk8ssupervisor_tpu_torch.serving import gateway as gateway_mod
+from tritonk8ssupervisor_tpu_torch.testing import chaos
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
 from tritonk8ssupervisor_tpu_torch.utils import perf
 from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
@@ -2339,11 +2361,12 @@ def _serving_prompts() -> tuple[list, np.ndarray]:
     return prompts, prompt(SERVE_PREFIX, 16)
 
 
-def _serving_engine(model, params, draft, draft_params, tracer=None) -> SlotEngine:
+def _serving_engine(model, params, draft, draft_params, tracer=None,
+                    slice_index: int = 0) -> SlotEngine:
     return SlotEngine(model, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                       prefill_chunk=64, page_size=K3_PAGE_SIZE, cache_int8=True,
                       draft_model=draft, draft_params=draft_params, spec_k=SERVE_SPEC_K,
-                      tracer=tracer, slice_index=0)
+                      tracer=tracer, slice_index=slice_index)
 
 
 def _percentile(values: list, q: float) -> float:
@@ -2585,6 +2608,274 @@ def run_serving_plane(card: str) -> dict:
     return out
 
 
+FLEET_REQUESTS = 24
+FLEET_FIRST_WAVE = 8  # completed before the kill is armed
+FLEET_DUPLICATES = 4
+FLEET_SEED = 30
+FLEET_REVIVE_AFTER_S = 3.0
+FLEET_VICTIM = "g1"
+
+
+class _WallClock:
+    """`drive_fleet`'s clock over wall time: seconds since the phase began,
+    `time.sleep` to wait. The drive loop alone reads `time()`, once a pass
+    (the fleet, its gateways and journals read `now()`), so the longest
+    stretch between two reads that no sleep began is the longest pass:
+    the most a fleet tick can wait behind the engines' steps."""
+
+    def __init__(self):
+        self.start = time.monotonic()
+        self.last = 0.0
+        self.longest_pass_s = 0.0
+
+    def now(self) -> float:
+        return time.monotonic() - self.start
+
+    def time(self) -> float:
+        now = self.now()
+        self.longest_pass_s = max(self.longest_pass_s, now - self.last)
+        self.last = now
+        return now
+
+    def sleep(self, seconds: float) -> None:
+        time.sleep(max(0.0, seconds))
+        self.last = self.now()
+
+
+class _KillWhenBusy:
+    """A world event for `drive_fleet`: kills `rid` at the first step
+    boundary at which it holds an in-flight slot and a queued key. Its `at`
+    is the past while that holds and never otherwise, so the drive fires it
+    between two passes of its engines and waits for it before it ends."""
+
+    def __init__(self, fleet, rid: str):
+        self.fleet, self.rid = fleet, rid
+        self.killed_at: float | None = None
+        self.inflight = self.queued = 0
+
+    @property
+    def at(self) -> float:
+        gateway = self.fleet.gateways[self.rid]
+        busy = (self.fleet.alive[self.rid] and gateway.queue_depth() > 0
+                and any(w.inflight for w in gateway.workers.values()))
+        return -math.inf if busy else math.inf
+
+    def fn(self, fleet) -> None:
+        gateway = fleet.gateways[self.rid]
+        self.inflight = sum(len(w.inflight) for w in gateway.workers.values())
+        self.queued = gateway.queue_depth()
+        self.killed_at = fleet.clock()
+        fleet.kill(self.rid)
+
+
+def _fleet_prompts() -> list:
+    """24 prompts of 64-256 tokens from seed 30, sharing no prefix: a
+    re-admitted prompt prefills from position 0 on a reset engine, as it
+    does on a fresh one, so each has one right answer wherever it is
+    served."""
+    rng = np.random.default_rng(FLEET_SEED)
+    return [rng.integers(0, 32768, int(n)).astype(np.int32)
+            for n in rng.integers(64, 257, FLEET_REQUESTS)]
+
+
+def drive_gateway_fleet(model, params, draft, draft_params, workdir: pathlib.Path) -> dict:
+    """The gateway fleet (`serving/fleet.GatewayFleet`, 2 replicas, the
+    reference's other defaults) over two `SlotEngine`s that share the
+    model's weights, each with its own KV pool, its slice leases on the
+    fsync'd event ledger at `RunPaths(workdir).events`, its journal
+    shards fsync'd, driven by `drive_fleet` on a wall clock: a first wave
+    of 8 keyed greedy requests; a second of 16, during which g1 is killed
+    at the first step boundary at which it holds an in-flight slot and a
+    queued key; then, a few seconds after the kill, g1 revived as a
+    standby while 4 duplicates of first-wave keys (g1's first) are
+    resubmitted. Raises unless every key settled once, `check_fleet`
+    finds nothing, the successor re-admitted a key, the duplicates came
+    from the journal with no engine step, the tokens equal the engine
+    alone's, g1's slices were revoked and granted again at higher epochs,
+    the reassignment came within one tick and one drive pass of the kill,
+    and `cli.main status --json --all` reads the lease counts back."""
+    started = time.monotonic()
+    paths = RunPaths(workdir)
+    engines = {i: _serving_engine(model, params, draft, draft_params, slice_index=i)
+               for i in range(2)}
+    clock = _WallClock()
+    ledger = events.EventLedger(paths.events, clock=clock.now, echo=lambda line: None)
+    gw_policy = _serving_policy()
+    fleet = fleet_mod.GatewayFleet(
+        engines, paths, ledger, policy=fleet_mod.FleetPolicy(replicas=2),
+        gateway_policy=gw_policy, clock=clock.now,
+        echo=lambda line: print(f"phase 30: {line}", flush=True))
+    prompts = _fleet_prompts()
+    keys = [f"fleet-{i}" for i in range(FLEET_REQUESTS)]
+
+    def wave(indices, at: float) -> list:
+        return [Request(rid=i, prompt_len=int(prompts[i].size),
+                        max_new_tokens=SERVE_NEW_TOKENS, tokens=prompts[i], key=keys[i],
+                        arrival=at) for i in indices]
+
+    da.decode_attention_kernel.launches = 0
+    first = fleet_mod.drive_fleet(fleet, wave(range(FLEET_FIRST_WAVE), clock.now()), clock,
+                                  horizon_s=clock.now() + 1.0)
+    kill = _KillWhenBusy(fleet, FLEET_VICTIM)
+    second = fleet_mod.drive_fleet(fleet, wave(range(FLEET_FIRST_WAVE, FLEET_REQUESTS),
+                                                   clock.now()),
+                                   clock, horizon_s=clock.now() + 1.0, events=(kill,))
+    drive_s = clock.now()
+    if kill.killed_at is None or not (first["quiescent"] and second["quiescent"]):
+        raise AssertionError(f"fleet: kill at {kill.killed_at}, quiescent "
+                             f"{first['quiescent']} / {second['quiescent']}")
+    # read before the revival replaces g1's gateway and its metrics
+    completed_requests = [r for gw in fleet.gateways.values() for r in gw.metrics.completed]
+    steps_before = sum(e.steps for e in engines.values())
+    launches_before = da.decode_attention_kernel.launches
+
+    # the duplicates: first-wave keys, those g1's partitions held first
+    owned_by_victim = [k for k in keys[:FLEET_FIRST_WAVE]
+                       if fleet_mod.partition_of(f"key:{k}", fleet.policy.partitions) % 2 == 1]
+    duplicates = (owned_by_victim + [k for k in keys[:FLEET_FIRST_WAVE]
+                                     if k not in owned_by_victim])[:FLEET_DUPLICATES]
+    admissions: dict = {}
+
+    def resubmit(fleet) -> None:
+        for n, key in enumerate(duplicates):
+            i = keys.index(key)
+            admissions[key] = fleet.submit(Request(
+                rid=1000 + n, prompt_len=int(prompts[i].size),
+                max_new_tokens=SERVE_NEW_TOKENS, tokens=prompts[i], key=key))
+
+    third = fleet_mod.drive_fleet(
+        fleet, [], clock, horizon_s=clock.now() + FLEET_REVIVE_AFTER_S + 1.0,
+        events=(traffic.WorldEvent(clock.now(), resubmit),
+                traffic.WorldEvent(kill.killed_at + FLEET_REVIVE_AFTER_S,
+                                   lambda fleet: fleet.revive(FLEET_VICTIM))))
+    duplicate_steps = sum(e.steps for e in engines.values()) - steps_before
+    duplicate_launches = da.decode_attention_kernel.launches - launches_before
+    launches = da.decode_attention_kernel.launches
+
+    journals = [fleet.reqlogs[rid].replay() for rid in fleet.replica_ids]
+    merged = reqlog.merge_records(*journals)
+    led = ledger.replay()
+    violations = chaos.ServeInvariantChecker(gw_policy).check_fleet(journals, led)
+    terminal = {}
+    for r in merged:
+        if r["kind"] in (reqlog.COMPLETED, reqlog.EXPIRED):
+            terminal.setdefault(r["key"], []).append(r)
+    served = {k: rs[0]["result"]["tokens"] for k, rs in terminal.items()
+              if len(rs) == 1 and rs[0]["kind"] == reqlog.COMPLETED}
+    audit = fleet.reassignments[0] if fleet.reassignments else {}
+
+    alone_engine = _serving_engine(model, params, draft, draft_params)
+    alone_start = time.monotonic()
+    alone = dict(zip(keys, decode_bench.drive(alone_engine, prompts, SERVE_NEW_TOKENS)))
+    alone_s = time.monotonic() - alone_start
+    diverging = [k for k in keys if served.get(k) != alone[k]]
+
+    revoked = [r for r in led if r["kind"] == events.LEASE_REVOKE
+               and r["replica"] == FLEET_VICTIM]
+    regranted = [any(g["kind"] == events.LEASE_GRANT and g["slice"] == r["slice"]
+                     and g["epoch"] > r["epoch"] and g["ts"] >= r["ts"] for g in led)
+                 for r in revoked]
+    status = subprocess.run(
+        [sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.cli.main", "status", "--json",
+         "--all", "--workdir", str(workdir)],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=120)
+    block = json.loads(status.stdout).get("gateway_fleet", {}) if status.returncode == 0 else {}
+    counts = {kind: sum(1 for r in led if r["kind"] == kind)
+              for kind in (events.LEASE_GRANT, events.LEASE_REVOKE)}
+    ttft = [r.first_token_at - r.arrival for r in completed_requests]
+    latency = [r.done_at - r.arrival for r in completed_requests]
+    tokens = sum(len(t) for t in served.values())
+    out = {
+        "requests": FLEET_REQUESTS, "first_wave": FLEET_FIRST_WAVE,
+        "new_tokens": SERVE_NEW_TOKENS, "prompt_tokens": [int(p.size) for p in prompts],
+        "replicas": fleet.replica_ids, "slices": sorted(engines),
+        "drive_seconds": drive_s, "tokens_generated": tokens, "tokens_per_sec": tokens / drive_s,
+        "p50_latency_s": _percentile(latency, 0.5), "p99_latency_s": _percentile(latency, 0.99),
+        "ttft_p50_s": _percentile(ttft, 0.5), "ttft_p99_s": _percentile(ttft, 0.99),
+        "killed": FLEET_VICTIM, "kill_at_s": kill.killed_at,
+        "inflight_at_kill": kill.inflight, "queued_at_kill": kill.queued,
+        "reassignment": audit, "keys_redone": audit.get("redone", 0),
+        "kill_to_reassign_s": audit["at"] - kill.killed_at if audit else None,
+        "tick_every_s": fleet.policy.tick_every_s, "longest_pass_s": clock.longest_pass_s,
+        "duplicates": {k: admissions[k].reason for k in duplicates},
+        "duplicate_engine_steps": duplicate_steps, "duplicate_k3_launches": duplicate_launches,
+        "third_drive_quiescent": third["quiescent"], "alive_at_end": fleet.live_replicas(),
+        "lease_records": {kind: sum(1 for r in led if r["kind"] == kind) for kind in
+                          (events.LEASE_GRANT, events.LEASE_RENEW, events.LEASE_EXPIRE,
+                           events.LEASE_REVOKE)},
+        "revoked_slices": [r["slice"] for r in revoked],
+        "status_rc": status.returncode,
+        "status_gateway_fleet": {k: block.get(k) for k in ("grants", "revokes", "lease_epoch",
+                                                          "replicas", "leases_total")},
+        "violations": violations, "k3_launches": launches,
+        "distinct_tokens": len({t for toks in served.values() for t in toks}),
+        "engine_alone_seconds": alone_s, "token_identical": not diverging,
+    }
+    problems = []
+    if violations:
+        problems.append(f"check_fleet: {violations[:5]}")
+    if (sorted(served) != sorted(keys) or any(len(rs) != 1 for rs in terminal.values())
+            or len(completed_requests) != FLEET_REQUESTS):
+        problems.append(f"settled {sorted(terminal)} with "
+                        f"{ {k: len(rs) for k, rs in terminal.items() if len(rs) != 1} }")
+    if not audit or audit["redone"] < 1 or audit["from"] != FLEET_VICTIM:
+        problems.append(f"no key re-admitted by the successor's adoption: {audit}")
+    if any(a.reason != gateway_mod.REPLAYED or a.result["tokens"] != served[k]
+           for k, a in admissions.items()) or duplicate_steps or duplicate_launches:
+        problems.append(f"duplicates {out['duplicates']}, {duplicate_steps} engine steps, "
+                        f"{duplicate_launches} K3 launches")
+    if diverging:
+        k = diverging[0]
+        at = next((j for j, (a, b) in enumerate(zip(served.get(k, []), alone[k])) if a != b),
+                  None)
+        problems.append(f"{len(diverging)} of {FLEET_REQUESTS} keys differ from the engine "
+                        f"alone, first {k} at token {at}")
+    if not revoked or not all(regranted):
+        problems.append(f"{FLEET_VICTIM}'s slices revoked {out['revoked_slices']}, granted "
+                        f"again at a higher epoch {regranted}")
+    if audit and out["kill_to_reassign_s"] > fleet.policy.tick_every_s + clock.longest_pass_s:
+        problems.append(f"kill to reassignment {out['kill_to_reassign_s']:.3f} s, past one "
+                        f"tick and one pass")
+    if (status.returncode != 0 or block.get("grants") != counts[events.LEASE_GRANT]
+            or block.get("revokes") != counts[events.LEASE_REVOKE]):
+        problems.append(f"status --json --all: rc {status.returncode}, block {block}, "
+                        f"ledger {counts}, stderr {status.stderr[-2000:]}")
+    if not third["quiescent"] or fleet.live_replicas() != fleet.replica_ids:
+        problems.append(f"revive: quiescent {third['quiescent']}, alive "
+                        f"{fleet.live_replicas()}")
+    if problems:
+        raise AssertionError("gateway fleet: " + "; ".join(problems))
+    out["phase_seconds"] = time.monotonic() - started
+    return out
+
+
+def run_gateway_fleet(card: str) -> dict:
+    """Phase 30: the gateway fleet over two full-width int8-cache engines
+    with drafters (`drive_gateway_fleet`), K3 counted around it."""
+    started = time.monotonic()
+    model, params, draft, draft_params = _serving_models()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = drive_gateway_fleet(model, params, draft, draft_params, pathlib.Path(tmp))
+    if out["k3_launches"] == 0:
+        raise AssertionError("gateway fleet: K3 launched no time")
+    out["phase_seconds"] = time.monotonic() - started
+    print("gateway fleet: " + json.dumps(out, sort_keys=True, default=str), flush=True)
+    print(f"gateway fleet (phase 30): 2 replicas over 2 LM 12L/768/vocab 32768 SlotEngines "
+          f"(int8 cache, {SERVE_SLOTS} slots, drafter k={SERVE_SPEC_K}), leases and journals "
+          f"fsync'd; {FLEET_REQUESTS} x {SERVE_NEW_TOKENS} tokens: p50 "
+          f"{out['p50_latency_s']:.4f} s, p99 {out['p99_latency_s']:.4f} s, TTFT p50 "
+          f"{out['ttft_p50_s']:.4f} s p99 {out['ttft_p99_s']:.4f} s, "
+          f"{out['tokens_per_sec']:.1f} tokens/s; {FLEET_VICTIM} killed with "
+          f"{out['inflight_at_kill']} in flight and {out['queued_at_kill']} queued, "
+          f"reassigned {out['kill_to_reassign_s']:.3f} s after the kill (a tick every "
+          f"{out['tick_every_s']} s), {out['keys_redone']} keys redone; "
+          f"{FLEET_DUPLICATES} duplicates replayed; token-identical to the engine alone "
+          f"({out['distinct_tokens']} distinct tokens); K3 {out['k3_launches']} launches; "
+          f"{out['phase_seconds']:.1f} s; on {card}", flush=True)
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -2748,6 +3039,7 @@ def main() -> int:
     slice10 = run_slice10(card, decode_single)
     slice11 = run_slice11(card)
     serving_plane = run_serving_plane(card)
+    gateway_fleet = run_gateway_fleet(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -2877,7 +3169,8 @@ def main() -> int:
                                  "mesh_decode_cache_int8": slice10["decode_mesh"]["k3"],
                                  "two_process_decode_cache_int8_per_rank":
                                      slice10["decode_two_ranks"]["k3"],
-                                 "serving_plane_drill": serving_plane["k3_launches"]},
+                                 "serving_plane_drill": serving_plane["k3_launches"],
+                                 "gateway_fleet_drive": gateway_fleet["k3_launches"]},
             "library_none_reason": "no PyTorch call computes attention over an int8 cache "
                                    "with per-token scales",
             "library_ratio": None,
@@ -2909,6 +3202,7 @@ def main() -> int:
     print("slice 10: " + json.dumps(slice10, sort_keys=True, default=str), flush=True)
     print("slice 11: " + json.dumps(slice11, sort_keys=True, default=str), flush=True)
     print("slice 12: " + json.dumps(serving_plane, sort_keys=True, default=str), flush=True)
+    print("slice 13: " + json.dumps(gateway_fleet, sort_keys=True, default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2933,5 +3227,13 @@ if __name__ == "__main__":
         torch.backends.cuda.matmul.allow_tf32 = False
         cuda_build.load(K3_SOURCE)
         run_serving_plane(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--gateway-fleet"]:  # phase 30 alone, K3 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        torch.backends.cudnn.allow_tf32 = False  # as main() runs it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cuda_build.load(K3_SOURCE)
+        run_gateway_fleet(_card_line())
         sys.exit(0)
     sys.exit(main())

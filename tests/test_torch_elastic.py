@@ -450,8 +450,9 @@ class StatusFifo:
     and once `hold_from` is reached the reader is held (the FIFO stays open
     and unwritten) and `held` is set. `acks` is the process's ack file as
     each poll found it. Each poll gets a FIFO of its own, renamed over the
-    path once the previous one is written, so the next open for writing
-    waits for the next poll, not for a reader still draining the last."""
+    path as soon as the previous one is opened and before it is written,
+    so the next open for writing waits for the next poll, not for a reader
+    still draining the last, and no poll can open a FIFO that is spent."""
 
     def __init__(self, path: Path, ack: Path, doc, hold_from: int | None = None):
         os.mkfifo(path)
@@ -477,11 +478,14 @@ class StatusFifo:
                 self._held_fd = fd
                 self.held.set()
                 return
-            with os.fdopen(fd, "w") as f:
-                f.write(json.dumps(self.doc(self.polls)))
+            # the next FIFO takes the path BEFORE this poll's reader can see
+            # EOF: a poll that came after the close but before the rename
+            # would open this spent FIFO and wait for a writer forever
             fresh = self.path.with_name(self.path.name + ".next")
             os.mkfifo(fresh)
             os.replace(fresh, self.path)
+            with os.fdopen(fd, "w") as f:
+                f.write(json.dumps(self.doc(self.polls)))
 
     def close(self):
         self._stop = True

@@ -10,6 +10,7 @@
         [--queue-budget N] [--serve-report F] [--deadline S] [--allow-no-fleet-view] \
         [--kv-page-size T] [--kv-pages N] [--no-prefix-cache] [--draft-model tiny|none] \
         [--spec-k K] [--no-spec] [--status-file F] [--device cuda|cpu]
+    python -m tritonk8ssupervisor_tpu_torch.cli.main status [--json] [--all] [--workdir W]
 
 `train` is the elastic-training drill (the reference's `train_cmd`): a
 small causal LM driven by `parallel/elastic.ElasticTrainer` through the
@@ -32,6 +33,12 @@ the report and exits 0 when every request completed; without it, it
 listens on 127.0.0.1:`--port` (POST /generate, GET /healthz, GET
 /metrics). The model is the reference's drill model, randomly
 initialised from fixed seeds; it runs on the card unless `--device cpu`.
+
+`status` is the reference's `status_cmd`: it prints the workdir's
+`fleet-status.json`, or, when that is missing or `--all` asks for every
+slice, the fold of the event ledger (`supervisor-events.jsonl`), with the
+`gateway_fleet` block of a gateway fleet's leases (`serving/fleet.py`).
+It exits 0 when the fleet is healthy and 2 otherwise; it needs no card.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import sys
 from pathlib import Path
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
+from tritonk8ssupervisor_tpu_torch.provision.events import EventLedgerError
 
 
 class ConfigError(ValueError):
@@ -55,11 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch port's commands.",
     )
     parser.add_argument(
-        "command", choices=["train", "serve"],
+        "command", choices=["train", "serve", "status"],
         help="`train` runs the elastic-training drill: a small causal LM "
         "that survives membership changes by checkpoint, rejoin and restore; "
         "`serve` runs the inference gateway over the slot engine (HTTP, or "
-        "a drill with --drill N)",
+        "a drill with --drill N); `status` prints the fleet status: "
+        "fleet-status.json, or the event ledger's fold",
     )
     parser.add_argument(
         "--workdir", type=Path, default=Path.cwd(),
@@ -124,6 +133,18 @@ def build_parser() -> argparse.ArgumentParser:
         "gloo on the CPU)",
     )
     parser.add_argument("--yes", action="store_true", help="skip confirmation gates (CI use)")
+    parser.add_argument(
+        "--json", action="store_true",
+        help="status: print the raw fleet-status JSON document instead "
+        "of the human summary",
+    )
+    parser.add_argument(
+        "--all", action="store_true",
+        help="status: include EVERY slice in the per-slice detail "
+        "(folded from the event ledger) — the default document stays "
+        "bounded at fleet scale: per-state counts plus only the "
+        "not-healthy slices",
+    )
     # ----------------------------------------------------- serving gateway
     parser.add_argument(
         "--port", type=int, default=8777, metavar="PORT",
@@ -433,6 +454,256 @@ def serve_cmd(args, say=print) -> int:
     return server_mod.serve_http(gw, "127.0.0.1", args.port, echo=say)
 
 
+def status_cmd(args, say=print) -> int:
+    """`status [--json] [--all]`, the reference's `status_cmd`: the
+    machine-readable fleet status. Prefers the atomically rewritten
+    fleet-status.json (cheap, what scrapers poll); falls back to folding
+    the event ledger when the status file is missing (e.g. the supervisor
+    died before its first publish), and `--all` always folds it, with
+    every slice and the gateway fleet's lease block. Exit code 0 =
+    healthy, 2 = degraded/holding."""
+    import json as json_mod
+    import time as time_mod
+
+    from tritonk8ssupervisor_tpu_torch.obs import metrics as metrics_mod
+    from tritonk8ssupervisor_tpu_torch.provision import events as events_mod
+    from tritonk8ssupervisor_tpu_torch.provision import state
+
+    paths = state.RunPaths(args.workdir)
+
+    # Tolerant read: a missing OR unreadable status file is "unknown,
+    # retry" — the atomic rewrite makes torn reads near-impossible, but
+    # a half-copied file (rsync, scraper snapshot) must fall back to the
+    # ledger fold, never crash or read as healthy.
+    doc = None
+    if paths.fleet_status.exists() and not args.all:
+        try:
+            doc = json_mod.loads(paths.fleet_status.read_text())
+        except ValueError:
+            say(
+                f"NOTE: {paths.fleet_status} is unreadable (torn copy?); "
+                "falling back to the event ledger"
+            )
+    if not isinstance(doc, dict):
+        doc = None
+    if doc is None and paths.events.exists():
+        # --all re-folds the ledger: fleet-status.json is deliberately
+        # BOUNDED (counts + not-healthy details), the full per-slice
+        # dump only exists on demand
+        ledger = events_mod.EventLedger(paths.events)
+        doc = events_mod.fleet_status(
+            events_mod.fold(ledger.replay()), time_mod.time(),
+            all_slices=args.all,
+        )
+    if doc is None and args.all and paths.fleet_status.exists():
+        # --all without a ledger: the bounded document is all there is
+        try:
+            doc = json_mod.loads(paths.fleet_status.read_text())
+        except ValueError:
+            doc = None
+    if not isinstance(doc, dict):
+        doc = None
+    if doc is None:
+        raise ConfigError(
+            f"no fleet status at {paths.fleet_status} and no event "
+            f"ledger at {paths.events}: run the supervisor, or a gateway "
+            "fleet, over this workdir first"
+        )
+    if "telemetry" not in doc:
+        # a ledger fold (or a pre-telemetry status file) carries no
+        # telemetry block; synthesize one from the on-disk artifacts so
+        # `status --json` always answers "where do I scrape"
+        last_tick = None
+        if paths.metrics_snapshot.exists():
+            try:
+                snap = json_mod.loads(paths.metrics_snapshot.read_text())
+                last_tick = metrics_mod.gauge_value(
+                    snap, "supervisor_last_tick_seconds"
+                )
+            except ValueError:
+                pass  # torn copy: the pointer is still worth printing
+        try:
+            span_bytes = paths.span_log.stat().st_size
+        except OSError:
+            span_bytes = None
+        doc["telemetry"] = {
+            "metrics_snapshot": (str(paths.metrics_snapshot)
+                                 if paths.metrics_snapshot.exists()
+                                 else None),
+            "span_log": (str(paths.span_log)
+                         if paths.span_log.exists() else None),
+            "span_log_bytes": span_bytes,
+            "last_tick_s": last_tick,
+        }
+    fleet_block = doc.get("gateway_fleet")
+    if (isinstance(fleet_block, dict)
+            and fleet_block.get("stalest_demand_age_s") is None):
+        # a ledger fold (or a supervisor without a live demand fold)
+        # leaves the staleness slot empty; fill it from the on-disk
+        # shards' mtimes — wall clock, because mtimes are wall clock,
+        # NOT the supervisor's monotonic timeline
+        ages = []
+        for shard in paths.demand_signals():
+            try:
+                ages.append(time_mod.time() - shard.stat().st_mtime)
+            except OSError:
+                continue  # scrubbed between glob and stat: not stale
+        if ages:
+            fleet_block["stalest_demand_age_s"] = round(max(0.0,
+                                                            *ages), 3)
+    if args.json:
+        say(json_mod.dumps(doc, indent=2, sort_keys=True))
+    else:
+        sup = doc.get("supervisor", {})
+        say(f"fleet: {doc.get('verdict', 'unknown')}")
+        running = "running" if sup.get("running") else "stopped"
+        uptime = sup.get("uptime_s")
+        say(
+            f"supervisor: {running}"
+            + (f" (pid {sup.get('pid')}, up {uptime:.0f}s, "
+               f"{sup.get('ticks', 0)} ticks)"
+               if sup.get("running") and uptime is not None else "")
+        )
+        counts = doc.get("slice_states") or {}
+        if counts:
+            total = doc.get("slices_total", sum(counts.values()))
+            summary = ", ".join(f"{n} {state}"
+                                for state, n in sorted(counts.items()))
+            say(f"slices: {summary} (of {total})")
+        for index, entry in sorted(doc.get("slices", {}).items(),
+                                   key=lambda kv: int(kv[0])):
+            detail = f" ({entry['detail']})" if entry.get("detail") else ""
+            say(f"  slice {index}: {entry.get('state')}{detail}")
+        heals = doc.get("heals", {})
+        say(
+            f"heals: {heals.get('succeeded', 0)}/"
+            f"{heals.get('attempted', 0)} succeeded, "
+            f"{heals.get('failed', 0)} failed, "
+            f"{heals.get('rate_limited', 0)} rate-limited"
+        )
+        mttr = doc.get("mttr_s", {})
+        if mttr.get("count"):
+            say(
+                f"mttr: mean {mttr['mean']:.0f}s over {mttr['count']} "
+                f"incident(s) (last {mttr['last']:.0f}s)"
+            )
+        breaker = doc.get("breaker", {})
+        say(
+            f"breaker: {breaker.get('state', 'closed')}"
+            + (f" (reopen at {breaker.get('reopen_at'):.0f})"
+               if breaker.get("reopen_at") else "")
+        )
+        domains = doc.get("domains") or {}
+        if domains or doc.get("domain_outages"):
+            open_domains = sorted(
+                name for name, entry in domains.items()
+                if entry.get("breaker", "closed") != "closed"
+            )
+            active = sorted(
+                name for name, entry in domains.items()
+                if entry.get("outage_active")
+            )
+            say(
+                f"domains: {doc.get('domain_outages', 0)} outage(s) on "
+                f"record across {len(domains)} tracked domain(s)"
+                + (f"; breaker open: {', '.join(open_domains)}"
+                   if open_domains else "")
+                + (f"; outage active: {', '.join(active)}"
+                   if active else "")
+            )
+        autoscale = doc.get("autoscale") or {}
+        if autoscale.get("enabled"):
+            last = autoscale.get("last_decision") or {}
+            breaker_as = autoscale.get("breaker") or {}
+            cooldown = autoscale.get("cooldown_remaining_s")
+            in_progress = autoscale.get("in_progress")
+            say(
+                f"autoscale: desired {autoscale.get('desired')} / "
+                f"actual {autoscale.get('actual')}"
+                + (f", scaling {in_progress.get('direction')} "
+                   f"{in_progress.get('slices')}"
+                   if in_progress else "")
+                + (f", last {last.get('direction')} "
+                   f"{last.get('from_count')}->{last.get('to_count')} "
+                   f"({last.get('reason')})" if last else "")
+                + f", breaker {breaker_as.get('state', 'closed')}"
+                + (f", cooldown {cooldown:.0f}s"
+                   if cooldown else "")
+            )
+        allocation = doc.get("allocation") or {}
+        if allocation.get("enabled"):
+            roles = allocation.get("roles") or {}
+            last = allocation.get("last_decision") or {}
+            in_progress = allocation.get("in_progress")
+            handovers = allocation.get("handovers") or {}
+            say(
+                f"allocation: {roles.get('serving', 0)} serving / "
+                f"{roles.get('training', 0)} training"
+                + (f" / {roles.get('transitioning', 0)} transitioning"
+                   if roles.get("transitioning") else "")
+                + (f" (training slices "
+                   f"{allocation.get('training')})"
+                   if allocation.get("training") else "")
+                + (f", handover {in_progress.get('direction')} "
+                   f"{in_progress.get('slices')}"
+                   f"{' acked' if in_progress.get('acked') else ''}"
+                   if in_progress else "")
+                + (f", last {last.get('direction')} x{last.get('count')}"
+                   f" ({last.get('reason')})" if last else "")
+                + (f", {handovers.get('forced', 0)} forced"
+                   if handovers.get("forced") else "")
+            )
+        fleet = doc.get("gateway_fleet") or {}
+        if fleet:
+            stale = fleet.get("stalest_demand_age_s")
+            say(
+                f"gateway fleet: {len(fleet.get('replicas') or [])} "
+                f"replica(s), {fleet.get('leases_total', 0)} lease(s) "
+                f"(epoch {fleet.get('lease_epoch', 0)}; "
+                f"{fleet.get('grants', 0)} granted, "
+                f"{fleet.get('renews', 0)} renewed, "
+                f"{fleet.get('expiries', 0)} expired, "
+                f"{fleet.get('revokes', 0)} revoked)"
+                + (f", stalest demand signal {stale:.0f}s"
+                   if stale is not None else "")
+            )
+        membership = doc.get("membership", {})
+        if membership:
+            say(
+                f"membership: generation {membership.get('generation')}"
+                + (", heal in progress"
+                   if membership.get("heal_in_progress") else "")
+                + (f", draining {membership.get('draining')}"
+                   if membership.get("draining") else "")
+            )
+        tel = doc.get("telemetry") or {}
+        if tel.get("metrics_snapshot") or tel.get("span_log"):
+            last_tick = tel.get("last_tick_s")
+            span_bytes = tel.get("span_log_bytes")
+            say(
+                "telemetry: "
+                + (f"last tick {last_tick:.3f}s, "
+                   if last_tick is not None else "")
+                + f"metrics {tel.get('metrics_snapshot') or '(none)'}"
+                + (f", spans {tel['span_log']}" if tel.get("span_log")
+                   else "")
+                + (f" ({span_bytes} B)" if span_bytes is not None else "")
+            )
+        job = doc.get("job", {})
+        if job.get("phase"):
+            job_mttr = (job.get("mttr_s") or {}).get("last")
+            say(
+                f"job: {job['phase']} (generation "
+                f"{job.get('generation')}, step {job.get('step')}"
+                + (f", acked degraded {job['acked_degraded']}"
+                   if job.get("acked_degraded") else "")
+                + (f", job MTTR {job_mttr:.0f}s"
+                   if job_mttr is not None else "")
+                + ")"
+            )
+    return 0 if doc.get("verdict") == "healthy" else 2
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
@@ -440,7 +711,9 @@ def main(argv: list[str] | None = None) -> int:
             return train_cmd(args, lambda line: print(line, flush=True))
         if args.command == "serve":
             return serve_cmd(args, lambda line: print(line, flush=True))
-    except ConfigError as e:
+        if args.command == "status":
+            return status_cmd(args, lambda line: print(line, flush=True))
+    except (ConfigError, EventLedgerError) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
     except KeyboardInterrupt:

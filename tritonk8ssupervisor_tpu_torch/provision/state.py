@@ -1,6 +1,7 @@
 """The state files of a workdir that the port reads and writes: the port's
 copy of `tritonk8ssupervisor_tpu/provision/state.py::atomic_write_text` and
-of the part of `RunPaths` (:116-275) that `serve` uses."""
+of the part of `RunPaths` (:116-275) that `serve`, `status` and the gateway fleet
+use."""
 
 from __future__ import annotations
 
@@ -31,6 +32,12 @@ class RunPaths:
     root: Path
 
     @property
+    def events(self) -> Path:
+        # the supervisor's durable event ledger (provision/events.py); the
+        # gateway fleet records its slice leases on it
+        return self.root / "supervisor-events.jsonl"
+
+    @property
     def fleet_status(self) -> Path:
         # the supervisor's atomically rewritten fleet-status document: the
         # gateway routes and sheds by it
@@ -58,3 +65,27 @@ class RunPaths:
         # the metrics registry's atomic JSON snapshot (obs/metrics.py),
         # written by serve drills at exit
         return self.root / "metrics.json"
+
+    # ---- gateway-fleet artifacts (serving/fleet.py): each replica owns a
+    # key-partition, its OWN request journal shard, and its own demand
+    # signal; the merged views are folds over the globs below. The glob
+    # patterns require the "-<replica>" suffix, so the single-gateway
+    # files above are separate artifacts; the plural helpers return base
+    # and shards together.
+
+    def request_log_replica(self, replica) -> Path:
+        return self.root / f"serve-requests-{replica}.jsonl"
+
+    def demand_signal_replica(self, replica) -> Path:
+        return self.root / f"demand-signal-{replica}.json"
+
+    def request_logs(self) -> list:
+        """Every request journal on disk: the single-gateway file (when
+        present) plus the fleet's per-replica shards, sorted."""
+        out = [self.request_log] if self.request_log.exists() else []
+        return out + sorted(self.root.glob("serve-requests-*.jsonl"))
+
+    def demand_signals(self) -> list:
+        """Every demand signal on disk: single-gateway + per-replica."""
+        out = [self.demand_signal] if self.demand_signal.exists() else []
+        return out + sorted(self.root.glob("demand-signal-*.json"))

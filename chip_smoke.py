@@ -177,7 +177,14 @@ which raises on failure (exit code not 0, no result line):
    64-256 prompt tokens opening with 48-192 tokens of a shared 192-token
    prefix, 64 new tokens each at temperature 0,
    with K3 counted around it, each request's tokens equal to a fresh
-   engine's with the prompts run one at a time; then `make_handler` on a
+   engine's with the prompts run one at a time; then the analyzers over
+   the drill's span log and journal: `cli.main trace KEY --json` of each
+   of the 16 keys exits 0, complete, with this process as its only
+   writer and queue-wait + prefill + decode equal to the key's latency
+   (1e-5 s), the drill keys' `prefill-chunk` spans carry the tokens the
+   engine prefilled, `trace` of an unknown key exits 2, and `python -m
+   ...cli.main analyze --correlate --json` counts 16 completions and no
+   ledger record; then `make_handler` on a
    ThreadingHTTPServer on port 0 (/healthz 200, a plain and a streamed
    /generate equal to the engine alone, 400 for an over-long prompt,
    /metrics); a gateway restarted on the journal answering a completed
@@ -205,7 +212,24 @@ which raises on failure (exit code not 0, no result line):
    pass of the kill, and `cli.main status --json --all` exits 0 with the
    ledger's grant and revoke counts. It prints p50 and p99 latency, TTFT,
    tokens/s, kill-to-reassignment, keys redone and K3's launches. With
-   `--gateway-fleet` this phase runs alone.
+   `--gateway-fleet` this phase runs alone;
+31. a maintenance drain of the LM at its published widths: the port's
+   watchdog (`provision/maintenance.watch`, a thread polling every 0.05
+   s a scripted metadata key: NONE, then TERMINATE_ON_HOST_MAINTENANCE
+   from the run's first committed checkpoint until it exits, then NONE)
+   drains `python -m ...benchmarks.lm --steps 20 --warmup 1 --windows 4
+   --checkpoint-dir D` at a window boundary; the run must exit 0 with
+   the event as its `drained` reason, before its last window, its last
+   step committed; the watchdog removes the drain file once the event
+   clears; the same command resumes from that step and finishes
+   undrained; a straight run to the same step (its windows and warm-up
+   derived from the two reports) must restore bit-equal, parameters and
+   momentum. K1's and K2's launches are counted in the three runs'
+   processes. Then `python -m ...provision.maintenance --once` with its
+   fetch sent to a closed local port exits 0 and writes no drain file.
+   It prints the windows before the drain, the drain's latency from the
+   event to the run's exit, the save and restore seconds and each run's
+   step time. With `--maintenance-drain` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -263,7 +287,7 @@ from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp
 from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
 from tritonk8ssupervisor_tpu_torch.parallel.ranks import run_ranks
-from tritonk8ssupervisor_tpu_torch.provision import events
+from tritonk8ssupervisor_tpu_torch.provision import events, maintenance
 from tritonk8ssupervisor_tpu_torch.provision.state import RunPaths
 from tritonk8ssupervisor_tpu_torch.serving import SlotEngine, reqlog, server, traffic
 from tritonk8ssupervisor_tpu_torch.serving import fleet as fleet_mod
@@ -2329,6 +2353,9 @@ SERVE_REQUESTS = 16
 SERVE_PROMPTS = ((48, 16), (112, 16), (192, 8), (192, 64))
 # a drill that has not settled in this time fails the phase
 SERVE_TIMEOUT_S = 180.0
+# a trace's queue-wait + prefill + decode against the key's latency_s: the
+# four come from the same three timestamps, each rounded to 1e-6 s
+ANALYZE_PHASE_ATOL_S = 1e-5
 HTTP_TIMEOUT_S = 120
 
 
@@ -2516,6 +2543,74 @@ def run_cli_drill(workdir: pathlib.Path) -> dict:
     return out
 
 
+def check_analyzers(workdir: pathlib.Path, tracer, keys: list, prefill_tokens: int) -> dict:
+    """`cli.main trace KEY --json` in process for each drill key: exit 0,
+    complete, written by this process alone, its queue-wait, prefill and
+    decode phases summing to the key's `complete` span's latency (the
+    gateway emits all four from the same timestamps); the `prefill-chunk`
+    spans of the drill's keys carry `prefill_tokens` tokens (the engine's
+    counter over the drill); `trace` of an unknown key exits 2; and `python
+    -m ...cli.main analyze --correlate --json` in a subprocess counts the
+    drill's completions and no ledger record, so a spike it reports has no
+    fleet event to overlap. The span log is flushed before either reads."""
+    spans = tracer.log.spans()  # replay flushes the live writer
+    latency = {s["key"]: s["latency_s"] for s in spans if s["span"] == "complete"}
+    chunk_tokens = sum(s["tokens"] for s in spans
+                       if s["span"] == "prefill-chunk" and s["key"] in set(keys))
+    trace_s, worst = [], 0.0
+    for key in keys:
+        buffer = io.StringIO()
+        start = time.monotonic()
+        with contextlib.redirect_stdout(buffer):
+            rc = cli.main(["trace", key, "--json", "--workdir", str(workdir)])
+        trace_s.append(time.monotonic() - start)
+        doc = json.loads(buffer.getvalue())
+        phases = doc["phases"]
+        gap = abs(sum(phases.get(name, math.nan) for name in ("queue-wait", "prefill", "decode"))
+                  - latency[key])
+        worst = max(worst, gap)
+        if (rc != 0 or not doc["complete"] or doc["incarnations"] != [os.getpid()]
+                or not gap <= ANALYZE_PHASE_ATOL_S):
+            raise AssertionError(f"trace {key}: rc {rc}, complete {doc['complete']}, "
+                                 f"incarnations {doc['incarnations']}, phases {phases} "
+                                 f"against latency {latency[key]}")
+    if chunk_tokens != prefill_tokens:
+        raise AssertionError(f"prefill-chunk spans of the drill's keys carry {chunk_tokens} "
+                             f"tokens, the engine prefilled {prefill_tokens}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        missing_rc = cli.main(["trace", "no-such-key", "--workdir", str(workdir)])
+    if missing_rc != 2:
+        raise AssertionError(f"trace no-such-key exited {missing_rc}, not 2")
+    start = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.cli.main", "analyze",
+         "--correlate", "--json", "--workdir", str(workdir)],
+        capture_output=True, text=True, timeout=120, cwd=pathlib.Path(__file__).resolve().parent)
+    analyze_s = time.monotonic() - start
+    if out.returncode != 0:
+        raise AssertionError(f"analyze exited {out.returncode}: {out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    cor = doc["correlate"]
+    no_event = "no overlapping fleet event on record"
+    if (doc["spans_by_kind"].get("serving/complete") != len(keys)
+            or cor["completions"] != len(keys) or doc["ledger_records"] != 0
+            or cor["fleet_intervals"] != 0
+            or any(no_event not in line for line in cor["attributions"])):
+        raise AssertionError(f"analyze --correlate: {json.dumps(doc, sort_keys=True)[:2000]}")
+    result = {"keys": len(keys), "max_phase_gap_s": worst, "prefill_chunk_tokens": chunk_tokens,
+              "trace_ms_mean": statistics.mean(trace_s) * 1e3, "trace_ms_max": max(trace_s) * 1e3,
+              "analyze_subprocess_s": analyze_s, "spans": doc["spans"],
+              "spans_by_kind": doc["spans_by_kind"], "spikes": len(cor["spikes"]),
+              "overall_p50_s": cor["overall_p50_s"], "overall_p99_s": cor["overall_p99_s"]}
+    print(f"analyzers (phase 29): trace of {len(keys)} keys complete, phases = latency within "
+          f"{worst:.2e} s, {chunk_tokens} prefill-chunk tokens = the engine's; trace in process "
+          f"{result['trace_ms_mean']:.2f} ms mean, {result['trace_ms_max']:.2f} ms max; analyze "
+          f"--correlate subprocess {analyze_s:.2f} s over {doc['spans']} spans, "
+          f"{cor['completions']} completions, {len(cor['spikes'])} spike window(s), 0 ledger "
+          f"records", flush=True)
+    return result
+
+
 def run_serving_plane(card: str) -> dict:
     """Phase 29: the gateway over the full-width int8-cache `SlotEngine` with
     a drafter, journal and telemetry wired as `cli.main serve` wires them
@@ -2532,6 +2627,7 @@ def run_serving_plane(card: str) -> dict:
                                           echo=lambda line: print(line, flush=True))
         engine = _serving_engine(model, params, draft, draft_params, telemetry.tracer)
         decode_bench.drive(engine, [warm], 1)  # seeds the prefix store
+        prefill_before = engine.prefill_tokens
         gateway = gateway_mod.Gateway(
             {0: engine}, None, policy=_serving_policy(),
             reqlog=reqlog.RequestLog(paths.request_log, echo=lambda line: print(line)),
@@ -2574,6 +2670,9 @@ def run_serving_plane(card: str) -> dict:
                 f"alone at token {at}: {served[i][at]} against {alone[i][at]}; "
                 f"{len(diverging)} of {SERVE_REQUESTS} requests differ")
 
+        # before check_http and check_recover add spans and engine steps
+        analyzers = check_analyzers(workdir, telemetry.tracer, sorted(results),
+                                    engine.prefill_tokens - prefill_before)
         http = check_http(gateway, prompts, alone)
         recovered = check_recover(workdir, engine, results)
         cli_drill = run_cli_drill(workdir / "cli")
@@ -2590,7 +2689,7 @@ def run_serving_plane(card: str) -> dict:
         "prefix": report["engine"]["prefix"],
         "distinct_tokens": len({t for toks in served for t in toks}),
         "engine_alone_seconds": alone_s, "token_identical": True,
-        "http": http, "recover": recovered, "cli_drill": cli_drill,
+        "http": http, "recover": recovered, "cli_drill": cli_drill, "analyzers": analyzers,
         "phase_seconds": time.monotonic() - started,
     }
     print("serving plane: " + json.dumps(out, sort_keys=True, default=str), flush=True)
@@ -2876,6 +2975,239 @@ def run_gateway_fleet(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: a maintenance drain of the full-width LM
+
+DRAIN_STEPS = 20  # steps a window: ~1 s at the LM's step, 20 watch intervals
+DRAIN_WINDOWS = 4  # the drain lands after window 1 or 2: two or more are left
+DRAIN_INTERVAL_S = 0.05
+DRAIN_EVENT = "TERMINATE_ON_HOST_MAINTENANCE"
+DRAIN_RUN_TIMEOUT_S = 300
+LM_MODULE = "tritonk8ssupervisor_tpu_torch.benchmarks.lm"
+# `python -m LM_MODULE ARGS` as runpy runs it, writing K1's and K2's launch
+# counts and the seconds of each checkpoint save to $TK8S_SMOKE_COUNTS at
+# exit: the counters of the run's own process
+LM_CHILD = f"""
+import atexit, json, os, runpy, sys, time
+from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce, flash_attention as fa
+from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
+saves, save = [], ckpt_lib.TrainCheckpointer.save
+def timed_save(self, step, state):
+    start = time.monotonic()
+    save(self, step, state)
+    saves.append(time.monotonic() - start)
+def report():
+    with open(os.environ["TK8S_SMOKE_COUNTS"], "w") as f:
+        json.dump({{"k1": ce.cross_entropy_forward.launches,
+                   "k2_forward": fa.flash_attention_forward.launches,
+                   "k2_backward": fa.flash_attention_backward.launches,
+                   "save_seconds": saves}}, f)
+ckpt_lib.TrainCheckpointer.save = timed_save
+atexit.register(report)
+runpy.run_module("{LM_MODULE}", run_name="__main__", alter_sys=True)
+"""
+# `python -m ...provision.maintenance --once` with its metadata fetch sent to
+# a closed port on this host, which it reads as an unreachable server: the
+# card machine must not try to reach an outside host
+MAINTENANCE_CLI = """
+import sys
+from tritonk8ssupervisor_tpu_torch.provision import maintenance
+fetch, url = maintenance._default_fetch, sys.argv.pop(1)
+maintenance._default_fetch = lambda _, timeout: fetch(url, timeout)
+sys.exit(maintenance.main(sys.argv[1:]))
+"""
+
+
+class _ScriptedMetadata:
+    """The metadata server's maintenance-event key for `maintenance.watch`:
+    "NONE" until the drained run's checkpoint directory holds a committed
+    step, then the event until `exited` is set, then "NONE" again."""
+
+    def __init__(self, checkpoint_dir: pathlib.Path):
+        self.markers = checkpoint_dir / ckpt_lib.COMMIT_DIR
+        self.exited = threading.Event()
+        self.event_at: float | None = None
+
+    def __call__(self, url: str, timeout: float) -> str:
+        if self.exited.is_set():
+            return "NONE"
+        if self.event_at is None:
+            if not (self.markers.is_dir() and any(self.markers.iterdir())):
+                return "NONE"
+            self.event_at = time.monotonic()
+        return DRAIN_EVENT
+
+
+class _StopWatch(Exception):
+    """Raised by the watchdog's sleep once the phase is done with it."""
+
+
+def _start_watchdog(drain_file: pathlib.Path, fetch, log: list):
+    """`maintenance.watch` in a thread: (thread, stop event, the errors it
+    raised). Setting the event ends it at its next sleep."""
+    stop, errors = threading.Event(), []
+
+    def sleep(seconds: float) -> None:
+        if stop.wait(seconds):
+            raise _StopWatch
+
+    def run() -> None:
+        try:
+            maintenance.watch(drain_file, interval=DRAIN_INTERVAL_S, fetch=fetch, sleep=sleep,
+                              log=log.append)
+        except _StopWatch:
+            pass
+        except BaseException as e:  # noqa: BLE001 - re-raised by the phase
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name="maintenance-watch", daemon=True)
+    thread.start()
+    return thread, stop, errors
+
+
+def _lm_run(args: list[str], drain_file: pathlib.Path, counts_file: pathlib.Path
+            ) -> tuple[dict, dict, float]:
+    """One LM benchmark process at its defaults with `args`: (its JSON
+    report, its counters, the monotonic time it exited)."""
+    env = {**os.environ, maintenance.DRAIN_FILE_VAR: str(drain_file),
+           "TK8S_SMOKE_COUNTS": str(counts_file)}
+    out = subprocess.run([sys.executable, "-c", LM_CHILD, *args, "--json"], env=env,
+                         capture_output=True, text=True, timeout=DRAIN_RUN_TIMEOUT_S,
+                         cwd=pathlib.Path(__file__).resolve().parent)
+    exited = time.monotonic()
+    if out.returncode:
+        raise AssertionError(f"LM run {args} exited {out.returncode}: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1]), json.loads(counts_file.read_text()), \
+        exited
+
+
+def _restored_lm(directory: pathlib.Path) -> train.TrainState:
+    """The LM benchmark's default model and optimizer state, restored from
+    the latest committed step in `directory`."""
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
+                          max_seq_len=1024)
+    state = train.create_train_state(model, train.default_optimizer())
+    return ckpt_lib.TrainCheckpointer(directory).restore(state)
+
+
+def run_maintenance_drain(card: str) -> dict:
+    """Phase 31: the LM benchmark at its defaults drained by the port's
+    maintenance watchdog (`provision/maintenance.watch` in a thread, its
+    metadata fetch scripted) at a window boundary after its first committed
+    step; the watchdog removes the drain file when the event clears; the
+    same command resumes from the drained run's last step; a straight run
+    to the same step must restore bit-equal, parameters and momentum. Then
+    the watchdog's CLI polls once against an unreachable server."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        drained_dir, straight_dir = root / "drained", root / "straight"
+        drain_file = root / "tk8s-drain"
+        metadata = _ScriptedMetadata(drained_dir)
+        log: list = []
+        watchdog, stop, errors = _start_watchdog(drain_file, metadata, log)
+        args = ["--steps", str(DRAIN_STEPS), "--warmup", "1", "--windows", str(DRAIN_WINDOWS),
+                "--checkpoint-dir", str(drained_dir)]
+        drained, drained_counts, exited = _lm_run(args, drain_file, root / "counts-drained.json")
+        metadata.exited.set()
+        if metadata.event_at is None:
+            raise AssertionError("the drained run exited before its first committed step")
+        drain_latency = exited - metadata.event_at
+        deadline = time.monotonic() + 5.0
+        while drain_file.exists() and time.monotonic() < deadline:
+            time.sleep(DRAIN_INTERVAL_S)
+        cleared = not drain_file.exists()
+        marker = drained_dir / ckpt_lib.COMMIT_DIR / str(drained["final_step"])
+        reason = f"maintenance-event: {DRAIN_EVENT}"
+        if (drained["drained"] is None or reason not in drained["drained"]
+                or drained["windows"] >= DRAIN_WINDOWS or not marker.exists() or not cleared):
+            raise AssertionError(
+                f"drained run: drained {drained['drained']!r}, {drained['windows']} of "
+                f"{DRAIN_WINDOWS} windows, step {drained['final_step']} committed "
+                f"{marker.exists()}, drain file removed {cleared}; watchdog log {log}")
+        resumed, resumed_counts, _ = _lm_run(args, drain_file, root / "counts-resumed.json")
+        stop.set()
+        watchdog.join(timeout=10)
+        if errors or watchdog.is_alive():
+            raise AssertionError(f"the watchdog failed: {errors!r}, alive {watchdog.is_alive()}")
+        if resumed["start_step"] != drained["final_step"] or resumed["drained"] is not None:
+            raise AssertionError(f"resumed run: start_step {resumed['start_step']} after the "
+                                 f"drained run's {drained['final_step']}, drained "
+                                 f"{resumed['drained']!r}")
+        # one step under the FLOP counter, `warmup` more, then windows x steps:
+        # the straight run's windows and warm-up come out of the two reports
+        target = resumed["final_step"]
+        windows = (target - 2) // DRAIN_STEPS
+        warmup = target - 1 - windows * DRAIN_STEPS
+        straight, straight_counts, _ = _lm_run(
+            ["--steps", str(DRAIN_STEPS), "--warmup", str(warmup), "--windows", str(windows),
+             "--checkpoint-dir", str(straight_dir)],
+            root / "never-drained", root / "counts-straight.json")
+        if straight["final_step"] != target or straight["drained"] is not None:
+            raise AssertionError(f"straight run ended at {straight['final_step']}, drained "
+                                 f"{straight['drained']!r}; the resumed run at {target}")
+        a, b = _restored_lm(straight_dir), _restored_lm(drained_dir)
+        diffs = [(x - y).abs().max().item()
+                 for x, y in zip(a.model.state_dict().values(), b.model.state_dict().values())]
+        diffs += [(a.optimizer.state[p]["momentum_buffer"]
+                   - b.optimizer.state[q]["momentum_buffer"]).abs().max().item()
+                  for p, q in zip(a.model.parameters(), b.model.parameters())]
+        steps = (a.step, b.step)
+        del a, b
+        torch.cuda.empty_cache()
+        closed = socket.socket()
+        closed.bind(("127.0.0.1", 0))
+        url = (f"http://127.0.0.1:{closed.getsockname()[1]}/computeMetadata/v1/instance/"
+               "maintenance-event")
+        closed.close()
+        cli_file = root / "cli-drain"
+        cli_run = subprocess.run(
+            [sys.executable, "-c", MAINTENANCE_CLI, url, "--once", "--drain-file", str(cli_file)],
+            capture_output=True, text=True, timeout=60,
+            cwd=pathlib.Path(__file__).resolve().parent)
+        if cli_run.returncode != 0 or cli_file.exists():
+            raise AssertionError(f"maintenance --once exited {cli_run.returncode}, wrote the "
+                                 f"drain file {cli_file.exists()}: {cli_run.stderr[-2000:]}")
+    counts = {k: sum(c[k] for c in (drained_counts, resumed_counts, straight_counts))
+              for k in ("k1", "k2_forward", "k2_backward")}
+    if steps != (target, target) or max(diffs) != 0.0 or 0 in counts.values():
+        raise AssertionError(f"straight against drained + resumed: steps {steps}, max |diff| "
+                             f"{max(diffs)}, launches {counts}")
+    saves = drained_counts["save_seconds"] + resumed_counts["save_seconds"] + \
+        straight_counts["save_seconds"]
+    out = {
+        "steps_per_window": DRAIN_STEPS, "windows": DRAIN_WINDOWS,
+        "windows_before_drain": drained["windows"], "drained": drained["drained"],
+        "drained_final_step": drained["final_step"], "resumed_start_step": resumed["start_step"],
+        "final_step": target, "straight_windows": windows, "straight_warmup": warmup,
+        "drain_latency_s": drain_latency, "watchdog_log": log,
+        "save_seconds": saves, "save_seconds_mean": statistics.mean(saves),
+        "restore_seconds": resumed["restore_seconds"],
+        "step_ms": {"drained": drained["step_ms"], "resumed": resumed["step_ms"],
+                    "straight": straight["step_ms"]},
+        "step_ms_windows": {"drained": drained["step_ms_windows"],
+                            "resumed": resumed["step_ms_windows"],
+                            "straight": straight["step_ms_windows"]},
+        "max_abs_diff": max(diffs), "launches": counts,
+        "launches_by_run": {"drained": drained_counts, "resumed": resumed_counts,
+                            "straight": straight_counts},
+        "cli_once_rc": cli_run.returncode,
+        "phase_seconds": time.monotonic() - started,
+    }
+    print("maintenance drain: " + json.dumps(out, sort_keys=True), flush=True)
+    print(f"maintenance drain (phase 31): LM 12L/768/seq 1024/batch 8, {DRAIN_STEPS} steps a "
+          f"window; drained after {drained['windows']} of {DRAIN_WINDOWS} windows at step "
+          f"{drained['final_step']}, {drain_latency:.3f} s from the event to the run's exit; "
+          f"the watchdog removed the drain file; resumed {resumed['start_step']} -> {target}, "
+          f"bit-equal to a straight run (max |diff| {max(diffs)}); checkpoint save "
+          f"{statistics.mean(saves):.3f} s mean over {len(saves)}, restore "
+          f"{resumed['restore_seconds']:.3f} s; step ms drained {drained['step_ms']:.2f}, resumed "
+          f"{resumed['step_ms']:.2f}, straight {straight['step_ms']:.2f}; K1 {counts['k1']}, K2 "
+          f"{counts['k2_forward']} + {counts['k2_backward']} launches; maintenance --once exit "
+          f"0, no drain file; {out['phase_seconds']:.1f} s; on {card}", flush=True)
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -3040,6 +3372,7 @@ def main() -> int:
     slice11 = run_slice11(card)
     serving_plane = run_serving_plane(card)
     gateway_fleet = run_gateway_fleet(card)
+    drain = run_maintenance_drain(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -3059,7 +3392,8 @@ def main() -> int:
                                  "moe_lm_seq_axis_first_step": slice10["moe_seq_axis"]["k1"],
                                  "mesh_resnet50_fused_1x1_bwd":
                                      mesh_one["resnet50_fused_1x1_bwd_path"]["k1"],
-                                 "elastic_lm": slice11["elastic_one_rank"]["launches"]["k1"]},
+                                 "elastic_lm": slice11["elastic_one_rank"]["launches"]["k1"],
+                                 "maintenance_drain_lm": drain["launches"]["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
             "launch_floor_ms": floor_ms,
@@ -3091,7 +3425,8 @@ def main() -> int:
                                  "moe_lm_seq_axis_first_step":
                                      slice10["moe_seq_axis"]["k2_forward"],
                                  "elastic_lm":
-                                     slice11["elastic_one_rank"]["launches"]["k2_forward"]},
+                                     slice11["elastic_one_rank"]["launches"]["k2_forward"],
+                                 "maintenance_drain_lm": drain["launches"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -3122,7 +3457,8 @@ def main() -> int:
                                  "moe_lm_seq_axis_first_step":
                                      slice10["moe_seq_axis"]["k2_backward"],
                                  "elastic_lm":
-                                     slice11["elastic_one_rank"]["launches"]["k2_backward"]},
+                                     slice11["elastic_one_rank"]["launches"]["k2_backward"],
+                                 "maintenance_drain_lm": drain["launches"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -3203,6 +3539,8 @@ def main() -> int:
     print("slice 11: " + json.dumps(slice11, sort_keys=True, default=str), flush=True)
     print("slice 12: " + json.dumps(serving_plane, sort_keys=True, default=str), flush=True)
     print("slice 13: " + json.dumps(gateway_fleet, sort_keys=True, default=str), flush=True)
+    print("slice 14: " + json.dumps({"analyzers": serving_plane["analyzers"],
+                                     "maintenance_drain": drain}, sort_keys=True), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3235,5 +3573,12 @@ if __name__ == "__main__":
         torch.backends.cuda.matmul.allow_tf32 = False
         cuda_build.load(K3_SOURCE)
         run_gateway_fleet(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--maintenance-drain"]:  # phase 31 alone, K1 and K2 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        check_k1(8192, 32768, seed=2, dtype=torch.bfloat16)
+        cuda_build.load(K2_SOURCE)
+        run_maintenance_drain(_card_line())
         sys.exit(0)
     sys.exit(main())

@@ -32,7 +32,7 @@ def _imported_modules(path):
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    assert len(PORT_FILES) >= 60
+    assert len(PORT_FILES) >= 73
     for path in PORT_FILES:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -72,6 +72,19 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.serving.reqlog, "
         "tritonk8ssupervisor_tpu_torch.serving.traffic, "
         "tritonk8ssupervisor_tpu_torch.serving.server, "
+        "tritonk8ssupervisor_tpu_torch.obs.analyze, "
+        "tritonk8ssupervisor_tpu_torch.provision.runner, "
+        "tritonk8ssupervisor_tpu_torch.provision.scheduler, "
+        "tritonk8ssupervisor_tpu_torch.provision.journal, "
+        "tritonk8ssupervisor_tpu_torch.provision.cache, "
+        "tritonk8ssupervisor_tpu_torch.provision.maintenance, "
+        "tritonk8ssupervisor_tpu_torch.testing.faults, "
+        "tritonk8ssupervisor_tpu_torch.utils.phases, "
+        "tritonk8ssupervisor_tpu_torch.utils.topology, "
+        "tritonk8ssupervisor_tpu_torch.config, "
+        "tritonk8ssupervisor_tpu_torch.config.catalog, "
+        "tritonk8ssupervisor_tpu_torch.config.schema, "
+        "tritonk8ssupervisor_tpu_torch.config.store, "
         "tritonk8ssupervisor_tpu_torch.cli.main; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"

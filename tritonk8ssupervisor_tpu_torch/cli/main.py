@@ -11,6 +11,9 @@
         [--kv-page-size T] [--kv-pages N] [--no-prefix-cache] [--draft-model tiny|none] \
         [--spec-k K] [--no-spec] [--status-file F] [--device cuda|cpu]
     python -m tritonk8ssupervisor_tpu_torch.cli.main status [--json] [--all] [--workdir W]
+    python -m tritonk8ssupervisor_tpu_torch.cli.main trace KEY [--json] [--workdir W]
+    python -m tritonk8ssupervisor_tpu_torch.cli.main analyze [--correlate] [--window S] \
+        [--json] [--workdir W]
 
 `train` is the elastic-training drill (the reference's `train_cmd`): a
 small causal LM driven by `parallel/elastic.ElasticTrainer` through the
@@ -39,6 +42,14 @@ initialised from fixed seeds; it runs on the card unless `--device cpu`.
 slice, the fold of the event ledger (`supervisor-events.jsonl`), with the
 `gateway_fleet` block of a gateway fleet's leases (`serving/fleet.py`).
 It exits 0 when the fleet is healthy and 2 otherwise; it needs no card.
+
+`trace KEY` and `analyze` are the reference's `trace_cmd` and
+`analyze_cmd`, the cross-plane analyzers of `obs/analyze.py` over the
+workdir's span log, request journal and event ledger. `trace` prints one
+request's timeline and exits 0 when its terminal accounting is complete,
+2 when it has gaps; `analyze` counts the spans by kind and, with
+`--correlate`, attributes latency-spike windows to overlapping fleet
+events. A workdir with no telemetry exits 1. Neither needs a card.
 """
 
 from __future__ import annotations
@@ -50,11 +61,12 @@ import sys
 from pathlib import Path
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
+from tritonk8ssupervisor_tpu_torch.config.schema import ConfigError
+from tritonk8ssupervisor_tpu_torch.provision import journal as journal_mod
+from tritonk8ssupervisor_tpu_torch.provision import runner as run_mod
+from tritonk8ssupervisor_tpu_torch.provision import state
 from tritonk8ssupervisor_tpu_torch.provision.events import EventLedgerError
-
-
-class ConfigError(ValueError):
-    """A command line that cannot run; main prints it and exits 1."""
+from tritonk8ssupervisor_tpu_torch.testing import faults
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,12 +75,20 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch port's commands.",
     )
     parser.add_argument(
-        "command", choices=["train", "serve", "status"],
+        "command", choices=["train", "serve", "status", "trace", "analyze"],
         help="`train` runs the elastic-training drill: a small causal LM "
         "that survives membership changes by checkpoint, rejoin and restore; "
         "`serve` runs the inference gateway over the slot engine (HTTP, or "
         "a drill with --drill N); `status` prints the fleet status: "
-        "fleet-status.json, or the event ledger's fold",
+        "fleet-status.json, or the event ledger's fold; `trace <key>` "
+        "reconstructs one request's end-to-end timeline from the span log "
+        "and request journal; `analyze` summarises the span log, and with "
+        "--correlate joins supervisor ledger events with request spans to "
+        "attribute latency spikes to fleet events",
+    )
+    parser.add_argument(
+        "arg", nargs="?", default=None, metavar="key",
+        help="trace: the request idempotency key to reconstruct",
     )
     parser.add_argument(
         "--workdir", type=Path, default=Path.cwd(),
@@ -135,7 +155,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--yes", action="store_true", help="skip confirmation gates (CI use)")
     parser.add_argument(
         "--json", action="store_true",
-        help="status: print the raw fleet-status JSON document instead "
+        help="status, trace, analyze: print the raw JSON document instead "
         "of the human summary",
     )
     parser.add_argument(
@@ -144,6 +164,18 @@ def build_parser() -> argparse.ArgumentParser:
         "(folded from the event ledger) — the default document stays "
         "bounded at fleet scale: per-state counts plus only the "
         "not-healthy slices",
+    )
+    # --------------------------------------------------- trace / analyze
+    parser.add_argument(
+        "--correlate", action="store_true",
+        help="analyze: join the supervisor's event ledger with the "
+        "request spans and attribute latency-spike windows to fleet "
+        "events (heal waves, breaker holds, domain outages)",
+    )
+    parser.add_argument(
+        "--window", type=float, default=60.0, metavar="SECONDS",
+        help="analyze --correlate: latency-window width for spike "
+        "detection (default 60)",
     )
     # ----------------------------------------------------- serving gateway
     parser.add_argument(
@@ -354,7 +386,6 @@ def serve_cmd(args, say=print) -> int:
     from tritonk8ssupervisor_tpu_torch import obs as obs_mod
     from tritonk8ssupervisor_tpu_torch.models import TransformerLM
     from tritonk8ssupervisor_tpu_torch.models import decode as dec
-    from tritonk8ssupervisor_tpu_torch.provision import state
     from tritonk8ssupervisor_tpu_torch.provision.fleetview import FileHealthSource
     from tritonk8ssupervisor_tpu_torch.serving import engine as engine_mod
     from tritonk8ssupervisor_tpu_torch.serving import gateway as gateway_mod
@@ -467,7 +498,6 @@ def status_cmd(args, say=print) -> int:
 
     from tritonk8ssupervisor_tpu_torch.obs import metrics as metrics_mod
     from tritonk8ssupervisor_tpu_torch.provision import events as events_mod
-    from tritonk8ssupervisor_tpu_torch.provision import state
 
     paths = state.RunPaths(args.workdir)
 
@@ -504,7 +534,7 @@ def status_cmd(args, say=print) -> int:
     if not isinstance(doc, dict):
         doc = None
     if doc is None:
-        raise ConfigError(
+        raise state.MissingStateError(
             f"no fleet status at {paths.fleet_status} and no event "
             f"ledger at {paths.events}: run the supervisor, or a gateway "
             "fleet, over this workdir first"
@@ -704,22 +734,136 @@ def status_cmd(args, say=print) -> int:
     return 0 if doc.get("verdict") == "healthy" else 2
 
 
+def trace_cmd(args, say=print) -> int:
+    """`trace <key>`, the reference's `trace_cmd`: one request's
+    end-to-end timeline, reconstructed from the span log (obs/trace.py)
+    joined with the request journal (serving/reqlog.py) under the
+    idempotency key. Works on a crashed workdir (both are durable
+    ledgers); spans carry the writer's incarnation, so a request that
+    survived a gateway SIGKILL shows records from both gateway lives.
+    Exit 0 when the terminal accounting is complete (every acceptance
+    settled exactly once), 2 when it has gaps."""
+    from tritonk8ssupervisor_tpu_torch.obs import analyze as analyze_mod
+    from tritonk8ssupervisor_tpu_torch.obs.trace import SpanLog
+    from tritonk8ssupervisor_tpu_torch.serving import reqlog as reqlog_mod
+
+    paths = state.RunPaths(args.workdir)
+    if not args.arg:
+        raise state.MissingStateError(
+            "trace needs a request idempotency key: python -m "
+            "tritonk8ssupervisor_tpu_torch.cli.main trace <key> (keys are "
+            "journaled in serve-requests.jsonl; `analyze` lists recent "
+            "activity)"
+        )
+    spans = SpanLog(paths.span_log).spans() if paths.span_log.exists() else []
+    req_records = (reqlog_mod.RequestLog(paths.request_log).replay()
+                   if paths.request_log.exists() else [])
+    if not spans and not req_records:
+        raise state.MissingStateError(
+            f"no span log at {paths.span_log} and no request journal "
+            f"at {paths.request_log} — run `serve` (or a chaos drill) first"
+        )
+    timeline = analyze_mod.request_timeline(args.arg, spans, req_records)
+    if args.json:
+        say(json.dumps(timeline, indent=2, sort_keys=True))
+    else:
+        for line in analyze_mod.render_timeline(timeline):
+            say(line)
+    return 0 if timeline["complete"] else 2
+
+
+def analyze_cmd(args, say=print) -> int:
+    """`analyze [--correlate]`, the reference's `analyze_cmd`: the
+    cross-plane telemetry summary. The base report counts spans per kind
+    and plane over the span log's time range; `--correlate` also joins
+    the supervisor's event ledger with the request spans and attributes
+    latency-spike windows to overlapping fleet events ("p99 window
+    t=300-480 overlaps heal-wave span for slice 2"). Exit 0."""
+    from tritonk8ssupervisor_tpu_torch.obs import analyze as analyze_mod
+    from tritonk8ssupervisor_tpu_torch.obs.trace import SpanLog
+    from tritonk8ssupervisor_tpu_torch.provision import events as ev_mod
+    from tritonk8ssupervisor_tpu_torch.serving import reqlog as reqlog_mod
+
+    paths = state.RunPaths(args.workdir)
+    spans = SpanLog(paths.span_log).spans() if paths.span_log.exists() else []
+    req_records = (reqlog_mod.RequestLog(paths.request_log).replay()
+                   if paths.request_log.exists() else [])
+    ledger_records = (ev_mod.EventLedger(paths.events).replay()
+                      if paths.events.exists() else [])
+    if not spans and not req_records and not ledger_records:
+        raise state.MissingStateError(
+            f"no telemetry on record ({paths.span_log}, "
+            f"{paths.request_log}, {paths.events} all absent) — run "
+            "`serve` (or a supervisor) over this workdir first"
+        )
+    by_kind: dict = {}
+    t_lo = t_hi = None
+    for span in spans:
+        label = f"{span.get('plane', '?')}/{span.get('span', '?')}"
+        by_kind[label] = by_kind.get(label, 0) + 1
+        start = span.get("start")
+        if start is not None:
+            t_lo = start if t_lo is None else min(t_lo, start)
+            t_hi = (span.get("end", start) if t_hi is None
+                    else max(t_hi, span.get("end", start)))
+    doc: dict = {
+        "span_log": str(paths.span_log),
+        "spans": len(spans),
+        "spans_by_kind": dict(sorted(by_kind.items())),
+        "span_time_range": ([round(t_lo, 3), round(t_hi, 3)]
+                            if t_lo is not None else None),
+        "journal_records": len(req_records),
+        "ledger_records": len(ledger_records),
+    }
+    if args.correlate:
+        doc["correlate"] = analyze_mod.correlate(
+            spans, ledger_records, req_records=req_records,
+            window_s=max(1.0, args.window),
+        )
+    if args.json:
+        say(json.dumps(doc, indent=2, sort_keys=True))
+        return 0
+    say(f"telemetry: {doc['spans']} span(s) in {doc['span_log']}, "
+        f"{doc['journal_records']} request-journal record(s), "
+        f"{doc['ledger_records']} supervisor ledger record(s)")
+    for label, count in sorted(by_kind.items()):
+        say(f"  {label:<28} {count}")
+    if args.correlate:
+        cor = doc["correlate"]
+        say(f"correlate: {cor['completions']} completion(s), overall "
+            f"p50 {cor['overall_p50_s']}s / p99 {cor['overall_p99_s']}s "
+            f"over {cor['window_s']:.0f}s windows "
+            f"({cor['fleet_intervals']} fleet interval(s) on record)")
+        if cor["attributions"]:
+            for line in cor["attributions"]:
+                say(f"  {line}")
+        else:
+            say("  no latency-spike windows above the threshold — "
+                "nothing to attribute")
+    return 0
+
+
+COMMANDS = {"train": train_cmd, "serve": serve_cmd, "status": status_cmd,
+            "trace": trace_cmd, "analyze": analyze_cmd}
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        if args.command == "train":
-            return train_cmd(args, lambda line: print(line, flush=True))
-        if args.command == "serve":
-            return serve_cmd(args, lambda line: print(line, flush=True))
-        if args.command == "status":
-            return status_cmd(args, lambda line: print(line, flush=True))
-    except (ConfigError, EventLedgerError) as e:
+        return COMMANDS[args.command](args, lambda line: print(line, flush=True))
+    except (
+        ConfigError,
+        state.MissingStateError,
+        run_mod.CommandError,
+        faults.FaultPlanError,
+        journal_mod.JournalError,
+        EventLedgerError,
+    ) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
     except KeyboardInterrupt:
         print("\nInterrupted.", file=sys.stderr)
         return 130
-    return 2
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The telemetry plane of the port: the metrics registry (`metrics.py`),
 durable spans (`trace.py`) and the `Telemetry` bundle that the gateway, the
 engine and the server share. The port's copy of
-`tritonk8ssupervisor_tpu/obs/__init__.py` (:44-96); the analyzers
-(`obs/analyze.py`) are not ported yet (ROADMAP.md, item 7d-2).
+`tritonk8ssupervisor_tpu/obs/__init__.py` (:44-96). The analyzers that
+read the span log (`obs/analyze.py`) back the `trace` and `analyze`
+commands of `cli/main.py`.
 """
 
 from __future__ import annotations

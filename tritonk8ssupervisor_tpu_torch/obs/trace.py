@@ -1,7 +1,7 @@
 """End-to-end request tracing: durable spans over the EventLedger
 discipline. The port's copy of `tritonk8ssupervisor_tpu/obs/trace.py`;
-the analyzers that read the log (`obs/analyze.py`, `trace` and
-`analyze` commands) are not ported yet (ROADMAP.md, item 7d-2).
+the analyzers that read the log are `obs/analyze.py` and the `trace` and
+`analyze` commands of `cli/main.py`.
 
 A request's p99 story spans three planes — admission and queue wait in
 the gateway, prefill/decode occupancy in an engine, and (when a heal
@@ -9,7 +9,7 @@ wave or breaker hold stole the capacity) the supervisor's reconcile
 loop. The request journal (serving/reqlog.py) already records WHAT
 happened to a key; spans record WHERE THE TIME WENT, and supervisor
 spans (tick, diagnose, heal, breaker transitions) record what the fleet
-was doing meanwhile — the reference's `trace <key>` joins the two
+was doing meanwhile — `trace <key>` joins the two
 (obs/analyze.py).
 
 `SpanLog` subclasses `provision/events.EventLedger`, so the durability

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
+from tritonk8ssupervisor_tpu_torch.config.store import parse_flat
 
 ENV_FILE = Path("/etc/tpu-cluster.env")
 
@@ -42,19 +43,6 @@ PROCS_PER_SLICE_VAR = "TK8S_PROCS_PER_SLICE"
 # how long a collective (and the rendezvous) waits for a peer before it
 # raises: what turns a dead peer into a step failure the trainer sees
 GROUP_TIMEOUT_S = 60.0
-
-
-def parse_flat(text: str) -> dict[str, str]:
-    """KEY=value lines, blank lines and `#` comments skipped (the
-    reference's `config/store.parse_flat`)."""
-    flat: dict[str, str] = {}
-    for raw in text.splitlines():
-        line = raw.strip()
-        if not line or line.startswith("#") or "=" not in line:
-            continue
-        key, _, value = line.partition("=")
-        flat[key.strip()] = value.strip()
-    return flat
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,8 @@ from typing import Callable, Iterator
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from tritonk8ssupervisor_tpu_torch.provision.maintenance import drain_requested
+
 # Data-sheet dense bf16 tensor-core peak per card (FLOP/s, 2 per MAC,
 # without sparsity), keyed by torch.cuda.get_device_name() prefix.
 PEAK_BF16_FLOPS = {
@@ -36,10 +38,6 @@ FLOPS_SOURCE = (
     "(convolutions, matrix products and attention only)"
 )
 
-# the drain-file contract of tritonk8ssupervisor_tpu/provision/maintenance.py
-DRAIN_FILE_VAR = "TK8S_DRAIN_FILE"
-DEFAULT_DRAIN_FILE = "/run/tk8s-drain"
-ENV_FILE = Path("/etc/tpu-cluster.env")
 
 
 def peak_flops_per_chip(device_name: str) -> float | None:
@@ -70,23 +68,6 @@ def mfu(flops_per_step: float | None, step_seconds: float, num_chips: int,
     if not flops_per_step or not peak or step_seconds <= 0:
         return None
     return flops_per_step / (step_seconds * peak * num_chips)
-
-
-def drain_requested() -> str | None:
-    """The drain reason when this host is draining, else None: the port's
-    own copy of `provision/maintenance.py::drain_requested`. The path is
-    TK8S_DRAIN_FILE from the environment, then from the host env file,
-    then the watchdog's default."""
-    path = os.environ.get(DRAIN_FILE_VAR)
-    if not path and ENV_FILE.exists():
-        for raw in ENV_FILE.read_text().splitlines():
-            key, sep, value = raw.strip().partition("=")
-            if sep and not key.startswith("#") and key.strip() == DRAIN_FILE_VAR:
-                path = value.strip()
-    p = Path(path or DEFAULT_DRAIN_FILE)
-    if not p.exists():
-        return None
-    return p.read_text().strip() or "drain requested"
 
 
 def timed_windows(

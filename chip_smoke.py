@@ -210,9 +210,13 @@ which raises on failure (exit code not 0, no result line):
    fresh engine's, g1's slices are revoked and granted again at higher
    epochs, the reassignment comes within one fleet tick and one drive
    pass of the kill, and `cli.main status --json --all` exits 0 with the
-   ledger's grant and revoke counts. It prints p50 and p99 latency, TTFT,
-   tokens/s, kill-to-reassignment, keys redone and K3's launches. With
-   `--gateway-fleet` this phase runs alone;
+   ledger's grant and revoke counts. Then the port's
+   `provision/autoscale.read_fleet_demand` over the workdir must merge
+   both replicas' `demand-signal-<replica>.json` shards into the signal
+   `merge_demand_signals` makes of each shard read alone, its queue depth
+   and service rate the sums of what the replicas published. It prints
+   p50 and p99 latency, TTFT, tokens/s, kill-to-reassignment, keys redone
+   and K3's launches. With `--gateway-fleet` this phase runs alone;
 31. a maintenance drain of the LM at its published widths: the port's
    watchdog (`provision/maintenance.watch`, a thread polling every 0.05
    s a scripted metadata key: NONE, then TERMINATE_ON_HOST_MAINTENANCE
@@ -229,7 +233,29 @@ which raises on failure (exit code not 0, no result line):
    fetch sent to a closed local port exits 0 and writes no drain file.
    It prints the windows before the drain, the drain's latency from the
    event to the run's exit, the save and restore seconds and each run's
-   step time. With `--maintenance-drain` this phase runs alone.
+   step time. With `--maintenance-drain` this phase runs alone;
+32. the shipped workload: the port's compiler (`config/compile
+   .write_manifests`) compiles the benchmark Job set of a one-host GKE
+   config (v5e 2x2) twice, for the LM (10 steps a window, 2 windows, a
+   checkpoint directory) and for ResNet-50 with `--fused-1x1-bwd` (5
+   steps a window, 2 windows); the written YAML is read back: the
+   ConfigMap's archive must equal `packaging.build_archive_bytes()`,
+   carry the four CUDA sources and no `csrc/build/` member, and the
+   ConfigMap must stay under the API server's 1 MiB object limit. The
+   archive is installed as the Job installs it (`pip install
+   --no-build-isolation --no-deps --target`, offline; the TPU host's
+   jax[tpu] pin is the TPU Job's and is not installed here), and each
+   Job's workload, the part of its container command after `&&`, runs
+   in a fresh process in a temporary directory with only the installed
+   tree on PYTHONPATH and the Job's env (each fieldRef read as pod 0):
+   it must exit 0 with its JSON report, import the installed package,
+   build K2 (LM) or K4 (ResNet-50) with nvcc from the installed sources
+   into the installed `csrc/build/`, launch K1 once a step and K2 12 + 12
+   times a step (LM) or K4 33 times a step (ResNet-50), and the LM must
+   leave a committed checkpoint step. It prints the archive's and the
+   ConfigMap's bytes, the install and build seconds, each run's step
+   time and rate, and the launches. With `--shipped-workload` this phase
+   runs alone.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -240,18 +266,23 @@ It prints the card line, one JSON line with every kernel of the paths
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import http.client
+import importlib.metadata
+import importlib.util
 import io
 import json
 import math
 import os
 import pathlib
+import shlex
 import signal
 import socket
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -262,12 +293,15 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import numpy as np
+import yaml
 
-from tritonk8ssupervisor_tpu_torch import obs
+from tritonk8ssupervisor_tpu_torch import obs, packaging
 from tritonk8ssupervisor_tpu_torch.benchmarks import decode as decode_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
 from tritonk8ssupervisor_tpu_torch.cli import main as cli
+from tritonk8ssupervisor_tpu_torch.config import compile as compiler
+from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig
 from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50, TransformerLM, ViT
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
 from tritonk8ssupervisor_tpu_torch.models import moe
@@ -287,7 +321,7 @@ from tritonk8ssupervisor_tpu_torch.parallel import mesh as mesh_lib
 from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp
 from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
 from tritonk8ssupervisor_tpu_torch.parallel.ranks import run_ranks
-from tritonk8ssupervisor_tpu_torch.provision import events, maintenance
+from tritonk8ssupervisor_tpu_torch.provision import autoscale, events, maintenance
 from tritonk8ssupervisor_tpu_torch.provision.state import RunPaths
 from tritonk8ssupervisor_tpu_torch.serving import SlotEngine, reqlog, server, traffic
 from tritonk8ssupervisor_tpu_torch.serving import fleet as fleet_mod
@@ -2943,10 +2977,39 @@ def drive_gateway_fleet(model, params, draft, draft_params, workdir: pathlib.Pat
     if not third["quiescent"] or fleet.live_replicas() != fleet.replica_ids:
         problems.append(f"revive: quiescent {third['quiescent']}, alive "
                         f"{fleet.live_replicas()}")
+    out["fleet_demand"] = demand = read_fleet_demand(paths)
+    if demand["replicas"] != fleet.replica_ids or not demand["equal_to_merge"] or \
+            demand["merged_queue_depth"] != demand["published_queue_depth"] or \
+            demand["merged_service_rate"] != demand["published_service_rate"]:
+        problems.append(f"read_fleet_demand: {demand}")
     if problems:
         raise AssertionError("gateway fleet: " + "; ".join(problems))
     out["phase_seconds"] = time.monotonic() - started
     return out
+
+
+def read_fleet_demand(paths: RunPaths) -> dict:
+    """The port's `autoscale.read_fleet_demand` over the fleet's workdir:
+    the replicas whose shards it found, whether its signal equals the merge
+    of each shard read alone, and its queue depth and service rate beside
+    the sums of what the replicas published (their shards as written)."""
+    shards = autoscale.fleet_signal_paths(paths.demand_signal)
+    published = {r: json.loads(p.read_text()) for r, p in shards.items()}
+    merged = autoscale.read_fleet_demand(paths.demand_signal)
+    alone = autoscale.merge_demand_signals(
+        {r: autoscale.read_demand_signal(p) for r, p in shards.items()},
+        max_age=autoscale.FLEET_SIGNAL_MAX_AGE_S)
+    rates = [doc["service_rate"] for doc in published.values()
+             if doc.get("service_rate") is not None]
+    return {
+        "replicas": sorted(shards), "equal_to_merge": merged is not None and merged == alone,
+        "merged_queue_depth": None if merged is None else merged.queue_depth,
+        "published_queue_depth": sum(doc["queue_depth"] for doc in published.values()),
+        "merged_service_rate": None if merged is None else merged.service_rate,
+        "published_service_rate": sum(rates) if rates else None,
+        "published": {r: {k: doc.get(k) for k in ("queue_depth", "service_rate", "updated")}
+                      for r, doc in published.items()},
+    }
 
 
 def run_gateway_fleet(card: str) -> dict:
@@ -2971,6 +3034,9 @@ def run_gateway_fleet(card: str) -> dict:
           f"{out['tick_every_s']} s), {out['keys_redone']} keys redone; "
           f"{FLEET_DUPLICATES} duplicates replayed; token-identical to the engine alone "
           f"({out['distinct_tokens']} distinct tokens); K3 {out['k3_launches']} launches; "
+          f"read_fleet_demand merged {out['fleet_demand']['replicas']}: queue depth "
+          f"{out['fleet_demand']['merged_queue_depth']}, service rate "
+          f"{out['fleet_demand']['merged_service_rate']}, the sums of the shards; "
           f"{out['phase_seconds']:.1f} s; on {card}", flush=True)
     return out
 
@@ -3208,6 +3274,197 @@ def run_maintenance_drain(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the compiled benchmark Jobs' workloads from the installed archive
+
+# the Jobs' benchmark flags: the workload cut to a few windows, at full width
+SHIPPED_FLAGS = {
+    "lm": ("--steps", "10", "--warmup", "1", "--windows", "2"),
+    "resnet50": ("--fused-1x1-bwd", "--steps", "5", "--warmup", "2", "--windows", "2"),
+}
+SHIPPED_KERNEL = {"lm": K2_SOURCE, "resnet50": K4_SOURCE}  # what each workload builds
+SHIPPED_SOURCES = ["conv_backward.cu", "decode_attention.cu", "flash_attention.cu",
+                   "hopper.cuh"]
+SHIPPED_RUN_TIMEOUT_S = 600
+CONFIGMAP_LIMIT_BYTES = 1_048_576  # the API server's limit on one object
+# `python -m MODULE ARGS` of the installed package as runpy runs it, writing
+# the package it imported, the seconds of each nvcc build, the built
+# libraries' paths and K1's, K2's and K4's launch counts to
+# $TK8S_SMOKE_COUNTS at exit: the counters of the run's own process
+SHIPPED_CHILD = """
+import atexit, json, os, runpy, sys, time
+import tritonk8ssupervisor_tpu_torch as package
+from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb, cross_entropy as ce
+from tritonk8ssupervisor_tpu_torch.ops import cuda_build, flash_attention as fa
+builds, build = {}, cuda_build.build
+def timed_build(source_name):
+    start = time.monotonic()
+    path = build(source_name)
+    builds[source_name] = time.monotonic() - start
+    return path
+def report():
+    with open(os.environ["TK8S_SMOKE_COUNTS"], "w") as f:
+        json.dump({"package": package.__file__, "build_seconds": builds,
+                   "libraries": {s: str(cuda_build.library_path(s))
+                                 for s in ("flash_attention.cu", "conv_backward.cu")},
+                   "k1": ce.cross_entropy_forward.launches,
+                   "k2_forward": fa.flash_attention_forward.launches,
+                   "k2_backward": fa.flash_attention_backward.launches,
+                   "k4": cb.conv1x1_backward_kernel.launches}, f)
+cuda_build.build = timed_build
+atexit.register(report)
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
+"""
+
+
+def _compiled_job(root: pathlib.Path, workload: str) -> tuple[dict, dict, int]:
+    """The port's compiler on a one-host GKE config: the Job set of
+    `workload`, read back from the YAML it wrote: (the ConfigMap, the
+    slice's Job, the ConfigMap document's bytes)."""
+    config = ClusterConfig(project="p", zone="us-west4-a", generation="v5e", topology="2x2",
+                           mode="gke")
+    out_dir = root / "manifests" / workload
+    extra = {"checkpoint_dir": str(root / "ckpt")} if workload == "lm" else {}
+    names = [p.name for p in compiler.write_manifests(
+        config, out_dir, workload=workload, bench_flags=SHIPPED_FLAGS[workload], **extra)]
+    if names != ["package-configmap.yaml", "bench-service.yaml", "bench-job-0.yaml"]:
+        raise AssertionError(f"{workload} Job set: {names}")
+    text = (out_dir / "package-configmap.yaml").read_text()
+    return (yaml.safe_load(text), yaml.safe_load((out_dir / "bench-job-0.yaml").read_text()),
+            len(text.encode()))
+
+
+def _job_workload(job: dict) -> tuple[list[str], dict]:
+    """The Job's container command after its `pip install ... &&` (the
+    workload's argv) and its env, each fieldRef read as pod 0."""
+    container = job["spec"]["template"]["spec"]["containers"][0]
+    shell, flag, script = container["command"]
+    install, workload = script.split("&&")
+    archive = f"{compiler.PACKAGE_MOUNT_PATH}/{packaging.ARCHIVE_NAME}"
+    if (shell, flag) != ("bash", "-c") or not install.strip().startswith(
+            f"pip install --quiet {archive} "):
+        raise AssertionError(f"the Job's command installs no archive: {container['command']}")
+    env = {e["name"]: e["value"] if "value" in e else "0" for e in container["env"]}
+    return shlex.split(workload), env
+
+
+def _archive_members(blob: bytes) -> list[str]:
+    with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
+        return tar.getnames()
+
+
+def run_shipped_workload(card: str) -> dict:
+    """Phase 32: the compiled LM and fused ResNet-50 Jobs' workloads at full
+    width from the archive their ConfigMap carries, installed the Job's
+    way, with K2 and K4 built by nvcc from the installed sources."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        compiled = {w: _compiled_job(root, w) for w in SHIPPED_FLAGS}
+        blobs = {w: base64.b64decode(cm["binaryData"][packaging.ARCHIVE_NAME])
+                 for w, (cm, _, _) in compiled.items()}
+        blob = blobs["lm"]
+        members = _archive_members(blob)
+        sources = sorted(n.rsplit("/", 1)[1] for n in members if "/csrc/" in n)
+        configmap_bytes = max(size for _, _, size in compiled.values())
+        if (blobs["resnet50"] != blob or blob != packaging.build_archive_bytes()
+                or sources != SHIPPED_SOURCES or configmap_bytes >= CONFIGMAP_LIMIT_BYTES
+                or any("/csrc/build" in n for n in members)):
+            raise AssertionError(f"the ConfigMap's archive: CUDA sources {sources}, "
+                                 f"{configmap_bytes} bytes of ConfigMap, members {members}")
+        archive = root / packaging.ARCHIVE_NAME
+        archive.write_bytes(blob)
+        site = root / "site"
+        install_started = time.monotonic()
+        pip = subprocess.run(
+            [sys.executable, "-m", "pip", "install", "--quiet", "--no-index",
+             "--disable-pip-version-check", "--no-build-isolation",
+             "--no-deps", "--target", str(site), str(archive)],
+            capture_output=True, text=True, timeout=300)
+        install_s = time.monotonic() - install_started
+        toolchain = {name: importlib.metadata.version(name) for name in ("pip", "setuptools")}
+        toolchain["wheel"] = importlib.util.find_spec("wheel") is not None
+        csrc = site / "tritonk8ssupervisor_tpu_torch" / "csrc"
+        installed = sorted(p.name for p in csrc.iterdir()) if csrc.is_dir() else []
+        if pip.returncode or installed != SHIPPED_SOURCES:
+            raise AssertionError(f"pip install exited {pip.returncode}, installed csrc "
+                                 f"{installed}: {pip.stderr[-3000:]}")
+        runs = {}
+        for workload, (_, job, _) in compiled.items():
+            argv, job_env = _job_workload(job)
+            module = f"tritonk8ssupervisor_tpu_torch.benchmarks.{workload}"
+            if argv[:3] != ["python", "-m", module] or "--json" not in argv:
+                raise AssertionError(f"{workload} Job's workload: {argv}")
+            counts_file = root / f"counts-{workload}.json"
+            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+            env.update(job_env, PYTHONPATH=str(site), TK8S_SMOKE_COUNTS=str(counts_file))
+            run_started = time.monotonic()
+            out = subprocess.run([sys.executable, "-c", SHIPPED_CHILD, *argv[2:]], cwd=root,
+                                 env=env, capture_output=True, text=True,
+                                 timeout=SHIPPED_RUN_TIMEOUT_S)
+            if out.returncode:
+                raise AssertionError(f"{workload} Job's workload exited {out.returncode}: "
+                                     f"{out.stderr[-3000:]}")
+            report = json.loads(out.stdout.strip().splitlines()[-1])
+            counts = json.loads(counts_file.read_text())
+            runs[workload] = {"argv": argv, "report": report, "counts": counts,
+                              "seconds": time.monotonic() - run_started}
+            library = pathlib.Path(counts["libraries"][SHIPPED_KERNEL[workload]])
+            steps = report["final_step"]
+            launches = ((counts["k1"], counts["k2_forward"], counts["k2_backward"])
+                        if workload == "lm" else (counts["k1"], counts["k4"]))
+            layers = report.get("num_layers")
+            expected = ((steps, layers * steps, layers * steps) if workload == "lm"
+                        else (steps, sum(calls for *_, calls in K4_SHAPES) * steps))
+            if (not counts["package"].startswith(str(site)) or library.parent != csrc / "build"
+                    or not library.is_file() or launches != expected
+                    or report["platform"] != "gpu" or not math.isfinite(report["final_loss"])):
+                raise AssertionError(f"{workload} Job's workload: package {counts['package']}, "
+                                     f"library {library} (exists {library.is_file()}), "
+                                     f"launches {launches} against {expected}, report {report}")
+        markers = root / "ckpt" / ckpt_lib.COMMIT_DIR
+        committed = sorted(p.name for p in markers.iterdir()) if markers.is_dir() else []
+        if str(runs["lm"]["report"]["final_step"]) not in committed:
+            raise AssertionError(f"the LM Job left committed steps {committed}, its last step "
+                                 f"{runs['lm']['report']['final_step']}")
+    lm, resnet = runs["lm"], runs["resnet50"]
+    out = {
+        "archive_bytes": len(blob), "archive_members": len(members),
+        "configmap_bytes": configmap_bytes, "install_seconds": install_s,
+        "install_toolchain": toolchain,
+        "build_seconds": {**lm["counts"]["build_seconds"],
+                          **resnet["counts"]["build_seconds"]},
+        "lm": {"argv": lm["argv"], "step_ms": lm["report"]["step_ms"],
+               "tokens_per_sec": lm["report"]["tokens_per_sec"],
+               "final_step": lm["report"]["final_step"], "committed_steps": committed,
+               "run_seconds": lm["seconds"],
+               "launches": {k: lm["counts"][k] for k in ("k1", "k2_forward", "k2_backward")}},
+        "resnet50": {"argv": resnet["argv"], "step_ms": resnet["report"]["step_ms"],
+                     "images_per_sec": resnet["report"]["images_per_sec"],
+                     "global_batch": resnet["report"]["global_batch"],
+                     "final_step": resnet["report"]["final_step"],
+                     "run_seconds": resnet["seconds"],
+                     "launches": {k: resnet["counts"][k] for k in ("k1", "k4")}},
+        "phase_seconds": time.monotonic() - started,
+    }
+    print("shipped workload: " + json.dumps(out, sort_keys=True), flush=True)
+    builds = ", ".join(f"{k} {v:.1f} s" for k, v in out["build_seconds"].items())
+    print(f"shipped workload (phase 32): archive {out['archive_bytes']} bytes, "
+          f"{out['archive_members']} members, ConfigMap {configmap_bytes} bytes; pip install "
+          f"{install_s:.1f} s (pip {toolchain['pip']}, setuptools {toolchain['setuptools']}, "
+          f"wheel {'present' if toolchain['wheel'] else 'absent'}); nvcc from the installed "
+          f"sources: {builds}; LM Job "
+          f"12L/768/seq 1024/batch 8: step {out['lm']['step_ms']:.2f} ms, "
+          f"{out['lm']['tokens_per_sec']:.1f} tokens/s, K1 {out['lm']['launches']['k1']}, K2 "
+          f"{out['lm']['launches']['k2_forward']} + {out['lm']['launches']['k2_backward']}, "
+          f"step {out['lm']['final_step']} committed; ResNet-50 Job fused_1x1_bwd, batch "
+          f"{out['resnet50']['global_batch']}: step "
+          f"{out['resnet50']['step_ms']:.2f} ms, {out['resnet50']['images_per_sec']:.1f} img/s, "
+          f"K1 {out['resnet50']['launches']['k1']}, K4 {out['resnet50']['launches']['k4']}; "
+          f"{out['phase_seconds']:.1f} s; on {card}", flush=True)
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -3373,6 +3630,7 @@ def main() -> int:
     serving_plane = run_serving_plane(card)
     gateway_fleet = run_gateway_fleet(card)
     drain = run_maintenance_drain(card)
+    shipped = run_shipped_workload(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -3393,7 +3651,9 @@ def main() -> int:
                                  "mesh_resnet50_fused_1x1_bwd":
                                      mesh_one["resnet50_fused_1x1_bwd_path"]["k1"],
                                  "elastic_lm": slice11["elastic_one_rank"]["launches"]["k1"],
-                                 "maintenance_drain_lm": drain["launches"]["k1"]},
+                                 "maintenance_drain_lm": drain["launches"]["k1"],
+                                 "shipped_lm_job": shipped["lm"]["launches"]["k1"],
+                                 "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
             "launch_floor_ms": floor_ms,
@@ -3426,7 +3686,8 @@ def main() -> int:
                                      slice10["moe_seq_axis"]["k2_forward"],
                                  "elastic_lm":
                                      slice11["elastic_one_rank"]["launches"]["k2_forward"],
-                                 "maintenance_drain_lm": drain["launches"]["k2_forward"]},
+                                 "maintenance_drain_lm": drain["launches"]["k2_forward"],
+                                 "shipped_lm_job": shipped["lm"]["launches"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -3458,7 +3719,8 @@ def main() -> int:
                                      slice10["moe_seq_axis"]["k2_backward"],
                                  "elastic_lm":
                                      slice11["elastic_one_rank"]["launches"]["k2_backward"],
-                                 "maintenance_drain_lm": drain["launches"]["k2_backward"]},
+                                 "maintenance_drain_lm": drain["launches"]["k2_backward"],
+                                 "shipped_lm_job": shipped["lm"]["launches"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -3483,7 +3745,8 @@ def main() -> int:
             "launches": fused["k4"],
             "launches_by_path": {"resnet50": resnet["k4"], "resnet50_fused_1x1_bwd": fused["k4"],
                                  "mesh_resnet50_fused_1x1_bwd":
-                                     mesh_one["resnet50_fused_1x1_bwd_path"]["k4"]},
+                                     mesh_one["resnet50_fused_1x1_bwd_path"]["k4"],
+                                 "shipped_resnet50_job": shipped["resnet50"]["launches"]["k4"]},
             "design": "TMA-fed wgmma: persistent dgrad over 128 x {64, 128, 256} tiles (all of "
                       "C up to 256) and wgrad over 128 x 128 tiles and one wave of M splits, each "
                       "a TMA ring with one producer thread and two consumer warpgroups; W, dY^T "
@@ -3541,6 +3804,9 @@ def main() -> int:
     print("slice 13: " + json.dumps(gateway_fleet, sort_keys=True, default=str), flush=True)
     print("slice 14: " + json.dumps({"analyzers": serving_plane["analyzers"],
                                      "maintenance_drain": drain}, sort_keys=True), flush=True)
+    print("slice 15: " + json.dumps({"shipped_workload": shipped,
+                                     "fleet_demand": gateway_fleet["fleet_demand"]},
+                                    sort_keys=True, default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3580,5 +3846,10 @@ if __name__ == "__main__":
         check_k1(8192, 32768, seed=2, dtype=torch.bfloat16)
         cuda_build.load(K2_SOURCE)
         run_maintenance_drain(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--shipped-workload"]:  # phase 32 alone, built from the install
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        run_shipped_workload(_card_line())
         sys.exit(0)
     sys.exit(main())

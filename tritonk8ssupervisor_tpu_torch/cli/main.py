@@ -14,6 +14,8 @@
     python -m tritonk8ssupervisor_tpu_torch.cli.main trace KEY [--json] [--workdir W]
     python -m tritonk8ssupervisor_tpu_torch.cli.main analyze [--correlate] [--window S] \
         [--json] [--workdir W]
+    python -m tritonk8ssupervisor_tpu_torch.cli.main heal [--config F] [--max-degraded N] \
+        [--readiness-timeout S] [--fault-plan PLAN] [--workdir W]
 
 `train` is the elastic-training drill (the reference's `train_cmd`): a
 small causal LM driven by `parallel/elastic.ElasticTrainer` through the
@@ -50,6 +52,16 @@ request's timeline and exits 0 when its terminal accounting is complete,
 2 when it has gaps; `analyze` counts the spans by kind and, with
 `--correlate`, attributes latency-spike windows to overlapping fleet
 events. A workdir with no telemetry exits 1. Neither needs a card.
+
+`heal` is the reference's `heal_cmd`: slice-granular repair of an
+existing deployment (`provision/heal.py`) from the workdir's saved
+`config` (or `--config`). It diagnoses each slice (missing, unready,
+draining), quarantines the bad ones, re-creates only them (`terraform
+apply -replace=`), reconverges ansible with `--limit`, polls their
+readiness and rewrites `hosts.json`; `--max-degraded N` lets it succeed
+with up to N slices left degraded. It drives `terraform`,
+`ansible-playbook`, `ssh` and `gcloud` through the retrying runners and
+needs no card. A missing config exits 1.
 """
 
 from __future__ import annotations
@@ -61,12 +73,18 @@ import sys
 from pathlib import Path
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
+from tritonk8ssupervisor_tpu_torch.cli import discovery
+from tritonk8ssupervisor_tpu_torch.cli.io import EndOfInput, Prompter
+from tritonk8ssupervisor_tpu_torch.config import store
 from tritonk8ssupervisor_tpu_torch.config.schema import ConfigError
+from tritonk8ssupervisor_tpu_torch.provision import heal as heal_mod
 from tritonk8ssupervisor_tpu_torch.provision import journal as journal_mod
+from tritonk8ssupervisor_tpu_torch.provision import readiness, retry
 from tritonk8ssupervisor_tpu_torch.provision import runner as run_mod
 from tritonk8ssupervisor_tpu_torch.provision import state
 from tritonk8ssupervisor_tpu_torch.provision.events import EventLedgerError
 from tritonk8ssupervisor_tpu_torch.testing import faults
+from tritonk8ssupervisor_tpu_torch.utils.phases import PhaseTimer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,8 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch port's commands.",
     )
     parser.add_argument(
-        "command", choices=["train", "serve", "status", "trace", "analyze"],
-        help="`train` runs the elastic-training drill: a small causal LM "
+        "command", choices=["heal", "train", "serve", "status", "trace", "analyze"],
+        help="`heal` diagnoses per-slice fleet health (missing / unready / "
+        "draining) and repairs ONLY the broken slices — scoped terraform "
+        "replace, ansible --limit, scoped readiness — leaving healthy "
+        "slices untouched; `train` runs the elastic-training drill: a small causal LM "
         "that survives membership changes by checkpoint, rejoin and restore; "
         "`serve` runs the inference gateway over the slot engine (HTTP, or "
         "a drill with --drill N); `status` prints the fleet status: "
@@ -93,7 +114,24 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--workdir", type=Path, default=Path.cwd(),
         help="the supervisor's workdir, holding fleet-status.json, "
-        "job-ack.json and the serving journal and spans (default: cwd)",
+        "job-ack.json and the serving journal and spans; heal: the repo "
+        "root holding terraform/ and ansible/ (default: cwd)",
+    )
+    parser.add_argument(
+        "--config", type=Path, default=None,
+        help="heal: the saved configuration to repair from (default: the "
+        "workdir's config)",
+    )
+    parser.add_argument(
+        "--fault-plan", default=None, metavar="PLAN",
+        help="heal: deterministic fault-injection plan (inline JSON or a "
+        "file path; also read from TK8S_FAULT_PLAN): fail the Nth child "
+        "command matching a pattern with a chosen exit code/output/hang",
+    )
+    parser.add_argument(
+        "--readiness-timeout", type=float, default=900.0, metavar="SECONDS",
+        help="heal: how long to wait for the repaired slices' readiness "
+        "(default 900)",
     )
     parser.add_argument(
         "--checkpoint-dir", default=os.environ.get("TK8S_CHECKPOINT_DIR") or None,
@@ -135,7 +173,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--max-degraded", type=int, default=0, metavar="N",
-        help="train: slices the job will continue without (default 0)",
+        help="heal: tolerate up to N slices that stay broken after "
+        "repair — they are quarantined (terraform/quarantine.json) and "
+        "emptied from hosts.json, and heal succeeds on the remaining "
+        "healthy slices instead of aborting (N-of-M semantics); train: "
+        "slices the job will continue without (default 0)",
     )
     parser.add_argument(
         "--train-report", type=Path, default=None, metavar="FILE",
@@ -843,7 +885,65 @@ def analyze_cmd(args, say=print) -> int:
     return 0
 
 
-COMMANDS = {"train": train_cmd, "serve": serve_cmd, "status": status_cmd,
+def build_runners(
+    fault_plan_spec: str | None,
+    timer: PhaseTimer | None = None,
+) -> tuple[run_mod.RunFn, run_mod.RunFn]:
+    """The reference's `build_runners`: the shared (streaming, quiet)
+    RunFn stack for a run, fault injection innermost (so injected faults
+    exercise exactly the classify/backoff path real ones take), then the
+    retry engine, which reports retried attempts into the open phase's
+    runlog record. The policy comes from the TK8S_RETRY_* and
+    TK8S_ATTEMPT_TIMEOUT env knobs."""
+    stream: run_mod.RunFn = run_mod.run_streaming
+    quiet: run_mod.RunFn = run_mod.run_capture
+    plan = faults.load_fault_plan(fault_plan_spec)
+    if plan is not None:
+        stream, quiet = plan.wrap(stream), plan.wrap(quiet)
+    policy = retry.RetryPolicy.from_env()
+    record = timer.note_retry if timer is not None else None
+    return (
+        retry.retrying_runner(stream, policy, record=record),
+        retry.retrying_runner(quiet, policy, record=record),
+    )
+
+
+def heal_cmd(args, say=print) -> int:
+    """`heal [--max-degraded N]`, the reference's `heal_cmd`: slice-granular
+    repair of an existing deployment (provision/heal.py). Works from the
+    saved config (or an explicit --config): heal converges what provision
+    recorded, it never invents a new deployment."""
+    paths = state.RunPaths(args.workdir)
+    source = args.config or paths.config_file
+    if not source.exists():
+        raise state.MissingStateError(
+            f"no configuration at {source} — heal repairs an existing "
+            "deployment; run ./setup.sh to provision first"
+        )
+    config = store.load_config_file(source)
+    config.validate()
+    prompter = Prompter()
+    prompter.say = lambda text="": say(text)  # heal speaks through a Prompter
+    timer = PhaseTimer(logfile=paths.runlog)
+    run, run_quiet = build_runners(args.fault_plan, timer)
+    ssh_key: Path | str = ""
+    ssh_user = ""
+    if config.mode == "tpu-vm":
+        ssh_key = discovery.find_ssh_key()
+        ssh_user = discovery.ssh_username()
+    heal_mod.heal(
+        config, paths, prompter,
+        run=run, run_quiet=run_quiet,
+        ssh_key=str(ssh_key), ssh_user=ssh_user,
+        max_degraded=max(0, args.max_degraded),
+        readiness_timeout=args.readiness_timeout,
+        timer=timer,
+    )
+    timer.report()
+    return 0
+
+
+COMMANDS = {"heal": heal_cmd, "train": train_cmd, "serve": serve_cmd, "status": status_cmd,
             "trace": trace_cmd, "analyze": analyze_cmd}
 
 
@@ -853,11 +953,14 @@ def main(argv: list[str] | None = None) -> int:
         return COMMANDS[args.command](args, lambda line: print(line, flush=True))
     except (
         ConfigError,
+        discovery.DiscoveryError,
         state.MissingStateError,
+        readiness.NotReadyError,
         run_mod.CommandError,
         faults.FaultPlanError,
         journal_mod.JournalError,
         EventLedgerError,
+        EndOfInput,
     ) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1

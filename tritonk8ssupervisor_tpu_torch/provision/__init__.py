@@ -4,7 +4,9 @@ retry engine (`retry.py`), the workdir layout and locks (`state.py`), the
 task DAG (`scheduler.py`), its durable journal (`journal.py`) and warm
 cache (`cache.py`), the maintenance watchdog (`maintenance.py`), the
 supervisor's event ledger and its fold (`events.py`), the fleet-status
-reader (`fleetview.py`) and the healer's slice states (`heal.py`). The
-port imports nothing of the JAX package, so it keeps these copies
-(`tests/test_torch_imports.py`). The supervisor, the healer and the
-terraform and ansible wrappers are not ported yet (ROADMAP.md)."""
+reader (`fleetview.py`), the terraform and ansible wrappers
+(`terraform.py`, `ansible.py`), readiness probing (`readiness.py`), the
+slice-granular healer (`heal.py`), and the autoscaler and allocator
+(`autoscale.py`, `allocator.py`). The port imports nothing of the JAX
+package, so it keeps these copies (`tests/test_torch_imports.py`). The
+supervisor and teardown are not ported yet (ROADMAP.md)."""

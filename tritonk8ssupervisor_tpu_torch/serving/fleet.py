@@ -36,11 +36,10 @@ any of the single-gateway guarantees:
   journals, not a scheduling coincidence.
 
 - **Aggregated demand**: each replica publishes its own
-  `demand-signal-<replica>.json`; the reference's
-  `provision/autoscale.py` `read_fleet_demand` merges the shards
+  `demand-signal-<replica>.json`; the port's
+  `provision/autoscale.read_fleet_demand` merges the shards
   (per-replica staleness guards) so the autoscaler and allocator keep
-  consuming ONE signal (the port's autoscaler is not written yet:
-  ROADMAP.md). Nothing in the provisioning plane knows how many
+  consuming ONE signal. Nothing in the provisioning plane knows how many
   gateways exist.
 
 - **Fleet-wide WFQ**: every replica shares ONE `WfqClock`, so tenant

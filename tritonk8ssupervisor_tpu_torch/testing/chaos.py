@@ -21,7 +21,9 @@ The same seeds give the same journals, lease records and reports as the
 reference (tests/test_torch_fleet.py, tests/test_torch_chaos.py). The
 reference's supervisor-driven campaigns (`ChaosFleet`, `run_campaign`,
 `InvariantChecker`, `run_serve_campaign`) and its autoscale and
-co-scheduling drives wait for the port's supervisor (ROADMAP.md).
+co-scheduling drives wait for the port's supervisor (ROADMAP.md); the
+autoscaler and the allocator they drive are ported
+(`provision/autoscale.py`, `provision/allocator.py`).
 """
 
 from __future__ import annotations

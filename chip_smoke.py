@@ -255,7 +255,22 @@ which raises on failure (exit code not 0, no result line):
    leave a committed checkpoint step. It prints the archive's and the
    ConfigMap's bytes, the install and build seconds, each run's step
    time and rate, and the launches. With `--shipped-workload` this phase
-   runs alone.
+   runs alone;
+33. the supervised elastic co-drive: the port's `Supervisor` ticks on a
+   virtual clock (`SimClock`) in its own thread over a scripted fleet of 4
+   slices (`SuperviseSim`; a tick every 30 s, flap threshold 2), and slice 3
+   is preempted at t = 200 s; the port's `ElasticTrainer` trains the LM of 7
+   on a one-rank NCCL group for 24 steps, each a real LM step (K1, K2), then
+   13 virtual seconds and the fleet's down check, with a real checkpoint
+   every 4 steps, reading the supervisor's fleet-status.json and
+   acknowledging through job-ack.json. It must see one scoped heal, of
+   slice 3 alone, at most one checkpoint interval of steps lost,
+   job-notified then job-resumed with an MTTR on the ledger, final
+   parameters and momentum equal to an uninterrupted run's to the bit, and
+   K1 once and K2 12 + 12 times for every step run (replayed steps
+   included). It prints the virtual time to training resumed, the steps
+   lost, the phase's wall seconds and the LM's step ms. With
+   `--supervised-elastic` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -268,6 +283,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import dataclasses
 import http.client
 import importlib.metadata
 import importlib.util
@@ -322,11 +338,14 @@ from tritonk8ssupervisor_tpu_torch.parallel import pipeline as pp
 from tritonk8ssupervisor_tpu_torch.parallel import spmd, train
 from tritonk8ssupervisor_tpu_torch.parallel.ranks import run_ranks
 from tritonk8ssupervisor_tpu_torch.provision import autoscale, events, maintenance
-from tritonk8ssupervisor_tpu_torch.provision.state import RunPaths
+from tritonk8ssupervisor_tpu_torch.provision import supervisor as sup_mod
+from tritonk8ssupervisor_tpu_torch.provision.runner import CommandError
+from tritonk8ssupervisor_tpu_torch.provision.state import ClusterHosts, RunPaths
 from tritonk8ssupervisor_tpu_torch.serving import SlotEngine, reqlog, server, traffic
 from tritonk8ssupervisor_tpu_torch.serving import fleet as fleet_mod
 from tritonk8ssupervisor_tpu_torch.serving import gateway as gateway_mod
 from tritonk8ssupervisor_tpu_torch.testing import chaos
+from tritonk8ssupervisor_tpu_torch.testing.simclock import SimClock
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
 from tritonk8ssupervisor_tpu_torch.utils import perf
 from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
@@ -3465,6 +3484,290 @@ def run_shipped_workload(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the resident supervisor co-driving the elastic trainer
+
+# the drill's virtual timeline: 4 slices, a tick every 30 s, flap threshold
+# 2; slice 3 is preempted mid-run, and a scoped replace takes 120 s
+SUPERVISED = dict(num_slices=4, interval=30.0, preempt_at=200.0, step_s=13.0,
+                  checkpoint_every=4, total_steps=24)
+HEAL_SLICE_S = 120.0
+# a sleeper on the virtual clock waits this long in real seconds for the
+# other actor's real work (a step, a checkpoint, a rejoin) before it calls
+# the clock stalled
+SUPERVISED_STALL_S = 120.0
+
+
+class SuperviseSim:
+    """A scripted fleet for the supervisor on a virtual clock: slice health
+    is a function of virtual time, and a `terraform apply -replace` costs
+    `heal_seconds` on the clock before the slice returns. It implements the
+    run / run_quiet pair that the supervisor's heal path consumes."""
+
+    def __init__(self, root: pathlib.Path, clock, num_slices: int = 4,
+                 heal_seconds: float = HEAL_SLICE_S) -> None:
+        self.paths = RunPaths(root)
+        self.paths.terraform_module("tpu-vm").mkdir(parents=True, exist_ok=True)
+        self.config = ClusterConfig(project="sim-proj", zone="us-west4-a", generation="v5e",
+                                    topology="4x4", mode="tpu-vm", num_slices=num_slices)
+        self.clock = clock
+        self.heal_seconds = heal_seconds
+        self.num_slices = num_slices
+        self.down: set = set()
+        self.down_at: list = []
+        self.applies: list = []
+        self.ips = {i: f"10.0.{i}.1" for i in range(num_slices)}
+        ClusterHosts(host_ips=[[self.ips[i]] for i in range(num_slices)],
+                     internal_ips=[[f"10.1.{i}.1"] for i in range(num_slices)],
+                     coordinator_ip="10.1.0.1").save(self.paths.hosts_file)
+        self.paths.tfstate("tpu-vm").write_text(json.dumps(
+            {"resources": [{"index": i} for i in range(num_slices)]}))
+
+    def preempt(self, slice_index: int, at: float) -> None:
+        self.down_at.append((at, slice_index))
+
+    def sync(self) -> None:
+        now = self.clock.time()
+        for at, i in list(self.down_at):
+            if now >= at:
+                self.down.add(i)
+                self.down_at.remove((at, i))
+
+    def run(self, args, cwd=None, **kwargs) -> str:
+        self.sync()
+        if list(args[:2]) == ["terraform", "apply"]:
+            replaced = [int(str(a).split("[")[1].rstrip("]"))
+                        for a in args if str(a).startswith("-replace=")]
+            self.applies.append(replaced)
+            self.clock.sleep(self.heal_seconds)
+            for i in replaced:
+                self.down.discard(i)
+                self.ips[i] = f"10.9.{i}.1"
+        return ""
+
+    def run_quiet(self, args, cwd=None, **kwargs) -> str:
+        self.sync()
+        if list(args[:3]) == ["terraform", "output", "-json"]:
+            return json.dumps({
+                "host_ips": {"value": [[self.ips[i]] for i in range(self.num_slices)]},
+                "internal_ips": {"value": [[f"10.1.{i}.1"] for i in range(self.num_slices)]},
+            })
+        if args and args[0] == "gcloud":
+            return "\n".join(f"{self.config.node_prefix}-{i}\tREADY"
+                             for i in range(self.num_slices) if i not in self.down)
+        if args and args[0] == "ssh":
+            index = next((i for i, x in self.ips.items() if x == args[-2]), None)
+            if "cat" in args[-1]:
+                return ""
+            if index in self.down:
+                raise CommandError(list(args), 255)
+        return ""
+
+
+def supervised_elastic_drill(root: pathlib.Path, setup, batch_fn, checkpoint,
+                             init_fn=lambda: None, shutdown_fn=lambda: None,
+                             num_slices: int = 4, interval: float = 30.0,
+                             preempt_at: float = 300.0, step_s: float = 1.5,
+                             checkpoint_every: int = 30, total_steps: int = 400,
+                             stall_timeout: float = 30.0, echo=lambda line: None) -> dict:
+    """The elastic co-drive: the port's `Supervisor` reconciles a
+    `SuperviseSim` on a `SimClock` in its own thread, while the port's
+    `ElasticTrainer` trains whatever `setup()` builds against the
+    supervisor's own fleet-status.json (`FileHealthSource`) and acknowledges
+    through job-ack.json (`JobAck`). Each step is the session's step, then
+    `step_s` virtual seconds, then the world's down check: a step that ends
+    with a slice down raises, as a collective losing its peer does. The last
+    slice is preempted at `preempt_at`. The defaults are the reference
+    drill's (`bench_provision.run_elastic_drill`), whose report this
+    returns, with the trainer's report, the ledger and the steps run."""
+    clock = SimClock(stall_timeout=stall_timeout)
+    world = SuperviseSim(root, clock, num_slices=num_slices)
+    lost = num_slices - 1
+    world.preempt(lost, at=preempt_at)
+    policy = sup_mod.SupervisePolicy(interval=interval, flap_threshold=2)
+    ledger = events.EventLedger(world.paths.events, clock=clock.time, echo=lambda line: None)
+    supervisor = sup_mod.Supervisor(
+        world.config, world.paths, chaos._Quiet(), run=world.run, run_quiet=world.run_quiet,
+        policy=policy, ledger=ledger, clock=clock.time, sleep=clock.sleep, rng=lambda: 0.0,
+        readiness_timeout=60.0)
+    sup_ticks = int(total_steps * step_s / interval) + 4
+    steps_run = [0]
+
+    def session() -> elastic.TrainSession:
+        built = setup()
+        inner = built.step_fn
+
+        def step_fn(state, *batch):
+            out = inner(state, *batch)
+            steps_run[0] += 1
+            clock.sleep(step_s)
+            world.sync()
+            if world.down:
+                raise RuntimeError("collective peer lost (slice preempted)")
+            return out
+
+        return dataclasses.replace(built, step_fn=step_fn)
+
+    failures: list[BaseException] = []
+    clock.launch()
+
+    def sup_body() -> None:
+        clock.begin()
+        try:
+            supervisor.run(ticks=sup_ticks)
+        except BaseException as exc:  # re-raised after the trainer's run
+            failures.append(exc)
+        finally:
+            clock.release()
+
+    thread = threading.Thread(target=sup_body, daemon=True)
+    thread.start()
+    trainer = elastic.ElasticTrainer(
+        session, batch_fn, checkpoint=checkpoint,
+        health=elastic.FileHealthSource(world.paths.fleet_status),
+        # polls every 17 s of virtual time, off the 30 s tick lattice: a
+        # poll never lands on the instant of a status publish
+        policy=elastic.ElasticPolicy(checkpoint_every=checkpoint_every, poll_every=1,
+                                     wait_base_s=17.0, wait_cap_s=17.0, max_wait_s=900.0,
+                                     max_degraded=0),
+        ack=elastic.JobAck(world.paths.job_ack, clock=clock.time),
+        init_fn=init_fn, shutdown_fn=shutdown_fn, drain_fn=None,
+        clock=clock.time, sleep=clock.sleep, rng=lambda: 0.0, echo=echo)
+    clock.launch()
+    clock.begin()
+    try:
+        report = trainer.run(total_steps)
+    finally:
+        clock.release()
+    thread.join(timeout=300)
+    if thread.is_alive() or failures:
+        raise AssertionError(f"supervisor thread: {failures or 'did not stop'}")
+    records = ledger.replay()
+    notified = [r for r in records if r["kind"] == events.JOB_NOTIFIED]
+    resumed = [r for r in records if r["kind"] == events.JOB_RESUMED]
+    resume = report["resumes"][-1] if report["resumes"] else {}
+    budget = policy.flap_threshold * interval + HEAL_SLICE_S + 45.0
+    return {
+        "num_slices": num_slices, "interval_s": interval, "preempt_at_s": preempt_at,
+        "lost_slice": lost, "step_s": step_s, "checkpoint_every_steps": checkpoint_every,
+        "checkpoint_interval_s": checkpoint_every * step_s, "total_steps": total_steps,
+        "final_step": report["final_step"], "steps_lost": report["steps_lost"],
+        "resumes": len(report["resumes"]), "resume_degraded": bool(resume.get("degraded")),
+        "waited_s": resume.get("waited_s"),
+        "time_to_training_resumed_s": resume.get("ts", 0.0) - preempt_at if resume else None,
+        "budget_s": budget, "heal_applies": list(world.applies),
+        "ledger": {"job_notified": len(notified), "job_resumed": len(resumed),
+                   "job_mttr_s": resumed[0].get("mttr_s") if resumed else None},
+        "report": report, "records": records, "steps_run": steps_run[0], "trainer": trainer,
+    }
+
+
+def run_supervised_elastic(card: str) -> dict:
+    """Phase 33: the reference's elastic co-drive with both halves the
+    port's and the training real card work. The port's `Supervisor` ticks on
+    a `SimClock` over `SuperviseSim`; slice 3 is preempted mid-run, detected,
+    confirmed over two ticks and healed by one scoped replace, and
+    fleet-status.json is published every tick. The port's `ElasticTrainer`
+    trains the full-width LM of 7 (K1, K2) on a one-rank NCCL group: each
+    step a real LM step, then the virtual step time and the down check;
+    real `TrainCheckpointer` checkpoints. It fails unless the one heal is of
+    slice 3 alone, the steps lost are at most a checkpoint interval, the
+    ledger carries job-notified then job-resumed with an MTTR, the final
+    parameters and momentum equal an uninterrupted run's to the bit, and K1
+    and K2 launched once and 12 + 12 times for every step run."""
+    started = time.monotonic()
+    steps = SUPERVISED["total_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        stores = iter(range(1000))
+
+        def join():
+            dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store{next(stores)}", 1),
+                                    rank=0, world_size=1)
+
+        def setup() -> elastic.TrainSession:
+            mesh = mesh_lib.make_mesh(device_type="cuda")
+            state = train.create_train_state(_lm_model(), train.default_optimizer(MESH_LR["lm"]),
+                                             "cuda", mesh=mesh)
+            return elastic.TrainSession(state, None,
+                                        elastic.state_step_fn(train.make_lm_train_step(state)),
+                                        mesh)
+
+        def batch_fn(session, step: int) -> tuple:
+            return (_elastic_tokens(step),)
+
+        # the uninterrupted run on the same path; it also compiles the step
+        # and loads K1 and K2 before the virtual clock starts
+        join()
+        try:
+            session = setup()
+            times = []
+            for i in range(steps):
+                t0 = time.monotonic()
+                session.step_fn(session.state, *batch_fn(session, i))[1]["loss"].item()
+                times.append(1e3 * (time.monotonic() - t0))
+            straight = _lm_values(session.state)
+            del session
+        finally:
+            distributed.shutdown()
+        torch.cuda.empty_cache()
+
+        ckpt = _TimedCheckpoint(lambda: ckpt_lib.TrainCheckpointer(f"{tmp}/ckpt"))
+        drill_root = pathlib.Path(tmp) / "fleet"
+        drill_root.mkdir()
+        t0 = time.monotonic()
+        try:
+            drill, counts = _counted(lambda: supervised_elastic_drill(
+                drill_root, setup, batch_fn, ckpt, init_fn=join,
+                shutdown_fn=distributed.shutdown, stall_timeout=SUPERVISED_STALL_S,
+                echo=lambda line: print(f"phase 33: {line}", flush=True), **SUPERVISED))
+            drill_s = time.monotonic() - t0
+            trainer = drill.pop("trainer")
+            resumed = _lm_values(trainer.session.state)
+            final_step = trainer.session.state.step
+        finally:
+            distributed.shutdown()
+    records = drill.pop("records")
+    kinds = [r["kind"] for r in records]
+    diffs = [(resumed[k] - v).abs().max().item() for k, v in straight.items()]
+    max_diff = max(diffs)
+    run = drill["steps_run"]
+    report = drill.pop("report")
+    implied = steps + report["steps_lost"] + len(report["resumes"])
+    resumed_rec = next((r for r in records if r["kind"] == events.JOB_RESUMED), {})
+    out = {**drill, "trainer_resumes": report["resumes"], "max_abs_diff": max_diff,
+           "bit_equal": max_diff == 0.0, "final_step": final_step, "launches": counts,
+           "step_ms": times, "save_s": ckpt.seconds["save"], "restore_s": ckpt.seconds["restore"],
+           "drill_seconds": drill_s, "phase_seconds": time.monotonic() - started,
+           "ledger_kinds": sorted(set(kinds))}
+    print(f"supervised elastic (phase 33), the port's Supervisor on a SimClock over 4 slices "
+          f"(interval {SUPERVISED['interval']:.0f} s, flap threshold 2) and the LM 12L/768/seq "
+          f"1024/batch 8 bf16 under ElasticTrainer on a one-rank NCCL group, {steps} steps of "
+          f"{SUPERVISED['step_s']} virtual s, checkpoint every {SUPERVISED['checkpoint_every']}, "
+          f"slice 3 preempted at t={SUPERVISED['preempt_at']:.0f} s: heal applies "
+          f"{drill['heal_applies']}, virtual time to training resumed "
+          f"{drill['time_to_training_resumed_s']} s (budget {drill['budget_s']} s), waited "
+          f"{drill['waited_s']} s, steps lost {drill['steps_lost']}, resumes {drill['resumes']}, "
+          f"ledger {drill['ledger']}; final parameters and momentum against an uninterrupted "
+          f"run: max |diff| {max_diff!r} (tolerance 0); LM steps run {run} (implied {implied}), "
+          f"launches {counts}; uninterrupted step ms "
+          f"{statistics.median(times[1:]):.2f} (median, host clock, each ended by "
+          f"loss.item()); drill {drill_s:.1f} s, phase {out['phase_seconds']:.1f} s wall; on "
+          f"{card}", flush=True)
+    if (drill["heal_applies"] != [[3]] or drill["steps_lost"] > SUPERVISED["checkpoint_every"]
+            or drill["resumes"] < 1 or drill["final_step"] != steps or final_step != steps
+            or max_diff != 0.0):
+        raise AssertionError(f"supervised elastic drill: {out}")
+    if (events.JOB_NOTIFIED not in kinds or events.JOB_RESUMED not in kinds
+            or kinds.index(events.JOB_NOTIFIED) > kinds.index(events.JOB_RESUMED)
+            or resumed_rec.get("mttr_s") is None):
+        raise AssertionError(f"supervised elastic drill: ledger {kinds}")
+    if run != implied or (counts["k1"], counts["k2_forward"], counts["k2_backward"]) != (
+            run, 12 * run, 12 * run):
+        raise AssertionError(f"supervised elastic drill: launches {counts} for {run} steps run "
+                             f"({implied} implied)")
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -3631,6 +3934,7 @@ def main() -> int:
     gateway_fleet = run_gateway_fleet(card)
     drain = run_maintenance_drain(card)
     shipped = run_shipped_workload(card)
+    supervised = run_supervised_elastic(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -3653,7 +3957,8 @@ def main() -> int:
                                  "elastic_lm": slice11["elastic_one_rank"]["launches"]["k1"],
                                  "maintenance_drain_lm": drain["launches"]["k1"],
                                  "shipped_lm_job": shipped["lm"]["launches"]["k1"],
-                                 "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1"]},
+                                 "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1"],
+                                 "supervised_elastic_lm": supervised["launches"]["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
             "launch_floor_ms": floor_ms,
@@ -3687,7 +3992,8 @@ def main() -> int:
                                  "elastic_lm":
                                      slice11["elastic_one_rank"]["launches"]["k2_forward"],
                                  "maintenance_drain_lm": drain["launches"]["k2_forward"],
-                                 "shipped_lm_job": shipped["lm"]["launches"]["k2_forward"]},
+                                 "shipped_lm_job": shipped["lm"]["launches"]["k2_forward"],
+                                 "supervised_elastic_lm": supervised["launches"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -3720,7 +4026,8 @@ def main() -> int:
                                  "elastic_lm":
                                      slice11["elastic_one_rank"]["launches"]["k2_backward"],
                                  "maintenance_drain_lm": drain["launches"]["k2_backward"],
-                                 "shipped_lm_job": shipped["lm"]["launches"]["k2_backward"]},
+                                 "shipped_lm_job": shipped["lm"]["launches"]["k2_backward"],
+                                 "supervised_elastic_lm": supervised["launches"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in (*k2_rows[1:4], k2_rows[5])],
         },
@@ -3807,6 +4114,8 @@ def main() -> int:
     print("slice 15: " + json.dumps({"shipped_workload": shipped,
                                      "fleet_demand": gateway_fleet["fleet_demand"]},
                                     sort_keys=True, default=str), flush=True)
+    print("slice 16: " + json.dumps({"supervised_elastic": supervised}, sort_keys=True,
+                                    default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3851,5 +4160,12 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit(2)
         run_shipped_workload(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--supervised-elastic"]:  # phase 33 alone, K1 and K2 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        check_k1(8192, 32768, seed=2, dtype=torch.bfloat16)
+        cuda_build.load(K2_SOURCE)
+        run_supervised_elastic(_card_line())
         sys.exit(0)
     sys.exit(main())

@@ -1,17 +1,24 @@
-"""The port's request-plane checker and gateway kill drill
-(`testing/chaos.py`) against the JAX package's: crafted record streams
-that break (or keep) each of `ServeInvariantChecker`'s invariants, the
-reference's own (tests/test_serve_chaos.py's checker cases) and the
-fleet's partition, lease and epoch-fence cases, make both checkers name
-the same violations; and `run_gateway_kill_drill` gives the same dict
-through both packages, with work in flight at the kill and nothing lost.
-No tolerance: the checks compare strings and counts."""
+"""The port's chaos harness (`testing/chaos.py`) against the JAX
+package's. The request plane: crafted record streams that break (or keep)
+each of `ServeInvariantChecker`'s invariants, the reference's own
+(tests/test_serve_chaos.py's checker cases) and the fleet's partition,
+lease and epoch-fence cases, make both checkers name the same violations;
+and `run_gateway_kill_drill` gives the same dict through both packages,
+with work in flight at the kill and nothing lost. The supervisor campaign
+core: `generate_scenario` gives equal scenarios per seed, both
+`InvariantChecker`s name the same violations on the crafted histories of
+tests/test_chaos.py, and the few-seed and kill-restart campaigns give
+equal results and event ledgers with zero violations (the 100-seed sweep
+stays behind the `chaos` marker, as the reference's). No tolerance: the
+checks compare strings and counts."""
 
+import dataclasses
 import gc
 import json
 
 import pytest
 
+from test_torch_supervisor import normalized, unordered_waves
 from tritonk8ssupervisor_tpu.serving import gateway as ref_gw
 from tritonk8ssupervisor_tpu.serving import reqlog as ref_reqlog
 from tritonk8ssupervisor_tpu.testing import chaos as ref_chaos
@@ -263,3 +270,151 @@ def test_the_gateway_kill_drill_gives_the_same_dict_and_loses_nothing(tmp_path):
                     .read_text().splitlines()] for side in drills}
     assert spans["port"] == spans["reference"]
     assert len(spans["port"]) > 0
+
+
+# ------------------------------------------------ the supervisor campaign core
+
+
+def test_generate_scenario_equals_the_reference_per_seed():
+    kinds = set()
+    for seed in range(60):
+        ours, ref = chaos.generate_scenario(seed), ref_chaos.generate_scenario(seed)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        assert ours.fault_times == ref.fault_times
+        kinds |= {e["kind"] for e in ours.events}
+    assert chaos.generate_scenario(42) == chaos.generate_scenario(42)
+    assert chaos.generate_scenario(42) != chaos.generate_scenario(43)
+    assert set(chaos.PRIMITIVES) <= kinds
+    assert vars(chaos.default_policy()) == vars(ref_chaos.default_policy())
+
+
+def supervisor_checkers(num_slices=8, failure_domains=4, **overrides) -> dict:
+    out = {}
+    for side, mod in {"reference": ref_chaos, "port": chaos}.items():
+        policy = mod.default_policy()
+        for key, value in overrides.items():
+            setattr(policy, key, value)
+        out[side] = mod.InvariantChecker(mod.sim_config(num_slices, failure_domains), policy)
+    return out
+
+
+DOMAIN_1 = ref_chaos.sim_config(8, 4).domain_of(1)  # slices 1 and 5
+DOMAIN_0 = ref_chaos.sim_config(8, 4).domain_of(0)  # slices 0 and 4
+SUPERVISOR_CASES = {
+    # name: (check, records, policy overrides, substring of a violation or None)
+    "concurrent double heal": ("check_no_double_heal", [
+        {"ts": 10.0, "kind": ev.HEAL_START, "id": "h1", "slices": [2]},
+        {"ts": 20.0, "kind": ev.HEAL_START, "id": "h2", "slices": [2]},
+        {"ts": 30.0, "kind": ev.HEAL_DONE, "id": "h1", "slices": [2]},
+        {"ts": 40.0, "kind": ev.HEAL_DONE, "id": "h2", "slices": [2]}], {}, "h2"),
+    "re-heal without fresh evidence": ("check_no_double_heal", [
+        {"ts": 5.0, "kind": ev.VERDICT, "slice": 2, "state": "missing"},
+        {"ts": 10.0, "kind": ev.HEAL_START, "id": "h1", "slices": [2]},
+        {"ts": 30.0, "kind": ev.HEAL_DONE, "id": "h1", "slices": [2]},
+        {"ts": 40.0, "kind": ev.HEAL_START, "id": "h2", "slices": [2]}], {},
+        "without a fresh unhealthy verdict"),
+    "re-heal after fresh evidence": ("check_no_double_heal", [
+        {"ts": 5.0, "kind": ev.VERDICT, "slice": 2, "state": "missing"},
+        {"ts": 10.0, "kind": ev.HEAL_START, "id": "h1", "slices": [2]},
+        {"ts": 30.0, "kind": ev.HEAL_DONE, "id": "h1", "slices": [2]},
+        {"ts": 35.0, "kind": ev.VERDICT, "slice": 2, "state": "unready"},
+        {"ts": 40.0, "kind": ev.HEAL_START, "id": "h2", "slices": [2]}], {}, None),
+    "orphaned start, then the recovery heal": ("check_no_double_heal", [
+        {"ts": 5.0, "kind": ev.VERDICT, "slice": 1, "state": "missing"},
+        {"ts": 10.0, "kind": ev.HEAL_START, "id": "h1", "slices": [1]},
+        {"ts": 700.0, "kind": ev.VERDICT, "slice": 1, "state": "missing"},
+        {"ts": 710.0, "kind": ev.HEAL_START, "id": "h2", "slices": [1]},
+        {"ts": 830.0, "kind": ev.HEAL_DONE, "id": "h2", "slices": [1]}], {}, None),
+    "token overspend": ("check_token_conservation", [
+        {"ts": float(t), "kind": ev.HEAL_START, "id": f"h{t}", "slices": [0]}
+        for t in (0, 1, 2)], {"heal_burst": 2}, "token-conservation"),
+    "closing a never-opened breaker": ("check_breaker_transitions", [
+        {"ts": 1.0, "kind": ev.BREAKER_CLOSE}], {}, "closed -> closed"),
+    "half-opening a closed domain breaker": ("check_breaker_transitions", [
+        {"ts": 1.0, "kind": ev.DOMAIN_BREAKER_HALF_OPEN, "domain": "z-fd0"}], {},
+        "closed -> half-open"),
+    "the legal breaker cycle": ("check_breaker_transitions", [
+        {"ts": 1.0, "kind": ev.DOMAIN_BREAKER_OPEN, "domain": "z-fd0"},
+        {"ts": 2.0, "kind": ev.DOMAIN_BREAKER_HALF_OPEN, "domain": "z-fd0"},
+        {"ts": 3.0, "kind": ev.DOMAIN_BREAKER_HALF_OPEN, "domain": "z-fd0"},
+        {"ts": 4.0, "kind": ev.DOMAIN_BREAKER_CLOSE, "domain": "z-fd0"}], {}, None),
+    "heal into a gated domain": ("check_domain_canary_gate", [
+        {"ts": 10.0, "kind": ev.DOMAIN_OUTAGE, "domain": DOMAIN_1, "slices": [1, 5]},
+        {"ts": 20.0, "kind": ev.HEAL_START, "id": "h1", "slices": [5]}], {}, "non-canary"),
+    "the canary, then heals after the close": ("check_domain_canary_gate", [
+        {"ts": 10.0, "kind": ev.DOMAIN_OUTAGE, "domain": DOMAIN_1, "slices": [1, 5]},
+        {"ts": 300.0, "kind": ev.HEAL_START, "id": "h1", "slices": [1], "canary": True,
+         "domain": DOMAIN_1},
+        {"ts": 420.0, "kind": ev.HEAL_DONE, "id": "h1", "slices": [1], "canary": True,
+         "domain": DOMAIN_1},
+        {"ts": 420.0, "kind": ev.DOMAIN_BREAKER_CLOSE, "domain": DOMAIN_1},
+        {"ts": 450.0, "kind": ev.HEAL_START, "id": "h2", "slices": [5]}], {}, None),
+    "two concurrent canaries": ("check_domain_canary_gate", [
+        {"ts": 10.0, "kind": ev.DOMAIN_OUTAGE, "domain": DOMAIN_0, "slices": [0, 4]},
+        {"ts": 300.0, "kind": ev.HEAL_START, "id": "c1", "slices": [0], "canary": True,
+         "domain": DOMAIN_0},
+        {"ts": 310.0, "kind": ev.HEAL_START, "id": "c2", "slices": [4], "canary": True,
+         "domain": DOMAIN_0},
+        {"ts": 400.0, "kind": ev.HEAL_DONE, "id": "c1", "slices": [0]},
+        {"ts": 410.0, "kind": ev.HEAL_DONE, "id": "c2", "slices": [4]}], {}, "second canary"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SUPERVISOR_CASES))
+def test_both_invariant_checkers_name_the_same_violations(name):
+    method, records, overrides, expected = SUPERVISOR_CASES[name]
+    found = {side: getattr(checker, method)(records)
+             for side, checker in supervisor_checkers(**overrides).items()}
+    assert found["port"] == found["reference"]
+    whole = {side: checker.check(records)
+             for side, checker in supervisor_checkers(**overrides).items()}
+    assert whole["port"] == whole["reference"]
+    if expected is None:
+        assert found["port"] == []
+    else:
+        assert any(expected in v for v in found["port"]), found["port"]
+
+
+def campaigns(tmp_path, seed: int) -> dict:
+    """One seeded campaign through each package: its result and its event
+    ledger, in each side's own workdir."""
+    out = {}
+    for side, mod in {"reference": ref_chaos, "port": chaos}.items():
+        root = tmp_path / side / f"seed-{seed}"
+        result = mod.run_campaign(mod.generate_scenario(seed), root)
+        ledger = [json.loads(line) for line in (root / "supervisor-events.jsonl")
+                  .read_text().splitlines() if line.strip()]
+        doc = {"ledger": ledger, "lines": [], "applies": [], "plays": [], "result": result}
+        out[side] = unordered_waves(normalized(doc, root, side))
+    assert out["port"] == out["reference"]
+    return out["port"]["result"]
+
+
+@pytest.mark.parametrize("seed", (1, 3, 7))  # outage, kill-restart, quota storm
+def test_campaign_few_seeds_equal_the_reference_with_zero_violations(tmp_path, seed):
+    scenario = chaos.generate_scenario(seed)
+    out = campaigns(tmp_path, seed)
+    assert out["violations"] == [], (seed, out)
+    assert out["converged"] is True
+    assert out["mttr_s"] <= scenario.mttr_bound_s
+    assert out["status_parses"] is True
+
+
+def test_campaign_kill_restart_resumes_from_the_ledger_as_the_reference(tmp_path):
+    assert "sigkill-mid-heal" in [e["kind"] for e in chaos.generate_scenario(3).events]
+    out = campaigns(tmp_path, 3)
+    assert out["restarts"] >= 1
+    assert out["converged"] is True
+    assert out["violations"] == []
+
+
+@pytest.mark.chaos
+def test_chaos_hundred_seed_campaign(tmp_path):
+    """The full sweep through the port: 100 seeded campaigns, zero
+    violations, all converged."""
+    failures = []
+    for seed in range(1, 101):
+        out = chaos.run_campaign(chaos.generate_scenario(seed), tmp_path / f"seed-{seed}")
+        if out["violations"] or not out["converged"]:
+            failures.append((seed, out["events"], out["violations"]))
+    assert failures == []

@@ -555,10 +555,12 @@ def test_two_process_sigkill_drill(tmp_path):
     SIGKILLed after the first committed checkpoint; the survivor sees the
     failed collective, acknowledges the change, rejoins at world size 1
     from the shared checkpoint losing at most one checkpoint interval, and
-    the reference's event ledger, fed by the reference's JobAckWatcher,
-    carries job-notified -> job-resumed with MTTR and the degraded ack."""
-    from tritonk8ssupervisor_tpu.provision import supervisor as sup_mod
-    from tritonk8ssupervisor_tpu.testing import localcluster
+    the port's event ledger, fed by the port's JobAckWatcher, carries
+    job-notified -> job-resumed with MTTR and the degraded ack. The drill
+    runs on the port alone: its launcher, supervisor side and ledger."""
+    from tritonk8ssupervisor_tpu_torch.provision import events as ev
+    from tritonk8ssupervisor_tpu_torch.provision import supervisor as sup_mod
+    from tritonk8ssupervisor_tpu_torch.testing import localcluster
 
     ckpt_dir = tmp_path / "ckpt"
     status = tmp_path / "fleet-status.json"

@@ -94,6 +94,9 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.provision.readiness, "
         "tritonk8ssupervisor_tpu_torch.provision.autoscale, "
         "tritonk8ssupervisor_tpu_torch.provision.allocator, "
+        "tritonk8ssupervisor_tpu_torch.provision.supervisor, "
+        "tritonk8ssupervisor_tpu_torch.provision.teardown, "
+        "tritonk8ssupervisor_tpu_torch.testing.localcluster, "
         "tritonk8ssupervisor_tpu_torch.cli.io, tritonk8ssupervisor_tpu_torch.cli.discovery, "
         "tritonk8ssupervisor_tpu_torch.cli.main; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -16,6 +16,16 @@
         [--json] [--workdir W]
     python -m tritonk8ssupervisor_tpu_torch.cli.main heal [--config F] [--max-degraded N] \
         [--readiness-timeout S] [--fault-plan PLAN] [--workdir W]
+    python -m tritonk8ssupervisor_tpu_torch.cli.main supervise [--ticks N] [--interval S] \
+        [--flap-threshold N] [--heal-burst N] [--heal-refill S] [--breaker-threshold K] \
+        [--breaker-window S] [--breaker-cooldown S] [--page-size N] [--sweep-slices N] \
+        [--heal-workers N] [--domain-threshold K] [--domain-window S] \
+        [--domain-cooldown S] [--quota-defer-cap S] [--compact-records N] \
+        [--autoscale [--min-slices N] [--max-slices N]] \
+        [--allocate [--train-slices N] [--min-serving N]] [--max-degraded N] \
+        [--config F] [--readiness-timeout S] [--fault-plan PLAN] [--workdir W]
+    python -m tritonk8ssupervisor_tpu_torch.cli.main -c [--yes] [--fault-plan PLAN] \
+        [--workdir W]
 
 `train` is the elastic-training drill (the reference's `train_cmd`): a
 small causal LM driven by `parallel/elastic.ElasticTrainer` through the
@@ -62,6 +72,25 @@ readiness and rewrites `hosts.json`; `--max-degraded N` lets it succeed
 with up to N slices left degraded. It drives `terraform`,
 `ansible-playbook`, `ssh` and `gcloud` through the retrying runners and
 needs no card. A missing config exits 1.
+
+`supervise` is the reference's `supervise_cmd`: the resident reconcile
+loop (`provision/supervisor.py`) over the same deployment. Each tick it
+diagnoses the fleet and heals confirmed losses through the slice-scoped
+heal path, behind the flap filter, the per-slice heal rate limiter and
+the circuit breakers; every observation lands in the event ledger and
+`fleet-status.json` is rewritten every tick. It runs until SIGTERM (or
+`--ticks N`) and holds the workdir's pid lock, so a second instance exits
+1. `--autoscale` and `--allocate` add the autoscaler and the train/serve
+allocator. The `TK8S_SUPERVISE_*` env knobs set the policy; a flag
+overrides its knob. It needs no card.
+
+`-c`/`--clean` is the reference's `clean`: teardown
+(`provision/teardown.py`). It lists what it will destroy, asks (unless
+`--yes`), stops a running supervisor, destroys every mode that holds
+terraform state, scrubs known_hosts and every generated file, and
+removes the ledgers last. With no config it still destroys from orphaned
+terraform state; with neither it says so and exits 0. The port has no
+`provision` command yet, so a command (or `-c`) is required.
 """
 
 from __future__ import annotations
@@ -69,6 +98,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import sys
 from pathlib import Path
 
@@ -82,6 +112,9 @@ from tritonk8ssupervisor_tpu_torch.provision import journal as journal_mod
 from tritonk8ssupervisor_tpu_torch.provision import readiness, retry
 from tritonk8ssupervisor_tpu_torch.provision import runner as run_mod
 from tritonk8ssupervisor_tpu_torch.provision import state
+from tritonk8ssupervisor_tpu_torch.provision import supervisor as supervisor_mod
+from tritonk8ssupervisor_tpu_torch.provision import teardown
+from tritonk8ssupervisor_tpu_torch.provision import terraform as terraform_mod
 from tritonk8ssupervisor_tpu_torch.provision.events import EventLedgerError
 from tritonk8ssupervisor_tpu_torch.testing import faults
 from tritonk8ssupervisor_tpu_torch.utils.phases import PhaseTimer
@@ -93,11 +126,15 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch port's commands.",
     )
     parser.add_argument(
-        "command", choices=["heal", "train", "serve", "status", "trace", "analyze"],
+        "command", nargs="?",
+        choices=["heal", "supervise", "status", "train", "serve", "trace", "analyze"],
+        metavar="command",
         help="`heal` diagnoses per-slice fleet health (missing / unready / "
         "draining) and repairs ONLY the broken slices — scoped terraform "
         "replace, ansible --limit, scoped readiness — leaving healthy "
-        "slices untouched; `train` runs the elastic-training drill: a small causal LM "
+        "slices untouched; `supervise` runs the resident reconcile loop "
+        "(detect drift, rate-limited auto-heal, circuit breaker, durable "
+        "event ledger); `train` runs the elastic-training drill: a small causal LM "
         "that survives membership changes by checkpoint, rejoin and restore; "
         "`serve` runs the inference gateway over the slot engine (HTTP, or "
         "a drill with --drill N); `status` prints the fleet status: "
@@ -112,6 +149,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="trace: the request idempotency key to reconstruct",
     )
     parser.add_argument(
+        "-c", "--clean", action="store_true", help="destroy the cluster and all state"
+    )
+    parser.add_argument(
         "--workdir", type=Path, default=Path.cwd(),
         help="the supervisor's workdir, holding fleet-status.json, "
         "job-ack.json and the serving journal and spans; heal: the repo "
@@ -119,19 +159,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--config", type=Path, default=None,
-        help="heal: the saved configuration to repair from (default: the "
-        "workdir's config)",
+        help="heal, supervise: the saved configuration to repair from "
+        "(default: the workdir's config)",
     )
     parser.add_argument(
         "--fault-plan", default=None, metavar="PLAN",
-        help="heal: deterministic fault-injection plan (inline JSON or a "
-        "file path; also read from TK8S_FAULT_PLAN): fail the Nth child "
-        "command matching a pattern with a chosen exit code/output/hang",
+        help="heal, supervise, -c: deterministic fault-injection plan "
+        "(inline JSON or a file path; also read from TK8S_FAULT_PLAN): fail "
+        "the Nth child command matching a pattern with a chosen exit "
+        "code/output/hang",
     )
     parser.add_argument(
         "--readiness-timeout", type=float, default=900.0, metavar="SECONDS",
-        help="heal: how long to wait for the repaired slices' readiness "
-        "(default 900)",
+        help="heal, supervise: how long to wait for the repaired slices' "
+        "readiness (default 900)",
     )
     parser.add_argument(
         "--checkpoint-dir", default=os.environ.get("TK8S_CHECKPOINT_DIR") or None,
@@ -173,7 +214,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--max-degraded", type=int, default=0, metavar="N",
-        help="heal: tolerate up to N slices that stay broken after "
+        help="heal, supervise: tolerate up to N slices that stay broken after "
         "repair — they are quarantined (terraform/quarantine.json) and "
         "emptied from hosts.json, and heal succeeds on the remaining "
         "healthy slices instead of aborting (N-of-M semantics); train: "
@@ -206,6 +247,152 @@ def build_parser() -> argparse.ArgumentParser:
         "(folded from the event ledger) — the default document stays "
         "bounded at fleet scale: per-state counts plus only the "
         "not-healthy slices",
+    )
+    # ---------------------------------------------------------- supervise
+    # Defaults of None mean "take the SupervisePolicy default (or its
+    # TK8S_SUPERVISE_* env override)"; an explicit flag always wins.
+    parser.add_argument(
+        "--interval", type=float, default=None, metavar="SECONDS",
+        help="supervise: seconds between reconcile ticks (default 30; "
+        "env TK8S_SUPERVISE_INTERVAL)",
+    )
+    parser.add_argument(
+        "--ticks", type=int, default=0, metavar="N",
+        help="supervise: run exactly N reconcile ticks then exit "
+        "(default 0 = run until SIGTERM/SIGINT; teardown stops a "
+        "running supervisor via its pid lockfile)",
+    )
+    parser.add_argument(
+        "--flap-threshold", type=int, default=None, metavar="N",
+        help="supervise: consecutive unhealthy snapshots before a slice "
+        "is heal-eligible (default 2 — one transient SSH blip or stale "
+        "snapshot never triggers a terraform replace)",
+    )
+    parser.add_argument(
+        "--heal-burst", type=int, default=None, metavar="N",
+        help="supervise: per-slice heal token-bucket capacity "
+        "(default 2)",
+    )
+    parser.add_argument(
+        "--heal-refill", type=float, default=None, metavar="SECONDS",
+        help="supervise: seconds to mint one heal token per slice "
+        "(default 600)",
+    )
+    parser.add_argument(
+        "--breaker-threshold", type=int, default=None, metavar="K",
+        help="supervise: failed heals within --breaker-window that trip "
+        "the global circuit breaker to degraded-hold (default 3)",
+    )
+    parser.add_argument(
+        "--breaker-window", type=float, default=None, metavar="SECONDS",
+        help="supervise: sliding window for breaker failures "
+        "(default 1800)",
+    )
+    parser.add_argument(
+        "--breaker-cooldown", type=float, default=None, metavar="SECONDS",
+        help="supervise: base breaker cooldown before a half-open probe "
+        "heal; grows between consecutive trips with the retry engine's "
+        "decorrelated jitter (default 300)",
+    )
+    parser.add_argument(
+        "--page-size", type=int, default=None, metavar="N",
+        help="supervise: slices per fleet-listing page (default 64 — "
+        "sized so one page is one `tpu-vm list` call; a 256-slice fleet "
+        "is fetched as bounded pages with per-page TTLs and the retry "
+        "classifier's 429 backoff floor instead of one giant ask; "
+        "env TK8S_SUPERVISE_PAGE_SIZE)",
+    )
+    parser.add_argument(
+        "--sweep-slices", type=int, default=None, metavar="N",
+        help="supervise: slices re-diagnosed per tick beyond the dirty "
+        "set (default 4) — the slow full-sweep rotation that bounds how "
+        "long listing-invisible drift can hide to "
+        "ceil(num_slices/N) ticks (env TK8S_SUPERVISE_SWEEP)",
+    )
+    parser.add_argument(
+        "--heal-workers", type=int, default=None, metavar="N",
+        help="supervise: parallel slice-scoped heals per wave (default "
+        "8; 1 restores the serial combined heal order) — a zone outage "
+        "killing K slices converges in ceil(K/N) heal times "
+        "(env TK8S_SUPERVISE_HEAL_WORKERS)",
+    )
+    parser.add_argument(
+        "--domain-threshold", type=int, default=None, metavar="K",
+        help="supervise: K slices of one failure domain lost within "
+        "--domain-window is classified a DOMAIN_OUTAGE — heals into "
+        "that domain are held behind its per-domain breaker and "
+        "re-entry is gated by ONE canary heal, while healthy domains "
+        "keep healing (default 3; 0 disables the classifier; domains "
+        "come from the config's FAILURE_DOMAINS striping; "
+        "env TK8S_SUPERVISE_DOMAIN_THRESHOLD)",
+    )
+    parser.add_argument(
+        "--domain-window", type=float, default=None, metavar="SECONDS",
+        help="supervise: incident-start span that counts as one "
+        "correlated domain failure (default 300; "
+        "env TK8S_SUPERVISE_DOMAIN_WINDOW)",
+    )
+    parser.add_argument(
+        "--domain-cooldown", type=float, default=None, metavar="SECONDS",
+        help="supervise: base hold before the canary heal re-enters an "
+        "outaged domain; grows between re-trips (default 300; "
+        "env TK8S_SUPERVISE_DOMAIN_COOLDOWN)",
+    )
+    parser.add_argument(
+        "--quota-defer-cap", type=float, default=None, metavar="SECONDS",
+        help="supervise: longest a heal is deferred because its "
+        "fleet-listing page is quota-parked (429 backoff floor) — past "
+        "this incident age the repair outweighs the API pressure "
+        "(default 900; env TK8S_SUPERVISE_QUOTA_DEFER_CAP)",
+    )
+    parser.add_argument(
+        "--compact-records", type=int, default=None, metavar="N",
+        help="supervise: auto-compact the event ledger to one snapshot "
+        "record once it holds N records (default 20000; 0 disables) — "
+        "restart-resume state is preserved exactly "
+        "(env TK8S_SUPERVISE_COMPACT)",
+    )
+    parser.add_argument(
+        "--autoscale", action="store_true",
+        help="supervise: enable the demand-driven autoscaler — fold "
+        "the serving gateway's demand-signal.json into a desired slice "
+        "count (hysteresis + cooldown + scale-thrash breaker; "
+        "TK8S_AUTOSCALE_* env knobs) and execute it: scale-up through "
+        "the warm incremental-provision path, scale-down via "
+        "drain-then-teardown with the request journal proving no "
+        "accepted request is lost",
+    )
+    parser.add_argument(
+        "--min-slices", type=int, default=None, metavar="N",
+        help="supervise --autoscale: never drain below N slices "
+        "(default 1; env TK8S_AUTOSCALE_MIN_SLICES) — pin it when a "
+        "workload needs a capacity floor regardless of demand",
+    )
+    parser.add_argument(
+        "--max-slices", type=int, default=None, metavar="N",
+        help="supervise --autoscale: never provision past N slices "
+        "(default: the config's num_slices envelope; "
+        "env TK8S_AUTOSCALE_MAX_SLICES) — pin it to cap spend",
+    )
+    parser.add_argument(
+        "--allocate", action="store_true",
+        help="supervise: enable train/serve co-scheduling — the third "
+        "controller folds the gateway's demand signal into per-slice "
+        "roles (SERVING / TRAINING / TRANSITIONING): idle troughs lend "
+        "slices to elastic training, a queue surge preempts them back "
+        "through the ledger-recorded PREEMPT_NOTICE -> job-ack -> "
+        "ROLE_CHANGED protocol (TK8S_ALLOC_* env knobs)",
+    )
+    parser.add_argument(
+        "--train-slices", type=int, default=None, metavar="N",
+        help="supervise --allocate: the N highest-index slices start "
+        "as the training world (default 0 — training only gets what "
+        "idle troughs lend it; env TK8S_ALLOC_TRAIN_SLICES)",
+    )
+    parser.add_argument(
+        "--min-serving", type=int, default=None, metavar="N",
+        help="supervise --allocate: never lend serving below N slices "
+        "(default 1; env TK8S_ALLOC_MIN_SERVING)",
     )
     # --------------------------------------------------- trace / analyze
     parser.add_argument(
@@ -885,6 +1072,13 @@ def analyze_cmd(args, say=print) -> int:
     return 0
 
 
+def _prompter(say) -> Prompter:
+    """A Prompter that speaks through `say` and reads answers from stdin."""
+    prompter = Prompter()
+    prompter.say = lambda text="": say(text)
+    return prompter
+
+
 def build_runners(
     fault_plan_spec: str | None,
     timer: PhaseTimer | None = None,
@@ -922,8 +1116,7 @@ def heal_cmd(args, say=print) -> int:
         )
     config = store.load_config_file(source)
     config.validate()
-    prompter = Prompter()
-    prompter.say = lambda text="": say(text)  # heal speaks through a Prompter
+    prompter = _prompter(say)  # heal speaks through a Prompter
     timer = PhaseTimer(logfile=paths.runlog)
     run, run_quiet = build_runners(args.fault_plan, timer)
     ssh_key: Path | str = ""
@@ -943,14 +1136,139 @@ def heal_cmd(args, say=print) -> int:
     return 0
 
 
-COMMANDS = {"heal": heal_cmd, "train": train_cmd, "serve": serve_cmd, "status": status_cmd,
-            "trace": trace_cmd, "analyze": analyze_cmd}
+def clean(args, say=print) -> int:
+    """`-c`/`--clean`, the reference's `clean`: teardown of the workdir's
+    deployment (provision/teardown.py)."""
+    paths = state.RunPaths(args.workdir)
+    prompter = _prompter(say)
+    if paths.config_file.exists():
+        config = store.load_config_file(paths.config_file)
+    elif terraform_mod.modes_with_state(paths) or paths.hosts_file.exists():
+        # Config gone but terraform state remains (partial manual cleanup):
+        # resources must not leak just because `config` was deleted — the
+        # reference's cleanRunner keyed off state files (setup.sh:484-521).
+        config = None
+    else:
+        prompter.say("No config or terraform state found — nothing to clean.")
+        return 0
+    run, _ = build_runners(args.fault_plan)
+    ok = teardown.clean(config, paths, prompter, run=run, assume_yes=args.yes)
+    return 0 if ok else 1
+
+
+def supervise_policy_from_args(args) -> supervisor_mod.SupervisePolicy:
+    """TK8S_SUPERVISE_* env defaults, overridden by explicit flags."""
+    policy = supervisor_mod.SupervisePolicy.from_env()
+    overrides = {
+        "interval": args.interval,
+        "flap_threshold": args.flap_threshold,
+        "heal_burst": args.heal_burst,
+        "heal_refill_s": args.heal_refill,
+        "breaker_threshold": args.breaker_threshold,
+        "breaker_window_s": args.breaker_window,
+        "breaker_cooldown_s": args.breaker_cooldown,
+        "max_degraded": max(0, args.max_degraded) or None,
+        "page_size": args.page_size,
+        "sweep_slices": args.sweep_slices,
+        "heal_workers": args.heal_workers,
+        "compact_records": args.compact_records,
+        "domain_threshold": args.domain_threshold,
+        "domain_window_s": args.domain_window,
+        "domain_cooldown_s": args.domain_cooldown,
+        "quota_defer_cap_s": args.quota_defer_cap,
+    }
+    for field, value in overrides.items():
+        if value is not None:
+            setattr(policy, field, value)
+    return policy
+
+
+def supervise_cmd(args, say=print) -> int:
+    """`supervise`, the reference's `supervise_cmd`: the resident reconcile
+    loop (provision/supervisor.py). Each tick diagnoses the fleet and
+    drives it back to spec through the slice-scoped heal path, governed
+    by the flap filter, the per-slice heal rate limiter and the circuit
+    breakers; every observation, verdict, heal and breaker transition
+    lands in the durable event ledger, and fleet-status.json is rewritten
+    atomically for scrapers. Runs until SIGTERM/SIGINT (or --ticks N);
+    teardown stops it via the pid lockfile."""
+    from tritonk8ssupervisor_tpu_torch import obs as obs_mod
+
+    paths = state.RunPaths(args.workdir)
+    source = args.config or paths.config_file
+    if not source.exists():
+        raise state.MissingStateError(
+            f"no configuration at {source} — supervise watches an "
+            "existing deployment; run ./setup.sh to provision first"
+        )
+    config = store.load_config_file(source)
+    config.validate()
+    prompter = _prompter(say)
+    timer = PhaseTimer(logfile=paths.runlog)
+    run, run_quiet = build_runners(args.fault_plan, timer)
+    ssh_key: Path | str = ""
+    ssh_user = ""
+    if config.mode == "tpu-vm":
+        ssh_key = discovery.find_ssh_key()
+        ssh_user = discovery.ssh_username()
+    autoscaler = None
+    if args.autoscale:
+        from tritonk8ssupervisor_tpu_torch.provision import autoscale as autoscale_mod
+
+        autoscale_policy = autoscale_mod.AutoscalePolicy.from_env()
+        if args.min_slices is not None:
+            autoscale_policy.min_slices = max(1, args.min_slices)
+        if args.max_slices is not None:
+            autoscale_policy.max_slices = max(1, args.max_slices)
+        autoscaler = autoscale_mod.Autoscaler(autoscale_policy, envelope=config.num_slices)
+    allocator = None
+    if args.allocate:
+        from tritonk8ssupervisor_tpu_torch.provision import allocator as allocator_mod
+
+        alloc_policy = allocator_mod.AllocatorPolicy.from_env()
+        if args.train_slices is not None:
+            alloc_policy.train_slices = max(0, args.train_slices)
+        if args.min_serving is not None:
+            alloc_policy.min_serving = max(1, args.min_serving)
+        allocator = allocator_mod.Allocator(alloc_policy, envelope=config.num_slices)
+    sup = supervisor_mod.Supervisor(
+        config, paths, prompter,
+        run=run, run_quiet=run_quiet,
+        policy=supervise_policy_from_args(args),
+        ssh_key=str(ssh_key), ssh_user=ssh_user,
+        timer=timer,
+        readiness_timeout=args.readiness_timeout,
+        autoscaler=autoscaler,
+        allocator=allocator,
+        # tick/diagnose/heal-wave spans + the /metrics-shaped registry,
+        # snapshotted to metrics.json every tick
+        telemetry=obs_mod.Telemetry.for_run(
+            paths, plane=obs_mod.SUPERVISOR, echo=lambda line: prompter.say(line),
+        ),
+    )
+    # a signalled stop finishes the current tick, appends supervisor-stop,
+    # and releases the pid lock — what teardown's SIGTERM relies on
+    try:
+        signal.signal(signal.SIGTERM, lambda *_: sup.request_stop())
+    except ValueError:
+        pass  # not the main thread (tests): --ticks bounds the loop
+    return sup.run(ticks=max(0, args.ticks))
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command is None and not args.clean:
+        parser.error("a command is required (or -c/--clean); the port has no "
+                     "provision command")
+    say = lambda line: print(line, flush=True)  # noqa: E731
+    commands = {"heal": heal_cmd, "supervise": supervise_cmd, "train": train_cmd,
+                "serve": serve_cmd, "status": status_cmd, "trace": trace_cmd,
+                "analyze": analyze_cmd}
     try:
-        return COMMANDS[args.command](args, lambda line: print(line, flush=True))
+        if args.clean:
+            return clean(args, say)
+        return commands[args.command](args, say)
     except (
         ConfigError,
         discovery.DiscoveryError,
@@ -960,6 +1278,7 @@ def main(argv: list[str] | None = None) -> int:
         faults.FaultPlanError,
         journal_mod.JournalError,
         EventLedgerError,
+        supervisor_mod.SupervisorError,
         EndOfInput,
     ) as e:
         print(f"ERROR: {e}", file=sys.stderr)
@@ -967,6 +1286,9 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         print("\nInterrupted.", file=sys.stderr)
         return 130
+    except BrokenPipeError:
+        # stdout consumer (e.g. `| head`) went away; not an error of ours
+        return 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,22 @@
-"""Seeded drills of the request plane and the checker that proves its
-invariants: the port's copy of the parts of
-`tritonk8ssupervisor_tpu/testing/chaos.py` that drive no supervisor.
+"""Seeded chaos campaigns and the checkers that prove their invariants:
+the port's copy of `tritonk8ssupervisor_tpu/testing/chaos.py`, in part.
+
+The supervisor campaign core (reference :63-728):
+
+- `ChaosFleet`: a scripted world whose slice health is a function of
+  virtual time (testing/simclock.py) and of fault primitives: domain
+  outages, preemption storms, quota storms, flapping SSH, torn
+  `fleet-status.json` copies, SIGKILL mid-heal-wave.
+- `generate_scenario(seed)`: the same seed always composes the same
+  faults at the same virtual times.
+- `run_campaign`: drives the port's `Supervisor`
+  (provision/supervisor.py) tick by tick through a scenario, restarting
+  it from the event ledger after every injected kill.
+- `InvariantChecker`: folds the campaign's ledger and names every record
+  that breaks no double-heal, token conservation, legal breaker
+  transitions, or the domain canary gate.
+
+The request plane's part:
 
 - `ServeInvariantChecker` (reference :1060-1969), whole: folds a request
   journal (serving/reqlog.py), or all of a gateway fleet's journal shards
@@ -8,8 +24,7 @@ invariants: the port's copy of the parts of
   that breaks request conservation, exactly-once service, deadline
   honesty, honest Retry-After, bounded routing staleness, the cross-ledger
   contract, the metrics-vs-journal contract, and the fleet's partition,
-  lease and epoch-fence invariants. Its scale, allocation and handover
-  checks read only ledger records, so they come with it.
+  lease and epoch-fence invariants.
 - `run_gateway_kill_drill` (:1988): one gateway over modeled engines on a
   `SimClock`, dropped mid-dispatch and resumed from its journal.
 - `generate_fleet_scenario`, `run_fleet_campaign` and
@@ -17,25 +32,691 @@ invariants: the port's copy of the parts of
   (serving/fleet.py) through replica kills, revivals and forced lease
   expiries, checked by `check_fleet` over all shards and the lease ledger.
 
-The same seeds give the same journals, lease records and reports as the
-reference (tests/test_torch_fleet.py, tests/test_torch_chaos.py). The
-reference's supervisor-driven campaigns (`ChaosFleet`, `run_campaign`,
-`InvariantChecker`, `run_serve_campaign`) and its autoscale and
-co-scheduling drives wait for the port's supervisor (ROADMAP.md); the
-autoscaler and the allocator they drive are ported
-(`provision/autoscale.py`, `provision/allocator.py`).
+The same seeds give the same ledgers, journals, lease records and reports
+as the reference (tests/test_torch_chaos.py, tests/test_torch_fleet.py).
+The campaigns that co-drive a supervisor with a gateway, the autoscaler or
+the allocator (`run_serve_campaign`, the autoscale and co-scheduling
+drives; reference :729-1059, :2200-3466) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import random
+import threading
 from pathlib import Path
 
+from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig
 from tritonk8ssupervisor_tpu_torch.provision import events as events_mod
-from tritonk8ssupervisor_tpu_torch.provision.state import RunPaths
+from tritonk8ssupervisor_tpu_torch.provision import heal as heal_mod
+from tritonk8ssupervisor_tpu_torch.provision import supervisor as sup_mod
+from tritonk8ssupervisor_tpu_torch.provision.runner import CommandError
+from tritonk8ssupervisor_tpu_torch.provision.state import ClusterHosts, RunPaths
 from tritonk8ssupervisor_tpu_torch.serving import reqlog as reqlog_mod
+from tritonk8ssupervisor_tpu_torch.testing.faults import (
+    FaultPlan,
+    FaultRule,
+    SupervisorKilled,
+)
 from tritonk8ssupervisor_tpu_torch.testing.simclock import SimClock
+
+QUOTA_OUTPUT = ("Error: googleapi: Error 429: Too Many Requests, "
+                "rateLimitExceeded (RESOURCE_EXHAUSTED)")
+
+
+class _Quiet:
+    """Prompter that keeps the transcript (drills assert on say lines)."""
+
+    def __init__(self) -> None:
+        self.lines: list = []
+
+    def say(self, text: str = "") -> None:
+        self.lines.append(text)
+
+    def text(self) -> str:
+        return "\n".join(self.lines)
+
+
+def sim_config(num_slices: int, failure_domains: int = 0) -> ClusterConfig:
+    return ClusterConfig(
+        project="sim-proj", zone="us-west4-a", generation="v5e",
+        topology="4x4", mode="tpu-vm", num_slices=num_slices,
+        failure_domains=failure_domains,
+    )
+
+
+class ChaosFleet:
+    """A scripted fleet whose health is a function of virtual time and
+    the scenario's fault primitives. Implements the run/run_quiet RunFn
+    pair every layer under the supervisor consumes; thread-safe, because
+    parallel heal waves drive it from several workers at once."""
+
+    def __init__(self, root: Path, clock, config: ClusterConfig,
+                 heal_seconds: float = 120.0,
+                 teardown_seconds: float = 10.0) -> None:
+        self.paths = RunPaths(Path(root))
+        self.paths.terraform_module("tpu-vm").mkdir(parents=True,
+                                                    exist_ok=True)
+        self.config = config
+        self.clock = clock
+        self.heal_seconds = heal_seconds
+        self.teardown_seconds = teardown_seconds
+        n = config.num_slices
+        self.num_slices = n
+        self.down: set = set()
+        self.down_at: list = []  # (ts, slice)
+        # slices the autoscaler tore down ON PURPOSE (terraform destroy
+        # -target): absent from the listing like `down`, but the
+        # supervisor's active-set scoping means nothing diagnoses or
+        # heals them; a scale-up's scoped apply brings them back
+        self.removed: set = set()
+        # heals into these slices do not stick until the given ts
+        # (a truly dead compartment: replace "succeeds" but readiness
+        # never does) — inf means never
+        self.heal_refuses: dict = {}  # slice -> until ts
+        # the next N terraform applies FAIL (CommandError) — the
+        # slice-loss-mid-scale-up primitive: provisioning new capacity
+        # dies under the autoscaler, which must SCALE_ABORT and retry
+        # behind its cooldown/breaker instead of double-provisioning
+        self.apply_failures_remaining = 0
+        self.quota_windows: list = []  # (start, until)
+        self.flap_windows: dict = {}  # slice -> (start, until, period)
+        self.applies: list = []
+        self.destroys: list = []  # scale-down teardown orders
+        self._lock = threading.Lock()
+        self.ips = {i: f"10.0.{i}.1" for i in range(n)}
+        ClusterHosts(
+            host_ips=[[self.ips[i]] for i in range(n)],
+            internal_ips=[[f"10.1.{i}.1"] for i in range(n)],
+            coordinator_ip="10.1.0.1",
+        ).save(self.paths.hosts_file)
+        self.paths.tfstate("tpu-vm").write_text(json.dumps(
+            {"resources": [{"index": i} for i in range(n)]}
+        ))
+
+    # ------------------------------------------------------ fault wiring
+
+    def preempt(self, slice_index: int, at: float) -> None:
+        self.down_at.append((float(at), int(slice_index)))
+
+    def domain_outage(self, domain: str, at: float,
+                      heals_stick_after: float | None = None) -> None:
+        """Every slice of `domain` goes down at `at` — one correlated
+        loss. With `heals_stick_after`, replaces before that time do not
+        bring slices back (the compartment itself is dead)."""
+        for i, name in self.config.domain_map().items():
+            if name == domain:
+                self.preempt(i, at)
+                if heals_stick_after is not None:
+                    self.heal_refuses[i] = float(heals_stick_after)
+
+    def quota_storm(self, at: float, until: float) -> None:
+        self.quota_windows.append((float(at), float(until)))
+
+    def flap_ssh(self, slice_index: int, at: float, until: float,
+                 period: float) -> None:
+        self.flap_windows[int(slice_index)] = (
+            float(at), float(until), max(1.0, float(period))
+        )
+
+    # ------------------------------------------------------- world state
+
+    def _sync_locked(self) -> None:
+        now = self.clock.time()
+        for at, i in list(self.down_at):
+            if now >= at:
+                self.down.add(i)
+                self.down_at.remove((at, i))
+
+    def down_now(self) -> set:
+        """The currently-dead slice set at this virtual instant — what
+        the serve-chaos drive syncs its engine liveness against.
+        Includes slices the autoscaler tore down: their engines are
+        gone exactly like a preempted slice's, on purpose."""
+        with self._lock:
+            self._sync_locked()
+            return set(self.down) | set(self.removed)
+
+    def _quota_throttled(self, now: float) -> bool:
+        return any(start <= now < until
+                   for start, until in self.quota_windows)
+
+    def _flapping(self, index: int, now: float) -> bool:
+        window = self.flap_windows.get(index)
+        if window is None or index in self.down:
+            return False
+        start, until, period = window
+        if not (start <= now < until):
+            return False
+        return int((now - start) // period) % 2 == 1
+
+    # ------------------------------------------------------------ RunFns
+
+    def run(self, args, cwd=None, **kwargs) -> str:
+        line = " ".join(str(a) for a in args)
+        with self._lock:
+            self._sync_locked()
+        if line.startswith("terraform apply"):
+            replaced = [int(str(a).split("[")[1].rstrip("]"))
+                        for a in args if str(a).startswith("-replace=")]
+            with self._lock:
+                self.applies.append(replaced)
+                failing = self.apply_failures_remaining > 0
+                if failing:
+                    self.apply_failures_remaining -= 1
+            if failing:
+                # capacity died mid-provision (quota pulled, stockout):
+                # the apply burns time, then fails
+                self.clock.sleep(self.heal_seconds / 2.0)
+                raise CommandError(list(args), 1,
+                                   tail="Error: resource exhausted "
+                                        "mid-apply (scripted)")
+            self.clock.sleep(self.heal_seconds)
+            now = self.clock.time()
+            with self._lock:
+                for i in replaced:
+                    if now >= self.heal_refuses.get(i, float("-inf")):
+                        self.down.discard(i)
+                        self.removed.discard(i)
+                        self.ips[i] = f"10.9.{i}.{len(self.applies)}"
+        elif line.startswith("terraform destroy"):
+            targets = [int(str(a).split("[")[1].rstrip("]"))
+                       for a in args if str(a).startswith("-target=")]
+            with self._lock:
+                self.destroys.append(targets)
+            self.clock.sleep(self.teardown_seconds)
+            with self._lock:
+                for i in targets:
+                    self.removed.add(i)
+                    self.down.discard(i)
+        return ""
+
+    def run_quiet(self, args, cwd=None, **kwargs) -> str:
+        with self._lock:
+            self._sync_locked()
+            now = self.clock.time()
+            if args[:3] == ["terraform", "output", "-json"]:
+                return json.dumps({
+                    "host_ips": {"value": [
+                        [self.ips[i]] for i in range(self.num_slices)
+                    ]},
+                    "internal_ips": {"value": [
+                        [f"10.1.{i}.1"] for i in range(self.num_slices)
+                    ]},
+                })
+            if args and args[0] == "gcloud" and "list" in list(args):
+                if self._quota_throttled(now):
+                    raise CommandError(list(args), 1, tail=QUOTA_OUTPUT)
+                return "\n".join(
+                    f"{self.config.node_prefix}-{i}\tREADY"
+                    for i in range(self.num_slices)
+                    if i not in self.down and i not in self.removed
+                )
+            if args and args[0] == "ssh":
+                ip = args[-2]
+                index = next(
+                    (i for i, x in self.ips.items() if x == ip), None
+                )
+                if "cat" in args[-1]:
+                    return ""  # no drain files in chaos scenarios
+                if index in self.down or index in self.removed or (
+                    index is not None and self._flapping(index, now)
+                ):
+                    raise CommandError(list(args), 255)
+                return ""
+            return ""
+
+
+# ---------------------------------------------------------------- scenarios
+
+
+@dataclasses.dataclass
+class Scenario:
+    """One seeded composition of fault primitives. `events` is the
+    declarative fault list (kind + params at virtual times); everything
+    downstream — the world, the campaign, the reproduction — is a pure
+    function of it."""
+
+    seed: int
+    num_slices: int
+    failure_domains: int
+    events: list
+    max_ticks: int = 80
+    mttr_bound_s: float = 2400.0
+
+    @property
+    def fault_times(self) -> list:
+        return sorted(e.get("at", 0.0) for e in self.events)
+
+
+PRIMITIVES = ("domain-outage", "preemption-storm", "quota-storm",
+              "flapping-ssh", "torn-status", "sigkill-mid-heal")
+
+
+def generate_scenario(
+    seed: int,
+    num_slices: int = 16,
+    failure_domains: int = 4,
+    interval: float = 30.0,
+) -> Scenario:
+    """Deterministic scenario from `seed`: one anchor fault (a domain
+    outage or a cross-domain preemption storm) plus up to two extra
+    primitives. Every generated scenario is heal-able — outages stick,
+    quota storms end, flaps settle — so convergence to healthy within
+    the MTTR bound is always the expected verdict."""
+    rng = random.Random(int(seed))
+    config = sim_config(num_slices, failure_domains)
+    domains = sorted(set(config.domain_map().values()))
+    events: list = []
+    anchor_at = 60.0 + interval * rng.randrange(0, 5)
+    if rng.random() < 0.6:
+        events.append({"kind": "domain-outage",
+                       "domain": rng.choice(domains), "at": anchor_at})
+    else:
+        count = 2 + rng.randrange(max(1, num_slices // 4))
+        events.append({
+            "kind": "preemption-storm",
+            "slices": sorted(rng.sample(range(num_slices), count)),
+            "at": anchor_at,
+        })
+    used = {"sigkill-mid-heal": False, "torn-status": False}
+    for _ in range(rng.randrange(0, 3)):
+        kind = rng.choice(PRIMITIVES[2:])
+        at = anchor_at + interval * rng.randrange(0, 6)
+        if kind == "quota-storm":
+            events.append({"kind": kind, "at": at,
+                           "duration": 60.0 + 60.0 * rng.randrange(0, 4)})
+        elif kind == "flapping-ssh":
+            events.append({
+                "kind": kind, "slice": rng.randrange(num_slices),
+                "at": at, "duration": 4 * interval,
+                "period": 2 * interval,
+            })
+        elif kind == "torn-status" and not used["torn-status"]:
+            used["torn-status"] = True
+            events.append({"kind": kind, "at": at})
+        elif kind == "sigkill-mid-heal" and not used["sigkill-mid-heal"]:
+            used["sigkill-mid-heal"] = True
+            events.append({"kind": kind, "nth": 1 + rng.randrange(2)})
+    return Scenario(seed=int(seed), num_slices=num_slices,
+                    failure_domains=failure_domains, events=events)
+
+
+def default_policy(interval: float = 30.0) -> sup_mod.SupervisePolicy:
+    """The campaign policy: tight enough that every safety rail is
+    exercised inside the tick budget, deterministic (rng pinned by the
+    campaign), heal-able storms."""
+    return sup_mod.SupervisePolicy(
+        interval=interval, flap_threshold=2, heal_burst=2,
+        heal_refill_s=3600.0, breaker_threshold=3,
+        breaker_window_s=7200.0, breaker_cooldown_s=600.0,
+        breaker_cooldown_cap_s=3600.0, heal_workers=4,
+        domain_threshold=3, domain_window_s=300.0,
+        domain_cooldown_s=300.0, quota_defer_cap_s=600.0,
+        page_size=8, max_degraded=0,
+    )
+
+
+def _tear_file(path: Path) -> None:
+    """Simulate a half-copied (rsync mid-flight) status file: keep the
+    first half of the bytes — invalid JSON, exactly what tolerant
+    readers must survive."""
+    try:
+        raw = path.read_bytes()
+    except OSError:
+        return
+    if raw:
+        path.write_bytes(raw[: max(1, len(raw) // 2)])
+
+
+def run_campaign(
+    scenario: Scenario,
+    workdir: Path,
+    policy: sup_mod.SupervisePolicy | None = None,
+    heal_seconds: float = 120.0,
+) -> dict:
+    """Drive one seeded campaign: REAL Supervisor, scripted world,
+    virtual clock. Injected SIGKILLs restart the supervisor from its
+    event ledger (the crash-resume path, not a fresh world). Returns the
+    campaign verdict: violations (from InvariantChecker), convergence,
+    MTTR, restart count."""
+    policy = policy or default_policy()
+    clock = SimClock()
+    config = sim_config(scenario.num_slices, scenario.failure_domains)
+    world = ChaosFleet(Path(workdir), clock, config,
+                       heal_seconds=heal_seconds)
+    torn_at: list = []
+    kill_plan: FaultPlan | None = None
+    run_fn = world.run
+    for event in scenario.events:
+        kind = event["kind"]
+        if kind == "domain-outage":
+            world.domain_outage(event["domain"], at=event["at"])
+        elif kind == "preemption-storm":
+            for i in event["slices"]:
+                world.preempt(i, at=event["at"])
+        elif kind == "quota-storm":
+            world.quota_storm(event["at"],
+                              event["at"] + event["duration"])
+        elif kind == "flapping-ssh":
+            world.flap_ssh(event["slice"], event["at"],
+                           event["at"] + event["duration"],
+                           event["period"])
+        elif kind == "torn-status":
+            torn_at.append(float(event["at"]))
+        elif kind == "sigkill-mid-heal":
+            kill_plan = FaultPlan(
+                [FaultRule(match="terraform apply",
+                           after=int(event["nth"]) - 1, kill=True)],
+                echo=lambda line: None,
+            )
+            run_fn = kill_plan.wrap(world.run)
+
+    ledger = events_mod.EventLedger(world.paths.events, clock=clock.time,
+                                    echo=lambda line: None)
+
+    def make_supervisor() -> sup_mod.Supervisor:
+        return sup_mod.Supervisor(
+            config, world.paths, _Quiet(),
+            run=run_fn, run_quiet=world.run_quiet, policy=policy,
+            ledger=ledger, clock=clock.time, sleep=clock.sleep,
+            rng=lambda: 0.0, readiness_timeout=60.0, hooks=clock,
+        )
+
+    supervisor = make_supervisor()
+    last_fault = max(scenario.fault_times, default=0.0)
+    restarts = 0
+    ticks_run = 0
+    healthy_streak = 0
+    converged_at: float | None = None
+    clock.begin()
+    try:
+        supervisor.restore()
+        while ticks_run < scenario.max_ticks:
+            while torn_at and torn_at[0] <= clock.time():
+                torn_at.pop(0)
+                _tear_file(world.paths.fleet_status)
+            try:
+                supervisor.tick()
+            except SupervisorKilled:
+                restarts += 1
+                supervisor = make_supervisor()
+                supervisor.restore()
+                continue
+            ticks_run += 1
+            doc = supervisor.status_doc(clock.time())
+            settled = (clock.time() >= last_fault
+                       and doc["verdict"] == "healthy" and not world.down)
+            healthy_streak = healthy_streak + 1 if settled else 0
+            if healthy_streak >= 2:
+                converged_at = clock.time()
+                break
+            clock.sleep(policy.interval)
+    finally:
+        clock.release()
+
+    records = ledger.replay()
+    checker = InvariantChecker(config, policy,
+                               mttr_bound_s=scenario.mttr_bound_s)
+    violations = checker.check(records)
+    first_fault = min(scenario.fault_times, default=0.0)
+    mttr = (converged_at - first_fault) if converged_at is not None else None
+    if converged_at is None:
+        violations.append(
+            f"convergence: fleet not healthy within {scenario.max_ticks} "
+            f"ticks (seed {scenario.seed})"
+        )
+    elif mttr is not None and mttr > scenario.mttr_bound_s:
+        violations.append(
+            f"convergence: MTTR {mttr:.0f}s exceeds the "
+            f"{scenario.mttr_bound_s:.0f}s bound (seed {scenario.seed})"
+        )
+    status_parses = True
+    try:
+        json.loads(world.paths.fleet_status.read_text())
+    except (OSError, ValueError):
+        status_parses = False
+        violations.append("torn-status: final fleet-status.json does not "
+                          "parse (atomic publish broken)")
+    kinds = [r["kind"] for r in records]
+    return {
+        "seed": scenario.seed,
+        "events": [e["kind"] for e in scenario.events],
+        "ticks": ticks_run,
+        "restarts": restarts,
+        "violations": violations,
+        "converged": converged_at is not None,
+        "mttr_s": mttr,
+        "status_parses": status_parses,
+        "heals_attempted": kinds.count(events_mod.HEAL_START),
+        "heals_done": kinds.count(events_mod.HEAL_DONE),
+        "domain_outages": kinds.count(events_mod.DOMAIN_OUTAGE),
+        "heals_deferred": kinds.count(events_mod.HEAL_DEFERRED),
+        "canaries": sum(1 for r in records
+                        if r["kind"] == events_mod.HEAL_START
+                        and r.get("canary")),
+    }
+
+
+# --------------------------------------------------------------- invariants
+
+
+class InvariantChecker:
+    """Fold a campaign's event ledger and assert the supervisor's safety
+    contract. Each violated property yields one human-readable string
+    naming what broke and where; an empty list is the pass verdict.
+
+    The checks deliberately work on the RAW record stream (not the
+    LedgerView): the ledger is the supervisor's flight recorder, and the
+    invariants are statements about the recorded history itself —
+    a fold that summarises away an illegal transition must not be able
+    to hide it."""
+
+    def __init__(self, config: ClusterConfig,
+                 policy: sup_mod.SupervisePolicy,
+                 mttr_bound_s: float = 2400.0) -> None:
+        self.config = config
+        self.policy = policy
+        self.mttr_bound_s = mttr_bound_s
+        self._domains = config.domain_map()
+
+    def check(self, records: list) -> list:
+        violations: list = []
+        violations += self.check_no_double_heal(records)
+        violations += self.check_token_conservation(records)
+        violations += self.check_breaker_transitions(records)
+        violations += self.check_domain_canary_gate(records)
+        return violations
+
+    # -- 1: no double-heal ------------------------------------------------
+
+    def check_no_double_heal(self, records: list) -> list:
+        """No slice may have two CONCURRENT heals (a second heal-start
+        while an earlier one for the same slice later completes), and a
+        heal-done slice is never healed again without fresh unhealthy
+        evidence (a non-healthy verdict) in between. An orphaned start
+        (kill mid-heal, no done/failed ever) followed by a re-heal is
+        the documented recovery path, not a violation."""
+        violations: list = []
+        closed_at: dict = {}  # heal id -> index of its done/failed
+        for idx, r in enumerate(records):
+            if r.get("kind") in (events_mod.HEAL_DONE,
+                                 events_mod.HEAL_FAILED):
+                rid = r.get("id")
+                if rid in closed_at:
+                    violations.append(
+                        f"double-heal: heal {rid!r} closed twice "
+                        f"(records {closed_at[rid]} and {idx})"
+                    )
+                closed_at[r.get("id")] = idx
+        open_heals: dict = {}  # slice -> (start idx, heal id)
+        needs_evidence: dict = {}  # slice -> heal id that healed it
+        for idx, r in enumerate(records):
+            kind = r.get("kind")
+            if kind == events_mod.VERDICT:
+                state = r.get("state")
+                if state not in (heal_mod.HEALTHY, heal_mod.DRAINING):
+                    needs_evidence.pop(r.get("slice"), None)
+            elif kind == events_mod.HEAL_START:
+                for i in r.get("slices", []):
+                    prior = open_heals.get(i)
+                    if prior is not None and closed_at.get(prior[1],
+                                                           -1) > idx:
+                        violations.append(
+                            f"double-heal: slice {i} heal {r.get('id')!r} "
+                            f"started while heal {prior[1]!r} was in "
+                            f"flight (records {prior[0]} and {idx})"
+                        )
+                    if i in needs_evidence:
+                        violations.append(
+                            f"double-heal: slice {i} healed again "
+                            f"(record {idx}) without a fresh unhealthy "
+                            f"verdict after heal "
+                            f"{needs_evidence[i]!r} succeeded"
+                        )
+                    open_heals[i] = (idx, r.get("id"))
+            elif kind in (events_mod.HEAL_DONE, events_mod.HEAL_FAILED):
+                for i in r.get("slices", []):
+                    prior = open_heals.get(i)
+                    if prior is not None and prior[1] == r.get("id"):
+                        open_heals.pop(i, None)
+                    if kind == events_mod.HEAL_DONE:
+                        needs_evidence[i] = r.get("id")
+        return violations
+
+    # -- 2: token conservation -------------------------------------------
+
+    def check_token_conservation(self, records: list) -> list:
+        """Replay every heal-start through a fresh per-slice TokenBucket
+        at its recorded timestamp: the rate limit must hold over the
+        ENTIRE ledger — kills, restarts, and compactions included. A
+        start the bucket refuses means a crash minted an extra heal."""
+        violations: list = []
+        buckets: dict = {}
+        for idx, r in enumerate(records):
+            if r.get("kind") != events_mod.HEAL_START:
+                continue
+            for i in r.get("slices", []):
+                bucket = buckets.setdefault(i, sup_mod.TokenBucket(
+                    self.policy.heal_burst, self.policy.heal_refill_s
+                ))
+                if not bucket.try_take(r.get("ts", 0.0)):
+                    violations.append(
+                        f"token-conservation: slice {i} heal at "
+                        f"t={r.get('ts')} (record {idx}) exceeds the "
+                        f"burst-{self.policy.heal_burst}/"
+                        f"{self.policy.heal_refill_s:.0f}s budget"
+                    )
+        return violations
+
+    # -- 3: legal breaker transitions ------------------------------------
+
+    _LEGAL = {
+        ("closed", "open"), ("open", "half-open"), ("open", "closed"),
+        ("half-open", "open"), ("half-open", "closed"),
+        # re-recording open while open happens when a storm keeps
+        # tripping during a hold wave — same state, legal
+        ("open", "open"),
+        # half-open re-announced: the probe/canary was rate-limited (or
+        # the supervisor restarted mid-canary and re-armed the gate) and
+        # the next tick re-enters the half-open dispatch — same state
+        ("half-open", "half-open"),
+    }
+
+    def _transition_stream(self, records: list, domain: str | None):
+        for idx, r in enumerate(records):
+            kind = r.get("kind")
+            if domain is None:
+                state = {events_mod.BREAKER_OPEN: "open",
+                         events_mod.BREAKER_HALF_OPEN: "half-open",
+                         events_mod.BREAKER_CLOSE: "closed"}.get(kind)
+            else:
+                if r.get("domain") != domain:
+                    continue
+                state = {events_mod.DOMAIN_BREAKER_OPEN: "open",
+                         events_mod.DOMAIN_BREAKER_HALF_OPEN: "half-open",
+                         events_mod.DOMAIN_BREAKER_CLOSE: "closed"}.get(
+                             kind)
+            if state is not None:
+                yield idx, state
+
+    def check_breaker_transitions(self, records: list) -> list:
+        """Breaker state machines (global AND per-domain) may only move
+        closed->open, open->half-open, open/half-open->closed or back to
+        open. Closing a never-opened breaker or half-opening a closed
+        one is a corrupt history."""
+        violations: list = []
+        streams = [(None, "global breaker")]
+        streams += [(d, f"domain {d} breaker") for d in sorted(
+            {r.get("domain") for r in records if r.get("domain")}
+        )]
+        for domain, label in streams:
+            state = "closed"
+            for idx, nxt in self._transition_stream(records, domain):
+                if (state, nxt) not in self._LEGAL:
+                    violations.append(
+                        f"breaker-transition: {label} moved "
+                        f"{state} -> {nxt} at record {idx}"
+                    )
+                state = nxt
+        return violations
+
+    # -- 4: canary gates re-entry ----------------------------------------
+
+    def check_domain_canary_gate(self, records: list) -> list:
+        """After a DOMAIN_OUTAGE classification, no heal may be
+        dispatched into that domain until a single canary heal
+        (HEAL_START canary=true) has SUCCEEDED — and at most one canary
+        may be in flight per domain."""
+        violations: list = []
+        closed_at: dict = {}  # heal id -> record index of done/failed
+        for idx, r in enumerate(records):
+            if r.get("kind") in (events_mod.HEAL_DONE,
+                                 events_mod.HEAL_FAILED):
+                closed_at[r.get("id")] = idx
+        gated: dict = {}  # domain -> open canary heal id or None
+        for idx, r in enumerate(records):
+            kind = r.get("kind")
+            if kind == events_mod.DOMAIN_OUTAGE:
+                gated.setdefault(r.get("domain", ""), None)
+            elif kind in (events_mod.DOMAIN_BREAKER_CLOSE,
+                          events_mod.DOMAIN_RECOVERED):
+                gated.pop(r.get("domain", ""), None)
+            elif kind == events_mod.HEAL_START:
+                touched = {self._domains.get(int(i), "")
+                           for i in r.get("slices", [])}
+                for domain in touched:
+                    if domain not in gated:
+                        continue
+                    if not r.get("canary"):
+                        violations.append(
+                            f"canary-gate: non-canary heal "
+                            f"{r.get('id')!r} (record {idx}) dispatched "
+                            f"into outage-classified domain {domain} "
+                            "before its canary succeeded"
+                        )
+                    elif (gated[domain] is not None
+                          and closed_at.get(gated[domain], -1) > idx):
+                        # the prior canary later completes, so it WAS in
+                        # flight here — two concurrent canaries. A prior
+                        # canary that never closes is a kill orphan and
+                        # this start is its legitimate recovery.
+                        violations.append(
+                            f"canary-gate: second canary "
+                            f"{r.get('id')!r} (record {idx}) for domain "
+                            f"{domain} while canary "
+                            f"{gated[domain]!r} was in flight"
+                        )
+                    else:
+                        gated[domain] = r.get("id")
+            elif kind == events_mod.HEAL_FAILED:
+                for domain in list(gated):
+                    if gated[domain] == r.get("id"):
+                        gated[domain] = None  # canary failed: gate re-arms
+        return violations
+
+
 
 
 class ServeInvariantChecker:

@@ -21,7 +21,8 @@ which raises on failure (exit code not 0, no result line):
    same step on the CPU (K1's plain version), from one set of weights;
 4. kernel K2 against its plain version on the card, forward and
    backward: the LM's (8, 1024, 12, 64) bf16 causal in both layouts, a
-   ragged (2, 1000, 4, 64) causal and a (2, 512, 4, 128) full; times the
+   ragged (2, 1000, 4, 64) causal and a (2, 512, 4, 128) full, and the
+   worked example's (32, 1024, 12, 64) causal (phase 34); times the
    forward, the backward and the two together for the kernel, the plain
    version and `F.scaled_dot_product_attention` (a yardstick only),
    and prints the forward's and the backward's time over SDPA's;
@@ -58,8 +59,9 @@ which raises on failure (exit code not 0, no result line):
    cache with per-slot positions, a 5-query verify window, head_dim 16
    (the drafter) and 128, and a head-major `bhld` case; the same engine
    shapes on a paged pool read through page tables (the engine's own
-   calls); one query over 65,536 positions; each with q in its dtype and
-   in f32; times the kernel and the plain version (no PyTorch call
+   calls); one query over 65,536 positions; the worked example's batch 1
+   over a 1024-position cache at pos 64 and 318 (phase 34); each with q
+   in its dtype and in f32; times the kernel and the plain version (no PyTorch call
    computes this function, so there is no library time) and one launch's
    floor (a one-element fill), printed beside K1's (256, 1000) and K3's
    pos-0 times;
@@ -270,7 +272,32 @@ which raises on failure (exit code not 0, no result line):
    K1 once and K2 12 + 12 times for every step run (replayed steps
    included). It prints the virtual time to training resumed, the steps
    lost, the phase's wall seconds and the LM's step ms. With
-   `--supervised-elastic` this phase runs alone.
+   `--supervised-elastic` this phase runs alone;
+34. the worked example of docs/detailed.md ("Training on real text") at
+   its widths: the bytes of docs/*.md through `utils/corpus.ByteTokenizer`
+   and `train_val_split(val_fraction=0.1)`, a `TransformerLM` of 12
+   layers, 12 heads, embed 768, vocab 256, seq 1024 (bf16, flash
+   attention) at batch 32 trained by `lm_optimizer(3e-4)` on a one-rank
+   NCCL mesh from `corpus.batches` through `utils/data.prefetch_to_mesh`,
+   120 steps with warm-up 20 and decay 200 (the example's 500 and 20,000
+   cut to fit about a minute); the mean loss of the last 10 steps below
+   the first 10's, the held-out loss of `make_lm_eval_step` falling, its
+   perplexity below 256; K1 once and K2 12 + 12 times a train step, K1
+   once and K2 12 times an eval call; then greedy `models/decode.generate`
+   of 256 tokens from a 64-byte held-out prompt (the first capitalised
+   held-out line of 64 bytes or more) with the default cache and the
+   int8 cache (K3 exactly 12 x 255 times), both decodable and not one
+   repeated byte; the int8 cache's logits of those 256 steps, fed the
+   int8 output, through K3 and then with K3's plain version in its place,
+   within 2^-5 of the largest logit; K1 at the path's (32768, 256) bf16
+   against its plain version, `F.cross_entropy` and its bound (K2 at its
+   (32, 1024, 12, 64) and K3 at its (1, 12, 1024, 64) are checked in 4
+   and 11); and `python -m
+   ...benchmarks.containerbench --json` at its defaults, printed as the
+   card machine's host numbers. It prints the step ms and tokens/s, the
+   losses and perplexity, the decode ms a token with each cache, the
+   launches and the phase's wall seconds. With `--worked-example` this
+   phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time.
 
@@ -347,8 +374,12 @@ from tritonk8ssupervisor_tpu_torch.serving import gateway as gateway_mod
 from tritonk8ssupervisor_tpu_torch.testing import chaos
 from tritonk8ssupervisor_tpu_torch.testing.simclock import SimClock
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
-from tritonk8ssupervisor_tpu_torch.utils import perf
-from tritonk8ssupervisor_tpu_torch.utils.data import batch_shard
+from tritonk8ssupervisor_tpu_torch.utils import corpus, perf
+from tritonk8ssupervisor_tpu_torch.utils.data import (
+    batch_shard,
+    global_batch_from_local,
+    prefetch_to_mesh,
+)
 
 # H100 SXM data sheet: device memory rate, f32 rate outside the tensor
 # cores (K1's bound), dense bf16/fp16 tensor-core rate (K2's bound)
@@ -397,6 +428,11 @@ K3_REL = {torch.float32: 2e-5, torch.float16: 2**-10, torch.bfloat16: 2**-7}
 # (activations rounded to bf16 at other points; a logit near 4 steps by
 # 2^-5) four steps
 DECODE_LOGITS_ATOL = {torch.float32: 2e-3, torch.bfloat16: 1.25e-1}
+# the worked example's int8-cache logits with K3 against the same steps
+# with its plain version in K3's place, on one card from one set of
+# weights, relative to the largest logit: each call may differ by one bf16
+# ulp (K3_REL), and the logits are bf16, so four steps at the largest one
+WORKED_K3_LOGITS_REL = 2**-5
 # ResNet-50's stride-1 1x1 convolutions at batch 256, 224x224 (the
 # stage sizes (3, 4, 6, 3) over models/resnet.py's bottleneck blocks):
 # (spatial size, C = dX width, N = dY width, calls per step)
@@ -3768,6 +3804,281 @@ def run_supervised_elastic(card: str) -> dict:
     return out
 
 
+# the worked example of docs/detailed.md ("Training on real text") at its
+# widths; steps, warm-up and decay cut from 500 warm-up and 20,000 decay
+# steps to fit the phase in about a minute
+WORKED_LM = dict(vocab_size=256, num_layers=12, num_heads=12, embed_dim=768, max_seq_len=1024)
+WORKED_BATCH = 32
+WORKED_STEPS = 120
+WORKED_OPT = dict(learning_rate=3e-4, warmup_steps=20, decay_steps=200)
+WORKED_TIMED_FROM = 5  # steps before this one build, load and warm up
+WORKED_MEAN_OF = 10  # the loss falls: the mean of the last 10 steps below the first 10's
+WORKED_PROMPT = 64
+WORKED_NEW_TOKENS = 256
+CONTAINERBENCH_TIMEOUT_S = 300
+
+
+def worked_example_ids() -> np.ndarray:
+    """The phase's corpus: the bytes of docs/*.md beside this script, in
+    sorted name order (files that predate the port; README.md, which
+    every change edits, is left out, so the corpus is the same in every
+    run of every tree)."""
+    docs = sorted((pathlib.Path(__file__).resolve().parent / "docs").glob("*.md"))
+    return corpus.ByteTokenizer().encode(b"".join(p.read_bytes() for p in docs))
+
+
+def worked_example_prompt(val_ids: np.ndarray) -> np.ndarray:
+    """The first 64 bytes of the first held-out line that starts with a
+    capital letter and holds at least 64 bytes: prose, not a table row."""
+    start = 0
+    for line in val_ids.astype(np.uint8).tobytes().split(b"\n"):
+        if len(line) >= WORKED_PROMPT and line[:1].isupper():
+            return val_ids[start:start + WORKED_PROMPT]
+        start += len(line) + 1
+    raise AssertionError("worked example: no held-out line for the prompt")
+
+
+def worked_example_k2_row() -> dict:
+    """K2 forward and backward at the worked example's attention:
+    (32, 1024, 12, 64) bf16 causal bshd."""
+    heads = WORKED_LM["num_heads"]
+    return check_k2(WORKED_BATCH, WORKED_LM["max_seq_len"], heads,
+                    WORKED_LM["embed_dim"] // heads, causal=True, layout="bshd", seed=6)
+
+
+def worked_example_k3_rows() -> list:
+    """K3 at the worked example's int8 `generate`: batch 1 over the
+    1024-position blhd cache, at its first and last decode positions (the
+    prompt's length, and that plus 254)."""
+    heads = WORKED_LM["num_heads"]
+    shape = (1, 1, heads, WORKED_LM["max_seq_len"], WORKED_LM["embed_dim"] // heads)
+    first, last = WORKED_PROMPT, WORKED_PROMPT + WORKED_NEW_TOKENS - 2
+    return [check_k3(f"worked example generate, pos {last}", *shape, last, seed=14),
+            check_k3(f"worked example generate, pos {first}", *shape, first, seed=15)]
+
+
+def _plain_k3_logits(model, params, prompt, tokens) -> torch.Tensor:
+    """`_decode_logits` with K3's plain version in K3's place in
+    models/decode.py; fails if K3 launched."""
+    kernel, before = dec.decode_attention_int8, da.decode_attention_kernel.launches
+    dec.decode_attention_int8 = da.decode_attention_int8_plain
+    try:
+        logits = _decode_logits(model, params, prompt, tokens)
+    finally:
+        dec.decode_attention_int8 = kernel
+    if da.decode_attention_kernel.launches != before:
+        raise AssertionError("worked example: K3 launched in place of its plain version")
+    return logits
+
+
+def run_containerbench() -> list:
+    """`python -m ...benchmarks.containerbench --json` at its defaults (1 GiB
+    written and fsync'd, 256 MiB hashed) in a temporary directory: the card
+    machine's host disk and CPU, not the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.benchmarks.containerbench",
+             "--json", "--workdir", tmp], capture_output=True, text=True,
+            timeout=CONTAINERBENCH_TIMEOUT_S, cwd=pathlib.Path(__file__).resolve().parent)
+        if out.returncode != 0:
+            raise AssertionError(f"containerbench exited {out.returncode}: {out.stderr[-2000:]}")
+        left = os.listdir(tmp)
+    records = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    if [r["workload"] for r in records] != ["disk", "cpu"] or left:
+        raise AssertionError(f"containerbench: records {records}, left behind {left}")
+    return records
+
+
+def run_worked_example(card: str) -> dict:
+    """Phase 34: the worked example of docs/detailed.md at full width on
+    the card. The bytes of docs/*.md (`worked_example_ids`) through
+    `corpus.ByteTokenizer`, split by `train_val_split(val_fraction=0.1)`;
+    `TransformerLM(vocab_size=256, num_layers=12, num_heads=12,
+    embed_dim=768, max_seq_len=1024)` in its bf16 defaults with
+    `attention_fn=flash_attention` (the LM benchmark's choice: dense
+    attention at batch 32 would hold 12 layers of (32, 12, 1024, 1024)
+    scores, so it is not run); `lm_optimizer(learning_rate=3e-4)` on
+    `make_lm_train_step` over a one-rank NCCL mesh, fed by
+    `corpus.batches(batch_size=32, seq_len=1024)` through
+    `utils/data.prefetch_to_mesh`. The cut: 120 steps with warm-up 20 and
+    decay 200, instead of the example's warm-up 500 and decay 20,000; the
+    widths are the example's. It fails unless the mean loss of the last 10
+    steps is below the first 10's, the held-out loss of
+    `make_lm_eval_step` on one validation batch falls, its perplexity is
+    finite and below 256 (uniform over the bytes), K1 launches once a train
+    step and once an eval call and K2 12 + 12 times a train step and 12
+    times an eval call. Then greedy `models/decode.generate` of 256 tokens
+    from 64 bytes of the validation text (`worked_example_prompt`), with
+    the default cache and with
+    the int8 cache: K3 exactly 12 x 255 times with the int8 cache and never
+    with the other, each output decodable and not one repeated byte; the
+    int8 cache's logits of every step, fed the int8 output, through K3
+    within WORKED_K3_LOGITS_REL of the same steps with K3's plain version
+    in its place. K1 at
+    this path's (32768, 256) bf16 against its plain version,
+    `F.cross_entropy` and its bound; and the containerbench host numbers."""
+    started = time.monotonic()
+    ids = worked_example_ids()
+    train_ids, val_ids = corpus.train_val_split(ids, val_fraction=0.1)
+    layers = WORKED_LM["num_layers"]
+    tokens_per_step = WORKED_BATCH * WORKED_LM["max_seq_len"]
+    k1_row = check_k1(tokens_per_step, WORKED_LM["vocab_size"], seed=34, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seq = WORKED_LM["max_seq_len"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = mesh_lib.make_mesh(device_type="cuda")
+            model = TransformerLM(**WORKED_LM, attention_fn=fa.flash_attention)
+            state = train.create_train_state(model, train.lm_optimizer(**WORKED_OPT), "cuda",
+                                             mesh=mesh)
+            step = train.make_lm_train_step(state)
+            eval_step = train.make_lm_eval_step(state)
+            val = global_batch_from_local(mesh, next(corpus.batches(
+                val_ids, WORKED_BATCH, seq, seed=1)))
+            ce.cross_entropy_forward.launches = 0
+            fa.flash_attention_forward.launches = fa.flash_attention_backward.launches = 0
+            fa.flash_attention_forward.copies = 0
+            val_before = float(eval_step(val)["loss"])
+            eval_counts = (ce.cross_entropy_forward.launches,
+                           fa.flash_attention_forward.launches,
+                           fa.flash_attention_backward.launches)
+            losses = []
+            stream = prefetch_to_mesh(corpus.batches(train_ids, WORKED_BATCH, seq,
+                                                     steps=WORKED_STEPS), mesh)
+            for i, tokens in enumerate(stream):
+                if i == WORKED_TIMED_FROM:
+                    torch.cuda.synchronize()
+                    timed_from = time.monotonic()
+                losses.append(step(tokens)["loss"].detach())
+                if i == 0:
+                    first_counts = (ce.cross_entropy_forward.launches - eval_counts[0],
+                                    fa.flash_attention_forward.launches - eval_counts[1],
+                                    fa.flash_attention_backward.launches - eval_counts[2])
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.monotonic() - timed_from) / (WORKED_STEPS - WORKED_TIMED_FROM)
+            val_after = float(eval_step(val)["loss"])
+            counts = {"k1": ce.cross_entropy_forward.launches,
+                      "k2_forward": fa.flash_attention_forward.launches,
+                      "k2_backward": fa.flash_attention_backward.launches,
+                      "k2_copies": fa.flash_attention_forward.copies}
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            dist.destroy_process_group()
+    losses = [float(x) for x in torch.stack(losses).float().cpu()]
+    first, last = statistics.fmean(losses[:WORKED_MEAN_OF]), statistics.fmean(
+        losses[-WORKED_MEAN_OF:])
+    ppl_before, ppl = math.exp(val_before), math.exp(val_after)
+    steps = len(losses)
+    evals = 2
+    expected = {"k1": steps + evals, "k2_forward": layers * (steps + evals),
+                "k2_backward": layers * steps, "k2_copies": 0}
+    train_s = time.monotonic() - started
+
+    # serving the trained weights, greedy, with each cache
+    params = dec.lm_params(state.model, "cuda")
+    prompt_ids = worked_example_prompt(val_ids)
+    prompt = torch.from_numpy(prompt_ids[None, :].astype(np.int32)).cuda()
+    decode = {}
+    for name, int8 in (("default_cache", False), ("cache_int8", True)):
+        dec.generate(state.model, params, prompt, 8, cache_int8=int8)  # warm-up
+        torch.cuda.synchronize()
+        da.decode_attention_kernel.launches = 0
+        t0 = time.monotonic()
+        generated = dec.generate(state.model, params, prompt, WORKED_NEW_TOKENS, cache_int8=int8)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        tokens = generated[0].cpu().tolist()
+        if len(set(tokens)) < 2:
+            raise AssertionError(f"worked example: generate collapsed to byte {tokens[:1]}")
+        decode[name] = {"ms_per_token": 1e3 * wall / WORKED_NEW_TOKENS,
+                        "k3": da.decode_attention_kernel.launches,
+                        "text": corpus.ByteTokenizer().decode(tokens),
+                        "distinct_bytes": len(set(tokens)), "tokens": tokens}
+    # K3 on this path against its plain version: the int8 cache's logits
+    # of every step, fed the int8 greedy tokens, through K3 and then
+    # through the plain version in its place
+    forced = torch.tensor([decode["cache_int8"]["tokens"]], dtype=torch.int32, device="cuda")
+    got = _decode_logits(state.model, params, prompt, forced)
+    want = _plain_k3_logits(state.model, params, prompt, forced)
+    del params
+    top2 = want.topk(2, dim=-1).values
+    same_prefix = next((i for i, (a, b) in enumerate(zip(decode["default_cache"]["tokens"],
+                                                           decode["cache_int8"]["tokens"]))
+                        if a != b), WORKED_NEW_TOKENS)
+    k3_path = {"max_abs_err": (got - want).abs().max().item(),
+               "max_abs_logit": want.abs().max().item(),
+               "argmax_differs": int((got.argmax(-1) != want.argmax(-1)).sum()),
+               "min_top2_margin": (top2[..., 0] - top2[..., 1]).min().item(),
+               "int8_tokens_equal_default_cache_for": same_prefix}
+    k3_path["rel_err"] = k3_path["max_abs_err"] / k3_path["max_abs_logit"]
+    bench = run_containerbench()
+    out = {
+        "steps": steps, "step_ms": step_ms, "tokens_per_sec": tokens_per_step / step_ms * 1e3,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        f"loss_mean_first_{WORKED_MEAN_OF}": first,
+        f"loss_mean_last_{WORKED_MEAN_OF}": last, "val_loss_before": val_before,
+        "val_loss_after": val_after, "val_perplexity_before": ppl_before,
+        "val_perplexity": ppl, "launches": counts, "first_step_launches": first_counts,
+        "k3_against_plain_on_path": k3_path,
+        "eval_launches": eval_counts, "peak_memory_bytes": peak, "decode": decode,
+        "k1": k1_row, "containerbench_host": bench, "corpus_bytes": len(ids),
+        "prompt": corpus.ByteTokenizer().decode(prompt_ids),
+        "train_bytes": len(train_ids), "val_bytes": len(val_ids),
+        "train_seconds": train_s, "phase_seconds": time.monotonic() - started,
+    }
+    print(f"worked example (phase 34), docs/*.md ({len(ids)} bytes, {len(train_ids)} train, "
+          f"{len(val_ids)} held out) through ByteTokenizer, TransformerLM 12L/12H/768 vocab 256 "
+          f"seq 1024 bf16 with flash attention at batch 32 on a one-rank NCCL mesh, "
+          f"lm_optimizer({WORKED_OPT['learning_rate']:g}, warm-up "
+          f"{WORKED_OPT['warmup_steps']}, decay {WORKED_OPT['decay_steps']}), {steps} steps "
+          f"through prefetch_to_mesh: step "
+          f"{step_ms:.2f} ms (host clock over steps {WORKED_TIMED_FROM}-{steps - 1}), "
+          f"{out['tokens_per_sec']:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB; train loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first {WORKED_MEAN_OF} {first:.4f}, "
+          f"of the last {last:.4f}); held-out loss {val_before:.4f} -> {val_after:.4f}, "
+          f"perplexity {ppl_before:.2f} -> {ppl:.2f} (uniform 256); on {card}", flush=True)
+    for name, d in decode.items():
+        print(f"worked example: greedy generate, the {WORKED_PROMPT}-byte held-out prompt "
+              f"{corpus.ByteTokenizer().decode(prompt_ids)!r}, {WORKED_NEW_TOKENS} new tokens, "
+              f"{name}: {d['ms_per_token']:.3f} ms a "
+              f"token (host clock, batch 1), K3 launches {d['k3']}, {d['distinct_bytes']} "
+              f"distinct bytes: {d['text']!r} on {card}", flush=True)
+    print(f"worked example: int8-cache logits of {WORKED_NEW_TOKENS} steps along the int8 "
+          f"greedy tokens, K3 against its plain version in its place: max |diff| "
+          f"{k3_path['max_abs_err']:.4e} of max |logit| {k3_path['max_abs_logit']:.4f} "
+          f"(relative {k3_path['rel_err']:.3e}, tolerance {WORKED_K3_LOGITS_REL:g}), argmax "
+          f"differs at {k3_path['argmax_differs']} steps (least top-2 margin "
+          f"{k3_path['min_top2_margin']:.4f}); the int8 and default-cache outputs agree for "
+          f"the first {same_prefix} tokens, on {card}", flush=True)
+    print(f"K1 {k1_row['shape']} {k1_row['dtype']} (the worked example's loss): "
+          f"{_times_text(k1_row, 'F.cross_entropy')}, bound {k1_row['bound_ms']:.4f} ms "
+          f"({k1_row['bound_by']}), max |err| {k1_row['max_abs_err']:.2e} on {card}", flush=True)
+    print(f"worked example launches: {counts} in {steps} train steps and {evals} eval calls "
+          f"(expected {expected}); first train step {first_counts}, one eval call {eval_counts}",
+          flush=True)
+    for r in bench:
+        print(f"containerbench (the card machine's host, not the card): /{r['workload']} "
+              f"{r['bytes']} bytes in {r['seconds']:.3f} s, {r['mb_per_sec']:.2f} MB/s",
+              flush=True)
+    print(f"worked example: phase {out['phase_seconds']:.1f} s wall (training "
+          f"{train_s:.1f} s)", flush=True)
+    if not (last < first and val_after < val_before and math.isfinite(ppl) and ppl < 256.0):
+        raise AssertionError(f"worked example did not learn: {out}")
+    if (counts != expected or first_counts != (1, layers, layers)
+            or eval_counts != (1, layers, 0)):
+        raise AssertionError(f"worked example launches {counts}, first step {first_counts}, "
+                             f"eval {eval_counts}; expected {expected}")
+    if (decode["cache_int8"]["k3"] != layers * (WORKED_NEW_TOKENS - 1)
+            or decode["default_cache"]["k3"] != 0):
+        raise AssertionError(f"worked example: K3 launches {decode}")
+    if not k3_path["rel_err"] <= WORKED_K3_LOGITS_REL:
+        raise AssertionError(f"worked example: K3 and its plain version disagree: {k3_path}")
+    return out
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -3814,6 +4125,7 @@ def main() -> int:
         check_k2(256, 197, 6, 64, causal=False, layout="bshd", seed=4),
         # the pipelined LM's microbatch (phase 24: 8 rows in 4 microbatches)
         check_k2(2, 1024, 12, 64, causal=True, layout="bshd", seed=5),
+        worked_example_k2_row(),  # phase 34
     ]
     k2_vit = k2_rows[4]
     for row in k2_rows:
@@ -3904,6 +4216,7 @@ def main() -> int:
         check_k3("one query over 65,536 positions", 1, 1, 12, 65536, 64, 65535, seed=12),
         # a rank's half of the batch in the two-process decode of phase 26
         check_k3("two-process decode rank, pos 255", 4, 1, 12, 256, 64, 255, seed=13),
+        *worked_example_k3_rows(),  # phase 34
     ]
     for row in k3_rows:
         device = {k: "not measured" if row[k] is None else f"{row[k]:.4f}"
@@ -3935,6 +4248,7 @@ def main() -> int:
     drain = run_maintenance_drain(card)
     shipped = run_shipped_workload(card)
     supervised = run_supervised_elastic(card)
+    worked = run_worked_example(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -3958,13 +4272,16 @@ def main() -> int:
                                  "maintenance_drain_lm": drain["launches"]["k1"],
                                  "shipped_lm_job": shipped["lm"]["launches"]["k1"],
                                  "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1"],
-                                 "supervised_elastic_lm": supervised["launches"]["k1"]},
+                                 "supervised_elastic_lm": supervised["launches"]["k1"],
+                                 "worked_example_lm": worked["launches"]["k1"]},
             "design": "one program per row, online logsumexp over column tiles, the label's "
                       "logit picked in its tile; logits read once",
             "launch_floor_ms": floor_ms,
             **k1_other[1],
             "library_ratio": _library_ratio(k1_other[1]),
-            "other_shapes": [k1_main, k1_other[0]],
+            "other_shapes": [k1_main, k1_other[0],
+                             {**worked["k1"], "path": "worked example (phase 34)",
+                              "library_ratio": _library_ratio(worked["k1"])}],
         },
         {
             "name": "flash_attn_fwd (K2)",
@@ -3993,9 +4310,10 @@ def main() -> int:
                                      slice11["elastic_one_rank"]["launches"]["k2_forward"],
                                  "maintenance_drain_lm": drain["launches"]["k2_forward"],
                                  "shipped_lm_job": shipped["lm"]["launches"]["k2_forward"],
-                                 "supervised_elastic_lm": supervised["launches"]["k2_forward"]},
+                                 "supervised_elastic_lm": supervised["launches"]["k2_forward"],
+                                 "worked_example_lm": worked["launches"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["forward"]} for r in (*k2_rows[1:4], k2_rows[5])],
+                              **r["forward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
         },
         {
             "name": "flash_attn_bwd (K2)",
@@ -4027,9 +4345,10 @@ def main() -> int:
                                      slice11["elastic_one_rank"]["launches"]["k2_backward"],
                                  "maintenance_drain_lm": drain["launches"]["k2_backward"],
                                  "shipped_lm_job": shipped["lm"]["launches"]["k2_backward"],
-                                 "supervised_elastic_lm": supervised["launches"]["k2_backward"]},
+                                 "supervised_elastic_lm": supervised["launches"]["k2_backward"],
+                                 "worked_example_lm": worked["launches"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["backward"]} for r in (*k2_rows[1:4], k2_rows[5])],
+                              **r["backward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
         },
         *({
             "name": f"flash_attn_{part[0]}w{part[-1]} (K2), ViT-S/16 shape",  # fwd, bwd
@@ -4076,7 +4395,9 @@ def main() -> int:
                                  "two_process_decode_cache_int8_per_rank":
                                      slice10["decode_two_ranks"]["k3"],
                                  "serving_plane_drill": serving_plane["k3_launches"],
-                                 "gateway_fleet_drive": gateway_fleet["k3_launches"]},
+                                 "gateway_fleet_drive": gateway_fleet["k3_launches"],
+                                 "worked_example_generate_cache_int8":
+                                     worked["decode"]["cache_int8"]["k3"]},
             "library_none_reason": "no PyTorch call computes attention over an int8 cache "
                                    "with per-token scales",
             "library_ratio": None,
@@ -4116,6 +4437,8 @@ def main() -> int:
                                     sort_keys=True, default=str), flush=True)
     print("slice 16: " + json.dumps({"supervised_elastic": supervised}, sort_keys=True,
                                     default=str), flush=True)
+    print("slice 17: " + json.dumps({"worked_example": worked}, sort_keys=True, default=str),
+          flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -4167,5 +4490,16 @@ if __name__ == "__main__":
         check_k1(8192, 32768, seed=2, dtype=torch.bfloat16)
         cuda_build.load(K2_SOURCE)
         run_supervised_elastic(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--worked-example"]:  # phase 34 alone, K1, K2 and K3 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        torch.backends.cudnn.allow_tf32 = False  # as main() runs it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cuda_build.load(K2_SOURCE)
+        cuda_build.load(K3_SOURCE)
+        rows = [worked_example_k2_row(), *worked_example_k3_rows()]
+        print("worked example kernels: " + json.dumps(rows, sort_keys=True), flush=True)
+        run_worked_example(_card_line())
         sys.exit(0)
     sys.exit(main())

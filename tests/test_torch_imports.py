@@ -32,7 +32,7 @@ def _imported_modules(path):
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    assert len(PORT_FILES) >= 85
+    assert len(PORT_FILES) >= 88
     for path in PORT_FILES:
         for module in _imported_modules(path):
             top = module.split(".")[0]
@@ -98,7 +98,10 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.provision.teardown, "
         "tritonk8ssupervisor_tpu_torch.testing.localcluster, "
         "tritonk8ssupervisor_tpu_torch.cli.io, tritonk8ssupervisor_tpu_torch.cli.discovery, "
-        "tritonk8ssupervisor_tpu_torch.cli.main; "
+        "tritonk8ssupervisor_tpu_torch.cli.main, "
+        "tritonk8ssupervisor_tpu_torch.utils.corpus, "
+        "tritonk8ssupervisor_tpu_torch.utils.benchcompare, "
+        "tritonk8ssupervisor_tpu_torch.benchmarks.containerbench; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
     )

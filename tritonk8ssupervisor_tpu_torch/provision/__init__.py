@@ -6,7 +6,8 @@ cache (`cache.py`), the maintenance watchdog (`maintenance.py`), the
 supervisor's event ledger and its fold (`events.py`), the fleet-status
 reader (`fleetview.py`), the terraform and ansible wrappers
 (`terraform.py`, `ansible.py`), readiness probing (`readiness.py`), the
-slice-granular healer (`heal.py`), and the autoscaler and allocator
-(`autoscale.py`, `allocator.py`). The port imports nothing of the JAX
-package, so it keeps these copies (`tests/test_torch_imports.py`). The
-supervisor and teardown are not ported yet (ROADMAP.md)."""
+slice-granular healer (`heal.py`), the autoscaler and allocator
+(`autoscale.py`, `allocator.py`), the resident supervisor
+(`supervisor.py`) and teardown (`teardown.py`). The port imports nothing
+of the JAX package, so it keeps these copies
+(`tests/test_torch_imports.py`)."""

@@ -19,9 +19,8 @@ The discipline, as in the reference:
   later).
 
 The record vocabulary is the reference's whole, so the port folds a
-ledger the reference's supervisor wrote; the port itself writes only the
-lease records so far (the supervisor that writes the rest is not ported:
-ROADMAP.md).
+ledger the reference's supervisor wrote, and the port's own supervisor
+(`provision/supervisor.py`) and gateway fleet write the same records.
 """
 
 from __future__ import annotations

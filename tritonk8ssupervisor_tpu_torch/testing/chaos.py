@@ -1,7 +1,7 @@
 """Seeded chaos campaigns and the checkers that prove their invariants:
-the port's copy of `tritonk8ssupervisor_tpu/testing/chaos.py`, in part.
+the port's copy of `tritonk8ssupervisor_tpu/testing/chaos.py`, whole.
 
-The supervisor campaign core (reference :63-728):
+The supervisor campaign core:
 
 - `ChaosFleet`: a scripted world whose slice health is a function of
   virtual time (testing/simclock.py) and of fault primitives: domain
@@ -18,27 +18,38 @@ The supervisor campaign core (reference :63-728):
 
 The request plane's part:
 
-- `ServeInvariantChecker` (reference :1060-1969), whole: folds a request
-  journal (serving/reqlog.py), or all of a gateway fleet's journal shards
-  merged, next to the supervisor's event ledger, and names every record
-  that breaks request conservation, exactly-once service, deadline
-  honesty, honest Retry-After, bounded routing staleness, the cross-ledger
-  contract, the metrics-vs-journal contract, and the fleet's partition,
-  lease and epoch-fence invariants.
-- `run_gateway_kill_drill` (:1988): one gateway over modeled engines on a
+- `generate_serve_scenario` and `run_serve_campaign`: a real
+  `Supervisor` and a real `Gateway` over modeled engines on one
+  `SimClock`; a gateway kill drops the gateway and resumes a fresh one
+  from the request journal.
+- `ServeInvariantChecker`: folds a request journal (serving/reqlog.py),
+  or all of a gateway fleet's journal shards merged, next to the
+  supervisor's event ledger, and names every record that breaks request
+  conservation, exactly-once service, deadline honesty, honest
+  Retry-After, bounded routing staleness, the cross-ledger contract, the
+  metrics-vs-journal contract, and the fleet's partition, lease and
+  epoch-fence invariants.
+- `run_gateway_kill_drill`: one gateway over modeled engines on a
   `SimClock`, dropped mid-dispatch and resumed from its journal.
+- `run_autoscale_drive` and `run_autoscale_campaign`: the loop from
+  gateway demand to the autoscaler (provision/autoscale.py) through
+  preemptions, torn status and demand copies, gateway kills, failed
+  applies and supervisor kills.
+- `run_coschedule_drive` and `run_coschedule_campaign`: serving and a
+  `VirtualTrainer` sharing one fleet through the allocator
+  (provision/allocator.py), with kills mid-handover (`KillOnKindLedger`),
+  a trainer that never acks, and a tenant flood against the admission
+  queue.
 - `generate_fleet_scenario`, `run_fleet_campaign` and
-  `run_fleet_kill_drill` (:3467-3838): the gateway fleet
-  (serving/fleet.py) through replica kills, revivals and forced lease
-  expiries, checked by `check_fleet` over all shards and the lease ledger.
+  `run_fleet_kill_drill`: the gateway fleet (serving/fleet.py) through
+  replica kills, revivals and forced lease expiries, checked by
+  `check_fleet` over all shards and the lease ledger.
 
 The same seeds give the same ledgers, journals, lease records and reports
-as the reference (tests/test_torch_chaos.py, tests/test_torch_fleet.py).
-The campaigns that co-drive a supervisor with a gateway, the autoscaler or
-the allocator (`run_serve_campaign`, the autoscale and co-scheduling
-drives; reference :729-1059, :2200-3466) are not ported yet (ROADMAP.md).
+as the reference (tests/test_torch_chaos.py, tests/test_torch_fleet.py,
+tests/test_torch_serve_chaos.py, tests/test_torch_autoscale_chaos.py,
+tests/test_torch_coschedule.py).
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -717,6 +728,339 @@ class InvariantChecker:
         return violations
 
 
+# ----------------------------------------------- request-plane (serving)
+
+
+@dataclasses.dataclass
+class ServeScenario:
+    """One seeded composition of traffic + faults spanning BOTH planes:
+    the supervisor's world (preemptions, quota storms, flapping SSH,
+    torn status copies) and the gateway's own process (SIGKILL
+    mid-dispatch, modeled as dropping the in-memory Gateway and
+    resuming a fresh one from the request journal)."""
+
+    seed: int
+    num_slices: int
+    failure_domains: int
+    duration_s: float
+    base_rps: float
+    deadline_s: float
+    events: list
+    drain_grace_s: float = 1800.0
+
+    @property
+    def fault_times(self) -> list:
+        return sorted(e.get("at", 0.0) for e in self.events)
+
+
+SERVE_PRIMITIVES = ("slice-outage", "preemption-storm", "quota-storm",
+                    "flapping-ssh", "torn-status", "gateway-kill")
+
+
+def generate_serve_scenario(
+    seed: int,
+    num_slices: int = 4,
+    failure_domains: int = 2,
+    interval: float = 30.0,
+) -> ServeScenario:
+    """Deterministic serve scenario from `seed`: open-loop traffic with
+    per-request deadlines and idempotency keys, one anchor fault (a
+    slice outage the supervisor must heal while the gateway routes
+    around it), and up to two extra primitives, the gateway SIGKILL
+    among them. Every scenario is
+    heal-able, so 'every accepted request reaches exactly one terminal
+    state' is always the expected verdict."""
+    rng = random.Random(int(seed))
+    events: list = []
+    anchor_at = 60.0 + interval * rng.randrange(0, 4)
+    count = 1 + (1 if num_slices >= 4 and rng.random() < 0.3 else 0)
+    events.append({
+        "kind": "slice-outage",
+        "slices": sorted(rng.sample(range(num_slices), count)),
+        "at": anchor_at,
+    })
+    used = {"gateway-kill": False, "torn-status": False,
+            "flapping-ssh": False}
+    for _ in range(rng.randrange(0, 3)):
+        kind = rng.choice(SERVE_PRIMITIVES[2:])
+        at = anchor_at + interval * rng.randrange(0, 5)
+        if kind == "quota-storm":
+            events.append({"kind": kind, "at": at,
+                           "duration": 60.0 + 60.0 * rng.randrange(0, 3)})
+        elif kind == "flapping-ssh" and not used["flapping-ssh"]:
+            used["flapping-ssh"] = True
+            events.append({
+                "kind": kind, "slice": rng.randrange(num_slices),
+                "at": at, "duration": 4 * interval,
+                "period": 2 * interval,
+            })
+        elif kind == "torn-status" and not used["torn-status"]:
+            used["torn-status"] = True
+            events.append({"kind": kind, "at": at})
+        elif kind == "gateway-kill" and not used["gateway-kill"]:
+            used["gateway-kill"] = True
+            events.append({"kind": kind, "at": at + 7.0})
+    return ServeScenario(
+        seed=int(seed), num_slices=num_slices,
+        failure_domains=failure_domains,
+        duration_s=240.0 + 60.0 * rng.randrange(0, 3),
+        base_rps=1.0 + 0.5 * rng.randrange(0, 3),
+        deadline_s=90.0 + 30.0 * rng.randrange(0, 3),
+        events=events,
+    )
+
+
+def run_serve_campaign(
+    scenario: ServeScenario,
+    workdir: Path,
+    policy: "sup_mod.SupervisePolicy | None" = None,
+    gw_policy=None,
+    heal_seconds: float = 120.0,
+) -> dict:
+    """Drive one seeded request-plane campaign: a REAL Supervisor and a
+    REAL Gateway as co-actors on ONE SimClock (the elastic drill's
+    shape). The supervisor reconciles the scripted world and publishes
+    fleet-status.json; the gateway serves the seeded open-loop arrival
+    stream through that file, journaling every request transition.
+    Scheduled gateway kills drop the in-memory gateway and resume a
+    fresh one from the journal. Afterwards the ServeInvariantChecker
+    folds BOTH ledgers; the campaign verdict carries its violations."""
+    from tritonk8ssupervisor_tpu_torch import obs as obs_lib
+    from tritonk8ssupervisor_tpu_torch.provision.fleetview import FileHealthSource
+    from tritonk8ssupervisor_tpu_torch.serving import gateway as gw_mod
+    from tritonk8ssupervisor_tpu_torch.serving import reqlog as reqlog_mod
+    from tritonk8ssupervisor_tpu_torch.serving import traffic as traffic_mod
+
+    policy = policy or default_policy()
+    interval = policy.interval
+    clock = SimClock(stall_timeout=60.0)
+    config = sim_config(scenario.num_slices, scenario.failure_domains)
+    world = ChaosFleet(Path(workdir), clock, config,
+                       heal_seconds=heal_seconds)
+    torn_at: list = []
+    kill_at: list = []
+    for event in scenario.events:
+        kind = event["kind"]
+        if kind == "slice-outage":
+            for i in event["slices"]:
+                world.preempt(i, at=event["at"])
+        elif kind == "preemption-storm":
+            for i in event["slices"]:
+                world.preempt(i, at=event["at"])
+        elif kind == "quota-storm":
+            world.quota_storm(event["at"], event["at"] + event["duration"])
+        elif kind == "flapping-ssh":
+            world.flap_ssh(event["slice"], event["at"],
+                           event["at"] + event["duration"],
+                           event["period"])
+        elif kind == "torn-status":
+            torn_at.append(float(event["at"]))
+        elif kind == "gateway-kill":
+            kill_at.append(float(event["at"]))
+    torn_at.sort()
+    kill_at.sort()
+
+    ledger = events_mod.EventLedger(world.paths.events, clock=clock.time,
+                                    echo=lambda line: None, fsync=False)
+    # fsync=False is honest here: the campaign's "SIGKILL" drops
+    # in-memory objects, which OS-buffered writes survive by
+    # construction; the REAL fsync path is pinned by the reqlog unit
+    # tests and the `./setup.sh serve` wiring
+    reqlog = reqlog_mod.RequestLog(world.paths.request_log,
+                                   clock=clock.time,
+                                   echo=lambda line: None, fsync=False)
+    # ONE telemetry plane for the whole campaign, shared across gateway
+    # incarnations exactly like the reqlog (the in-process "SIGKILL"
+    # drops the gateway object, not the process): spans from both
+    # gateway lives land in one span log tagged by incarnation, and the
+    # registry's counters stay comparable to the journal's fold — the
+    # metrics-vs-ledger invariant the checker asserts at the end. The
+    # supervisor co-actor SHARES the registry and span log (metric
+    # names are disjoint; spans carry plane=supervisor).
+    span_log = obs_lib.SpanLog(world.paths.span_log, clock=clock.time,
+                               echo=lambda line: None, fsync=False)
+    registry = obs_lib.MetricsRegistry(clock=clock.time)
+    telemetry = obs_lib.Telemetry(
+        registry,
+        obs_lib.Tracer(span_log, plane=obs_lib.SERVING,
+                       clock=clock.time, incarnation=1),
+        snapshot_path=world.paths.metrics_snapshot,
+    )
+    sup_telemetry = obs_lib.Telemetry(
+        registry,
+        obs_lib.Tracer(span_log, plane=obs_lib.SUPERVISOR,
+                       clock=clock.time),
+    )
+    gw_policy = gw_policy or gw_mod.GatewayPolicy(
+        max_seq_len=512, slots_per_slice=4, prefill_chunk=64,
+        queue_budget=32, bucket_bounds=(64, 128, 256),
+        poll_every_s=2.0, default_deadline_s=scenario.deadline_s,
+    )
+    cost = gw_mod.DecodeCostModel()
+
+    stop = threading.Event()
+    clock.launch()
+
+    def sup_body() -> None:
+        clock.begin()
+        try:
+            supervisor = sup_mod.Supervisor(
+                config, world.paths, _Quiet(),
+                run=world.run, run_quiet=world.run_quiet, policy=policy,
+                ledger=ledger, clock=clock.time, sleep=clock.sleep,
+                rng=lambda: 0.0, readiness_timeout=60.0, hooks=clock,
+                telemetry=sup_telemetry,
+            )
+            supervisor.restore()
+            while not stop.is_set():
+                supervisor.tick()
+                if stop.is_set():
+                    break
+                clock.sleep(interval)
+        finally:
+            clock.release()
+
+    thread = threading.Thread(target=sup_body, daemon=True)
+
+    def make_gateway() -> "gw_mod.Gateway":
+        engines = {
+            i: gw_mod.ModeledEngine(slots=gw_policy.slots_per_slice,
+                                    prefill_chunk=gw_policy.prefill_chunk,
+                                    cost=cost)
+            for i in range(scenario.num_slices)
+        }
+        return gw_mod.Gateway(
+            engines, FileHealthSource(world.paths.fleet_status),
+            policy=gw_policy, clock=clock.time, reqlog=reqlog,
+            telemetry=telemetry,
+        )
+
+    model = traffic_mod.TrafficModel(
+        base_rps=scenario.base_rps, diurnal_amplitude=0.2,
+        diurnal_period_s=600.0, seed=scenario.seed,
+        deadline_s=scenario.deadline_s,
+        key_prefix=f"c{scenario.seed}",
+    )
+    arrivals = traffic_mod.generate_arrivals(model, scenario.duration_s)
+    hard_stop = scenario.duration_s + scenario.drain_grace_s
+
+    thread.start()
+    gateway = make_gateway()
+    gateway.recover(0.0)
+    kills = 0
+    redone = 0
+    i_arr = 0
+    next_step: dict = {i: None for i in gateway.workers}
+    quiet = False
+    clock.launch()
+    clock.begin()
+    try:
+        while True:
+            now = clock.time()
+            while torn_at and torn_at[0] <= now:
+                torn_at.pop(0)
+                _tear_file(world.paths.fleet_status)
+            if kill_at and kill_at[0] <= now:
+                # SIGKILL mid-dispatch: every queued and in-flight
+                # request in MEMORY is gone; the journal is not
+                kill_at.pop(0)
+                kills += 1
+                telemetry.bump_incarnation()
+                gateway = make_gateway()
+                recovered = gateway.recover(now)
+                redone += recovered["redone"]
+                next_step = {i: None for i in gateway.workers}
+            gateway.poll(now)
+            gateway.expire_queued(now)
+            # engine liveness follows the world: a preempted slice's
+            # engine dies with it, a healed slice's engine comes back
+            down = world.down_now()
+            for i, worker in gateway.workers.items():
+                if i in down and worker.alive:
+                    worker.fail()
+                    next_step[i] = None
+                elif i not in down and not worker.alive:
+                    worker.revive()
+                    next_step[i] = now
+            while i_arr < len(arrivals) and arrivals[i_arr].arrival <= now:
+                gateway.submit(arrivals[i_arr], now)
+                i_arr += 1
+            for i in sorted(gateway.workers):
+                if next_step[i] is not None and next_step[i] <= now:
+                    dt = gateway.workers[i].step(now)
+                    next_step[i] = None if dt is None else now + dt
+            for i, worker in gateway.workers.items():
+                if (next_step[i] is None and worker.alive
+                        and (worker.inflight or (
+                            gateway.queue_depth()
+                            and gateway.slice_mode(i) == gw_mod.SERVE))):
+                    next_step[i] = now
+            quiet = (i_arr >= len(arrivals) and not kill_at
+                     and gateway.queue_depth() == 0
+                     and all(w.idle()
+                             for w in gateway.workers.values()))
+            if quiet or now >= hard_stop:
+                break
+            candidates = [t for t in next_step.values() if t is not None]
+            if i_arr < len(arrivals):
+                candidates.append(arrivals[i_arr].arrival)
+            if kill_at:
+                candidates.append(kill_at[0])
+            if torn_at:
+                candidates.append(torn_at[0])
+            # watchdog boundary: even a fully-idle gateway keeps
+            # polling, so a post-heal generation bump still requeues
+            # stranded work and deadline sweeps keep their timing
+            candidates.append(now + 2.0 * gw_policy.poll_every_s)
+            t_next = min(candidates)
+            if t_next > now:
+                clock.sleep(t_next - now)
+    finally:
+        stop.set()
+        clock.release()
+    thread.join(timeout=120)
+
+    req_records = reqlog.replay()
+    led_records = ledger.replay()
+    # final telemetry publish: gauges refreshed from the surviving
+    # gateway, then the registry snapshot the metrics-vs-ledger
+    # invariants are asserted against (and metrics.json on disk)
+    gateway.update_gauges()
+    metrics_snapshot = telemetry.write_snapshot() or registry.snapshot()
+    # the worst HONEST view age: a tick that waits out up to two heal
+    # waves cannot publish mid-wait, plus flap-confirm ticks either
+    # side — the gateway keeps routing on its last good view throughout
+    checker = ServeInvariantChecker(
+        gw_policy, interval_s=interval,
+        staleness_bound_s=2.0 * heal_seconds + 4.0 * interval
+        + gw_policy.poll_every_s,
+    )
+    violations = checker.check(req_records, led_records,
+                               metrics=metrics_snapshot)
+    if not quiet:
+        violations.append(
+            f"convergence: request plane not quiescent by "
+            f"t={hard_stop:.0f}s (seed {scenario.seed})"
+        )
+    view = reqlog_mod.fold(req_records)
+    accepted = sum(1 for kv in view.keys.values() if kv.accepts > 0)
+    return {
+        "seed": scenario.seed,
+        "events": [e["kind"] for e in scenario.events],
+        "offered": len(arrivals),
+        "accepted": accepted,
+        "completed": sum(kv.completions for kv in view.keys.values()),
+        "expired": sum(kv.expiries for kv in view.keys.values()),
+        "requeues": sum(kv.requeues for kv in view.keys.values()),
+        "sheds": view.sheds,
+        "shed_reasons": dict(sorted(view.shed_reasons.items())),
+        "gateway_kills": kills,
+        "redone_after_kill": redone,
+        "spans": len(span_log.spans()),
+        "violations": violations,
+        "converged": quiet,
+        "end_s": clock.time(),
+    }
 
 
 class ServeInvariantChecker:
@@ -1855,6 +2199,1271 @@ def run_gateway_kill_drill(
         "violations": violations,
     }
 
+
+# ------------------------------------------------- autoscale (elasticity)
+
+
+def default_autoscale_policy(num_slices: int = 4):
+    """The campaign autoscale policy: thresholds sized to the modeled
+    engine's capacity (one 4-slot slice serves ~2-3 rps of the traffic
+    mix), confirmation windows short enough to exercise inside a
+    bounded sim, drains short enough to finish inside one."""
+    from tritonk8ssupervisor_tpu_torch.provision import autoscale as as_mod
+
+    return as_mod.AutoscalePolicy(
+        min_slices=1, max_slices=num_slices,
+        up_queue_per_slice=6.0, down_queue_per_slice=2.0,
+        slo_p99_s=60.0, down_p99_margin=0.5,
+        confirm_up=2, confirm_down=3,
+        cooldown_s=60.0, cooldown_cap_s=600.0,
+        drain_timeout_s=120.0, signal_max_age_s=75.0,
+        breaker_threshold=3, breaker_window_s=3600.0,
+    )
+
+
+def _active_slice_seconds(ledger_records: list, initial: int,
+                          end_s: float) -> float:
+    """Integrate the active slice count over the run — the cost side of
+    cost-per-served-token. Capacity being PROVISIONED bills from its
+    SCALE_START (the machines exist the moment the apply runs);
+    capacity draining bills until its SCALE_DONE tears it down."""
+    total = 0.0
+    t_prev = 0.0
+    active = float(initial)
+    for r in ledger_records:
+        kind = r.get("kind")
+        delta = 0.0
+        if kind == events_mod.SCALE_START and r.get("direction") == "up":
+            delta = float(len(r.get("slices", [])))
+        elif (kind == events_mod.SCALE_ABORT
+              and r.get("direction") == "up"):
+            delta = -float(len(r.get("slices", [])))
+        elif (kind == events_mod.SCALE_DONE
+              and r.get("direction") == "down"):
+            delta = -float(len(r.get("slices", [])))
+        if delta == 0.0:
+            continue
+        ts = min(float(r.get("ts", 0.0)), end_s)
+        total += active * max(0.0, ts - t_prev)
+        t_prev = ts
+        active += delta
+    total += active * max(0.0, end_s - t_prev)
+    return total
+
+
+def _scale_summary(ledger_records: list) -> dict:
+    kinds = [r.get("kind") for r in ledger_records]
+    up_done = [r for r in ledger_records
+               if r.get("kind") == events_mod.SCALE_DONE
+               and r.get("direction") == "up"]
+    down_done = [r for r in ledger_records
+                 if r.get("kind") == events_mod.SCALE_DONE
+                 and r.get("direction") == "down"]
+    return {
+        "decisions": kinds.count(events_mod.SCALE_DECISION),
+        "started": kinds.count(events_mod.SCALE_START),
+        "done_up": len(up_done),
+        "done_down": len(down_done),
+        "aborted": kinds.count(events_mod.SCALE_ABORT),
+        "held": kinds.count(events_mod.SCALE_HELD),
+        "breaker_opens": kinds.count(events_mod.SCALE_BREAKER_OPEN),
+        "stragglers_requeued": sum(
+            int(r.get("stragglers") or 0) for r in down_done
+        ),
+    }
+
+
+def run_autoscale_drive(
+    workdir: Path,
+    num_slices: int = 4,
+    duration_s: float = 1500.0,
+    base_rps: float = 5.0,
+    diurnal_amplitude: float = 0.55,
+    diurnal_period_s: float = 900.0,
+    bursts: tuple = (),
+    deadline_s: float = 120.0,
+    seed: int = 11,
+    autoscale_policy=None,
+    policy: "sup_mod.SupervisePolicy | None" = None,
+    gw_policy=None,
+    heal_seconds: float = 30.0,
+    teardown_seconds: float = 10.0,
+    preempt: tuple = (),  # ((slice, at), ...) world faults
+    torn_status_at: tuple = (),
+    torn_demand_at: tuple = (),
+    gateway_kill_at: tuple = (),
+    kill_gateway_on_drain: bool = False,
+    fail_applies: int = 0,
+    supervisor_kill_on: str | None = None,  # "apply" / "destroy"
+    drain_grace_s: float = 1800.0,
+) -> dict:
+    """Drive the CLOSED gateway→supervisor loop on one SimClock: a REAL
+    Supervisor (with the second controller when `autoscale_policy` is
+    set — `None` is the static-fleet baseline arm) reconciles and
+    scales the scripted world, while a REAL Gateway serves the seeded
+    diurnal(+burst) open-loop stream and publishes demand-signal.json.
+    Faults compose: slice preemptions, torn status/demand copies,
+    gateway SIGKILLs (absolute times, or triggered the moment a
+    scale-down drain is observed), provisioning failures mid-scale-up,
+    and a supervisor SIGKILL on its own scale order. Afterwards the
+    ServeInvariantChecker folds BOTH ledgers with the scale invariants
+    armed; the result carries cost (active-slice-seconds per served
+    token) and the scale-up MTTR under the first burst."""
+    from tritonk8ssupervisor_tpu_torch import obs as obs_lib
+    from tritonk8ssupervisor_tpu_torch.provision import autoscale as as_mod
+    from tritonk8ssupervisor_tpu_torch.provision.fleetview import FileHealthSource
+    from tritonk8ssupervisor_tpu_torch.serving import gateway as gw_mod
+    from tritonk8ssupervisor_tpu_torch.serving import traffic as traffic_mod
+
+    policy = policy or default_policy()
+    interval = policy.interval
+    clock = SimClock(stall_timeout=60.0)
+    config = sim_config(num_slices, failure_domains=0)
+    world = ChaosFleet(Path(workdir), clock, config,
+                       heal_seconds=heal_seconds,
+                       teardown_seconds=teardown_seconds)
+    world.apply_failures_remaining = max(0, int(fail_applies))
+    for index, at in preempt:
+        world.preempt(int(index), at=float(at))
+    torn_at = sorted(float(t) for t in torn_status_at)
+    torn_demand = sorted(float(t) for t in torn_demand_at)
+    kill_at = sorted(float(t) for t in gateway_kill_at)
+
+    run_fn = world.run
+    if supervisor_kill_on:
+        kill_plan = FaultPlan(
+            [FaultRule(match=f"terraform {supervisor_kill_on}",
+                       kill=True)],
+            echo=lambda line: None,
+        )
+        run_fn = kill_plan.wrap(world.run)
+
+    ledger = events_mod.EventLedger(world.paths.events, clock=clock.time,
+                                    echo=lambda line: None, fsync=False)
+    reqlog = reqlog_mod.RequestLog(world.paths.request_log,
+                                   clock=clock.time,
+                                   echo=lambda line: None, fsync=False)
+    span_log = obs_lib.SpanLog(world.paths.span_log, clock=clock.time,
+                               echo=lambda line: None, fsync=False)
+    registry = obs_lib.MetricsRegistry(clock=clock.time)
+    telemetry = obs_lib.Telemetry(
+        registry,
+        obs_lib.Tracer(span_log, plane=obs_lib.SERVING,
+                       clock=clock.time, incarnation=1),
+        snapshot_path=world.paths.metrics_snapshot,
+    )
+    sup_telemetry = obs_lib.Telemetry(
+        registry,
+        obs_lib.Tracer(span_log, plane=obs_lib.SUPERVISOR,
+                       clock=clock.time),
+    )
+    gw_policy = gw_policy or gw_mod.GatewayPolicy(
+        max_seq_len=512, slots_per_slice=4, prefill_chunk=64,
+        queue_budget=48, bucket_bounds=(64, 128, 256),
+        poll_every_s=2.0, default_deadline_s=deadline_s,
+        demand_signal_every_s=5.0,
+        # the raw record stream IS the evidence the invariant checkers
+        # fold — a long drive must not hit the long-running-server
+        # retention caps, whose whole point is dropping old keys
+        terminal_key_retention=0, journal_compact_records=0,
+        audit_retention=0,
+    )
+    cost = gw_mod.DecodeCostModel()
+    status_path = world.paths.fleet_status
+
+    stop = threading.Event()
+    sup_restarts = [0]
+    clock.launch()
+
+    def make_supervisor() -> "sup_mod.Supervisor":
+        autoscaler = None
+        if autoscale_policy is not None:
+            autoscaler = as_mod.Autoscaler(autoscale_policy, num_slices)
+        return sup_mod.Supervisor(
+            config, world.paths, _Quiet(),
+            run=run_fn, run_quiet=world.run_quiet, policy=policy,
+            ledger=ledger, clock=clock.time, sleep=clock.sleep,
+            rng=lambda: 0.0, readiness_timeout=60.0, hooks=clock,
+            telemetry=sup_telemetry, autoscaler=autoscaler,
+        )
+
+    def sup_body() -> None:
+        clock.begin()
+        try:
+            supervisor = make_supervisor()
+            supervisor.restore()
+            while not stop.is_set():
+                try:
+                    supervisor.tick()
+                except SupervisorKilled:
+                    # SIGKILL mid-scale: resume from the event ledger —
+                    # the open SCALE_START must be finished, never
+                    # restarted as a sibling (no double-provision)
+                    sup_restarts[0] += 1
+                    supervisor = make_supervisor()
+                    supervisor.restore()
+                    continue
+                if stop.is_set():
+                    break
+                clock.sleep(interval)
+        finally:
+            clock.release()
+
+    def make_gateway() -> "gw_mod.Gateway":
+        engines = {
+            i: gw_mod.ModeledEngine(slots=gw_policy.slots_per_slice,
+                                    prefill_chunk=gw_policy.prefill_chunk,
+                                    cost=cost)
+            for i in range(num_slices)
+        }
+        return gw_mod.Gateway(
+            engines, FileHealthSource(status_path),
+            policy=gw_policy, clock=clock.time, reqlog=reqlog,
+            telemetry=telemetry,
+            demand_path=world.paths.demand_signal,
+        )
+
+    model = traffic_mod.TrafficModel(
+        base_rps=base_rps, diurnal_amplitude=diurnal_amplitude,
+        diurnal_period_s=diurnal_period_s, bursts=tuple(bursts),
+        seed=seed, deadline_s=deadline_s, key_prefix=f"a{seed}",
+    )
+    arrivals = traffic_mod.generate_arrivals(model, duration_s)
+    hard_stop = duration_s + drain_grace_s
+
+    def autoscale_in_progress() -> dict | None:
+        try:
+            doc = json.loads(status_path.read_text())
+        except (OSError, ValueError):
+            return None
+        block = doc.get("autoscale") if isinstance(doc, dict) else None
+        return block.get("in_progress") if isinstance(block, dict) \
+            else None
+
+    thread = threading.Thread(target=sup_body, daemon=True)
+    thread.start()
+    gateway = make_gateway()
+    gateway.recover(0.0)
+    kills = 0
+    redone = 0
+    drain_kill_done = False
+    drains_seen = 0
+    draining_before = False
+    last_status_read = -1e9
+    i_arr = 0
+    next_step: dict = {i: None for i in gateway.workers}
+    quiet = False
+    clock.launch()
+    clock.begin()
+    try:
+        while True:
+            now = clock.time()
+            while torn_at and torn_at[0] <= now:
+                torn_at.pop(0)
+                _tear_file(status_path)
+            while torn_demand and torn_demand[0] <= now:
+                torn_demand.pop(0)
+                _tear_file(world.paths.demand_signal)
+            if (autoscale_policy is not None
+                    and now - last_status_read >= gw_policy.poll_every_s):
+                last_status_read = now
+                in_progress = autoscale_in_progress()
+                draining = (in_progress is not None
+                            and in_progress.get("direction") == "down")
+                if draining and not draining_before:
+                    drains_seen += 1
+                draining_before = draining
+                if draining and kill_gateway_on_drain \
+                        and not drain_kill_done:
+                    # THE gateway-kill-mid-drain moment: every queued
+                    # and in-flight request in memory is gone while the
+                    # supervisor is mid-way through a drain; the
+                    # journal resumes the work, the drain still settles
+                    drain_kill_done = True
+                    kill_at.insert(0, now)
+            if kill_at and kill_at[0] <= now:
+                kill_at.pop(0)
+                kills += 1
+                telemetry.bump_incarnation()
+                gateway = make_gateway()
+                recovered = gateway.recover(now)
+                redone += recovered["redone"]
+                next_step = {i: None for i in gateway.workers}
+            gateway.poll(now)
+            gateway.expire_queued(now)
+            down = world.down_now()
+            for i, worker in gateway.workers.items():
+                if i in down and worker.alive:
+                    worker.fail()
+                    next_step[i] = None
+                elif i not in down and not worker.alive:
+                    worker.revive()
+                    next_step[i] = now
+            while i_arr < len(arrivals) and arrivals[i_arr].arrival <= now:
+                gateway.submit(arrivals[i_arr], now)
+                i_arr += 1
+            for i in sorted(gateway.workers):
+                if next_step[i] is not None and next_step[i] <= now:
+                    dt = gateway.workers[i].step(now)
+                    next_step[i] = None if dt is None else now + dt
+            for i, worker in gateway.workers.items():
+                if (next_step[i] is None and worker.alive
+                        and (worker.inflight or (
+                            gateway.queue_depth()
+                            and gateway.slice_mode(i) == gw_mod.SERVE))):
+                    next_step[i] = now
+            quiet = (i_arr >= len(arrivals) and not kill_at
+                     and gateway.queue_depth() == 0
+                     and all(w.idle()
+                             for w in gateway.workers.values()))
+            if quiet and autoscale_policy is not None:
+                # let a scale already in flight finish (an abandoned
+                # drain would read as an orphaned SCALE_START)
+                quiet = autoscale_in_progress() is None
+            if quiet or now >= hard_stop:
+                break
+            candidates = [t for t in next_step.values() if t is not None]
+            if i_arr < len(arrivals):
+                candidates.append(arrivals[i_arr].arrival)
+            if kill_at:
+                candidates.append(kill_at[0])
+            if torn_at:
+                candidates.append(torn_at[0])
+            if torn_demand:
+                candidates.append(torn_demand[0])
+            candidates.append(now + 2.0 * gw_policy.poll_every_s)
+            t_next = min(candidates)
+            if t_next > now:
+                clock.sleep(t_next - now)
+    finally:
+        stop.set()
+        clock.release()
+    thread.join(timeout=120)
+
+    req_records = reqlog.replay()
+    led_records = ledger.replay()
+    end_s = clock.time()
+    gateway.update_gauges()
+    metrics_snapshot = telemetry.write_snapshot() or registry.snapshot()
+    checker = ServeInvariantChecker(
+        gw_policy, interval_s=interval,
+        staleness_bound_s=2.0 * max(heal_seconds, teardown_seconds)
+        + 4.0 * interval + gw_policy.poll_every_s,
+        autoscale_policy=autoscale_policy,
+    )
+    violations = checker.check(req_records, led_records,
+                               metrics=metrics_snapshot)
+    if not quiet:
+        violations.append(
+            f"convergence: request plane not quiescent by "
+            f"t={hard_stop:.0f}s (seed {seed})"
+        )
+    view = reqlog_mod.fold(req_records)
+    latencies = sorted(
+        r["latency_s"] for r in req_records
+        if r.get("kind") == reqlog_mod.COMPLETED
+        and r.get("latency_s") is not None
+    )
+
+    def pct(q: float):
+        if not latencies:
+            return None
+        idx = min(len(latencies) - 1,
+                  max(0, int(round(q * (len(latencies) - 1)))))
+        return round(latencies[idx], 3)
+
+    from tritonk8ssupervisor_tpu_torch.obs import metrics as metrics_mod
+
+    tokens = int(metrics_mod.counter_total(
+        metrics_snapshot, "serving_tokens_generated_total"))
+    slice_seconds = _active_slice_seconds(led_records, num_slices, end_s)
+    first_burst = min((b[0] for b in bursts), default=None)
+    scale_up_mttr = None
+    if first_burst is not None:
+        ups = [r.get("ts", 0.0) for r in led_records
+               if r.get("kind") == events_mod.SCALE_DONE
+               and r.get("direction") == "up"
+               and r.get("ts", 0.0) >= first_burst]
+        if ups:
+            scale_up_mttr = round(min(ups) - first_burst, 3)
+    return {
+        "seed": seed,
+        "autoscale": autoscale_policy is not None,
+        "num_slices": num_slices,
+        "duration_s": duration_s,
+        "end_s": round(end_s, 3),
+        "offered": len(arrivals),
+        "accepted": sum(1 for kv in view.keys.values()
+                        if kv.accepts > 0),
+        "completed": sum(kv.completions for kv in view.keys.values()),
+        "expired": sum(kv.expiries for kv in view.keys.values()),
+        "requeues": sum(kv.requeues for kv in view.keys.values()),
+        "sheds": view.sheds,
+        "tokens": tokens,
+        "p50_latency_s": pct(0.50),
+        "p99_latency_s": pct(0.99),
+        "slice_seconds": round(slice_seconds, 1),
+        "slice_hours_per_1k_tokens": (
+            round(slice_seconds / 3600.0 / (tokens / 1000.0), 6)
+            if tokens else None
+        ),
+        "scale_up_mttr_s": scale_up_mttr,
+        "scales": _scale_summary(led_records),
+        "gateway_kills": kills,
+        "redone_after_kill": redone,
+        "supervisor_restarts": sup_restarts[0],
+        "drains_observed": drains_seen,
+        "violations": violations,
+        "converged": quiet,
+    }
+
+
+@dataclasses.dataclass
+class AutoscaleScenario:
+    """One seeded composition of diurnal(+burst) traffic and the
+    elasticity fault primitives. Every scenario is convergeable: bursts
+    end, torn files are rewritten by the next publish, kills resume
+    from the ledgers."""
+
+    seed: int
+    num_slices: int
+    duration_s: float
+    base_rps: float
+    diurnal_amplitude: float
+    diurnal_period_s: float
+    bursts: tuple
+    deadline_s: float
+    events: list
+
+
+AUTOSCALE_PRIMITIVES = (
+    "burst", "gateway-kill-mid-drain", "slice-loss-mid-scale-up",
+    "torn-demand", "torn-status", "slice-outage",
+    "supervisor-kill-mid-scale",
+)
+
+
+def generate_autoscale_scenario(seed: int,
+                                num_slices: int = 4) -> AutoscaleScenario:
+    """Deterministic elasticity scenario from `seed`: a diurnal trace
+    whose trough takes the fleet down and whose recovery (usually
+    sharpened by a burst landing IN the trough) forces it back up,
+    composed with up to two fault primitives — the gateway SIGKILL
+    mid-drain and the provisioning failure mid-scale-up being the two
+    the acceptance criteria name."""
+    rng = random.Random(int(seed))
+    period = 900.0
+    duration = 1200.0 + 150.0 * rng.randrange(0, 3)
+    base = 4.5 + 0.5 * rng.randrange(0, 3)
+    amplitude = 0.5 + 0.05 * rng.randrange(0, 3)
+    events: list = []
+    bursts: list = []
+    if rng.random() < 0.8:
+        # the burst lands in the diurnal trough (sin < 0 after
+        # period/2), where the fleet has scaled down — the honest
+        # scale-up-MTTR shape, and the drain-abort trigger
+        at = 0.55 * period + 30.0 * rng.randrange(0, 8)
+        bursts.append((at, 120.0 + 60.0 * rng.randrange(0, 2),
+                       2.5 + 0.5 * rng.randrange(0, 2)))
+        events.append({"kind": "burst", "at": at})
+    used: set = set()
+    for _ in range(rng.randrange(0, 3)):
+        kind = rng.choice(AUTOSCALE_PRIMITIVES[1:])
+        if kind in used:
+            continue
+        used.add(kind)
+        if kind == "gateway-kill-mid-drain":
+            events.append({"kind": kind})
+        elif kind == "slice-loss-mid-scale-up":
+            events.append({"kind": kind, "fail_applies": 1})
+        elif kind == "torn-demand":
+            events.append({"kind": kind,
+                           "at": 120.0 + 60.0 * rng.randrange(0, 8)})
+        elif kind == "torn-status":
+            events.append({"kind": kind,
+                           "at": 120.0 + 60.0 * rng.randrange(0, 8)})
+        elif kind == "slice-outage":
+            events.append({"kind": kind,
+                           "slice": rng.randrange(num_slices),
+                           "at": 90.0 + 60.0 * rng.randrange(0, 5)})
+        elif kind == "supervisor-kill-mid-scale":
+            events.append({"kind": kind, "on": "destroy"})
+    return AutoscaleScenario(
+        seed=int(seed), num_slices=num_slices, duration_s=duration,
+        base_rps=base, diurnal_amplitude=amplitude,
+        diurnal_period_s=period, bursts=tuple(bursts),
+        deadline_s=120.0, events=events,
+    )
+
+
+def run_autoscale_campaign(scenario: AutoscaleScenario,
+                           workdir: Path) -> dict:
+    """One seeded elasticity campaign: the scenario's traffic and
+    faults through `run_autoscale_drive` with the default campaign
+    policies. The verdict carries the checker's violations (scale
+    invariants armed) plus the scale/kill bookkeeping."""
+    kwargs: dict = dict(
+        num_slices=scenario.num_slices,
+        duration_s=scenario.duration_s,
+        base_rps=scenario.base_rps,
+        diurnal_amplitude=scenario.diurnal_amplitude,
+        diurnal_period_s=scenario.diurnal_period_s,
+        bursts=scenario.bursts,
+        deadline_s=scenario.deadline_s,
+        seed=scenario.seed,
+        autoscale_policy=default_autoscale_policy(scenario.num_slices),
+    )
+    preempt: list = []
+    torn_status: list = []
+    torn_demand: list = []
+    for event in scenario.events:
+        kind = event["kind"]
+        if kind == "gateway-kill-mid-drain":
+            kwargs["kill_gateway_on_drain"] = True
+        elif kind == "slice-loss-mid-scale-up":
+            kwargs["fail_applies"] = event.get("fail_applies", 1)
+        elif kind == "torn-demand":
+            torn_demand.append(event["at"])
+        elif kind == "torn-status":
+            torn_status.append(event["at"])
+        elif kind == "slice-outage":
+            preempt.append((event["slice"], event["at"]))
+        elif kind == "supervisor-kill-mid-scale":
+            kwargs["supervisor_kill_on"] = event.get("on", "destroy")
+    kwargs["preempt"] = tuple(preempt)
+    kwargs["torn_status_at"] = tuple(torn_status)
+    kwargs["torn_demand_at"] = tuple(torn_demand)
+    out = run_autoscale_drive(Path(workdir), **kwargs)
+    out["events"] = [e["kind"] for e in scenario.events]
+    return out
+
+
+# ------------------------------------------- co-scheduling (one fleet)
+
+
+class KillOnKindLedger(events_mod.EventLedger):
+    """An event ledger that SIGKILLs the supervisor right AFTER the Nth
+    record of `kill_kind` lands — the record is durable, the process
+    dies on the next instruction. This is how the campaigns kill a
+    supervisor between PREEMPT_NOTICE and ROLE_CHANGED: a handover
+    cannot be interrupted from the RunFn side (no terraform runs in a
+    role flip), so the crash seam is the ledger append itself."""
+
+    def __init__(self, *args, kill_kind: str | None = None,
+                 kill_after: int = 1, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self._kill_kind = kill_kind
+        self._kill_remaining = max(0, int(kill_after))
+
+    def append(self, kind: str, **fields) -> dict:
+        record = super().append(kind, **fields)
+        if kind == self._kill_kind and self._kill_remaining > 0:
+            self._kill_remaining -= 1
+            if self._kill_remaining == 0:
+                raise SupervisorKilled(
+                    f"scripted SIGKILL after {kind} record"
+                )
+        return record
+
+
+class VirtualTrainer:
+    """The elastic trainer's virtual-clock twin for the co-scheduling
+    drives: it models parallel/elastic.py's loop over the slices the
+    supervisor's `allocation.training` list assigns it. Steps accrue at
+    `steps_per_slice_s` per owned slice; a periodic checkpoint every
+    `checkpoint_every` steps bounds any loss; a drain notice touching
+    its slices (membership.draining) triggers the ~0-cost checkpoint
+    flush plus a job-ack `notified` (the PREEMPT_NOTICE handshake); a
+    membership generation bump costs the steps since the last
+    checkpoint (~0 when the drain notice was honored) plus `resume_s`
+    of rejoin time, then training continues at the NEW world size.
+    `ack=False` models a wedged trainer that never acknowledges — the
+    supervisor's bounded wait must FORCE the preemption, and the last
+    periodic checkpoint must bound the loss."""
+
+    def __init__(self, status_path: Path, ack_path: Path, clock,
+                 steps_per_slice_s: float = 0.5,
+                 checkpoint_every: int = 60,
+                 resume_s: float = 20.0,
+                 poll_every_s: float = 5.0,
+                 ack: bool = True) -> None:
+        from tritonk8ssupervisor_tpu_torch.parallel.elastic import JobAck
+
+        self.status_path = Path(status_path)
+        self.clock = clock
+        self.rate = float(steps_per_slice_s)
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        self.resume_s = float(resume_s)
+        self.poll_every_s = max(0.5, float(poll_every_s))
+        self.ack_enabled = bool(ack)
+        self._ack = JobAck(ack_path, clock=clock.time)
+        self.owned: list = []
+        self.generation: int | None = None
+        self._step = 0.0
+        self._saved = 0.0
+        self._busy_until = 0.0
+        self._last = 0.0
+        self._last_poll = float("-inf")
+        self._flushed = False
+        self.report: dict = {
+            "steps": 0, "steps_lost": 0, "resumes": [],
+            "drain_flushes": 0, "acks_written": 0,
+        }
+
+    def _read_status(self) -> dict | None:
+        try:
+            doc = json.loads(self.status_path.read_text())
+        except (OSError, ValueError):
+            return None  # absent or torn: unknown, retry
+        return doc if isinstance(doc, dict) else None
+
+    def _write_ack(self, phase: str, generation, reason: str = "") -> None:
+        if not self.ack_enabled:
+            return
+        self._ack.write(phase, generation, int(self._step),
+                        world=len(self.owned), slices=(),
+                        reason=reason)
+        self.report["acks_written"] += 1
+
+    def next_wake(self, now: float) -> float:
+        return max(now, self._last_poll + self.poll_every_s)
+
+    def advance(self, now: float) -> None:
+        """Accrue training progress up to `now` and poll the status
+        file on the poll cadence. Called from the drive's main loop —
+        the trainer is a co-actor on the same virtual clock."""
+        if now > self._last:
+            start = max(self._last, self._busy_until)
+            if now > start and self.owned:
+                self._step += self.rate * len(self.owned) * (now - start)
+            self._last = now
+        # periodic durability: the bound on any preemption's loss
+        while self._step - self._saved >= self.checkpoint_every:
+            self._saved += self.checkpoint_every
+        if now - self._last_poll < self.poll_every_s:
+            return
+        self._last_poll = now
+        doc = self._read_status()
+        if doc is None:
+            return
+        membership = doc.get("membership") or {}
+        alloc = doc.get("allocation") or {}
+        gen = membership.get("generation")
+        draining = set(membership.get("draining") or [])
+        training = sorted(int(i) for i in alloc.get("training") or [])
+        if self.generation is None:
+            self.generation = gen
+            self.owned = training
+            return
+        if draining & set(self.owned) and not self._flushed:
+            # the drain-notice checkpoint window: flush NOW (costs ~0
+            # steps), acknowledge, keep stepping until the world moves
+            self._saved = self._step
+            self._flushed = True
+            self.report["drain_flushes"] += 1
+            self._write_ack("notified", gen, reason="drain notice")
+        if gen != self.generation:
+            if self.ack_enabled:
+                # a planned membership change: the real ElasticTrainer
+                # flushes AT the boundary (state_intact=True), so the
+                # loss is ~0; only a wedged trainer (ack=False) rolls
+                # back to its last periodic checkpoint
+                self._saved = self._step
+            lost = int(self._step - self._saved)
+            self.report["steps_lost"] += lost
+            self.report["resumes"].append({
+                "ts": round(now, 3), "steps_lost": lost,
+                "world": len(training), "generation": gen,
+            })
+            self._step = self._saved
+            self._busy_until = now + self.resume_s
+            self.generation = gen
+            self.owned = training
+            self._flushed = False
+            self._write_ack("resumed", gen)
+        self.report["steps"] = int(self._step)
+
+    def finish(self) -> dict:
+        self.report["steps"] = int(self._step)
+        return dict(self.report)
+
+
+def default_alloc_policy(num_slices: int = 4):
+    """The campaign allocation policy: thresholds sized to the modeled
+    engine's capacity (like default_autoscale_policy), confirmation
+    windows short enough to exercise inside a bounded sim, an ack
+    timeout that a healthy trainer beats by one poll interval and a
+    wedged one forces within the drive."""
+    from tritonk8ssupervisor_tpu_torch.provision import allocator as alloc_mod
+
+    return alloc_mod.AllocatorPolicy(
+        min_serving=1, min_training=0,
+        train_slices=max(1, num_slices // 2),
+        up_queue_per_slice=6.0, slo_p99_s=60.0,
+        idle_queue_per_slice=3.0, idle_p99_margin=0.5,
+        confirm_to_serving=2, confirm_to_training=2,
+        cooldown_s=45.0, cooldown_cap_s=600.0,
+        ack_timeout_s=90.0, drain_timeout_s=120.0,
+        idle_inflight_per_slice=3.0,
+        signal_max_age_s=75.0,
+    )
+
+
+def _alloc_summary(ledger_records: list) -> dict:
+    kinds = [r.get("kind") for r in ledger_records]
+    to_serving = [r for r in ledger_records
+                  if r.get("kind") == events_mod.ROLE_CHANGED
+                  and r.get("role") == "serving"
+                  and not r.get("initial") and not r.get("aborted")]
+    to_training = [r for r in ledger_records
+                   if r.get("kind") == events_mod.ROLE_CHANGED
+                   and r.get("role") == "training"
+                   and not r.get("initial")]
+    return {
+        "decisions": kinds.count(events_mod.ALLOC_DECISION),
+        "notices": kinds.count(events_mod.PREEMPT_NOTICE),
+        "acks": kinds.count(events_mod.PREEMPT_ACK),
+        "forced": sum(1 for r in ledger_records
+                      if r.get("kind") == events_mod.PREEMPT_ACK
+                      and r.get("forced")),
+        "preemptions": len(to_serving),
+        "handbacks": len(to_training),
+        "aborted": sum(1 for r in ledger_records
+                       if r.get("kind") == events_mod.ROLE_CHANGED
+                       and r.get("aborted")),
+        "stragglers_requeued": sum(int(r.get("stragglers") or 0)
+                                   for r in to_training),
+    }
+
+
+def _training_slice_seconds(ledger_records: list, end_s: float) -> float:
+    """Integrate the TRAINING-role slice count over the run — the
+    training side of the co-scheduling ledger. TRANSITIONING time
+    bills to neither side (the handover is the overhead both pay)."""
+    total = 0.0
+    t_prev = 0.0
+    roles: dict = {}
+    for r in ledger_records:
+        kind = r.get("kind")
+        if kind not in (events_mod.PREEMPT_NOTICE,
+                        events_mod.ROLE_CHANGED):
+            continue
+        ts = min(float(r.get("ts", 0.0)), end_s)
+        training = sum(1 for v in roles.values() if v == "training")
+        total += training * max(0.0, ts - t_prev)
+        t_prev = ts
+        if kind == events_mod.PREEMPT_NOTICE:
+            for i in r.get("slices", []):
+                roles[int(i)] = "transitioning"
+        else:
+            for i in r.get("slices", []):
+                roles[int(i)] = r.get("role", "serving")
+    training = sum(1 for v in roles.values() if v == "training")
+    total += training * max(0.0, end_s - t_prev)
+    return total
+
+
+def run_coschedule_drive(
+    workdir: Path,
+    num_slices: int = 4,
+    duration_s: float = 1500.0,
+    base_rps: float = 3.0,
+    diurnal_amplitude: float = 0.6,
+    diurnal_period_s: float = 900.0,
+    diurnal_phase: float = 0.0,
+    bursts: tuple = (),
+    deadline_s: float = 120.0,
+    seed: int = 13,
+    alloc_policy=None,
+    policy: "sup_mod.SupervisePolicy | None" = None,
+    gw_policy=None,
+    trainer_rate: float = 0.5,
+    checkpoint_every: int = 60,
+    trainer_resume_s: float = 20.0,
+    trainer_ack: bool = True,
+    kill_on_notice: int = 0,  # SIGKILL the supervisor after the Nth
+    # PREEMPT_NOTICE lands on the ledger (mid-handover crash)
+    tenants: dict | None = None,  # tenant -> weight (arms gateway WFQ)
+    flood: dict | None = None,  # {"tenant", "at", "duration",
+    # "rps", "priority"}: a second open-loop stream from ONE tenant
+    preempt: tuple = (),  # ((slice, at), ...) world faults
+    torn_status_at: tuple = (),
+    torn_demand_at: tuple = (),
+    drain_grace_s: float = 1800.0,
+) -> dict:
+    """Drive ONE fleet under BOTH workloads on one SimClock: a REAL
+    Supervisor (with the third controller when `alloc_policy` is set —
+    `None` is the serving-only arm) reconciles the scripted world and
+    executes the preemption protocol, a REAL Gateway serves the seeded
+    diurnal(+burst) open-loop stream and publishes demand-signal.json,
+    and a VirtualTrainer fills the TRAINING slices, answering drain
+    notices with the ~0-cost checkpoint flush + job-ack. Faults
+    compose: slice preemptions, torn status/demand copies, a
+    supervisor SIGKILL right after a PREEMPT_NOTICE lands (the
+    mid-handover crash), a trainer that never acks (bounded wait →
+    forced preemption), and a tenant flood against the WFQ admission
+    queue. Afterwards the ServeInvariantChecker folds BOTH ledgers
+    with the allocation invariants armed; the result carries goodput,
+    training steps, and the preemption MTTR under the first burst."""
+    from tritonk8ssupervisor_tpu_torch import obs as obs_lib
+    from tritonk8ssupervisor_tpu_torch.provision import allocator as alloc_mod
+    from tritonk8ssupervisor_tpu_torch.provision.fleetview import FileHealthSource
+    from tritonk8ssupervisor_tpu_torch.serving import gateway as gw_mod
+    from tritonk8ssupervisor_tpu_torch.serving import traffic as traffic_mod
+
+    policy = policy or default_policy()
+    interval = policy.interval
+    clock = SimClock(stall_timeout=60.0)
+    config = sim_config(num_slices, failure_domains=0)
+    world = ChaosFleet(Path(workdir), clock, config, heal_seconds=30.0)
+    for index, at in preempt:
+        world.preempt(int(index), at=float(at))
+    torn_at = sorted(float(t) for t in torn_status_at)
+    torn_demand = sorted(float(t) for t in torn_demand_at)
+
+    if kill_on_notice > 0:
+        ledger: events_mod.EventLedger = KillOnKindLedger(
+            world.paths.events, clock=clock.time,
+            echo=lambda line: None, fsync=False,
+            kill_kind=events_mod.PREEMPT_NOTICE,
+            kill_after=int(kill_on_notice),
+        )
+    else:
+        ledger = events_mod.EventLedger(world.paths.events,
+                                        clock=clock.time,
+                                        echo=lambda line: None,
+                                        fsync=False)
+    reqlog = reqlog_mod.RequestLog(world.paths.request_log,
+                                   clock=clock.time,
+                                   echo=lambda line: None, fsync=False)
+    span_log = obs_lib.SpanLog(world.paths.span_log, clock=clock.time,
+                               echo=lambda line: None, fsync=False)
+    registry = obs_lib.MetricsRegistry(clock=clock.time)
+    telemetry = obs_lib.Telemetry(
+        registry,
+        obs_lib.Tracer(span_log, plane=obs_lib.SERVING,
+                       clock=clock.time, incarnation=1),
+        snapshot_path=world.paths.metrics_snapshot,
+    )
+    sup_telemetry = obs_lib.Telemetry(
+        registry,
+        obs_lib.Tracer(span_log, plane=obs_lib.SUPERVISOR,
+                       clock=clock.time),
+    )
+    gw_policy = gw_policy or gw_mod.GatewayPolicy(
+        max_seq_len=512, slots_per_slice=4, prefill_chunk=64,
+        queue_budget=48, bucket_bounds=(64, 128, 256),
+        poll_every_s=2.0, default_deadline_s=deadline_s,
+        demand_signal_every_s=5.0,
+        tenant_weights=dict(tenants) if tenants else None,
+        # raw record streams ARE the checker evidence: no retention caps
+        terminal_key_retention=0, journal_compact_records=0,
+        audit_retention=0,
+    )
+    cost = gw_mod.DecodeCostModel()
+    status_path = world.paths.fleet_status
+
+    stop = threading.Event()
+    sup_restarts = [0]
+    clock.launch()
+
+    def make_supervisor() -> "sup_mod.Supervisor":
+        from tritonk8ssupervisor_tpu_torch.provision import retry as retry_mod
+
+        allocator = None
+        if alloc_policy is not None:
+            # rng pinned like the supervisor's: the drives must be a
+            # pure function of (scenario, seed)
+            allocator = alloc_mod.Allocator(
+                alloc_policy, num_slices,
+                cooldown=retry_mod.Cooldown(alloc_policy.cooldown_s,
+                                            alloc_policy.cooldown_cap_s,
+                                            rng=lambda: 0.0),
+            )
+        return sup_mod.Supervisor(
+            config, world.paths, _Quiet(),
+            run=world.run, run_quiet=world.run_quiet, policy=policy,
+            ledger=ledger, clock=clock.time, sleep=clock.sleep,
+            rng=lambda: 0.0, readiness_timeout=60.0, hooks=clock,
+            telemetry=sup_telemetry, allocator=allocator,
+        )
+
+    def sup_body() -> None:
+        clock.begin()
+        try:
+            supervisor = make_supervisor()
+            supervisor.restore()
+            while not stop.is_set():
+                try:
+                    supervisor.tick()
+                except SupervisorKilled:
+                    # SIGKILL between PREEMPT_NOTICE and ROLE_CHANGED:
+                    # resume from the ledger — the open handover must
+                    # be finished under its ORIGINAL id, never
+                    # restarted as a sibling
+                    sup_restarts[0] += 1
+                    supervisor = make_supervisor()
+                    supervisor.restore()
+                    continue
+                if stop.is_set():
+                    break
+                clock.sleep(interval)
+        finally:
+            clock.release()
+
+    def make_gateway() -> "gw_mod.Gateway":
+        engines = {
+            i: gw_mod.ModeledEngine(slots=gw_policy.slots_per_slice,
+                                    prefill_chunk=gw_policy.prefill_chunk,
+                                    cost=cost)
+            for i in range(num_slices)
+        }
+        return gw_mod.Gateway(
+            engines, FileHealthSource(status_path),
+            policy=gw_policy, clock=clock.time, reqlog=reqlog,
+            telemetry=telemetry,
+            demand_path=world.paths.demand_signal,
+        )
+
+    model = traffic_mod.TrafficModel(
+        base_rps=base_rps, diurnal_amplitude=diurnal_amplitude,
+        diurnal_period_s=diurnal_period_s, diurnal_phase=diurnal_phase,
+        bursts=tuple(bursts),
+        seed=seed, deadline_s=deadline_s, key_prefix=f"co{seed}",
+        tenant=("base" if tenants else None),
+    )
+    arrivals = traffic_mod.generate_arrivals(model, duration_s)
+    flood_window = None
+    if flood is not None:
+        flood_model = traffic_mod.TrafficModel(
+            base_rps=float(flood.get("rps", 8.0)),
+            diurnal_amplitude=0.0, seed=seed + 7919,
+            deadline_s=deadline_s,
+            key_prefix=f"fl{seed}",
+            tenant=str(flood.get("tenant", "flood")),
+            priority=int(flood.get("priority", 0)),
+        )
+        at = float(flood.get("at", duration_s / 3.0))
+        dur = float(flood.get("duration", 180.0))
+        extra = [r for r in traffic_mod.generate_arrivals(
+            flood_model, dur, rid0=10_000_000)]
+        for r in extra:
+            r.arrival += at
+        arrivals = sorted(arrivals + extra, key=lambda r: r.arrival)
+        flood_window = (at, at + dur)
+    hard_stop = duration_s + drain_grace_s
+
+    trainer = None
+    if alloc_policy is not None:
+        trainer = VirtualTrainer(
+            status_path, world.paths.job_ack, clock,
+            steps_per_slice_s=trainer_rate,
+            checkpoint_every=checkpoint_every,
+            resume_s=trainer_resume_s, ack=trainer_ack,
+        )
+
+    def handover_in_progress() -> dict | None:
+        try:
+            doc = json.loads(status_path.read_text())
+        except (OSError, ValueError):
+            return None
+        block = doc.get("allocation") if isinstance(doc, dict) else None
+        return block.get("in_progress") if isinstance(block, dict) \
+            else None
+
+    thread = threading.Thread(target=sup_body, daemon=True)
+    thread.start()
+    gateway = make_gateway()
+    gateway.recover(0.0)
+    i_arr = 0
+    next_step: dict = {i: None for i in gateway.workers}
+    quiet = False
+    clock.launch()
+    clock.begin()
+    try:
+        while True:
+            now = clock.time()
+            while torn_at and torn_at[0] <= now:
+                torn_at.pop(0)
+                _tear_file(status_path)
+            while torn_demand and torn_demand[0] <= now:
+                torn_demand.pop(0)
+                _tear_file(world.paths.demand_signal)
+            if trainer is not None:
+                trainer.advance(now)
+            gateway.poll(now)
+            gateway.expire_queued(now)
+            down = world.down_now()
+            for i, worker in gateway.workers.items():
+                if i in down and worker.alive:
+                    worker.fail()
+                    next_step[i] = None
+                elif i not in down and not worker.alive:
+                    worker.revive()
+                    next_step[i] = now
+            while i_arr < len(arrivals) and arrivals[i_arr].arrival <= now:
+                gateway.submit(arrivals[i_arr], now)
+                i_arr += 1
+            for i in sorted(gateway.workers):
+                if next_step[i] is not None and next_step[i] <= now:
+                    dt = gateway.workers[i].step(now)
+                    next_step[i] = None if dt is None else now + dt
+            for i, worker in gateway.workers.items():
+                if (next_step[i] is None and worker.alive
+                        and (worker.inflight or (
+                            gateway.queue_depth()
+                            and gateway.slice_mode(i) == gw_mod.SERVE))):
+                    next_step[i] = now
+            quiet = (i_arr >= len(arrivals)
+                     and gateway.queue_depth() == 0
+                     and all(w.idle()
+                             for w in gateway.workers.values()))
+            if quiet and alloc_policy is not None:
+                # let a handover already in flight close — an abandoned
+                # one would read as an orphaned PREEMPT_NOTICE
+                quiet = handover_in_progress() is None
+            if quiet or now >= hard_stop:
+                break
+            candidates = [t for t in next_step.values() if t is not None]
+            if i_arr < len(arrivals):
+                candidates.append(arrivals[i_arr].arrival)
+            if torn_at:
+                candidates.append(torn_at[0])
+            if torn_demand:
+                candidates.append(torn_demand[0])
+            if trainer is not None:
+                candidates.append(trainer.next_wake(now))
+            candidates.append(now + 2.0 * gw_policy.poll_every_s)
+            t_next = min(candidates)
+            if t_next > now:
+                clock.sleep(t_next - now)
+    finally:
+        stop.set()
+        clock.release()
+    thread.join(timeout=120)
+
+    req_records = reqlog.replay()
+    led_records = ledger.replay()
+    end_s = clock.time()
+    gateway.update_gauges()
+    metrics_snapshot = telemetry.write_snapshot() or registry.snapshot()
+    checker = ServeInvariantChecker(
+        gw_policy, interval_s=interval,
+        staleness_bound_s=2.0 * 30.0 + 4.0 * interval
+        + gw_policy.poll_every_s,
+        alloc_policy=alloc_policy,
+        # propagation grace covers one full tick: a status copy torn
+        # at the PREEMPT_NOTICE's own publish leaves the gateway on
+        # its last-good (pre-notice) view until the NEXT tick rewrites
+        # the file — keep-last-good is the reader contract, not a leak
+        drain_grace_s=interval + 2.0 * gw_policy.poll_every_s + 1.0,
+    )
+    violations = checker.check(req_records, led_records,
+                               metrics=metrics_snapshot)
+    if not quiet:
+        violations.append(
+            f"convergence: request plane not quiescent by "
+            f"t={hard_stop:.0f}s (seed {seed})"
+        )
+    trainer_report = trainer.finish() if trainer is not None else None
+    if trainer_report is not None:
+        # THE preemption-cost invariant: the drain-notice checkpoint
+        # window (acked) or the periodic checkpoint (forced) bounds
+        # every preemption to <= one checkpoint interval of steps
+        for resume in trainer_report["resumes"]:
+            if resume["steps_lost"] > checkpoint_every:
+                violations.append(
+                    f"preemption-cost: resume at t={resume['ts']} lost "
+                    f"{resume['steps_lost']} steps > one checkpoint "
+                    f"interval ({checkpoint_every})"
+                )
+    if flood_window is not None and tenants:
+        violations += checker.check_tenant_fairness(
+            req_records, tenants, flood["tenant"], flood_window)
+    view = reqlog_mod.fold(req_records)
+    latencies = sorted(
+        r["latency_s"] for r in req_records
+        if r.get("kind") == reqlog_mod.COMPLETED
+        and r.get("latency_s") is not None
+    )
+
+    def pct(q: float):
+        if not latencies:
+            return None
+        idx = min(len(latencies) - 1,
+                  max(0, int(round(q * (len(latencies) - 1)))))
+        return round(latencies[idx], 3)
+
+    from tritonk8ssupervisor_tpu_torch.obs import metrics as metrics_mod
+
+    tokens = int(metrics_mod.counter_total(
+        metrics_snapshot, "serving_tokens_generated_total"))
+    completed = sum(kv.completions for kv in view.keys.values())
+    accepted = sum(1 for kv in view.keys.values() if kv.accepts > 0)
+    first_burst = min((b[0] for b in bursts), default=None)
+    preempt_mttr = None
+    if first_burst is not None:
+        reclaims = [r.get("ts", 0.0) for r in led_records
+                    if r.get("kind") == events_mod.ROLE_CHANGED
+                    and r.get("role") == "serving"
+                    and not r.get("initial") and not r.get("aborted")
+                    and r.get("ts", 0.0) >= first_burst]
+        if reclaims:
+            preempt_mttr = round(min(reclaims) - first_burst, 3)
+    return {
+        "seed": seed,
+        "coscheduled": alloc_policy is not None,
+        "num_slices": num_slices,
+        "duration_s": duration_s,
+        "end_s": round(end_s, 3),
+        "offered": len(arrivals),
+        "accepted": accepted,
+        "completed": completed,
+        "expired": sum(kv.expiries for kv in view.keys.values()),
+        "requeues": sum(kv.requeues for kv in view.keys.values()),
+        "sheds": view.sheds,
+        "tokens": tokens,
+        "goodput": (round(completed / len(arrivals), 4)
+                    if arrivals else None),
+        "p50_latency_s": pct(0.50),
+        "p99_latency_s": pct(0.99),
+        "training": trainer_report,
+        "training_slice_seconds": round(
+            _training_slice_seconds(led_records, end_s), 1),
+        "preempt_mttr_s": preempt_mttr,
+        "handovers": _alloc_summary(led_records),
+        "supervisor_restarts": sup_restarts[0],
+        "violations": violations,
+        "converged": quiet,
+    }
+
+
+@dataclasses.dataclass
+class CoscheduleScenario:
+    """One seeded composition of diurnal(+burst) traffic, a training
+    job filling the troughs, and the co-scheduling fault primitives.
+    Every scenario is convergeable: bursts end, torn files are
+    rewritten by the next publish, kills resume from the ledgers, a
+    wedged trainer is forced past the bounded wait."""
+
+    seed: int
+    num_slices: int
+    duration_s: float
+    base_rps: float
+    diurnal_amplitude: float
+    diurnal_period_s: float
+    bursts: tuple
+    deadline_s: float
+    events: list
+
+
+COSCHEDULE_PRIMITIVES = (
+    "surge-during-training", "supervisor-kill-mid-handover",
+    "never-acking-trainer", "tenant-flood", "torn-status",
+    "torn-demand", "slice-outage",
+)
+
+
+def generate_coschedule_scenario(seed: int,
+                                 num_slices: int = 4
+                                 ) -> CoscheduleScenario:
+    """Deterministic co-scheduling scenario from `seed`: a diurnal
+    trace whose trough lends slices to training and whose peak (or a
+    burst landing IN the trough) forces preemption back, composed with
+    up to two fault primitives — the supervisor SIGKILL mid-handover,
+    the never-acking trainer, and the tenant flood being the three the
+    acceptance criteria name."""
+    rng = random.Random(int(seed))
+    period = 900.0
+    duration = 1200.0 + 150.0 * rng.randrange(0, 3)
+    base = 2.6 + 0.3 * rng.randrange(0, 3)
+    amplitude = 0.55 + 0.05 * rng.randrange(0, 3)
+    events: list = []
+    bursts: list = []
+    if rng.random() < 0.8:
+        # surge-during-training: the burst lands in the trough, where
+        # the fleet has lent the most slices to training — the moment
+        # the preemption protocol earns its keep
+        at = 0.55 * period + 30.0 * rng.randrange(0, 8)
+        bursts.append((at, 150.0 + 60.0 * rng.randrange(0, 2),
+                       2.5 + 0.5 * rng.randrange(0, 2)))
+        events.append({"kind": "surge-during-training", "at": at})
+    used: set = set()
+    for _ in range(rng.randrange(0, 3)):
+        kind = rng.choice(COSCHEDULE_PRIMITIVES[1:])
+        if kind in used:
+            continue
+        used.add(kind)
+        if kind == "supervisor-kill-mid-handover":
+            events.append({"kind": kind, "nth": 1 + rng.randrange(2)})
+        elif kind == "never-acking-trainer":
+            events.append({"kind": kind})
+        elif kind == "tenant-flood":
+            events.append({
+                "kind": kind,
+                "at": 120.0 + 60.0 * rng.randrange(0, 6),
+                "duration": 120.0 + 60.0 * rng.randrange(0, 2),
+                "rps": 6.0 + 2.0 * rng.randrange(0, 2),
+            })
+        elif kind in ("torn-status", "torn-demand"):
+            events.append({"kind": kind,
+                           "at": 120.0 + 60.0 * rng.randrange(0, 8)})
+        elif kind == "slice-outage":
+            events.append({"kind": kind,
+                           "slice": rng.randrange(num_slices),
+                           "at": 90.0 + 60.0 * rng.randrange(0, 5)})
+    return CoscheduleScenario(
+        seed=int(seed), num_slices=num_slices, duration_s=duration,
+        base_rps=base, diurnal_amplitude=amplitude,
+        diurnal_period_s=period, bursts=tuple(bursts),
+        deadline_s=120.0, events=events,
+    )
+
+
+def run_coschedule_campaign(scenario: CoscheduleScenario,
+                            workdir: Path) -> dict:
+    """One seeded co-scheduling campaign: the scenario's traffic and
+    faults through `run_coschedule_drive` with the default campaign
+    policies. The verdict carries the checker's violations (allocation
+    + WFQ invariants armed) plus the handover bookkeeping."""
+    kwargs: dict = dict(
+        num_slices=scenario.num_slices,
+        duration_s=scenario.duration_s,
+        base_rps=scenario.base_rps,
+        diurnal_amplitude=scenario.diurnal_amplitude,
+        diurnal_period_s=scenario.diurnal_period_s,
+        bursts=scenario.bursts,
+        deadline_s=scenario.deadline_s,
+        seed=scenario.seed,
+        alloc_policy=default_alloc_policy(scenario.num_slices),
+    )
+    preempt: list = []
+    torn_status: list = []
+    torn_demand: list = []
+    for event in scenario.events:
+        kind = event["kind"]
+        if kind == "supervisor-kill-mid-handover":
+            kwargs["kill_on_notice"] = event.get("nth", 1)
+        elif kind == "never-acking-trainer":
+            kwargs["trainer_ack"] = False
+        elif kind == "tenant-flood":
+            kwargs["tenants"] = {"base": 3.0, "flood": 1.0}
+            kwargs["flood"] = {
+                "tenant": "flood", "at": event["at"],
+                "duration": event["duration"], "rps": event["rps"],
+            }
+        elif kind == "torn-status":
+            torn_status.append(event["at"])
+        elif kind == "torn-demand":
+            torn_demand.append(event["at"])
+        elif kind == "slice-outage":
+            preempt.append((event["slice"], event["at"]))
+    kwargs["preempt"] = tuple(preempt)
+    kwargs["torn_status_at"] = tuple(torn_status)
+    kwargs["torn_demand_at"] = tuple(torn_demand)
+    out = run_coschedule_drive(Path(workdir), **kwargs)
+    out["events"] = [e["kind"] for e in scenario.events]
+    return out
 
 
 # ------------------------------------------------- gateway fleet (sharding)

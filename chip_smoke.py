@@ -8,15 +8,18 @@ script). It needs one CUDA card and takes no arguments. Phases, each of
 which raises on failure (exit code not 0, no result line):
 
 1. the card: name and power limit, as nvidia-smi reports them; kernels
-   K2 and K4 (CUDA C++, `csrc/flash_attention.cu` and
-   `csrc/conv_backward.cu`) start building from the checkout in the
-   background, one nvcc each;
-2. kernel K1 (Triton, built from the checkout on first launch) against
-   its plain PyTorch version on the card: f32 at the ResNet shape
+   K1, K2, K4 and K3 (CUDA C++, `csrc/cross_entropy.cu`,
+   `csrc/flash_attention.cu`, `csrc/conv_backward.cu` and
+   `csrc/decode_attention.cu`) start building from the checkout in the
+   background, one nvcc each, all at once;
+2. kernel K1's forward and backward (once K1 is built) against their
+   plain PyTorch versions on the card: f32 at the ResNet shape
    (256, 1000) and at (4096, 32000), bf16 at the LM shape (8192, 32768),
-   with labels -1 and C and tied rows; times the kernel, the plain version
-   and the library call `F.cross_entropy` (a yardstick only: the port
-   never calls it);
+   with labels -1 and C and tied rows, the forward's loss, correct and
+   logsumexp, the backward on the gradient of a mean (a stride-0 g);
+   times each kernel, its plain version and the library call
+   (`F.cross_entropy`, and its backward through autograd; a yardstick
+   only: the port never calls it);
 3. one small ResNet-18 train step on the card (through K1) against the
    same step on the CPU (K1's plain version), from one set of weights;
 4. kernel K2 against its plain version on the card, forward and
@@ -113,7 +116,10 @@ which raises on failure (exit code not 0, no result line):
    a torn step 6 that a restore must skip for step 3; restore_seconds;
 21. where a ViT-S/16 step and a MoE LM step go on the card
    (torch.profiler, by operator; for the MoE LM, the expert products'
-   and the dispatch and combine products' shares);
+   and the dispatch and combine products' shares); then the LM step of 7:
+   its card time, K1's forward and backward shares of it and its peak
+   memory (with `--lm-step-profile` this runs alone, on the package
+   beside the script);
 22. (after 20) the mesh at a world of one over NCCL: a process group of
    one rank from a FileStore and `make_mesh()` (1, 1, 1, 1) on the card;
    the LM of 7 and ResNet-50 with `fused_1x1_bwd` each take a first step
@@ -251,9 +257,10 @@ which raises on failure (exit code not 0, no result line):
    in a fresh process in a temporary directory with only the installed
    tree on PYTHONPATH and the Job's env (each fieldRef read as pod 0):
    it must exit 0 with its JSON report, import the installed package,
-   build K2 (LM) or K4 (ResNet-50) with nvcc from the installed sources
-   into the installed `csrc/build/`, launch K1 once a step and K2 12 + 12
-   times a step (LM) or K4 33 times a step (ResNet-50), and the LM must
+   build K1 and K2 (LM) or K4 (ResNet-50; K1 is the LM Job's) with nvcc
+   from the installed sources into the installed `csrc/build/`, launch
+   K1's forward and backward once a step and K2 12 + 12 times a step (LM)
+   or K4 33 times a step (ResNet-50), and the LM must
    leave a committed checkpoint step. It prints the archive's and the
    ConfigMap's bytes, the install and build seconds, each run's step
    time and rate, and the launches. With `--shipped-workload` this phase
@@ -282,15 +289,17 @@ which raises on failure (exit code not 0, no result line):
    120 steps with warm-up 20 and decay 200 (the example's 500 and 20,000
    cut to fit about a minute); the mean loss of the last 10 steps below
    the first 10's, the held-out loss of `make_lm_eval_step` falling, its
-   perplexity below 256; K1 once and K2 12 + 12 times a train step, K1
-   once and K2 12 times an eval call; then greedy `models/decode.generate`
+   perplexity below 256; K1 once each way and K2 12 + 12 times a train
+   step, K1's forward once and K2 12 times an eval call; then greedy
+   `models/decode.generate`
    of 256 tokens from a 64-byte held-out prompt (the first capitalised
    held-out line of 64 bytes or more) with the default cache and the
    int8 cache (K3 exactly 12 x 255 times), both decodable and not one
    repeated byte; the int8 cache's logits of those 256 steps, fed the
    int8 output, through K3 and then with K3's plain version in its place,
-   within 2^-5 of the largest logit; K1 at the path's (32768, 256) bf16
-   against its plain version, `F.cross_entropy` and its bound (K2 at its
+   within 2^-5 of the largest logit; K1's forward and backward at the
+   path's (32768, 256) bf16 against their plain versions, `F.cross_entropy`
+   and their bounds (K2 at its
    (32, 1024, 12, 64) and K3 at its (1, 12, 1024, 64) are checked in 4
    and 11); and `python -m
    ...benchmarks.containerbench --json` at its defaults, printed as the
@@ -299,7 +308,9 @@ which raises on failure (exit code not 0, no result line):
    launches and the phase's wall seconds. With `--worked-example` this
    phase runs alone.
 
-Phase 6 asserts that the default path launches K4 no time.
+Phase 6 asserts that the default path launches K4 no time. Every phase
+that counts K1's launches in train steps asserts one launch of its
+backward a step beside its forward's (phases 20, 23 and 28 count none).
 
 It prints the card line, one JSON line with every kernel of the paths
 (each with its design and its time over the library call's in this run,
@@ -386,11 +397,24 @@ from tritonk8ssupervisor_tpu_torch.utils.data import (
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
-# K1's f32 work per logit: max, subtract, exp, add, label compare
+# K1's f32 work per logit: max, subtract, exp, add, label compare; its
+# backward's: subtract lse, exp, subtract the one-hot, times g
 K1_OPS_PER_LOGIT = 5
+K1_BWD_OPS_PER_LOGIT = 4
 # the kernel against its plain version (same f32 arithmetic, reduced in
 # another order; exp and log on the card's fast units)
 K1_RTOL = K1_ATOL = 1e-5
+# K1's backward against its plain version, as tests/test_torch_kernels.py
+# states: in f32 the same arithmetic but for __expf (rtol 1e-5, and 1e-6 of
+# the largest |g| where exp(x - lse) - 1 cancels); in bf16 and fp16 at most
+# one ulp of the output dtype (significand bits, and the floor: fp16's
+# subnormal step, and 2^-126, below which the kernel flushes f32 to zero)
+K1_BWD_RTOL = 1e-5
+K1_BWD_G_ATOL = 1e-6
+K1_BWD_ULP = {torch.bfloat16: (8, 2.0**-126), torch.float16: (11, 2.0**-24)}
+# calls a timing of K1's plain versions takes (a yardstick; up to 6.5 ms a
+# call at the LM's shape), where the kernels and the library take 200
+K1_PLAIN_ITERS = 20
 # K2 against its plain version, relative to the reference's largest
 # magnitude (at least 1), as tests/test_torch_kernels.py states: the
 # kernel keeps scores in f32 and rounds P and dS to bf16 for the next
@@ -413,6 +437,7 @@ K4_REL_DX = 1e-2
 K4_REL_DW = 1e-3
 # a fused step's FLOP count against the default path's
 FLOPS_RTOL = 1e-3
+K1_SOURCE = "cross_entropy.cu"
 K2_SOURCE = "flash_attention.cu"
 K4_SOURCE = conv_backward_cuda.SOURCE
 K3_SOURCE = decode_attention_cuda.SOURCE
@@ -587,36 +612,111 @@ def _k1_inputs(batch: int, classes: int, seed: int, dtype: torch.dtype):
     return logits.to(dtype), labels
 
 
+def _k1_gradient_units(got: torch.Tensor, want: torch.Tensor, g: torch.Tensor) -> float:
+    """The largest |got - want| of K1's backward in units of the difference
+    it may have (K1_BWD_*): at most 1 where it agrees."""
+    a, b = got.float(), want.float()
+    if got.dtype == torch.float32:
+        allowed = K1_BWD_RTOL * b.abs() + K1_BWD_G_ATOL * g.abs().max()
+    else:
+        bits, floor = K1_BWD_ULP[got.dtype]
+        _, exponent = torch.frexp(torch.maximum(a.abs(), b.abs()))
+        allowed = torch.ldexp(torch.ones_like(a), exponent - bits).clamp_min(floor)
+    return ((a - b).abs() / allowed).max().item()
+
+
 def check_k1(batch: int, classes: int, seed: int, dtype=torch.float32) -> dict:
+    """K1's forward and backward against their plain versions at one shape,
+    with the times of each kernel, its plain version and the library's call
+    (`F.cross_entropy`, and its backward through autograd on one forward
+    built outside the timed call), and their bounds. The backward takes the
+    gradient of a mean, a stride-0 g of 1/B, as on the main paths. Returns
+    the forward's row with the backward's under "backward"."""
     logits, labels = _k1_inputs(batch, classes, seed, dtype)
-    loss, correct = ce.cross_entropy_forward(logits, labels)
+    loss, correct, lse = ce.cross_entropy_forward_kernel(logits, labels)
     torch.cuda.synchronize()
-    ref_loss, ref_correct = ce.cross_entropy_forward_plain(logits, labels)
+    ref_loss, ref_correct, ref_lse = ce.cross_entropy_forward_plain(logits, labels)
     torch.testing.assert_close(loss, ref_loss, rtol=K1_RTOL, atol=K1_ATOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=K1_RTOL, atol=K1_ATOL)
     if not torch.equal(correct, ref_correct):
         raise AssertionError(f"K1 correct flags differ at {(batch, classes)}")
     if not correct[2:6].all() or correct[:2].any():
         raise AssertionError("K1: tied labels must read correct, out-of-range incorrect")
+    g = torch.full((), 1.0 / batch, device="cuda").expand(batch)
+    dlogits = ce.cross_entropy_backward(logits, labels, lse, g)
+    torch.cuda.synchronize()
+    ref_dlogits = ce.cross_entropy_backward_plain(logits, labels, lse, g)
+    units = _k1_gradient_units(dlogits, ref_dlogits, g)
+    if not units <= 1.0:
+        raise AssertionError(f"K1's backward at {(batch, classes)} {dtype}: {units:.3g} times "
+                             "the difference it may have from its plain version")
 
     in_range = labels.clamp(0, classes - 1).long()  # the library takes only these
     times = _timings({
         "": (lambda: ce.cross_entropy_forward(logits, labels), 200),
-        "plain_": (lambda: ce.cross_entropy_forward_plain(logits, labels), 200),
+        "plain_": (lambda: ce.cross_entropy_forward_plain(logits, labels), K1_PLAIN_ITERS),
         "library_": (lambda: F.cross_entropy(logits, in_range, reduction="none"), 200),
     })
-    # each input read once, each output written once
-    n_bytes = (batch * classes * logits.element_size()
-               + batch * (labels.element_size() + 4 + 1))
+    lib_x = logits.detach().requires_grad_(True)
+    lib_loss = F.cross_entropy(lib_x, in_range, reduction="none")
+    lib_g = g.to(lib_loss.dtype)
+    btimes = _timings({
+        "": (lambda: ce.cross_entropy_backward(logits, labels, lse, g), 200),
+        "plain_": (lambda: ce.cross_entropy_backward_plain(logits, labels, lse, g),
+                   K1_PLAIN_ITERS),
+        "library_": (lambda: torch.autograd.grad(lib_loss, lib_x, lib_g, retain_graph=True),
+                     200),
+    })
+    del lib_x, lib_loss
+    # each input read once, each output written once: the forward reads the
+    # logits and labels and writes the loss, correct (1 byte) and lse; the
+    # backward reads the logits, labels, lse and g and writes the gradient
+    elem, label_bytes = logits.element_size(), labels.element_size()
+    n_bytes = batch * classes * elem + batch * (label_bytes + 4 + 1 + 4)
     bound_ms, bound_by = _bound(n_bytes, batch * classes * K1_OPS_PER_LOGIT, F32_FLOPS)
+    b_bytes = 2 * batch * classes * elem + batch * (label_bytes + 4 + 4)
+    b_bound_ms, b_bound_by = _bound(b_bytes, batch * classes * K1_BWD_OPS_PER_LOGIT, F32_FLOPS)
     return {
         "shape": [batch, classes],
         "dtype": str(dtype).removeprefix("torch."),
         "max_abs_err": _max_abs_err(loss, ref_loss),
+        "max_abs_err_lse": _max_abs_err(lse, ref_lse),
         **times,
         "kernel_ms": times["ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "backward": {
+            "shape": [batch, classes],
+            "dtype": str(dtype).removeprefix("torch."),
+            "g": "stride 0, 1/B (a mean's gradient)",
+            "max_abs_err": _max_abs_err(dlogits, ref_dlogits),
+            "max_err_in_allowed_units": units,
+            **btimes,
+            "kernel_ms": btimes["ms"],
+            "bound_ms": b_bound_ms,
+            "bound_by": b_bound_by,
+        },
     }
+
+
+def _k1_text(row: dict, card: str) -> str:
+    """K1's forward and backward at one shape, as printed."""
+    b = row["backward"]
+    return (f"K1 {row['shape']} {row['dtype']}: forward {_times_text(row, 'F.cross_entropy')}"
+            f"{_ratio_text(row, 'F.cross_entropy')}, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), max |err| loss {row['max_abs_err']:.2e} lse "
+            f"{row['max_abs_err_lse']:.2e}; backward {_times_text(b, 'F.cross_entropy backward')}"
+            f"{_ratio_text(b, 'F.cross_entropy backward')}, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), max |err| {b['max_abs_err']:.2e} "
+            f"({b['max_err_in_allowed_units']:.3f} of the allowed) on {card}")
+
+
+def _k1_part(row: dict, part: str) -> dict:
+    """One direction of a check_k1 row, for the kernels line."""
+    if part == "backward":
+        return {**row["backward"], "library_ratio": _library_ratio(row["backward"])}
+    fwd = {k: v for k, v in row.items() if k != "backward"}
+    return {**fwd, "library_ratio": _library_ratio(fwd)}
 
 
 def check_parity() -> None:
@@ -632,12 +732,13 @@ def check_parity() -> None:
                          generator=torch.Generator().manual_seed(0))
         state = train.create_train_state(model, train.default_optimizer(0.1), device)
         step = train.make_train_step(state, metrics_fn=ce.cross_entropy_loss_and_correct)
-        before = ce.cross_entropy_forward.launches
+        before = ce.cross_entropy_forward.launches, ce.cross_entropy_backward.launches
         x, y = images.to(device), labels.to(device)
         losses[device] = [step(x, y)["loss"].item() for _ in range(2)]
-        launched = ce.cross_entropy_forward.launches - before
-        if launched != (2 if device == "cuda" else 0):
-            raise AssertionError(f"K1 launched {launched} times on {device}")
+        launched = (ce.cross_entropy_forward.launches - before[0],
+                    ce.cross_entropy_backward.launches - before[1])
+        if launched != ((2, 2) if device == "cuda" else (0, 0)):
+            raise AssertionError(f"K1 forward, backward launched {launched} times on {device}")
     diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
     print(f"parity: ResNet-18 bf16 losses over 2 steps, card {losses['cuda']} "
           f"cpu {losses['cpu']}, max |diff| {diff:.2e} (tolerance {PARITY_LOSS_ATOL})",
@@ -750,14 +851,19 @@ def k2_backward_by_kernel(row: dict) -> dict:
         dout, q, k, v, out, lse, row["causal"], row["layout"]))
 
 
+def _k1_k2_counters() -> tuple:
+    """The launch counters of K1's and K2's two directions, in this order."""
+    return (ce.cross_entropy_forward, ce.cross_entropy_backward,
+            fa.flash_attention_forward, fa.flash_attention_backward)
+
+
 def check_lm_parity() -> None:
     """Two bf16 LM steps through K1 and K2 on the card against the same
     steps through their plain versions on the CPU, from one set of
     weights; the second step's loss reads the first step's update."""
     tokens = torch.randint(0, 512, (4, 128), generator=torch.Generator().manual_seed(3),
                            dtype=torch.int32)
-    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
-                fa.flash_attention_backward)
+    counters = _k1_k2_counters()
     losses = {}
     for device in ("cpu", "cuda"):
         model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
@@ -769,9 +875,10 @@ def check_lm_parity() -> None:
         x = tokens.to(device)
         losses[device] = [step(x)["loss"].item() for _ in range(2)]
         launched = [c.launches - n for c, n in zip(counters, before)]
-        expected = [2, 4, 4] if device == "cuda" else [0, 0, 0]
+        expected = [2, 2, 4, 4] if device == "cuda" else [0, 0, 0, 0]
         if launched != expected:
-            raise AssertionError(f"K1, K2 fwd, K2 bwd launched {launched} times on {device}")
+            raise AssertionError(f"K1 fwd, K1 bwd, K2 fwd, K2 bwd launched {launched} times on "
+                                 f"{device}")
     diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
     print(f"parity: LM bf16 losses over 2 steps, card {losses['cuda']} "
           f"cpu {losses['cpu']}, max |diff| {diff:.2e} (tolerance {PARITY_LOSS_ATOL})",
@@ -783,7 +890,7 @@ def check_lm_parity() -> None:
 def run_resnet50(card: str, fused_1x1_bwd: bool = False) -> dict:
     """The ResNet-50 benchmark at batch 256, the default path or the fused
     one; K1's and K4's launches and K4's layout copies counted around it."""
-    ce.cross_entropy_forward.launches = 0
+    ce.cross_entropy_forward.launches = ce.cross_entropy_backward.launches = 0
     cb.conv1x1_backward_kernel.launches = 0
     cb.conv1x1_backward.copies = 0
     torch.cuda.reset_peak_memory_stats()
@@ -791,7 +898,8 @@ def run_resnet50(card: str, fused_1x1_bwd: bool = False) -> dict:
         model_name="resnet50", batch_per_chip=256, image_size=224,
         num_classes=1000, steps=10, warmup=2, windows=2, fused_1x1_bwd=fused_1x1_bwd,
     )
-    k1, k4 = ce.cross_entropy_forward.launches, cb.conv1x1_backward_kernel.launches
+    k1, k1_bwd = ce.cross_entropy_forward.launches, ce.cross_entropy_backward.launches
+    k4 = cb.conv1x1_backward_kernel.launches
     steps = result["final_step"]
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     result["k4_copies_per_step"] = cb.conv1x1_backward.copies / steps
@@ -801,17 +909,18 @@ def run_resnet50(card: str, fused_1x1_bwd: bool = False) -> dict:
         raise AssertionError(f"{name} path: platform {result['platform']}, "
                              f"loss {result['final_loss']}")
     k4_per_step = sum(calls for *_, calls in K4_SHAPES) if fused_1x1_bwd else 0
-    if (k1, k4) != (steps, k4_per_step * steps):
-        raise AssertionError(f"{name}: K1 launched {k1} and K4 {k4} times in {steps} steps")
+    if (k1, k1_bwd, k4) != (steps, steps, k4_per_step * steps):
+        raise AssertionError(f"{name}: K1 launched {k1} + {k1_bwd} and K4 {k4} times in "
+                             f"{steps} steps")
     mfu = result["mfu"]
     print(f"main path: {name} batch 256 224x224 bf16, "
           f"{result['images_per_sec']:.1f} img/s, step {result['step_ms']:.2f} ms, "
           f"MFU {'not known' if mfu is None else f'{mfu:.4f}'} "
           f"({result['flops_per_step']:.6g} FLOP/step), peak memory "
           f"{result['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} steps: "
-          f"K1 {k1}, K4 {k4}, K4 layout copies {result['k4_copies_per_step']:g} a step, "
-          f"on {card}", flush=True)
-    return {"k1": k1, "k4": k4, **result}
+          f"K1 {k1} + {k1_bwd} (forward + backward), K4 {k4}, K4 layout copies "
+          f"{result['k4_copies_per_step']:g} a step, on {card}", flush=True)
+    return {"k1": k1, "k1_backward": k1_bwd, "k4": k4, **result}
 
 
 def check_k4(size: int, c: int, n: int, calls: int, seed: int) -> dict:
@@ -889,13 +998,14 @@ def check_fused_parity() -> None:
                        generator=torch.Generator().manual_seed(0))
         state = train.create_train_state(model, train.default_optimizer(0.1), device)
         step = train.make_train_step(state, metrics_fn=ce.cross_entropy_loss_and_correct)
-        before = cb.conv1x1_backward_kernel.launches
+        counters = (cb.conv1x1_backward_kernel, ce.cross_entropy_backward)
+        before = [c.launches for c in counters]
         x, y = images.to(device), labels.to(device)
         losses[device] = [step(x, y)["loss"].item() for _ in range(2)]
-        launched = cb.conv1x1_backward_kernel.launches - before
+        launched = [c.launches - n for c, n in zip(counters, before)]
         # Conv_0 and Conv_2 of both blocks and stage 0's shortcut, 2 steps
-        if launched != (10 if device == "cuda" else 0):
-            raise AssertionError(f"K4 launched {launched} times on {device}")
+        if launched != ([10, 2] if device == "cuda" else [0, 0]):
+            raise AssertionError(f"K4, K1 backward launched {launched} times on {device}")
     diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
     print(f"parity: fused bottleneck ResNet bf16 losses over 2 steps, card "
           f"{losses['cuda']} cpu {losses['cpu']}, max |diff| {diff:.2e} "
@@ -905,14 +1015,13 @@ def check_fused_parity() -> None:
 
 
 def run_lm(card: str) -> dict:
-    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
-                fa.flash_attention_backward)
+    counters = _k1_k2_counters()
     for counter in counters:
         counter.launches = 0
     fa.flash_attention_forward.copies = 0
     torch.cuda.reset_peak_memory_stats()
     result = lm_bench.run_benchmark(steps=10, warmup=2, windows=2)
-    k1, k2_fwd, k2_bwd = (c.launches for c in counters)
+    k1, k1_bwd, k2_fwd, k2_bwd = (c.launches for c in counters)
     copies = fa.flash_attention_forward.copies
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     print("lm: " + json.dumps(result, sort_keys=True), flush=True)
@@ -923,9 +1032,9 @@ def run_lm(card: str) -> dict:
     if result["attention"] != "flash":
         raise AssertionError(f"LM path ran {result['attention']} attention")
     layers = result["num_layers"]
-    if (k1, k2_fwd, k2_bwd) != (steps, layers * steps, layers * steps):
+    if (k1, k1_bwd, k2_fwd, k2_bwd) != (steps, steps, layers * steps, layers * steps):
         raise AssertionError(
-            f"LM path: {steps} steps launched K1 {k1}, K2 forward {k2_fwd} and "
+            f"LM path: {steps} steps launched K1 {k1} + {k1_bwd}, K2 forward {k2_fwd} and "
             f"backward {k2_bwd} times ({layers} layers)"
         )
     if copies:
@@ -936,10 +1045,10 @@ def run_lm(card: str) -> dict:
           f"MFU {'not known' if mfu is None else f'{mfu:.4f}'} "
           f"({result['flops_per_step']:.4g} FLOP/step, {result['flops_source']}), "
           f"peak memory {result['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} "
-          f"steps: K1 {k1}, K2 forward {k2_fwd}, K2 backward {k2_bwd}, K2 input copies "
-          f"{copies}, on {card}", flush=True)
-    return {"k1": k1, "k2_forward": k2_fwd, "k2_backward": k2_bwd, "k2_copies": copies,
-            "step_ms": result["step_ms"]}
+          f"steps: K1 {k1} + {k1_bwd} (forward + backward), K2 forward {k2_fwd}, K2 backward "
+          f"{k2_bwd}, K2 input copies {copies}, on {card}", flush=True)
+    return {"k1": k1, "k1_backward": k1_bwd, "k2_forward": k2_fwd, "k2_backward": k2_bwd,
+            "k2_copies": copies, "step_ms": result["step_ms"]}
 
 
 def _k3_rows(pos, b: int, w: int, length: int) -> list[int]:
@@ -1302,10 +1411,9 @@ def _count_drops(model) -> list[int]:
 def _paired_losses(label: str, make_model, batch_on, step_factory, expected: list[int]) -> None:
     """Two bf16 steps of `make_model()` on the card (through K1 and K2)
     and on the CPU (their plain versions), from one set of weights;
-    `expected` is K1's, K2's forward's and K2's backward's launches on the
+    `expected` is K1's and K2's forward's and backward's launches on the
     card. Prints the losses and the choices the MoE blocks dropped."""
-    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
-                fa.flash_attention_backward)
+    counters = _k1_k2_counters()
     losses, drops = {}, {}
     for device in ("cpu", "cuda"):
         model = make_model()
@@ -1316,9 +1424,9 @@ def _paired_losses(label: str, make_model, batch_on, step_factory, expected: lis
         batch = batch_on(device)
         losses[device] = [step(*batch)["loss"].item() for _ in range(2)]
         launched = [c.launches - n for c, n in zip(counters, before)]
-        if launched != (expected if device == "cuda" else [0, 0, 0]):
-            raise AssertionError(f"{label}: K1, K2 fwd, K2 bwd launched {launched} times "
-                                 f"on {device}")
+        if launched != (expected if device == "cuda" else [0, 0, 0, 0]):
+            raise AssertionError(f"{label}: K1 fwd, K1 bwd, K2 fwd, K2 bwd launched {launched} "
+                                 f"times on {device}")
     diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
     dropped = (f", top-k choices dropped by capacity a forward: card {drops['cuda']} cpu "
                f"{drops['cpu']}" if drops["cuda"] else "")
@@ -1343,7 +1451,7 @@ def check_moe_lm_parity() -> None:
                               max_seq_len=128, attention_fn=fa.flash_attention, moe_experts=4,
                               moe_capacity_factor=MOE_PARITY_CAPACITY_FACTOR,
                               generator=torch.Generator().manual_seed(0)),
-        lambda device: (tokens.to(device),), train.make_lm_train_step, [2, 4, 4])
+        lambda device: (tokens.to(device),), train.make_lm_train_step, [2, 2, 4, 4])
 
 
 def check_vit_parity() -> None:
@@ -1359,19 +1467,20 @@ def check_vit_parity() -> None:
                 num_classes=10, patch_size=8, num_layers=2, num_heads=2, embed_dim=128,
                 image_size=32, attention_fn=attention, generator=torch.Generator().manual_seed(0)),
             lambda device: (images.to(device), labels.to(device)), train.make_train_step,
-            [2, k2, k2])
+            [2, 2, k2, k2])
 
 
 def _counted(run):
     """run() with K1's, K2's and K4's launch counters and K2's copies set
     to 0 just before it: (its result, {counter: count just after})."""
-    ce.cross_entropy_forward.launches = 0
+    ce.cross_entropy_forward.launches = ce.cross_entropy_backward.launches = 0
     fa.flash_attention_forward.launches = fa.flash_attention_backward.launches = 0
     fa.flash_attention_forward.copies = 0
     cb.conv1x1_backward_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     result = run()
     return result, {"k1": ce.cross_entropy_forward.launches,
+                    "k1_backward": ce.cross_entropy_backward.launches,
                     "k2_forward": fa.flash_attention_forward.launches,
                     "k2_backward": fa.flash_attention_backward.launches,
                     "k2_copies": fa.flash_attention_forward.copies,
@@ -1406,7 +1515,8 @@ def run_vit(card: str) -> dict:
     if result["platform"] != "gpu" or not math.isfinite(result["final_loss"]):
         raise AssertionError(f"ViT path: platform {result['platform']}, "
                              f"loss {result['final_loss']}")
-    if (counts["k1"], counts["k2_forward"], counts["k2_backward"]) != (steps, 0, 0):
+    if (counts["k1"], counts["k1_backward"], counts["k2_forward"],
+            counts["k2_backward"]) != (steps, steps, 0, 0):
         raise AssertionError(f"ViT path: {steps} steps launched {counts}")
     mfu = result["mfu"]
     print(f"main path: ViT-S/16 batch 256 224x224 bf16, dense attention, "
@@ -1415,7 +1525,8 @@ def run_vit(card: str) -> dict:
           f"{'not known' if mfu is None else f'{mfu:.4f}'} ({result['flops_per_step']:.6g} "
           f"FLOP/step, {result['flops_source']}), peak memory "
           f"{counts['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} steps: K1 "
-          f"{counts['k1']}, K2 0, on {card}", flush=True)
+          f"{counts['k1']} + {counts['k1_backward']} (forward + backward), K2 0, on {card}",
+          flush=True)
 
     images, labels = _vit_batch()
     deltas, second = {}, {}
@@ -1451,14 +1562,15 @@ def run_vit(card: str) -> dict:
     print(f"ViT-S/16 with flash_attention (K2, non-causal, 197 tokens): step "
           f"{flash['step_ms']:.2f} ms (windows {flash['step_ms_windows']}) against dense "
           f"{result['step_ms']:.2f} ms, peak memory {fcounts['peak_memory_bytes'] / 1e9:.2f} GB, "
-          f"launches in {fsteps} steps: K1 {fcounts['k1']}, K2 forward "
+          f"launches in {fsteps} steps: K1 {fcounts['k1']} + {fcounts['k1_backward']}, K2 forward "
           f"{fcounts['k2_forward']}, backward {fcounts['k2_backward']}, K2 input copies "
           f"{fcounts['k2_copies']}, on {card}", flush=True)
     layers = 12
-    if (fcounts["k1"], fcounts["k2_forward"], fcounts["k2_backward"], fcounts["k2_copies"]) != (
-            fsteps, layers * fsteps, layers * fsteps, 0):
+    if (fcounts["k1"], fcounts["k1_backward"], fcounts["k2_forward"], fcounts["k2_backward"],
+            fcounts["k2_copies"]) != (fsteps, fsteps, layers * fsteps, layers * fsteps, 0):
         raise AssertionError(f"ViT flash path: {fsteps} steps launched {fcounts}")
-    return {"k1": counts["k1"], "k2_forward": 0, "flash_k1": fcounts["k1"],
+    return {"k1": counts["k1"], "k1_backward": counts["k1_backward"], "k2_forward": 0,
+            "flash_k1": fcounts["k1"], "flash_k1_backward": fcounts["k1_backward"],
             "flash_k2_forward": fcounts["k2_forward"],
             "flash_k2_backward": fcounts["k2_backward"], "flash_k2_copies": fcounts["k2_copies"],
             "step_ms": result["step_ms"], "flash_step_ms": flash["step_ms"],
@@ -1479,8 +1591,8 @@ def run_moe_lm(card: str) -> dict:
                              f"loss {result['final_loss']}")
     if not (math.isfinite(result["router_loss"]) and result["router_loss"] > 0):
         raise AssertionError(f"MoE LM path: router loss {result['router_loss']}")
-    if (counts["k1"], counts["k2_forward"], counts["k2_backward"], counts["k2_copies"]) != (
-            steps, layers * steps, layers * steps, 0):
+    if (counts["k1"], counts["k1_backward"], counts["k2_forward"], counts["k2_backward"],
+            counts["k2_copies"]) != (steps, steps, layers * steps, layers * steps, 0):
         raise AssertionError(f"MoE LM path: {steps} steps launched {counts}")
     mfu = result["mfu"]
     print(f"main path: MoE LM 12L/768/seq 1024/batch 8 bf16, 6 blocks of 8 experts (k 2, "
@@ -1491,8 +1603,8 @@ def run_moe_lm(card: str) -> dict:
           f"with the one-hots and the expert products at capacity, 320 slots an expert a row, "
           f"are counted), router loss of the last step {result['router_loss']:.6f}, peak memory "
           f"{counts['peak_memory_bytes'] / 1e9:.2f} GB, launches in {steps} steps: K1 "
-          f"{counts['k1']}, K2 forward {counts['k2_forward']}, backward "
-          f"{counts['k2_backward']}, K2 input copies {counts['k2_copies']}, on {card}",
+          f"{counts['k1']} + {counts['k1_backward']}, K2 forward {counts['k2_forward']}, "
+          f"backward {counts['k2_backward']}, K2 input copies {counts['k2_copies']}, on {card}",
           flush=True)
     return {**counts, "step_ms": result["step_ms"]}
 
@@ -1637,6 +1749,58 @@ def profile_breakdowns(card: str) -> dict:
               f"bound: the profiler's own host cost){shares}; by operator: " + ", ".join(
                   f"{k} {v:.3f}" for k, v in r["by_operator"].items()) + f" on {card}",
               flush=True)
+    return out
+
+
+# the autograd node of K1's backward: in the profiler, everything it launches
+K1_BACKWARD_NODE = "autograd::engine::evaluate_function: _CrossEntropyBackward"
+
+
+def profile_lm_step(card: str, steps: int = 2) -> dict:
+    """Where the LM benchmark's step (its published widths, flash
+    attention, bf16) goes on the card: the host-clock ms of 10 steps, each
+    ended by a host copy of its loss, then one step's peak memory, then
+    torch.profiler over `steps` steps: the card's busy ms a step, K1's
+    forward kernels' device ms and its backward's (the autograd node
+    `_CrossEntropyBackward` with everything it launches), each with its
+    share of the busy time. With `--lm-step-profile` this runs alone, on the
+    package beside the script (whichever design of K1 that package has)."""
+    state = train.create_train_state(_lm_model(), train.default_optimizer(MESH_LR["lm"]))
+    step = train.make_lm_train_step(state)
+    tokens = _lm_tokens()
+    step(tokens)["loss"].item()
+    times = _step_ms(step, (tokens,), 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(tokens)["loss"].item()
+    peak = torch.cuda.max_memory_allocated()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.monotonic()
+        for _ in range(steps):
+            step(tokens)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - start) / steps * 1e3
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    node = [e.device_time_total for e in rows if e.key == K1_BACKWARD_NODE]
+    k1_bwd = node[0] / steps / 1e3 if node else None
+    k1_fwd = sum(e.self_device_time_total for e in kernels
+                 if "ce_fwd" in e.key) / steps / 1e3
+    del state, step
+    torch.cuda.empty_cache()
+    out = {"step_ms_host": times, "peak_memory_bytes": peak, "wall_ms_profiled": wall,
+           "device_ms": busy, "k1_forward_device_ms": k1_fwd, "k1_backward_device_ms": k1_bwd,
+           "k1_backward_share": None if k1_bwd is None else k1_bwd / busy,
+           "k1_forward_share": k1_fwd / busy}
+    bwd = ("not measured (no _CrossEntropyBackward row)" if k1_bwd is None
+           else f"{k1_bwd:.3f} ms ({k1_bwd / busy:.1%})")
+    print(f"profile: LM step 12L/768/seq 1024/batch 8 bf16 (flash attention), host clock "
+          f"median {statistics.median(times):.2f} ms {[round(t, 2) for t in times]}, peak "
+          f"memory {peak / 1e9:.3f} GB; card busy {busy:.3f} ms a step (wall {wall:.2f} ms "
+          f"profiled), K1 forward kernels {k1_fwd:.3f} ms ({k1_fwd / busy:.1%}), K1 backward "
+          f"{bwd}, on {card}", flush=True)
     return out
 
 
@@ -1826,8 +1990,9 @@ def run_mesh_one_rank(card: str, lm_single_ms: float) -> dict:
                              "reduce": reduce}
             lm, counts = _counted(lambda: lm_bench.run_benchmark(**MESH_STEPS))
             steps = lm["final_step"]
-            if lm["num_chips"] != 1 or (counts["k1"], counts["k2_forward"],
-                                        counts["k2_backward"]) != (steps, 12 * steps, 12 * steps):
+            if lm["num_chips"] != 1 or (counts["k1"], counts["k1_backward"], counts["k2_forward"],
+                                        counts["k2_backward"]) != (
+                    steps, steps, 12 * steps, 12 * steps):
                 raise AssertionError(f"mesh LM path: {steps} steps, {lm['num_chips']} "
                                      f"ranks, launches {counts}")
             resnet, rcounts = _counted(lambda: run_benchmark(
@@ -1835,7 +2000,8 @@ def run_mesh_one_rank(card: str, lm_single_ms: float) -> dict:
                 fused_1x1_bwd=True, **MESH_STEPS))
             rsteps = resnet["final_step"]
             k4_per_step = sum(calls for *_, calls in K4_SHAPES)
-            if (rcounts["k1"], rcounts["k4"]) != (rsteps, k4_per_step * rsteps):
+            if (rcounts["k1"], rcounts["k1_backward"], rcounts["k4"]) != (
+                    rsteps, rsteps, k4_per_step * rsteps):
                 raise AssertionError(f"mesh ResNet-50 path: {rsteps} steps, launches {rcounts}")
             for label, r, c, single in (
                     ("LM 12L/768/seq 1024/batch 8", lm, counts,
@@ -1846,7 +2012,7 @@ def run_mesh_one_rank(card: str, lm_single_ms: float) -> dict:
                       f"{r['step_ms']:.2f} ms (windows {r['step_ms_windows']}) against "
                       f"{single}, final loss "
                       f"{r['final_loss']:.6f}, launches in {r['final_step']} steps: K1 "
-                      f"{c['k1']}, K2 forward {c['k2_forward']}, K2 backward "
+                      f"{c['k1']} + {c['k1_backward']}, K2 forward {c['k2_forward']}, K2 backward "
                       f"{c['k2_backward']}, K2 input copies {c['k2_copies']}, K4 {c['k4']}, "
                       f"on {card}", flush=True)
             out["lm_path"] = {**counts, "step_ms": lm["step_ms"], "steps": steps}
@@ -2002,13 +2168,14 @@ def run_pipeline_one_rank(card: str, mesh) -> dict:
     del state, step, after, ref_after, before, single
     torch.cuda.empty_cache()
     layers = 12
-    expected = (1, layers * PP_MICROBATCHES, layers * PP_MICROBATCHES)
-    got = (counts["k1"], counts["k2_forward"], counts["k2_backward"])
+    expected = (1, 1, layers * PP_MICROBATCHES, layers * PP_MICROBATCHES)
+    got = (counts["k1"], counts["k1_backward"], counts["k2_forward"], counts["k2_backward"])
     print(f"pipeline (phase 24), one rank over NCCL, LM 12L/768/seq 1024/batch 8 bf16 in "
           f"{PP_MICROBATCHES} microbatches of (2, 1024): first step loss {loss!r} against the "
           f"dense single-device step's {ref_loss!r}; first update |d_pp - d_dense| / |d_dense| "
-          f"{rel:.3e} (tolerance {VIT_UPDATE_REL}); launches in the step: K1 {got[0]}, K2 "
-          f"forward {got[1]}, backward {got[2]} (expected {expected}), K2 input copies "
+          f"{rel:.3e} (tolerance {VIT_UPDATE_REL}); launches in the step: K1 {got[0]} + "
+          f"{got[1]}, K2 forward {got[2]}, backward {got[3]} (expected {expected}), K2 input "
+          f"copies "
           f"{counts['k2_copies']}, peak memory {counts['peak_memory_bytes'] / 1e9:.2f} GB; "
           f"step ms (host clock, {PP_TIMED_STEPS} steps) pipelined median "
           f"{statistics.median(pp_ms):.2f} {[round(t, 2) for t in pp_ms]} against dense median "
@@ -2054,13 +2221,16 @@ def run_moe_seq_one_rank(card: str, mesh) -> dict:
     print(f"MoE LM with seq_axis='model' (phase 25), one rank over NCCL, 12L/768/seq 1024/batch "
           f"8 bf16, 6 blocks of 8 experts: first step {seq['metrics']} against the step without a "
           f"sequence axis {plain['metrics']}, equal to the bit (metrics and every parameter): "
-          f"{equal}, max |param diff| {diff:.3g}; launches K1 {seq['counts']['k1']}, K2 "
+          f"{equal}, max |param diff| {diff:.3g}; launches K1 {seq['counts']['k1']} + "
+          f"{seq['counts']['k1_backward']}, K2 "
           f"{seq['counts']['k2_forward']} + {seq['counts']['k2_backward']}, on {card}",
           flush=True)
     if not equal:
         raise AssertionError("MoE LM: the step with a sequence axis of one differs")
-    return {"bit_equal": equal, "metrics": seq["metrics"],
-            **{k: seq["counts"][k] for k in ("k1", "k2_forward", "k2_backward")}}
+    launches = {k: seq["counts"][k] for k in ("k1", "k1_backward", "k2_forward", "k2_backward")}
+    if tuple(launches.values()) != (1, 1, 12, 12):
+        raise AssertionError(f"MoE LM with seq_axis: launches {launches} in one step")
+    return {"bit_equal": equal, "metrics": seq["metrics"], **launches}
 
 
 def run_decode_mesh_one_rank(card: str, single: dict) -> dict:
@@ -2298,8 +2468,8 @@ def run_elastic_one_rank(card: str) -> dict:
     if (len(report["resumes"]) != 1 or report["steps_lost"] != 0 or final_step != ELASTIC_STEPS
             or ack.phases != ["notified", "resumed"] or max_diff != 0.0):
         raise AssertionError(f"elastic trainer at a world of one: {out}")
-    if (counts["k1"], counts["k2_forward"], counts["k2_backward"]) != (
-            ELASTIC_STEPS, 12 * ELASTIC_STEPS, 12 * ELASTIC_STEPS):
+    if (counts["k1"], counts["k1_backward"], counts["k2_forward"], counts["k2_backward"]) != (
+            ELASTIC_STEPS, ELASTIC_STEPS, 12 * ELASTIC_STEPS, 12 * ELASTIC_STEPS):
         raise AssertionError(f"elastic trainer: launches {counts} in {ELASTIC_STEPS} steps")
     return out
 
@@ -3106,8 +3276,8 @@ DRAIN_EVENT = "TERMINATE_ON_HOST_MAINTENANCE"
 DRAIN_RUN_TIMEOUT_S = 300
 LM_MODULE = "tritonk8ssupervisor_tpu_torch.benchmarks.lm"
 # `python -m LM_MODULE ARGS` as runpy runs it, writing K1's and K2's launch
-# counts and the seconds of each checkpoint save to $TK8S_SMOKE_COUNTS at
-# exit: the counters of the run's own process
+# counts (each direction) and the seconds of each checkpoint save to
+# $TK8S_SMOKE_COUNTS at exit: the counters of the run's own process
 LM_CHILD = f"""
 import atexit, json, os, runpy, sys, time
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce, flash_attention as fa
@@ -3120,6 +3290,7 @@ def timed_save(self, step, state):
 def report():
     with open(os.environ["TK8S_SMOKE_COUNTS"], "w") as f:
         json.dump({{"k1": ce.cross_entropy_forward.launches,
+                   "k1_backward": ce.cross_entropy_backward.launches,
                    "k2_forward": fa.flash_attention_forward.launches,
                    "k2_backward": fa.flash_attention_backward.launches,
                    "save_seconds": saves}}, f)
@@ -3290,8 +3461,9 @@ def run_maintenance_drain(card: str) -> dict:
             raise AssertionError(f"maintenance --once exited {cli_run.returncode}, wrote the "
                                  f"drain file {cli_file.exists()}: {cli_run.stderr[-2000:]}")
     counts = {k: sum(c[k] for c in (drained_counts, resumed_counts, straight_counts))
-              for k in ("k1", "k2_forward", "k2_backward")}
-    if steps != (target, target) or max(diffs) != 0.0 or 0 in counts.values():
+              for k in ("k1", "k1_backward", "k2_forward", "k2_backward")}
+    if (steps != (target, target) or max(diffs) != 0.0 or 0 in counts.values()
+            or counts["k1_backward"] != counts["k1"]):
         raise AssertionError(f"straight against drained + resumed: steps {steps}, max |diff| "
                              f"{max(diffs)}, launches {counts}")
     saves = drained_counts["save_seconds"] + resumed_counts["save_seconds"] + \
@@ -3323,7 +3495,8 @@ def run_maintenance_drain(card: str) -> dict:
           f"bit-equal to a straight run (max |diff| {max(diffs)}); checkpoint save "
           f"{statistics.mean(saves):.3f} s mean over {len(saves)}, restore "
           f"{resumed['restore_seconds']:.3f} s; step ms drained {drained['step_ms']:.2f}, resumed "
-          f"{resumed['step_ms']:.2f}, straight {straight['step_ms']:.2f}; K1 {counts['k1']}, K2 "
+          f"{resumed['step_ms']:.2f}, straight {straight['step_ms']:.2f}; K1 {counts['k1']} + "
+          f"{counts['k1_backward']}, K2 "
           f"{counts['k2_forward']} + {counts['k2_backward']} launches; maintenance --once exit "
           f"0, no drain file; {out['phase_seconds']:.1f} s; on {card}", flush=True)
     return out
@@ -3337,14 +3510,15 @@ SHIPPED_FLAGS = {
     "lm": ("--steps", "10", "--warmup", "1", "--windows", "2"),
     "resnet50": ("--fused-1x1-bwd", "--steps", "5", "--warmup", "2", "--windows", "2"),
 }
-SHIPPED_KERNEL = {"lm": K2_SOURCE, "resnet50": K4_SOURCE}  # what each workload builds
-SHIPPED_SOURCES = ["conv_backward.cu", "decode_attention.cu", "flash_attention.cu",
-                   "hopper.cuh"]
+# what each workload builds besides K1
+SHIPPED_KERNEL = {"lm": K2_SOURCE, "resnet50": K4_SOURCE}
+SHIPPED_SOURCES = ["conv_backward.cu", "cross_entropy.cu", "decode_attention.cu",
+                   "flash_attention.cu", "hopper.cuh"]
 SHIPPED_RUN_TIMEOUT_S = 600
 CONFIGMAP_LIMIT_BYTES = 1_048_576  # the API server's limit on one object
 # `python -m MODULE ARGS` of the installed package as runpy runs it, writing
 # the package it imported, the seconds of each nvcc build, the built
-# libraries' paths and K1's, K2's and K4's launch counts to
+# libraries' paths and K1's (each direction), K2's and K4's launch counts to
 # $TK8S_SMOKE_COUNTS at exit: the counters of the run's own process
 SHIPPED_CHILD = """
 import atexit, json, os, runpy, sys, time
@@ -3361,8 +3535,10 @@ def report():
     with open(os.environ["TK8S_SMOKE_COUNTS"], "w") as f:
         json.dump({"package": package.__file__, "build_seconds": builds,
                    "libraries": {s: str(cuda_build.library_path(s))
-                                 for s in ("flash_attention.cu", "conv_backward.cu")},
+                                 for s in ("cross_entropy.cu", "flash_attention.cu",
+                                           "conv_backward.cu")},
                    "k1": ce.cross_entropy_forward.launches,
+                   "k1_backward": ce.cross_entropy_backward.launches,
                    "k2_forward": fa.flash_attention_forward.launches,
                    "k2_backward": fa.flash_attention_backward.launches,
                    "k4": cb.conv1x1_backward_kernel.launches}, f)
@@ -3464,18 +3640,25 @@ def run_shipped_workload(card: str) -> dict:
             counts = json.loads(counts_file.read_text())
             runs[workload] = {"argv": argv, "report": report, "counts": counts,
                               "seconds": time.monotonic() - run_started}
-            library = pathlib.Path(counts["libraries"][SHIPPED_KERNEL[workload]])
+            libraries = [pathlib.Path(counts["libraries"][source])
+                         for source in (K1_SOURCE, SHIPPED_KERNEL[workload])]
             steps = report["final_step"]
-            launches = ((counts["k1"], counts["k2_forward"], counts["k2_backward"])
-                        if workload == "lm" else (counts["k1"], counts["k4"]))
+            launches = ((counts["k1"], counts["k1_backward"], counts["k2_forward"],
+                         counts["k2_backward"]) if workload == "lm"
+                        else (counts["k1"], counts["k1_backward"], counts["k4"]))
             layers = report.get("num_layers")
-            expected = ((steps, layers * steps, layers * steps) if workload == "lm"
-                        else (steps, sum(calls for *_, calls in K4_SHAPES) * steps))
-            if (not counts["package"].startswith(str(site)) or library.parent != csrc / "build"
-                    or not library.is_file() or launches != expected
+            expected = ((steps, steps, layers * steps, layers * steps) if workload == "lm"
+                        else (steps, steps, sum(calls for *_, calls in K4_SHAPES) * steps))
+            if (not counts["package"].startswith(str(site))
+                    or any(lib.parent != csrc / "build" or not lib.is_file()
+                           for lib in libraries)
+                    or set(counts["build_seconds"]) != {K1_SOURCE, SHIPPED_KERNEL[workload]}
+                    or launches != expected
                     or report["platform"] != "gpu" or not math.isfinite(report["final_loss"])):
                 raise AssertionError(f"{workload} Job's workload: package {counts['package']}, "
-                                     f"library {library} (exists {library.is_file()}), "
+                                     f"libraries {libraries} (exist "
+                                     f"{[lib.is_file() for lib in libraries]}), builds "
+                                     f"{counts['build_seconds']}, "
                                      f"launches {launches} against {expected}, report {report}")
         markers = root / "ckpt" / ckpt_lib.COMMIT_DIR
         committed = sorted(p.name for p in markers.iterdir()) if markers.is_dir() else []
@@ -3487,19 +3670,21 @@ def run_shipped_workload(card: str) -> dict:
         "archive_bytes": len(blob), "archive_members": len(members),
         "configmap_bytes": configmap_bytes, "install_seconds": install_s,
         "install_toolchain": toolchain,
-        "build_seconds": {**lm["counts"]["build_seconds"],
-                          **resnet["counts"]["build_seconds"]},
+        # K1 is built by the LM Job, the first to run; the ResNet-50 Job loads it
+        "build_seconds": {**resnet["counts"]["build_seconds"],
+                          **lm["counts"]["build_seconds"]},
         "lm": {"argv": lm["argv"], "step_ms": lm["report"]["step_ms"],
                "tokens_per_sec": lm["report"]["tokens_per_sec"],
                "final_step": lm["report"]["final_step"], "committed_steps": committed,
                "run_seconds": lm["seconds"],
-               "launches": {k: lm["counts"][k] for k in ("k1", "k2_forward", "k2_backward")}},
+               "launches": {k: lm["counts"][k]
+                            for k in ("k1", "k1_backward", "k2_forward", "k2_backward")}},
         "resnet50": {"argv": resnet["argv"], "step_ms": resnet["report"]["step_ms"],
                      "images_per_sec": resnet["report"]["images_per_sec"],
                      "global_batch": resnet["report"]["global_batch"],
                      "final_step": resnet["report"]["final_step"],
                      "run_seconds": resnet["seconds"],
-                     "launches": {k: resnet["counts"][k] for k in ("k1", "k4")}},
+                     "launches": {k: resnet["counts"][k] for k in ("k1", "k1_backward", "k4")}},
         "phase_seconds": time.monotonic() - started,
     }
     print("shipped workload: " + json.dumps(out, sort_keys=True), flush=True)
@@ -3510,12 +3695,14 @@ def run_shipped_workload(card: str) -> dict:
           f"wheel {'present' if toolchain['wheel'] else 'absent'}); nvcc from the installed "
           f"sources: {builds}; LM Job "
           f"12L/768/seq 1024/batch 8: step {out['lm']['step_ms']:.2f} ms, "
-          f"{out['lm']['tokens_per_sec']:.1f} tokens/s, K1 {out['lm']['launches']['k1']}, K2 "
+          f"{out['lm']['tokens_per_sec']:.1f} tokens/s, K1 {out['lm']['launches']['k1']} + "
+          f"{out['lm']['launches']['k1_backward']}, K2 "
           f"{out['lm']['launches']['k2_forward']} + {out['lm']['launches']['k2_backward']}, "
           f"step {out['lm']['final_step']} committed; ResNet-50 Job fused_1x1_bwd, batch "
           f"{out['resnet50']['global_batch']}: step "
           f"{out['resnet50']['step_ms']:.2f} ms, {out['resnet50']['images_per_sec']:.1f} img/s, "
-          f"K1 {out['resnet50']['launches']['k1']}, K4 {out['resnet50']['launches']['k4']}; "
+          f"K1 {out['resnet50']['launches']['k1']} + {out['resnet50']['launches']['k1_backward']}, "
+          f"K4 {out['resnet50']['launches']['k4']}; "
           f"{out['phase_seconds']:.1f} s; on {card}", flush=True)
     return out
 
@@ -3797,8 +3984,8 @@ def run_supervised_elastic(card: str) -> dict:
             or kinds.index(events.JOB_NOTIFIED) > kinds.index(events.JOB_RESUMED)
             or resumed_rec.get("mttr_s") is None):
         raise AssertionError(f"supervised elastic drill: ledger {kinds}")
-    if run != implied or (counts["k1"], counts["k2_forward"], counts["k2_backward"]) != (
-            run, 12 * run, 12 * run):
+    if run != implied or (counts["k1"], counts["k1_backward"], counts["k2_forward"],
+                          counts["k2_backward"]) != (run, run, 12 * run, 12 * run):
         raise AssertionError(f"supervised elastic drill: launches {counts} for {run} steps run "
                              f"({implied} implied)")
     return out
@@ -3938,13 +4125,12 @@ def run_worked_example(card: str) -> dict:
             eval_step = train.make_lm_eval_step(state)
             val = global_batch_from_local(mesh, next(corpus.batches(
                 val_ids, WORKED_BATCH, seq, seed=1)))
-            ce.cross_entropy_forward.launches = 0
-            fa.flash_attention_forward.launches = fa.flash_attention_backward.launches = 0
+            counters = _k1_k2_counters()
+            for counter in counters:
+                counter.launches = 0
             fa.flash_attention_forward.copies = 0
             val_before = float(eval_step(val)["loss"])
-            eval_counts = (ce.cross_entropy_forward.launches,
-                           fa.flash_attention_forward.launches,
-                           fa.flash_attention_backward.launches)
+            eval_counts = tuple(c.launches for c in counters)
             losses = []
             stream = prefetch_to_mesh(corpus.batches(train_ids, WORKED_BATCH, seq,
                                                      steps=WORKED_STEPS), mesh)
@@ -3954,13 +4140,12 @@ def run_worked_example(card: str) -> dict:
                     timed_from = time.monotonic()
                 losses.append(step(tokens)["loss"].detach())
                 if i == 0:
-                    first_counts = (ce.cross_entropy_forward.launches - eval_counts[0],
-                                    fa.flash_attention_forward.launches - eval_counts[1],
-                                    fa.flash_attention_backward.launches - eval_counts[2])
+                    first_counts = tuple(c.launches - n for c, n in zip(counters, eval_counts))
             torch.cuda.synchronize()
             step_ms = 1e3 * (time.monotonic() - timed_from) / (WORKED_STEPS - WORKED_TIMED_FROM)
             val_after = float(eval_step(val)["loss"])
             counts = {"k1": ce.cross_entropy_forward.launches,
+                      "k1_backward": ce.cross_entropy_backward.launches,
                       "k2_forward": fa.flash_attention_forward.launches,
                       "k2_backward": fa.flash_attention_backward.launches,
                       "k2_copies": fa.flash_attention_forward.copies}
@@ -3973,7 +4158,7 @@ def run_worked_example(card: str) -> dict:
     ppl_before, ppl = math.exp(val_before), math.exp(val_after)
     steps = len(losses)
     evals = 2
-    expected = {"k1": steps + evals, "k2_forward": layers * (steps + evals),
+    expected = {"k1": steps + evals, "k1_backward": steps, "k2_forward": layers * (steps + evals),
                 "k2_backward": layers * steps, "k2_copies": 0}
     train_s = time.monotonic() - started
 
@@ -4053,9 +4238,7 @@ def run_worked_example(card: str) -> dict:
           f"differs at {k3_path['argmax_differs']} steps (least top-2 margin "
           f"{k3_path['min_top2_margin']:.4f}); the int8 and default-cache outputs agree for "
           f"the first {same_prefix} tokens, on {card}", flush=True)
-    print(f"K1 {k1_row['shape']} {k1_row['dtype']} (the worked example's loss): "
-          f"{_times_text(k1_row, 'F.cross_entropy')}, bound {k1_row['bound_ms']:.4f} ms "
-          f"({k1_row['bound_by']}), max |err| {k1_row['max_abs_err']:.2e} on {card}", flush=True)
+    print(f"{_k1_text(k1_row, card)} (the worked example's loss)", flush=True)
     print(f"worked example launches: {counts} in {steps} train steps and {evals} eval calls "
           f"(expected {expected}); first train step {first_counts}, one eval call {eval_counts}",
           flush=True)
@@ -4067,8 +4250,8 @@ def run_worked_example(card: str) -> dict:
           f"{train_s:.1f} s)", flush=True)
     if not (last < first and val_after < val_before and math.isfinite(ppl) and ppl < 256.0):
         raise AssertionError(f"worked example did not learn: {out}")
-    if (counts != expected or first_counts != (1, layers, layers)
-            or eval_counts != (1, layers, 0)):
+    if (counts != expected or first_counts != (1, 1, layers, layers)
+            or eval_counts != (1, 0, layers, 0)):
         raise AssertionError(f"worked example launches {counts}, first step {first_counts}, "
                              f"eval {eval_counts}; expected {expected}")
     if (decode["cache_int8"]["k3"] != layers * (WORKED_NEW_TOKENS - 1)
@@ -4103,15 +4286,14 @@ def main() -> int:
     card = _card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     builds = {source: _build_in_background(source)
-              for source in (K2_SOURCE, K4_SOURCE, K3_SOURCE)}
+              for source in (K1_SOURCE, K2_SOURCE, K4_SOURCE, K3_SOURCE)}
 
+    _join_build(K1_SOURCE, builds[K1_SOURCE], started)
     k1_main = check_k1(256, 1000, seed=0)
     k1_other = [check_k1(4096, 32000, seed=1),
                 check_k1(8192, 32768, seed=2, dtype=torch.bfloat16)]
     for row in (k1_main, *k1_other):
-        print(f"K1 {row['shape']} {row['dtype']}: {_times_text(row, 'F.cross_entropy')}, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"max |err| {row['max_abs_err']:.2e} on {card}", flush=True)
+        print(_k1_text(row, card), flush=True)
 
     check_parity()
 
@@ -4241,6 +4423,7 @@ def main() -> int:
     engine_launches = run_engine(card)
     engine_step = profile_engine_step(card)
     breakdowns = profile_breakdowns(card)
+    lm_profile = profile_lm_step(card)
     slice10 = run_slice10(card, decode_single)
     slice11 = run_slice11(card)
     serving_plane = run_serving_plane(card)
@@ -4254,9 +4437,9 @@ def main() -> int:
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
     kernels = [
         {
-            "name": "cross_entropy_forward (K1)",
-            "route": "triton",
-            "source": "tritonk8ssupervisor_tpu_torch/ops/cross_entropy_triton.py",
+            "name": "cross_entropy_fwd (K1)",
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/cross_entropy.cu",
             "replaces": "tritonk8ssupervisor_tpu/ops/cross_entropy.py:56",
             "launches": lm_launches["k1"],
             "launches_by_path": {"resnet50": resnet["k1"], "lm": lm_launches["k1"],
@@ -4274,14 +4457,54 @@ def main() -> int:
                                  "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1"],
                                  "supervised_elastic_lm": supervised["launches"]["k1"],
                                  "worked_example_lm": worked["launches"]["k1"]},
-            "design": "one program per row, online logsumexp over column tiles, the label's "
-                      "logit picked in its tile; logits read once",
+            "design": "16-byte loads (one element a load where rows are not 16-byte aligned); "
+                      "rows of at most 16 loads a lane: one warp a row, 4 rows a CTA, the row in "
+                      "registers, max and sum by warp shuffles, the label's logit picked from "
+                      "its lane's registers, no shared memory or barrier; wider rows: one CTA "
+                      "of 256 threads a row, a per-thread online (max, sum) over 4 loads in "
+                      "flight, one block reduction at the end; writes loss, correct and the "
+                      "row's logsumexp",
+            "first_design": "Triton, one program per row, online logsumexp over column tiles "
+                            "with two block reductions a tile, the label's logit picked in its "
+                            "tile",
             "launch_floor_ms": floor_ms,
-            **k1_other[1],
-            "library_ratio": _library_ratio(k1_other[1]),
-            "other_shapes": [k1_main, k1_other[0],
-                             {**worked["k1"], "path": "worked example (phase 34)",
-                              "library_ratio": _library_ratio(worked["k1"])}],
+            **_k1_part(k1_other[1], "forward"),
+            "other_shapes": [_k1_part(k1_main, "forward"), _k1_part(k1_other[0], "forward"),
+                             {**_k1_part(worked["k1"], "forward"),
+                              "path": "worked example (phase 34)"}],
+        },
+        {
+            "name": "cross_entropy_bwd (K1)",
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/cross_entropy.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/cross_entropy.py:237",
+            "replaces_note": "the reference's `_dlogits`, which the TPU leaves to XLA's fusion; "
+                             "the port's plain backward before this kernel took ~7 launches",
+            "launches": lm_launches["k1_backward"],
+            "launches_by_path": {
+                "resnet50": resnet["k1_backward"], "lm": lm_launches["k1_backward"],
+                "resnet50_fused_1x1_bwd": fused["k1_backward"], "vit": vit["k1_backward"],
+                "vit_flash_attention": vit["flash_k1_backward"],
+                "moe_lm": moe_lm["k1_backward"],
+                "mesh_lm": mesh_one["lm_path"]["k1_backward"],
+                "pp_lm_first_step": slice10["pipeline"]["k1_backward"],
+                "moe_lm_seq_axis_first_step": slice10["moe_seq_axis"]["k1_backward"],
+                "mesh_resnet50_fused_1x1_bwd":
+                    mesh_one["resnet50_fused_1x1_bwd_path"]["k1_backward"],
+                "elastic_lm": slice11["elastic_one_rank"]["launches"]["k1_backward"],
+                "maintenance_drain_lm": drain["launches"]["k1_backward"],
+                "shipped_lm_job": shipped["lm"]["launches"]["k1_backward"],
+                "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1_backward"],
+                "supervised_elastic_lm": supervised["launches"]["k1_backward"],
+                "worked_example_lm": worked["launches"]["k1_backward"]},
+            "design": "one pass (exp(x - lse) - onehot) * g over the logits, read once and "
+                      "written once in their dtype with 16-byte loads and stores, over a grid "
+                      "of row groups x column chunks of up to 1024 loads (256 threads x 4 in "
+                      "flight); g read by its stride (0 from a mean)",
+            **_k1_part(k1_other[1], "backward"),
+            "other_shapes": [_k1_part(k1_main, "backward"), _k1_part(k1_other[0], "backward"),
+                             {**_k1_part(worked["k1"], "backward"),
+                              "path": "worked example (phase 34)"}],
         },
         {
             "name": "flash_attn_fwd (K2)",
@@ -4439,6 +4662,8 @@ def main() -> int:
                                     default=str), flush=True)
     print("slice 17: " + json.dumps({"worked_example": worked}, sort_keys=True, default=str),
           flush=True)
+    print("slice 18: " + json.dumps({"k1": [k1_main, *k1_other, worked["k1"]],
+                                     "lm_step_profile": lm_profile}, sort_keys=True), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -4451,6 +4676,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--lm-step-profile"]:  # that profile alone, on the package beside it
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        torch.backends.cudnn.allow_tf32 = False  # as main() runs it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        profile_lm_step(_card_line())
+        sys.exit(0)
     if sys.argv[1:] == ["--engine-step"]:  # that phase alone, e.g. on another tree's package
         if not torch.cuda.is_available():
             sys.exit(2)

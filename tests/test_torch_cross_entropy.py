@@ -14,6 +14,7 @@ import torch
 
 from tritonk8ssupervisor_tpu.ops import cross_entropy as jax_ce
 from tritonk8ssupervisor_tpu_torch.ops import cross_entropy as ce
+from tritonk8ssupervisor_tpu_torch.ops import cross_entropy_cuda
 
 
 def _inputs(batch, classes, seed, labels=None, ties=0):
@@ -122,3 +123,112 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         ce.cross_entropy_forward(meta, torch.zeros(4, dtype=torch.int32, device="meta"))
     assert ce.cross_entropy_forward.launches == before
+
+
+def _pair(batch, classes, labels, ties, seed, dtype, label_dtype):
+    """The same logits (f32, or rounded once to bf16) and labels for both
+    packages: (jax logits, jax labels, torch logits, torch labels)."""
+    logits, labels = _inputs(batch, classes, seed=seed, labels=labels, ties=ties)
+    jl = jnp.asarray(logits).astype(dtype)
+    x = torch.from_numpy(np.array(jl.astype(jnp.float32)))
+    x = x.to(torch.bfloat16) if dtype == jnp.bfloat16 else x
+    return jl, jnp.asarray(labels), x, torch.from_numpy(labels).to(label_dtype)
+
+
+DTYPES = [pytest.param(jnp.float32, id="f32"), pytest.param(jnp.bfloat16, id="bf16")]
+LABEL_DTYPES = [pytest.param(torch.int32, id="int32"), pytest.param(torch.int64, id="int64")]
+
+
+@pytest.mark.parametrize("label_dtype", LABEL_DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch,classes,labels,ties", CASES)
+def test_plain_forward_lse_matches_jax_logsumexp(batch, classes, labels, ties, dtype,
+                                                 label_dtype):
+    jl, _, x, y = _pair(batch, classes, labels, ties, batch + 2, dtype, label_dtype)
+    loss, correct, lse = ce.cross_entropy_forward_plain(x, y)
+    assert lse.dtype == torch.float32 and lse.shape == (batch,)
+    # max + log(sum(exp(x - max))) over the same f32 values on both sides
+    ref = jax.nn.logsumexp(jl.astype(jnp.float32), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref), rtol=1e-6)
+    # the public forward is the plain one's first two outputs
+    public = ce.cross_entropy_forward(x, y)
+    assert torch.equal(public[0], loss) and torch.equal(public[1], correct)
+
+
+def _bf16_ulps(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest |got - want| in units of one bf16 ulp (8 significand
+    bits) at the larger magnitude of the two."""
+    _, exponent = np.frexp(np.maximum(np.abs(got), np.abs(want)))
+    ulp = np.maximum(np.ldexp(1.0, exponent - 8), 2.0**-133)
+    return float(np.max(np.abs(got - want) / ulp))
+
+
+@pytest.mark.parametrize("label_dtype", LABEL_DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch,classes,labels,ties", CASES)
+def test_plain_backward_matches_jax_vjp(batch, classes, labels, ties, dtype, label_dtype):
+    jl, jy, x, y = _pair(batch, classes, labels, ties, batch + 3, dtype, label_dtype)
+    g = (np.random.default_rng(batch).random(batch) * 2 - 0.5).astype(np.float32)
+    g[::4] = 0.0  # rows whose loss does not count
+    _, vjp = jax.vjp(lambda lo: jax_ce.cross_entropy_loss_and_correct(lo, jy, True)[0], jl)
+    ref = np.asarray(vjp(jnp.asarray(g))[0].astype(jnp.float32))
+    lse = ce.cross_entropy_forward_plain(x, y)[2]
+    got = ce.cross_entropy_backward_plain(x, y, lse, torch.from_numpy(g))
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert not got[::4].any()
+    if dtype == jnp.float32:
+        # exp(x - lse) against softmax(x) in f32; labels outside [0, C)
+        # give a zero one-hot row on both sides
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-7)
+    else:
+        # both round the same f32 function once to bf16
+        assert _bf16_ulps(got.float().numpy(), ref) <= 1.0
+
+
+@pytest.mark.parametrize("batch,classes,labels,ties", CASES)
+def test_cpu_autograd_takes_the_plain_backward(batch, classes, labels, ties):
+    logits, labels = _inputs(batch, classes, seed=batch + 4, labels=labels, ties=ties)
+    x = torch.from_numpy(logits).requires_grad_(True)
+    y = torch.from_numpy(labels)
+    before = ce.cross_entropy_forward.launches, ce.cross_entropy_backward.launches
+    ce.cross_entropy_loss_and_correct(x, y)[0].mean().backward()
+    assert (ce.cross_entropy_forward.launches, ce.cross_entropy_backward.launches) == before
+    lse = ce.cross_entropy_forward_plain(x.detach(), y)[2]
+    g = torch.full((), 1.0 / batch).expand(batch)  # a mean's gradient: stride 0
+    assert g.stride() == (0,)
+    assert torch.equal(x.grad, ce.cross_entropy_backward_plain(x.detach(), y, lse, g))
+    assert torch.equal(x.grad, ce.cross_entropy_backward(x.detach(), y, lse, g))
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
+    before = ce.cross_entropy_backward.launches
+    rows = torch.zeros(4)
+    with pytest.raises(ValueError, match="expected logits"):
+        ce.cross_entropy_backward(torch.zeros(4), torch.zeros(4, dtype=torch.int32), rows, rows)
+    meta = torch.empty(4, 10, device="meta")
+    meta_rows = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ce.cross_entropy_backward(meta, torch.zeros(4, dtype=torch.int32, device="meta"),
+                                  meta_rows, meta_rows)
+    assert ce.cross_entropy_backward.launches == before
+
+
+@pytest.mark.parametrize("classes,elem,pointer,vec,per_lane,shift", [
+    (1000, 4, 0, 4, 8, 8),        # ResNet-50 and ViT-S/16, f32: one warp a row
+    (32768, 2, 0, 8, 0, 10),      # the LM, bf16: one CTA a row
+    (256, 2, 0, 8, 1, 5),         # the byte LM, bf16: one load a lane
+    (4096, 2, 0, 8, 16, 9),       # 8 KB bf16: the last narrow row
+    (4096, 4, 0, 4, 0, 10),       # 16 KB f32: wide
+    (2048, 2, 0, 8, 8, 8),
+    (7, 2, 0, 1, 1, 3),           # 14-byte rows: one element a load
+    (333, 2, 0, 1, 16, 9),
+    (5001, 2, 0, 1, 0, 10),
+    (1000, 4, 8, 1, 0, 10),       # a start off a 16-byte boundary: one element a load
+])
+def test_kernel_regime_from_the_shape(classes, elem, pointer, vec, per_lane, shift):
+    """K1's launch plan (`ops/cross_entropy_cuda.py`), which the card alone
+    can run: the load width, the narrow forward's loads a lane (0 = one CTA
+    a row) and the backward's chunk of a row."""
+    assert cross_entropy_cuda.elems_per_load(classes, elem, pointer) == vec
+    assert cross_entropy_cuda.loads_per_lane(classes, vec) == per_lane
+    assert cross_entropy_cuda.chunk_shift(classes, vec) == shift

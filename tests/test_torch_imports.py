@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
         "tritonk8ssupervisor_tpu_torch.benchmarks.decode, "
         "tritonk8ssupervisor_tpu_torch.serving, "
         "tritonk8ssupervisor_tpu_torch.ops.decode_attention_cuda, "
+        "tritonk8ssupervisor_tpu_torch.ops.cross_entropy_cuda, "
         "tritonk8ssupervisor_tpu_torch.models.moe, tritonk8ssupervisor_tpu_torch.models.vit, "
         "tritonk8ssupervisor_tpu_torch.parallel.checkpoint, "
         "tritonk8ssupervisor_tpu_torch.parallel.mesh, tritonk8ssupervisor_tpu_torch.parallel.spmd, "

@@ -19,14 +19,14 @@ from tritonk8ssupervisor_tpu_torch.parallel import train
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 (Triton), K2, K3 and K4 (CUDA C++) have no CPU mode")
+        pytest.skip("needs a CUDA card: K1, K2, K3 and K4 (CUDA C++) have no CPU mode")
 
 
 def _inputs(batch, classes, dtype, seed=0):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     logits = (torch.randn(batch, classes, generator=gen, device="cuda") * 4).to(dtype)
     labels = torch.randint(0, classes, (batch,), generator=gen, device="cuda")
-    labels[:2] = torch.tensor([-1, classes])
+    labels[:2] = torch.tensor([-1, classes])[:batch]
     for row in range(2, min(6, batch)):
         top = logits[row].max() + 1
         logits[row, 0] = logits[row, classes - 1] = top
@@ -34,23 +34,79 @@ def _inputs(batch, classes, dtype, seed=0):
     return logits, labels
 
 
+# K1's regimes and the edges between them: one warp a row up to 16
+# 16-byte loads a lane (C * elem <= 8 KB: (32768, 256), (4096, 2048),
+# (256, 1000) f32; (4096, 4096) bf16 at the edge, f32 past it), one CTA a
+# row beyond ((37, 5000), (8, 32000)); rows that are not whole 16-byte
+# loads take one element a load, narrow ((5, 7), (64, 333)) or wide
+# ((6, 5001)); an empty batch launches nothing
+K1_SHAPES = [(32768, 256), (4096, 2048), (4096, 4096), (256, 1000), (37, 5000), (8, 32000),
+             (5, 7), (64, 333), (6, 5001), (0, 256)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("batch,classes", [(256, 1000), (37, 5000), (8, 32000), (5, 7)])
+@pytest.mark.parametrize("batch,classes", K1_SHAPES)
 def test_k1_matches_plain_version(batch, classes, dtype, label_dtype):
     _card()
     logits, labels = _inputs(batch, classes, dtype)
     labels = labels.to(label_dtype)
     before = ce.cross_entropy_forward.launches
-    loss, correct = ce.cross_entropy_forward(logits, labels)
+    loss, correct, lse = ce.cross_entropy_forward_kernel(logits, labels)
     torch.cuda.synchronize()
-    assert ce.cross_entropy_forward.launches == before + 1
-    ref_loss, ref_correct = ce.cross_entropy_forward_plain(logits, labels)
-    # the same f32 arithmetic reduced in another order: 1e-5
+    assert ce.cross_entropy_forward.launches == before + (1 if batch else 0)
+    ref_loss, ref_correct, ref_lse = ce.cross_entropy_forward_plain(logits, labels)
+    # the same f32 arithmetic reduced in another order, exp and log on the
+    # card's fast units (--use_fast_math): 1e-5
     torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     assert torch.equal(correct, ref_correct)
     assert correct[2:6].all() and not correct[:2].any()
+    assert torch.equal(ce.cross_entropy_forward(logits, labels)[0], loss)
+
+
+def _assert_k1_gradient_close(got, want, g):
+    """K1's backward against its plain version. f32: the same arithmetic
+    but for `__expf` (--use_fast_math), whose error is a few ulps plus
+    |x - lse| * 2^-24 relative: rtol 1e-5, and 1e-6 of the largest |g|
+    where exp(x - lse) - 1 cancels. bf16 and fp16: the f32 values differ
+    by far less than the output's rounding step, so the stored values
+    differ by at most one ulp of the output dtype (floored at fp16's
+    subnormal step and at 2^-126, below which the kernel flushes f32 to
+    zero)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        atol = 1e-6 * g.abs().max().item() if g.numel() else 0.0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+        return
+    bits, floor = {torch.bfloat16: (8, 2.0**-126), torch.float16: (11, 2.0**-24)}[got.dtype]
+    a, b = got.float(), want.float()
+    _, exponent = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), exponent - bits).clamp_min(floor)
+    worst = ((a - b).abs() / ulp).max().item() if a.numel() else 0.0
+    assert worst <= 1.0, f"{worst} ulps"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("batch,classes", K1_SHAPES)
+def test_k1_backward_matches_plain_version(batch, classes, dtype, label_dtype):
+    _card()
+    logits, labels = _inputs(batch, classes, dtype, seed=1)
+    labels = labels.to(label_dtype)
+    lse = ce.cross_entropy_forward_plain(logits, labels)[2]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = torch.rand(batch, generator=gen, device="cuda") - 0.25
+    rows[::3] = 0.0
+    # the gradient of a mean (stride 0), and a g that differs by row, 0 on some
+    for g in (torch.full((), 1.0 / max(batch, 1), device="cuda").expand(batch), rows):
+        before = ce.cross_entropy_backward.launches
+        got = ce.cross_entropy_backward(logits, labels, lse, g)
+        torch.cuda.synchronize()
+        assert ce.cross_entropy_backward.launches == before + (1 if batch else 0)
+        _assert_k1_gradient_close(got, ce.cross_entropy_backward_plain(logits, labels, lse, g), g)
 
 
 @pytest.mark.cuda
@@ -63,6 +119,14 @@ def test_k1_wrapper_raises_on_what_it_does_not_take():
         ce.cross_entropy_forward(logits.double(), labels)
     with pytest.raises(ValueError, match="CUDA"):
         ce.cross_entropy_forward(logits, labels.cpu())
+    lse = ce.cross_entropy_forward_plain(logits, labels)[2]
+    g = torch.ones(16, device="cuda")
+    with pytest.raises(TypeError):
+        ce.cross_entropy_backward(logits, labels, lse, g.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        ce.cross_entropy_backward(logits, labels, lse.cpu(), g)
+    with pytest.raises(ValueError, match=r"\(B,\)"):
+        ce.cross_entropy_backward(logits, labels, lse[:8], g)
 
 
 @pytest.mark.cuda
@@ -71,7 +135,9 @@ def test_k1_gradient_matches_reference():
     logits, labels = _inputs(64, 1000, torch.float32, seed=3)
     labels = labels.clamp(0, 999)
     x = logits.clone().requires_grad_(True)
+    before = ce.cross_entropy_backward.launches
     ce.cross_entropy_loss(x, labels).mean().backward()
+    assert ce.cross_entropy_backward.launches == before + 1
     y = logits.clone().requires_grad_(True)
     ce.cross_entropy_loss_reference(y, labels).mean().backward()
     torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-7)
@@ -86,23 +152,28 @@ def test_train_step_on_card_goes_through_k1():
     gen = torch.Generator(device="cuda").manual_seed(0)
     images = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
     labels = torch.randint(0, 10, (8,), generator=gen, device="cuda")
-    before = ce.cross_entropy_forward.launches
+    before = ce.cross_entropy_forward.launches, ce.cross_entropy_backward.launches
     metrics = step(images, labels)
     assert torch.isfinite(metrics["loss"])
-    assert ce.cross_entropy_forward.launches == before + 1
+    assert (ce.cross_entropy_forward.launches,
+            ce.cross_entropy_backward.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
 def test_k1_bf16_at_the_lm_shape():
     _card()
     logits, labels = _inputs(8192, 32768, torch.bfloat16, seed=4)
-    loss, correct = ce.cross_entropy_forward(logits, labels.int())
+    loss, correct, lse = ce.cross_entropy_forward_kernel(logits, labels.int())
     torch.cuda.synchronize()
-    ref_loss, ref_correct = ce.cross_entropy_forward_plain(logits, labels.int())
+    ref_loss, ref_correct, ref_lse = ce.cross_entropy_forward_plain(logits, labels.int())
     # the same bf16 values upcast to f32 on both sides, reduced in
     # another order over 32768 columns: 1e-5
     torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     assert torch.equal(correct, ref_correct)
+    g = torch.full((), 1.0 / 8192, device="cuda").expand(8192)
+    got = ce.cross_entropy_backward(logits, labels.int(), lse, g)
+    _assert_k1_gradient_close(got, ce.cross_entropy_backward_plain(logits, labels.int(), lse, g), g)
 
 
 # K2: bf16/fp16 kernel against the plain version. Tolerances are taken
@@ -333,12 +404,12 @@ def test_lm_train_step_on_card_goes_through_k1_and_k2():
     step = train.make_lm_train_step(state)
     gen = torch.Generator(device="cuda").manual_seed(0)
     tokens = torch.randint(0, 512, (4, 128), generator=gen, device="cuda", dtype=torch.int32)
-    counts = (ce.cross_entropy_forward.launches, fa.flash_attention_forward.launches,
-              fa.flash_attention_backward.launches)
+    counters = (ce.cross_entropy_forward, ce.cross_entropy_backward, fa.flash_attention_forward,
+                fa.flash_attention_backward)
+    counts = [c.launches for c in counters]
     metrics = step(tokens)
     assert torch.isfinite(metrics["loss"])
-    assert (ce.cross_entropy_forward.launches, fa.flash_attention_forward.launches,
-            fa.flash_attention_backward.launches) == (counts[0] + 1, counts[1] + 2, counts[2] + 2)
+    assert [c.launches - n for c, n in zip(counters, counts)] == [1, 1, 2, 2]
 
 
 @pytest.mark.cuda
@@ -526,12 +597,14 @@ def test_resnet_step_on_card_launches_k4_per_stride1_1x1_conv():
     gen = torch.Generator(device="cuda").manual_seed(0)
     images = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
     labels = torch.randint(0, 10, (8,), generator=gen, device="cuda")
-    before = cb.conv1x1_backward_kernel.launches, ce.cross_entropy_forward.launches
+    before = (cb.conv1x1_backward_kernel.launches, ce.cross_entropy_forward.launches,
+              ce.cross_entropy_backward.launches)
     metrics = step(images, labels)
     assert torch.isfinite(metrics["loss"])
     # Conv_0 and Conv_2 of both blocks and stage 0's stride-1 shortcut
     assert cb.conv1x1_backward_kernel.launches == before[0] + 5
     assert ce.cross_entropy_forward.launches == before[1] + 1
+    assert ce.cross_entropy_backward.launches == before[2] + 1
 
 
 # K3: the int8-KV decode attention against its plain version on the same
@@ -814,10 +887,11 @@ def test_k2_at_the_vit_shape_reads_the_qkv_views_in_place(b, h):
 def _paired_steps(make_model, batch, steps=2):
     """`steps` train steps of one model through K1 and K2 and of its twin
     (same seed) through their plain versions, both on the card: the
-    losses, and K1's, K2's and K2's copies' counts of the kernel run."""
+    losses, and K1's (forward, backward), K2's and K2's copies' counts of
+    the kernel run."""
     from tritonk8ssupervisor_tpu_torch.models.transformer import dense_attention
 
-    counters = (ce.cross_entropy_forward, fa.flash_attention_forward,
+    counters = (ce.cross_entropy_forward, ce.cross_entropy_backward, fa.flash_attention_forward,
                 fa.flash_attention_backward)
     out = {}
     for name, attention, metrics_fn in (
@@ -855,7 +929,7 @@ def test_moe_lm_step_through_k1_and_k2_matches_the_plain_versions():
                            dtype=torch.int32).cuda()
     runs = _paired_steps(make, tokens)
     (k_loss, k_metrics, k_counts), (p_loss, p_metrics, p_counts) = runs["kernels"], runs["plain"]
-    assert k_counts == [2, 4, 4, 0] and p_counts == [0, 0, 0, 0]
+    assert k_counts == [2, 2, 4, 4, 0] and p_counts == [0, 0, 0, 0, 0]
     torch.testing.assert_close(torch.tensor(k_loss), torch.tensor(p_loss), rtol=0, atol=2e-2)
     assert k_metrics["router_loss"].item() > 0 and p_metrics["router_loss"].item() > 0
 
@@ -878,7 +952,7 @@ def test_vit_step_through_k1_and_k2_matches_the_plain_versions():
              torch.randint(0, 10, (8,), generator=gen, dtype=torch.int32).cuda())
     runs = _paired_steps(make, batch)
     (k_loss, _, k_counts), (p_loss, _, p_counts) = runs["kernels"], runs["plain"]
-    assert k_counts == [2, 4, 4, 0] and p_counts == [0, 0, 0, 0]
+    assert k_counts == [2, 2, 4, 4, 0] and p_counts == [0, 0, 0, 0, 0]
     torch.testing.assert_close(torch.tensor(k_loss), torch.tensor(p_loss), rtol=0, atol=2e-2)
 
 

@@ -9,6 +9,8 @@ from tritonk8ssupervisor_tpu_torch.ops.conv_backward import (
     conv1x1_backward_plain,
 )
 from tritonk8ssupervisor_tpu_torch.ops.cross_entropy import (
+    cross_entropy_backward,
+    cross_entropy_backward_plain,
     cross_entropy_forward,
     cross_entropy_forward_plain,
     cross_entropy_loss,
@@ -34,6 +36,8 @@ __all__ = [
     "conv1x1_backward",
     "conv1x1_backward_kernel",
     "conv1x1_backward_plain",
+    "cross_entropy_backward",
+    "cross_entropy_backward_plain",
     "cross_entropy_forward",
     "cross_entropy_forward_plain",
     "cross_entropy_loss",

@@ -306,7 +306,29 @@ which raises on failure (exit code not 0, no result line):
    card machine's host numbers. It prints the step ms and tokens/s, the
    losses and perplexity, the decode ms a token with each cache, the
    launches and the phase's wall seconds. With `--worked-example` this
-   phase runs alone.
+   phase runs alone;
+35. provisioning through the wizard, the compiled LM Job on the card and
+   its roofline: in a stub world (`gcloud`, `terraform`, `kubectl`, `ssh`,
+   `ssh-keygen` and `ansible-playbook` as `sh` scripts on PATH, standing
+   in for the cloud, never for the card), the port's `cli.main` with no
+   command and the wizard's answers for a GKE cluster of one v5e 2x2
+   slice, `--bench-workload lm` and phase 32's LM flags plus `--profile
+   DIR`: "Cluster is ready", the config, hosts.json and the three
+   manifests, a compacted journal; a second run that resumes with every
+   task skipped; `--show-config`'s rows; `-c --yes`, after which the state
+   is gone. Then the bench Job's workload, read from the manifests
+   provisioning wrote, runs on the card from the checkout (the LM at the
+   reference's widths: 12 layers, 12 heads of 64, embed 768, vocab 32768,
+   seq 1024, batch 8) with K1's and K2's launches counted by phase 32's
+   `runpy` wrapper: K1 once each way and K2 12 + 12 times a step. Last
+   `python -m tritonk8ssupervisor_tpu_torch.utils.roofline DIR` (text and
+   `--json`) over the Job's profile, printed; the roofline's device time
+   within 2% of the profile's busy time, K1's forward operator's bytes
+   exactly its cost function's at (8192, 32768) bf16, K2's FLOPs exactly
+   12 times its formulas' at (8, 1024, 12, 64) causal, no kernel above
+   105% of the tensor-core peak, and none above 105% of the memory peak
+   but those whose traffic a call fits in the L2 (printed). With
+   `--provision-roofline` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time. Every phase
 that counts K1's launches in train steps asserts one launch of its
@@ -385,22 +407,22 @@ from tritonk8ssupervisor_tpu_torch.serving import gateway as gateway_mod
 from tritonk8ssupervisor_tpu_torch.testing import chaos
 from tritonk8ssupervisor_tpu_torch.testing.simclock import SimClock
 from tritonk8ssupervisor_tpu_torch.serving.gateway import Request
-from tritonk8ssupervisor_tpu_torch.utils import corpus, perf
+from tritonk8ssupervisor_tpu_torch.utils import corpus, perf, roofline
 from tritonk8ssupervisor_tpu_torch.utils.data import (
     batch_shard,
     global_batch_from_local,
     prefetch_to_mesh,
 )
 
-# H100 SXM data sheet: device memory rate, f32 rate outside the tensor
-# cores (K1's bound), dense bf16/fp16 tensor-core rate (K2's bound)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-# K1's f32 work per logit: max, subtract, exp, add, label compare; its
-# backward's: subtract lse, exp, subtract the one-hot, times g
-K1_OPS_PER_LOGIT = 5
-K1_BWD_OPS_PER_LOGIT = 4
+# H100 SXM data sheet, from the port's peak tables: device memory rate,
+# f32 rate outside the tensor cores (K1's and K3's bounds), dense bf16/fp16
+# tensor-core rate (K2's and K4's bounds). Each kernel's bytes and
+# operations come from its module's cost function, which utils/roofline.py
+# reads too.
+H100 = "NVIDIA H100 80GB HBM3"
+HBM_BYTES_PER_S = roofline.PEAK_HBM_BYTES[H100]
+F32_FLOPS = roofline.PEAK_F32_FLOPS[H100]
+BF16_FLOPS = perf.PEAK_BF16_FLOPS[H100]
 # the kernel against its plain version (same f32 arithmetic, reduced in
 # another order; exp and log on the card's fast units)
 K1_RTOL = K1_ATOL = 1e-5
@@ -578,10 +600,9 @@ def _max_abs_err(actual: torch.Tensor, expected: torch.Tensor) -> float:
     return torch.where(same_inf, 0.0, (actual - expected).abs()).max().item()
 
 
-def _bound(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / peak_flops * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+def _bound(cost: tuple[int, int], peak_flops: float) -> tuple[float, str]:
+    """(bound ms, what sets it) of a kernel's (bytes, operations)."""
+    return roofline.bound_ms(*cost, HBM_BYTES_PER_S, peak_flops)
 
 
 def _library_ratio(r: dict) -> float | None:
@@ -668,14 +689,12 @@ def check_k1(batch: int, classes: int, seed: int, dtype=torch.float32) -> dict:
                      200),
     })
     del lib_x, lib_loss
-    # each input read once, each output written once: the forward reads the
-    # logits and labels and writes the loss, correct (1 byte) and lse; the
-    # backward reads the logits, labels, lse and g and writes the gradient
+    # each input read once, each output written once (ce.forward_cost,
+    # ce.backward_cost)
     elem, label_bytes = logits.element_size(), labels.element_size()
-    n_bytes = batch * classes * elem + batch * (label_bytes + 4 + 1 + 4)
-    bound_ms, bound_by = _bound(n_bytes, batch * classes * K1_OPS_PER_LOGIT, F32_FLOPS)
-    b_bytes = 2 * batch * classes * elem + batch * (label_bytes + 4 + 4)
-    b_bound_ms, b_bound_by = _bound(b_bytes, batch * classes * K1_BWD_OPS_PER_LOGIT, F32_FLOPS)
+    bound_ms, bound_by = _bound(ce.forward_cost(batch, classes, elem, label_bytes), F32_FLOPS)
+    b_bound_ms, b_bound_by = _bound(ce.backward_cost(batch, classes, elem, label_bytes),
+                                    F32_FLOPS)
     return {
         "shape": [batch, classes],
         "dtype": str(dtype).removeprefix("torch."),
@@ -821,13 +840,12 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
                              for name, calls in grads.items()}),
     }
 
-    pairs = s * (s + 1) // 2 if causal else s * s
-    n, elem = b * s * h * d, q.element_size()
     # forward: q, k, v read, O and the f32 logsumexp written; backward:
     # q, k, v, O, dO and the logsumexp read, dq, dk, dv written, and five
     # products (the kernel recomputes P) against the forward's two
-    fwd_bound, fwd_by = _bound(4 * n * elem + b * h * s * 4, 4 * b * h * d * pairs, BF16_FLOPS)
-    bwd_bound, bwd_by = _bound(8 * n * elem + b * h * s * 4, 10 * b * h * d * pairs, BF16_FLOPS)
+    elem = q.element_size()
+    fwd_bound, fwd_by = _bound(fa.forward_cost(b, h, s, d, causal, elem), BF16_FLOPS)
+    bwd_bound, bwd_by = _bound(fa.backward_cost(b, h, s, d, causal, elem), BF16_FLOPS)
     return {
         "shape": list(shape), "layout": layout, "causal": causal, "seed": seed,
         "dtype": str(dtype).removeprefix("torch."),
@@ -974,8 +992,7 @@ def check_k4(size: int, c: int, n: int, calls: int, seed: int) -> dict:
         part = next((p for p in ("dgrad", "wgrad", "reduce") if p in key), "other")
         parts[part] = parts.get(part, 0.0) + ms
     # X, dY and W read once; dX (bf16) and dW (f32) written once
-    n_bytes = 2 * (m * c + m * n + n * c) + 2 * m * c + 4 * n * c
-    bound_ms, bound_by = _bound(n_bytes, 4 * m * c * n, BF16_FLOPS)
+    bound_ms, bound_by = _bound(cb.backward_cost(m, c, n, 2), BF16_FLOPS)
     return {
         "shape": [m, c, n], "calls_per_step": calls, "dtype": "bfloat16",
         "max_abs_err": err_dx, "max_abs_err_dw": err_dw,
@@ -1115,12 +1132,11 @@ def check_k3(label: str, b: int, w: int, h: int, length: int, d: int, pos,
     positions = sum(_k3_rows(pos, b, w, length))
     # int8 K and V rows and their f32 scales read once for the positions
     # the queries attend (and the page ids of those positions), q read, out
-    # written; 4 D operations a position a query (the two products) and
-    # ~10 for the scale, mask and softmax
-    n_bytes = h * positions * (2 * d + 2 * 4) + 2 * q.numel() * q.element_size()
-    if tables is not None:
-        n_bytes += 4 * sum(-(-n // K3_PAGE_SIZE) for n in _k3_rows(pos, b, w, length))
-    bound_ms, bound_by = _bound(n_bytes, w * h * positions * (4 * d + 10), F32_FLOPS)
+    # written (da.cost)
+    page_ids = (0 if tables is None else
+                sum(-(-n // K3_PAGE_SIZE) for n in _k3_rows(pos, b, w, length)))
+    bound_ms, bound_by = _bound(
+        da.cost(h, d, w, positions, q.numel() * q.element_size(), page_ids), F32_FLOPS)
     return {
         "label": label, "shape": [b, w, h, length, d], "layout": layout,
         "dtype": str(dtype).removeprefix("torch."), "pos": pos,
@@ -1693,8 +1709,7 @@ def _profile_step(step, steps: int = 2):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - start) / steps * 1e3
     rows = prof.key_averages(group_by_input_shape=True)
-    busy = sum(e.self_device_time_total for e in rows
-               if e.device_type == torch.autograd.DeviceType.CUDA) / steps / 1e3
+    busy = sum(e.self_device_time_total for e in perf.card_work(rows)) / steps / 1e3
     ops = [e for e in rows if e.device_type == torch.autograd.DeviceType.CPU
            and e.self_device_time_total > 0]
     return wall_ms, busy, ops
@@ -1782,7 +1797,7 @@ def profile_lm_step(card: str, steps: int = 2) -> dict:
         torch.cuda.synchronize()
         wall = (time.monotonic() - start) / steps * 1e3
     rows = prof.key_averages()
-    kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = perf.card_work(rows)
     busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
     node = [e.device_time_total for e in rows if e.key == K1_BACKWARD_NODE]
     k1_bwd = node[0] / steps / 1e3 if node else None
@@ -4262,6 +4277,295 @@ def run_worked_example(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: provisioning through the wizard, the compiled LM Job, its roofline
+
+# the cloud's command-line tools as sh stubs that log their calls (the
+# recipe of tests/test_torch_cli_provision.py): they stand in for GCP,
+# which the card machine cannot reach, never for the card
+PROVISION_STUBS = {
+    "terraform": """#!/bin/sh
+echo "terraform $*" >> "$CALLS_LOG"
+case "$1" in
+  apply) echo '{"resources": [{"type": "google_container_node_pool"}]}' > terraform.tfstate ;;
+  output) echo '{"host_ips": {"value": [["10.0.0.1"]]}}' ;;
+  destroy) rm -f terraform.tfstate ;;
+esac
+""",
+    "ansible-playbook": '#!/bin/sh\necho "ansible-playbook $*" >> "$CALLS_LOG"\n',
+    "gcloud": """#!/bin/sh
+echo "gcloud $*" >> "$CALLS_LOG"
+case "$*" in
+  "config get-value project") echo smoke-proj ;;
+  "config get-value account") echo smoke@stub.test ;;
+esac
+""",
+    "ssh-keygen": '#!/bin/sh\necho "ssh-keygen $*" >> "$CALLS_LOG"\n',
+    "ssh": '#!/bin/sh\necho "ssh $*" >> "$CALLS_LOG"\n',
+    "kubectl": """#!/bin/sh
+echo "kubectl $*" >> "$CALLS_LOG"
+echo '{"items": [{"metadata": {"name": "n1"}, "status": {"allocatable": {"google.com/tpu": "4"}, "conditions": [{"type": "Ready", "status": "True"}]}}]}'
+""",
+}
+# the wizard's answers in its order (project, env name, env description,
+# cluster name, node prefix, mode, generation, topology, slices, zone,
+# network, subnetwork): a GKE cluster, the catalog's defaults (one v5e 2x2
+# slice, one host); then "yes" at the verification gate
+PROVISION_ANSWERS = ["", "", "", "smoke-cluster", "", "1", "", "", "", "", "", "", "yes"]
+PROVISION_TASKS = ["terraform-apply", "compile-manifests", "host-configuration",
+                   "readiness-wait"]
+PROVISION_MANIFESTS = ["bench-job-0.yaml", "bench-service.yaml", "package-configmap.yaml"]
+ROOFLINE_BUSY_RTOL = 0.02  # the roofline's device time against summary.json's busy time
+# no kernel may read above this share of the tensor-core peak, nor of the
+# memory peak where its traffic a call exceeds the L2: smaller operands can
+# be served from the L2 (the residual stream's add reads 3 x 12.6 MB that
+# the step wrote just before, at 3.6-3.9 TB/s on the H100)
+ROOFLINE_PEAK_CAP = 1.05
+LM_K2_SHAPE = (8, 12, 1024, 64)  # (batch, heads, seq, head_dim) of the LM
+
+
+@contextlib.contextmanager
+def _stub_world(root: pathlib.Path):
+    """PATH, HOME, CALLS_LOG and a deterministic retry for the duration,
+    then the process environment as it was."""
+    bin_dir = root / "bin"
+    bin_dir.mkdir()
+    for name, body in PROVISION_STUBS.items():
+        (bin_dir / name).write_text(body)
+        (bin_dir / name).chmod(0o755)
+    (root / "home" / ".ssh").mkdir(parents=True)
+    (root / "home" / ".ssh" / "id_rsa").write_text("stub-key\n")
+    saved = dict(os.environ)
+    os.environ.update(PATH=f"{bin_dir}:{saved.get('PATH', '')}", HOME=str(root / "home"),
+                      CALLS_LOG=str(root / "calls.log"), TK8S_SSH_USER="smoke",
+                      TK8S_RETRY_BASE_DELAY="0.01", TK8S_RETRY_MAX_DELAY="0.02")
+    for name in ("TK8S_FAULT_PLAN", "TK8S_BENCH_WORKLOAD", "TK8S_BENCH_FLAGS",
+                 "TK8S_CHECKPOINT_DIR", "BENCH_IMAGE", "TK8S_SCHED_WORKERS"):
+        os.environ.pop(name, None)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def _cli(argv: list[str], answers: list[str], calls_log: pathlib.Path) -> tuple:
+    """cli.main(argv) with `answers` on its prompter: (exit code, stdout,
+    stderr, the stub calls it made)."""
+    from tritonk8ssupervisor_tpu_torch.cli.io import Prompter
+
+    calls_log.write_text("")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv, Prompter(io.StringIO("".join(f"{a}\n" for a in answers)), out))
+    return rc, out.getvalue(), err.getvalue(), calls_log.read_text().splitlines()
+
+
+def provision_lm_job(root: pathlib.Path, profile_dir: pathlib.Path) -> dict:
+    """Phase 35's provisioning half in the stub world: the wizard, the
+    resume, --show-config and -c; returns the bench Job it compiled."""
+    from tritonk8ssupervisor_tpu_torch.cli import wizard
+    from tritonk8ssupervisor_tpu_torch.config import store
+
+    work = root / "repo"
+    for sub in ("terraform/tpu-vm", "terraform/gke", "ansible"):
+        (work / sub).mkdir(parents=True)
+    (work / "ansible" / "ansible.cfg").write_text(
+        "[defaults]\nhost_key_checking = False\nprivate_key_file =\n")
+    (work / "ansible" / "clusterUp.yml").write_text("[]\n")
+    paths = RunPaths(work)
+    calls_log = root / "calls.log"
+    flags = " ".join([*SHIPPED_FLAGS["lm"], "--profile", str(profile_dir)])
+    argv = ["--workdir", str(work), "--bench-workload", "lm", "--bench-flags", flags]
+    with _stub_world(root):
+        started = time.monotonic()
+        rc, out, err, calls = _cli(argv, PROVISION_ANSWERS, calls_log)
+        provision_s = time.monotonic() - started
+        manifests = sorted(p.name for p in paths.manifests_dir.iterdir())
+        journal = [json.loads(line) for line in paths.journal.read_text().splitlines()]
+        config = store.load_config_file(paths.config_file)
+        if (rc != 0 or "Cluster is ready" not in out or "Verify the configuration:" not in out
+                or config.mode != "gke" or config.cluster_name != "smoke-cluster"
+                or not paths.hosts_file.is_file() or manifests != PROVISION_MANIFESTS
+                or sorted(r["task"] for r in journal) != sorted(PROVISION_TASKS)
+                or {r["status"] for r in journal} != {"done"}
+                or not any(c.startswith("terraform apply") for c in calls)
+                or not any(c.startswith("kubectl get nodes") for c in calls)):
+            raise AssertionError(f"provision through the wizard exited {rc}, manifests "
+                                 f"{manifests}, journal {journal}, calls {calls}: "
+                                 f"{out[-3000:]} {err[-3000:]}")
+        job = yaml.safe_load((paths.manifests_dir / "bench-job-0.yaml").read_text())
+
+        resumed = _cli(argv, ["yes"], calls_log)
+        skipped = resumed[2].count("journal-verified; skipping")
+        if (resumed[0] != 0 or "Previous run detected" not in resumed[1]
+                or skipped != len(PROVISION_TASKS)
+                or [c for c in resumed[3] if not c.startswith("gcloud ")]):
+            raise AssertionError(f"the resumed provision exited {resumed[0]}, skipped "
+                                 f"{skipped} of {len(PROVISION_TASKS)} tasks, calls "
+                                 f"{resumed[3]}: {resumed[1][-2000:]} {resumed[2][-2000:]}")
+
+        shown = _cli(["--show-config", "--workdir", str(work)], [], calls_log)
+        rows = wizard.config_rows(config)
+        if shown[0] != 0 or not all(f"  {label:<24} {value}" in shown[1]
+                                    for label, value in rows):
+            raise AssertionError(f"--show-config exited {shown[0]}: {shown[1]}")
+
+        cleaned = _cli(["-c", "--yes", "--workdir", str(work)], [], calls_log)
+        left = [p for p in (paths.config_file, paths.hosts_file, paths.journal,
+                            paths.tfstate("gke"), paths.manifests_dir) if p.exists()]
+        if (cleaned[0] != 0 or left
+                or not any(c.startswith("terraform destroy") for c in cleaned[3])):
+            raise AssertionError(f"-c --yes exited {cleaned[0]}, left {left}, calls "
+                                 f"{cleaned[3]}: {cleaned[1][-2000:]}")
+    return {"job": job, "provision_seconds": provision_s, "tasks_skipped_on_resume": skipped,
+            "show_config_rows": len(rows), "stub_calls": len(calls),
+            "transcript_lines": len(out.splitlines())}
+
+
+def check_lm_roofline(profile_dir: pathlib.Path) -> dict:
+    """The roofline of the Job's profiled step, from the port's CLI (text
+    and --json, printed) and in process, held to its checks."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    runs = {}
+    for name, flags in (("text", []), ("json", ["--json"])):
+        out = subprocess.run([sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.utils.roofline",
+                              str(profile_dir), *flags], cwd=root, env=env, capture_output=True,
+                             text=True, timeout=300)
+        if out.returncode:
+            raise AssertionError(f"roofline {flags} exited {out.returncode}: {out.stderr}")
+        runs[name] = out.stdout
+    for line in runs["text"].splitlines():
+        print(f"roofline: {line}", flush=True)
+    as_json = json.loads(runs["json"])
+    report = roofline.analyze(str(profile_dir))
+    summary = json.loads((profile_dir / "summary.json").read_text())
+    busy = summary["device_busy_ms"]
+
+    def by(category: str) -> tuple[float, float, float, int]:
+        ops = [op for op in report.ops if op.category == category]
+        return (sum(op.duration_ms for op in ops), sum(op.bytes_accessed for op in ops),
+                sum(op.flops for op in ops), sum(op.occurrences for op in ops))
+
+    k1 = by("tk8s::cross_entropy_fwd")
+    k1_bwd = by("tk8s::cross_entropy_bwd")
+    k2, k2_bwd = by("tk8s::flash_attn_fwd"), by("tk8s::flash_attn_bwd")
+    b, h, s, d = LM_K2_SHAPE
+    layers = 12
+    k1_bytes = ce.forward_cost(b * s, 32768, 2, 4)[0]
+    k2_flops = layers * fa.forward_cost(b, h, s, d, True, 2)[1]
+    k2_bwd_flops = layers * fa.backward_cost(b, h, s, d, True, 2)[1]
+    l2_bytes = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 * 2**20)
+    over_hbm = [op for op in report.ops
+                if op.gbytes_per_sec * 1e9 > ROOFLINE_PEAK_CAP * report.peak_bytes_per_sec]
+    over = [(op.category, op.name, op.gbytes_per_sec, op.tflops_per_sec) for op in report.ops
+            if (op in over_hbm and op.bytes_accessed / op.occurrences > l2_bytes)
+            or op.tflops_per_sec * 1e12 > ROOFLINE_PEAK_CAP * report.peak_flops_per_sec]
+    out = {
+        "device_ms": report.total_ms, "summary_busy_ms": busy,
+        "summary_wall_ms": summary["wall_ms"], "traffic_gb": report.total_bytes / 1e9,
+        "tflop": report.total_flops / 1e12, "hbm_bound_ms": report.hbm_bound_ms,
+        "tensor_core_bound_ms": report.mxu_bound_ms, "hbm_efficiency": report.hbm_efficiency,
+        "clawback_ms": sum(op.duration_ms for op in report.clawback()),
+        "by_category_ms": dict(sorted(report.by_category_ms.items(), key=lambda kv: -kv[1])),
+        "k1_forward": {"ms": k1[0], "bytes": k1[1], "formula_bytes": k1_bytes,
+                       "of_hbm_peak": k1[1] / (k1[0] / 1e3) / report.peak_bytes_per_sec
+                       if k1[0] else None, "kernels": k1[3]},
+        "k1_backward": {"ms": k1_bwd[0], "bytes": k1_bwd[1], "kernels": k1_bwd[3]},
+        "k2_forward": {"ms": k2[0], "flops": k2[2], "formula_flops": k2_flops,
+                       "kernels": k2[3]},
+        "k2_backward": {"ms": k2_bwd[0], "flops": k2_bwd[2], "formula_flops": k2_bwd_flops,
+                        "kernels": k2_bwd[3]},
+        "json_keys": sorted(as_json),
+        "l2_bytes": l2_bytes,
+        # above the memory peak with a call's traffic within the L2
+        "l2_served": [{"category": op.category, "kernel": op.name[:80],
+                       "gbytes_per_sec": op.gbytes_per_sec,
+                       "bytes_per_call": op.bytes_accessed / op.occurrences}
+                      for op in over_hbm],
+    }
+    for r in out["l2_served"]:
+        print(f"roofline: {r['category']} {r['kernel']} at {r['gbytes_per_sec']:.0f} GB/s, "
+              f"{r['bytes_per_call'] / 1e6:.1f} MB a call: within the L2's "
+              f"{l2_bytes / 1e6:.1f} MB", flush=True)
+    if not (report.peak_bytes_per_sec and report.peak_flops_per_sec and busy
+            and abs(report.total_ms - busy) <= ROOFLINE_BUSY_RTOL * busy
+            and math.isclose(as_json["total_ms"], report.total_ms, rel_tol=1e-9)
+            and k1[1] == k1_bytes and k1[3] == 1
+            and math.isclose(k2[2], k2_flops, rel_tol=1e-12)
+            and math.isclose(k2_bwd[2], k2_bwd_flops, rel_tol=1e-12) and not over):
+        raise AssertionError(f"the LM Job's roofline: {out}, above {ROOFLINE_PEAK_CAP:.0%} of "
+                             f"a peak: {over}")
+    return out
+
+
+def run_provision_roofline(card: str) -> dict:
+    """Phase 35: provision through the wizard in a stub world, the compiled
+    LM Job's workload on the card from the checkout, and its roofline."""
+    started = time.monotonic()
+    root_dir = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        profile_dir = root / "profile"
+        provisioned = provision_lm_job(root, profile_dir)
+        argv, job_env = _job_workload(provisioned.pop("job"))
+        module = "tritonk8ssupervisor_tpu_torch.benchmarks.lm"
+        if (argv[:3] != ["python", "-m", module] or "--json" not in argv
+                or argv[argv.index("--profile") + 1] != str(profile_dir)):
+            raise AssertionError(f"the provisioned LM Job's workload: {argv}")
+        counts_file = root / "counts.json"
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(job_env, PYTHONPATH=str(root_dir), TK8S_SMOKE_COUNTS=str(counts_file))
+        run_started = time.monotonic()
+        out = subprocess.run([sys.executable, "-c", SHIPPED_CHILD, *argv[2:]], cwd=root_dir,
+                             env=env, capture_output=True, text=True,
+                             timeout=SHIPPED_RUN_TIMEOUT_S)
+        run_s = time.monotonic() - run_started
+        if out.returncode:
+            raise AssertionError(f"the LM Job's workload exited {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        report = json.loads(out.stdout.strip().splitlines()[-1])
+        counts = json.loads(counts_file.read_text())
+        steps, layers = report["final_step"], report.get("num_layers")
+        launches = (counts["k1"], counts["k1_backward"], counts["k2_forward"],
+                    counts["k2_backward"])
+        if (report["platform"] != "gpu" or not math.isfinite(report["final_loss"])
+                or (layers, report.get("seq_len"), report.get("embed_dim"),
+                    report.get("global_batch")) != (12, 1024, 768, 8)
+                or not counts["package"].startswith(str(root_dir))
+                or launches != (steps, steps, layers * steps, layers * steps) or not steps):
+            raise AssertionError(f"the LM Job's workload: launches {launches} in {steps} "
+                                 f"steps, package {counts['package']}, report {report}")
+        lm_roofline = check_lm_roofline(profile_dir)
+    result = {
+        **provisioned, "argv": argv, "step_ms": report["step_ms"],
+        "step_ms_windows": report.get("step_ms_windows"),
+        "tokens_per_sec": report["tokens_per_sec"], "final_step": steps,
+        "run_seconds": run_s,
+        "launches": {"k1": launches[0], "k1_backward": launches[1], "k2_forward": launches[2],
+                     "k2_backward": launches[3]},
+        "roofline": lm_roofline, "phase_seconds": time.monotonic() - started,
+    }
+    r = lm_roofline
+    print("provision roofline: " + json.dumps(result, sort_keys=True, default=str), flush=True)
+    print(f"provision roofline (phase 35): provisioned a gke v5e 2x2 cluster through the wizard "
+          f"in {provisioned['provision_seconds']:.2f} s of stub calls, resumed with "
+          f"{provisioned['tasks_skipped_on_resume']} tasks skipped, shown and cleaned; the LM "
+          f"Job 12L/768/seq 1024/batch 8 from the checkout: step {report['step_ms']:.2f} ms, "
+          f"{report['tokens_per_sec']:.1f} tokens/s, K1 {launches[0]} + {launches[1]}, K2 "
+          f"{launches[2]} + {launches[3]} in {steps} steps; roofline of one profiled step: "
+          f"device {r['device_ms']:.3f} ms against the profile's busy {r['summary_busy_ms']:.3f} "
+          f"ms (wall {r['summary_wall_ms']:.3f}), {r['traffic_gb']:.3f} GB, HBM bound "
+          f"{r['hbm_bound_ms']:.3f} ms ({r['hbm_efficiency']:.1%} of peak on average), "
+          f"tensor-core bound {r['tensor_core_bound_ms']:.3f} ms, claw-back "
+          f"{r['clawback_ms']:.3f} ms; K1 forward {r['k1_forward']['ms']:.4f} ms at "
+          f"{r['k1_forward']['of_hbm_peak']:.1%} of the HBM peak; K2 {r['k2_forward']['ms']:.3f}"
+          f" + {r['k2_backward']['ms']:.3f} ms; {result['phase_seconds']:.1f} s; on {card}",
+          flush=True)
+    return result
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -4432,6 +4736,7 @@ def main() -> int:
     shipped = run_shipped_workload(card)
     supervised = run_supervised_elastic(card)
     worked = run_worked_example(card)
+    provisioned = run_provision_roofline(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -4456,7 +4761,8 @@ def main() -> int:
                                  "shipped_lm_job": shipped["lm"]["launches"]["k1"],
                                  "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1"],
                                  "supervised_elastic_lm": supervised["launches"]["k1"],
-                                 "worked_example_lm": worked["launches"]["k1"]},
+                                 "worked_example_lm": worked["launches"]["k1"],
+                                 "provisioned_lm_job": provisioned["launches"]["k1"]},
             "design": "16-byte loads (one element a load where rows are not 16-byte aligned); "
                       "rows of at most 16 loads a lane: one warp a row, 4 rows a CTA, the row in "
                       "registers, max and sum by warp shuffles, the label's logit picked from "
@@ -4496,7 +4802,8 @@ def main() -> int:
                 "shipped_lm_job": shipped["lm"]["launches"]["k1_backward"],
                 "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1_backward"],
                 "supervised_elastic_lm": supervised["launches"]["k1_backward"],
-                "worked_example_lm": worked["launches"]["k1_backward"]},
+                "worked_example_lm": worked["launches"]["k1_backward"],
+                "provisioned_lm_job": provisioned["launches"]["k1_backward"]},
             "design": "one pass (exp(x - lse) - onehot) * g over the logits, read once and "
                       "written once in their dtype with 16-byte loads and stores, over a grid "
                       "of row groups x column chunks of up to 1024 loads (256 threads x 4 in "
@@ -4534,7 +4841,8 @@ def main() -> int:
                                  "maintenance_drain_lm": drain["launches"]["k2_forward"],
                                  "shipped_lm_job": shipped["lm"]["launches"]["k2_forward"],
                                  "supervised_elastic_lm": supervised["launches"]["k2_forward"],
-                                 "worked_example_lm": worked["launches"]["k2_forward"]},
+                                 "worked_example_lm": worked["launches"]["k2_forward"],
+                                 "provisioned_lm_job": provisioned["launches"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
         },
@@ -4569,7 +4877,8 @@ def main() -> int:
                                  "maintenance_drain_lm": drain["launches"]["k2_backward"],
                                  "shipped_lm_job": shipped["lm"]["launches"]["k2_backward"],
                                  "supervised_elastic_lm": supervised["launches"]["k2_backward"],
-                                 "worked_example_lm": worked["launches"]["k2_backward"]},
+                                 "worked_example_lm": worked["launches"]["k2_backward"],
+                                 "provisioned_lm_job": provisioned["launches"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
         },
@@ -4664,6 +4973,8 @@ def main() -> int:
           flush=True)
     print("slice 18: " + json.dumps({"k1": [k1_main, *k1_other, worked["k1"]],
                                      "lm_step_profile": lm_profile}, sort_keys=True), flush=True)
+    print("slice 19: " + json.dumps({"provision_roofline": provisioned}, sort_keys=True,
+                                    default=str), flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -4733,5 +5044,12 @@ if __name__ == "__main__":
         rows = [worked_example_k2_row(), *worked_example_k3_rows()]
         print("worked example kernels: " + json.dumps(rows, sort_keys=True), flush=True)
         run_worked_example(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--provision-roofline"]:  # phase 35 alone, K1 and K2 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        cuda_build.load(K1_SOURCE)
+        cuda_build.load(K2_SOURCE)
+        run_provision_roofline(_card_line())
         sys.exit(0)
     sys.exit(main())

@@ -188,6 +188,27 @@ def test_kernel_inputs_that_k4_does_not_take_raise():
     assert cb.conv1x1_backward_kernel.launches == 0
 
 
+def test_k4_wrapper_takes_more_rows_than_the_old_grid_cap(monkeypatch):
+    """More than 65535 x 128 = 8,388,480 rows (the cap of K4's first,
+    non-persistent dgrad grid): the wrapper hands them to the launcher,
+    as the reference computes any batch. Meta tensors stand in for the
+    card's (no memory); the launcher is recorded, not run."""
+    m, c, n = 65535 * 128 + 128 * 3 + 5, 64, 64
+    launched = []
+    monkeypatch.setattr(cb, "_on_one_cuda_device", lambda *tensors: True)
+    monkeypatch.setattr(conv_backward_cuda, "backward",
+                        lambda x2, dy2, w2, dx2, dw: launched.append(
+                            (tuple(x2.shape), tuple(dy2.shape), tuple(dx2.shape), dw.dtype)))
+    monkeypatch.setattr(cb.conv1x1_backward_kernel, "launches", 0)
+    x2, dy2 = (torch.empty(m, width, dtype=torch.bfloat16, device="meta") for width in (c, n))
+    w2 = torch.empty(n, c, dtype=torch.bfloat16, device="meta")
+    dx2, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    assert launched == [((m, c), (m, n), (m, c), torch.float32)]
+    assert dx2.shape == (m, c) and dw.shape == (n, c)
+    assert cb.conv1x1_backward_kernel.launches == 1
+    assert not hasattr(conv_backward_cuda, "MAX_ROWS")
+
+
 @pytest.mark.parametrize("c,n", [(8, 8), (64, 256), (2048, 512)])
 def test_k4_split_plan_of_an_empty_batch(c, n):
     """M = 0 is one split of no rows, not a division by zero; K4's wrapper

@@ -539,6 +539,27 @@ def test_k4_takes_an_empty_batch(dtype):
 
 
 @pytest.mark.cuda
+def test_k4_takes_more_rows_than_the_first_design_s_grid():
+    """M past 65535 x 128 rows, the cap of K4's first dgrad grid (one CTA
+    a 128-row tile on the grid's y axis): the persistent grid walks every
+    tile. C = N = 64 in bf16, ~1.1 GB an operand; against the plain
+    version with the tolerances above."""
+    _card()
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    m = 65535 * 128 + 128 * 3 + 5
+    x2, dy2, w2 = _k4_inputs(m, 64, 64, torch.bfloat16, seed=7)
+    dx, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
+    torch.cuda.synchronize()
+    ref_dx, ref_dw = cb.conv1x1_backward_plain(x2, dy2, w2, torch.bfloat16)
+    assert dx.shape == (m, 64) and torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    assert _rel_err(dx, ref_dx) <= K4_REL_DX, _rel_err(dx, ref_dx)
+    # the last rows, past every multiple of the old cap, hold their values
+    assert _rel_err(dx[-133:], ref_dx[-133:]) <= K4_REL_DX
+    assert (dw - ref_dw).abs().max().item() <= K4_REL_DW * ref_dw.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_k4_raises_on_what_it_does_not_take():
     _card()
     from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb

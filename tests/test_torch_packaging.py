@@ -55,6 +55,8 @@ def test_archive_is_deterministic_and_holds_the_modules_and_the_cuda_sources():
     assert {(m.mtime, m.uid, m.gid, m.uname, m.gname, m.mode) for m in infos} == {
         (0, 0, 0, "", "", 0o644)}
     names = [m.name for m in infos]
+    assert {"tritonk8ssupervisor_tpu_torch/cli/wizard.py",
+            "tritonk8ssupervisor_tpu_torch/utils/roofline.py"} <= set(names)
     assert not [n for n in names if "/csrc/build" in n or "__pycache__" in n
                 or n.endswith((".pyc", ".so", ".log"))]
     assert "README.md" not in names

@@ -1,6 +1,13 @@
 """The port's command line: the counterpart of
-`tritonk8ssupervisor_tpu/cli/main.py` for the commands the port has.
+`tritonk8ssupervisor_tpu/cli/main.py`, the pipeline orchestrator
+(reference setup.sh:8-92) and the commands beside it.
 
+    python -m tritonk8ssupervisor_tpu_torch.cli.main [--workdir W] [--config F] [--yes] \
+        [--skip-readiness] [--readiness-timeout S] [--fault-plan PLAN] [--probe] \
+        [--probe-image IMAGE] [--bench-image IMAGE] [--checkpoint-dir DIR] \
+        [--bench-workload resnet50|vit|lm|decode] [--bench-flags FLAGS] \
+        [--workload-image IMAGE [--workload-command CMD] [--workload-name NAME]] \
+        [--resize N] [--independent-slices] [--show-config]
     python -m tritonk8ssupervisor_tpu_torch.cli.main train --checkpoint-dir DIR \
         [--workdir W] [--steps N] [--checkpoint-every N] [--status-file F] \
         [--ack-file F] [--env-file F] [--max-wait S] [--max-degraded N] \
@@ -84,29 +91,52 @@ the circuit breakers; every observation lands in the event ledger and
 allocator. The `TK8S_SUPERVISE_*` env knobs set the policy; a flag
 overrides its knob. It needs no card.
 
+With no command, `main` provisions (the reference's `provision`): the
+previous-run guard, environment discovery, the wizard (`cli/wizard.py`;
+`--config F` loads a file instead), the verification gate (`--yes` skips
+it), the saved config, then the provisioning phases as a dependency DAG
+(`provision/scheduler.py`, `TK8S_SCHED_WORKERS` wide, 8 by default):
+terraform apply, the manifest compile (the benchmark Job runs the port's
+module: `--bench-workload`, `--bench-flags`), and per mode the host
+configuration (ansible), the readiness wait and, with `--probe`, the
+probe Job. Every task transition is fsync'd to the journal, so a rerun
+resumes the dirty suffix, and a fully green run compacts it; the warm
+cache makes an unchanged compile and converge no-ops. `--resize N`
+reconverges a saved deployment at N slices; `--show-config` prints the
+resolved configuration and provisions nothing. It drives `gcloud`,
+`terraform`, `ansible-playbook`, `ssh` and `kubectl`, and needs no card.
+
 `-c`/`--clean` is the reference's `clean`: teardown
 (`provision/teardown.py`). It lists what it will destroy, asks (unless
 `--yes`), stops a running supervisor, destroys every mode that holds
 terraform state, scrubs known_hosts and every generated file, and
 removes the ledgers last. With no config it still destroys from orphaned
-terraform state; with neither it says so and exits 0. The port has no
-`provision` command yet, so a command (or `-c`) is required.
+terraform state; with neither it says so and exits 0.
+
+An interrupt exits 130 with the reference's resume hint; the errors of
+the provisioning plane exit 1 with `ERROR:` on stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import shlex
 import signal
 import sys
+import time
 from pathlib import Path
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
-from tritonk8ssupervisor_tpu_torch.cli import discovery
+from tritonk8ssupervisor_tpu_torch.cli import discovery, wizard
 from tritonk8ssupervisor_tpu_torch.cli.io import EndOfInput, Prompter
+from tritonk8ssupervisor_tpu_torch.config import compile as compiler
 from tritonk8ssupervisor_tpu_torch.config import store
-from tritonk8ssupervisor_tpu_torch.config.schema import ConfigError
+from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig, ConfigError
+from tritonk8ssupervisor_tpu_torch.provision import ansible as ansible_mod
+from tritonk8ssupervisor_tpu_torch.provision import cache as cache_mod
 from tritonk8ssupervisor_tpu_torch.provision import heal as heal_mod
 from tritonk8ssupervisor_tpu_torch.provision import journal as journal_mod
 from tritonk8ssupervisor_tpu_torch.provision import readiness, retry
@@ -116,6 +146,7 @@ from tritonk8ssupervisor_tpu_torch.provision import supervisor as supervisor_mod
 from tritonk8ssupervisor_tpu_torch.provision import teardown
 from tritonk8ssupervisor_tpu_torch.provision import terraform as terraform_mod
 from tritonk8ssupervisor_tpu_torch.provision.events import EventLedgerError
+from tritonk8ssupervisor_tpu_torch.provision.scheduler import Task, run_dag
 from tritonk8ssupervisor_tpu_torch.testing import faults
 from tritonk8ssupervisor_tpu_torch.utils.phases import PhaseTimer
 
@@ -123,7 +154,8 @@ from tritonk8ssupervisor_tpu_torch.utils.phases import PhaseTimer
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tritonk8ssupervisor_tpu_torch.cli.main",
-        description="The PyTorch port's commands.",
+        description="Provision a TPU-backed Kubernetes cluster on GCP (no command), "
+        "or run one of the PyTorch port's commands.",
     )
     parser.add_argument(
         "command", nargs="?",
@@ -153,33 +185,131 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--workdir", type=Path, default=Path.cwd(),
-        help="the supervisor's workdir, holding fleet-status.json, "
-        "job-ack.json and the serving journal and spans; heal: the repo "
-        "root holding terraform/ and ansible/ (default: cwd)",
+        help="repo root holding terraform/ and ansible/ (provision, heal, "
+        "supervise, -c), and the supervisor's workdir, holding "
+        "fleet-status.json, job-ack.json and the serving journal and spans "
+        "(default: cwd)",
     )
     parser.add_argument(
         "--config", type=Path, default=None,
-        help="heal, supervise: the saved configuration to repair from "
-        "(default: the workdir's config)",
+        help="load config from file instead of the interactive wizard; "
+        "heal, supervise: the saved configuration to repair from (default: "
+        "the workdir's config)",
     )
     parser.add_argument(
         "--fault-plan", default=None, metavar="PLAN",
-        help="heal, supervise, -c: deterministic fault-injection plan "
+        help="provision, heal, supervise, -c: deterministic fault-injection plan "
         "(inline JSON or a file path; also read from TK8S_FAULT_PLAN): fail "
         "the Nth child command matching a pattern with a chosen exit "
         "code/output/hang",
     )
     parser.add_argument(
         "--readiness-timeout", type=float, default=900.0, metavar="SECONDS",
-        help="heal, supervise: how long to wait for the repaired slices' "
-        "readiness (default 900)",
+        help="provision: how long to wait for the cluster's readiness; heal, "
+        "supervise: for the repaired slices' (default 900)",
+    )
+    parser.add_argument(
+        "--skip-readiness",
+        action="store_true",
+        help="do not wait for the cluster to become ready",
+    )
+    parser.add_argument(
+        "--probe",
+        action="store_true",
+        help="gke mode: after readiness, run the TPU probe Job "
+        "(workload-level JAX device acceptance test)",
+    )
+    parser.add_argument(
+        "--probe-image",
+        default=None,
+        metavar="IMAGE",
+        help="container image for the probe Job (default: plain python; "
+        "the probe self-installs pinned jax[tpu])",
+    )
+    parser.add_argument(
+        "--bench-image",
+        default=os.environ.get("BENCH_IMAGE") or None,
+        metavar="IMAGE",
+        help="container image for the generated benchmark Job (default: "
+        "plain python + self-install of the framework from a ConfigMap; "
+        "build a custom image with the repo Dockerfile). Also read from "
+        "the BENCH_IMAGE environment variable.",
+    )
+    parser.add_argument(
+        "--bench-workload",
+        choices=sorted(compiler.BENCH_WORKLOADS),
+        default=os.environ.get("TK8S_BENCH_WORKLOAD") or "resnet50",
+        help="benchmark family for the generated Job: resnet50 (the "
+        "flagship), vit (transformer vision), lm (long-context "
+        "Transformer — combine with --bench-flags for ring/MoE/pipeline "
+        "parallelism), or decode (KV-cache serving throughput). Also "
+        "read from TK8S_BENCH_WORKLOAD.",
+    )
+    parser.add_argument(
+        "--bench-flags",
+        default=os.environ.get("TK8S_BENCH_FLAGS") or "",
+        metavar="FLAGS",
+        help="extra flags appended to the benchmark Job's module "
+        "invocation, shell-style (e.g. \"--sequence-parallelism 4\" or "
+        "\"--moe-experts 8 --expert-parallelism 4\"). Also read from "
+        "TK8S_BENCH_FLAGS.",
+    )
+    parser.add_argument(
+        "--workload-image",
+        default=None,
+        metavar="IMAGE",
+        help="also compile a bring-your-own workload Job per slice for "
+        "this container image (same coordinator/topology wiring as the "
+        "benchmark Job; docs/detailed.md section 2b)",
+    )
+    parser.add_argument(
+        "--workload-command",
+        default=None,
+        metavar="CMD",
+        help='command line for --workload-image, one shell-style string '
+        '(e.g. "python train.py --steps 10000")',
+    )
+    parser.add_argument(
+        "--workload-name",
+        default="workload",
+        metavar="NAME",
+        help="Job/Service name prefix for --workload-image manifests",
+    )
+    parser.add_argument(
+        "--resize",
+        type=int,
+        default=None,
+        metavar="N",
+        help="change the deployment to N slices and reconverge: terraform "
+        "adds/removes slice node pools (or TPU VMs), ansible reconverges "
+        "hosts, manifests recompile with the new cross-slice topology. "
+        "Requires a previous run (the saved config is updated). With "
+        "cross-slice training and --checkpoint-dir, the re-deployed "
+        "workload resumes from the shared checkpoint at the new "
+        "data-parallel width.",
+    )
+    parser.add_argument(
+        "--independent-slices",
+        action="store_true",
+        help="with num_slices > 1, compile each slice's Jobs as an "
+        "independent JAX cluster (the pre-r5 behavior) instead of the "
+        "default single cross-slice training surface spanning all "
+        "slices over DCN (docs/parallelism.md)",
+    )
+    parser.add_argument(
+        "--show-config",
+        action="store_true",
+        help="print the resolved configuration and exit (no provisioning)",
     )
     parser.add_argument(
         "--checkpoint-dir", default=os.environ.get("TK8S_CHECKPOINT_DIR") or None,
         metavar="DIR",
         help="train: the shared checkpoint the job resumes from at the new "
-        "world size: a local path or a URL (gs://...). Also read from "
-        "TK8S_CHECKPOINT_DIR.",
+        "world size: a local path or a URL (gs://...); provision: the "
+        "checkpoint directory for the generated benchmark Job — use a "
+        "gs:// bucket so checkpoints survive pod restarts (cross-slice "
+        "training shares DIR; with --independent-slices each slice "
+        "writes DIR/slice-N). Also read from TK8S_CHECKPOINT_DIR.",
     )
     parser.add_argument(
         "--steps", type=int, default=200, metavar="N",
@@ -1073,7 +1203,10 @@ def analyze_cmd(args, say=print) -> int:
 
 
 def _prompter(say) -> Prompter:
-    """A Prompter that speaks through `say` and reads answers from stdin."""
+    """The Prompter whose `say` this is (`main` passes its prompter's), or
+    else one that speaks through `say` and reads answers from stdin."""
+    if isinstance(getattr(say, "__self__", None), Prompter):
+        return say.__self__
     prompter = Prompter()
     prompter.say = lambda text="": say(text)
     return prompter
@@ -1255,20 +1388,22 @@ def supervise_cmd(args, say=print) -> int:
     return sup.run(ticks=max(0, args.ticks))
 
 
-def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.command is None and not args.clean:
-        parser.error("a command is required (or -c/--clean); the port has no "
-                     "provision command")
-    say = lambda line: print(line, flush=True)  # noqa: E731
-    commands = {"heal": heal_cmd, "supervise": supervise_cmd, "train": train_cmd,
-                "serve": serve_cmd, "status": status_cmd, "trace": trace_cmd,
+def main(argv: list[str] | None = None, prompter: Prompter | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    prompter = prompter or Prompter()
+    paths = state.RunPaths(args.workdir)
+    say = prompter.say
+    commands = {"heal": heal_cmd, "supervise": supervise_cmd, "status": status_cmd,
+                "train": train_cmd, "serve": serve_cmd, "trace": trace_cmd,
                 "analyze": analyze_cmd}
     try:
         if args.clean:
             return clean(args, say)
-        return commands[args.command](args, say)
+        if args.command is not None:
+            return commands[args.command](args, say)
+        if args.show_config:
+            return show_config(args, paths, prompter)
+        return provision(args, paths, prompter)
     except (
         ConfigError,
         discovery.DiscoveryError,
@@ -1284,11 +1419,439 @@ def main(argv: list[str] | None = None) -> int:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
     except KeyboardInterrupt:
-        print("\nInterrupted.", file=sys.stderr)
+        print("\nInterrupted; nothing further was changed. "
+              "Re-run ./setup.sh to resume or ./setup.sh -c to clean up.",
+              file=sys.stderr)
         return 130
     except BrokenPipeError:
         # stdout consumer (e.g. `| head`) went away; not an error of ours
         return 0
+
+
+def show_config(args, paths: state.RunPaths, prompter: Prompter) -> int:
+    """The debugVars analogue (reference setup.sh:522-531) — but wired up."""
+    source = args.config or paths.config_file
+    if not source.exists():
+        prompter.say(f"No configuration found at {source}.")
+        return 1
+    config = store.load_config_file(source)
+    prompter.say(f"Configuration from {source}:")
+    for label, value in wizard.config_rows(config):
+        prompter.say(f"  {label:<24} {value}")
+    return 0
+
+
+def provision(args, paths: state.RunPaths, prompter: Prompter) -> int:
+    """The reference's `provision`: wizard (or `--config`), verification
+    gate, saved config, then the provisioning DAG under the durable
+    journal, compacted once fully green; the banner and the phase table
+    last."""
+    # Refuse-if-previous-run guard (setup.sh:14-18, 241-244): a config file
+    # means a provision is (or was) in flight; converge or clean first. An
+    # explicit --config always wins over the saved one.
+    resuming = paths.config_file.exists() and args.config is None
+    if args.resize is not None:
+        # Elastic resize: same converging pipeline, new slice count.
+        # Gated on an existing run BEFORE the wizard could prompt:
+        # resizing nothing is a typo, not a provision.
+        if not (resuming or args.config is not None):
+            raise ConfigError(
+                "--resize N reconverges an existing deployment; no saved "
+                "config found (provision first, then resize)"
+            )
+        if args.resize < 1:
+            raise ConfigError(f"--resize {args.resize}: need >= 1 slice")
+    if resuming:
+        prompter.say(
+            f"Previous run detected ({paths.config_file} exists); "
+            "resuming with the saved configuration. Run ./setup.sh -c to start over."
+        )
+    elif paths.config_file.exists():
+        prompter.say(
+            f"NOTE: overriding saved {paths.config_file} with --config {args.config}"
+        )
+
+    timer = PhaseTimer(logfile=paths.runlog)
+    # one composed runner pair (fault injection -> retry/backoff) shared
+    # by every phase, so transient-fault handling is uniform end to end
+    run, run_quiet = build_runners(args.fault_plan, timer)
+
+    with timer.phase("discover-environment"):
+        env = discovery.discover()
+        discovery.require_credentials(env)
+
+    if args.config is not None:
+        config = store.load_config_file(args.config)
+        if not config.project:
+            config.project = env.project
+        config.validate()
+    elif resuming:
+        config = store.load_config_file(paths.config_file)
+        config.validate()
+    else:
+        config = wizard.run_wizard(prompter, env=env)
+
+    if args.resize is not None and args.resize != config.num_slices:
+        prompter.say(
+            f"Resizing: {config.num_slices} -> {args.resize} slice(s)"
+        )
+        config.num_slices = args.resize
+        config.validate()
+
+    # Fail preconditions BEFORE any resources are created — the reference
+    # validated its key up front too (setup.sh:231-237). Cheapest first.
+    ssh_key: Path | str = ""
+    ssh_user = ""
+    if config.mode == "tpu-vm":
+        if args.probe:
+            raise ConfigError(
+                "--probe runs a Kubernetes Job and requires mode=gke; "
+                "tpu-vm slices get the same acceptance test from the "
+                "tpuhost ansible role"
+            )
+        ssh_key = discovery.find_ssh_key()
+        ssh_user = discovery.ssh_username()
+
+    if not args.yes and not wizard.verify_config(config, prompter):
+        prompter.say("Aborted; nothing was provisioned.")
+        return 1
+
+    store.save_config_file(config, paths.config_file)
+    store.export_to_env(config)
+
+    tasks = build_provision_dag(
+        args, config, paths, prompter,
+        run=run, run_quiet=run_quiet, ssh_key=ssh_key, ssh_user=ssh_user,
+    )
+    # The durable ledger: every task transition is fsync'd, so a SIGKILL'd
+    # run resumes the dirty suffix of the DAG instead of starting over.
+    # The lock rejects a second concurrent run over the same workdir.
+    journal = journal_mod.Journal(paths.journal)
+    with journal:
+        results = run_dag(
+            tasks, max_workers=scheduler_workers(), timer=timer,
+            journal=journal,
+        )
+        # Fully green: fold the append-only ledger down to its verified
+        # snapshot so heal cycles and daily converges don't grow it
+        # unboundedly. A failed run never reaches here, so the attempt
+        # history resume needs is still intact when it matters.
+        journal.compact()
+
+    banner(config, results["terraform-apply"], results["compile-manifests"],
+           prompter)
+    timer.report()
+    return 0
+
+
+def scheduler_workers(environ: dict | None = None) -> int:
+    """Pool width for the provision DAG. 8 covers the widest antichain of
+    the per-slice pipeline at the default 4-slice ceiling (a readiness
+    poll + a converge per slice, with terraform/manifests/host-prep done
+    by then); more slices queue harmlessly. TK8S_SCHED_WORKERS=1
+    degrades to the old strictly sequential pipeline for debugging."""
+    env = os.environ if environ is None else environ
+    try:
+        return max(1, int(env.get("TK8S_SCHED_WORKERS", "8")))
+    except ValueError:
+        return 8
+
+
+def build_provision_dag(
+    args,
+    config: ClusterConfig,
+    paths: state.RunPaths,
+    prompter: Prompter,
+    run: run_mod.RunFn,
+    run_quiet: run_mod.RunFn,
+    ssh_key: Path | str = "",
+    ssh_user: str = "",
+    warm: "cache_mod.WarmCache | None" = None,
+) -> list[Task]:
+    """The provisioning phases as an explicit dependency graph.
+
+    Edges encode real data/order constraints and nothing else:
+
+    - tpu-vm mode is per-slice pipelined: `readiness-slice-N` (TPU state
+      via a shared fleet snapshot, then authenticated SSH) needs only
+      terraform's hosts, and `configure-slice-N` (ansible --limit) needs
+      only THAT slice's readiness plus the short shared `host-prep`
+      (inventory/vars/key patch);
+    - GKE keeps the monolith: the gkejoin play drives gcloud/kubectl
+      from the control machine, and readiness comes after because node
+      registration is what the wait observes;
+    - compile-manifests needs only the config, so it overlaps the whole
+      cloud-facing pipeline;
+    - the probe Job needs a ready cluster.
+
+    Each task also carries its journal metadata (provision/journal.py):
+    an inputs-hash over everything that must dirty it when changed, the
+    artifact paths whose digests get recorded at done-time, and a
+    `restore` that recomputes the task's return value from those
+    artifacts when a resume skips it. The probe Job carries none — a
+    health check is only meaningful re-run. Independently of the
+    journal, compile-manifests and the per-slice converges consult the
+    content-addressed warm cache (provision/cache.py) INSIDE their task
+    body, so a warm re-run is a no-op even after the ledger is gone.
+    """
+    cfg_fp = dataclasses.asdict(config)  # the config fingerprint
+    cache = warm if warm is not None else cache_mod.WarmCache(paths.warm_cache)
+
+    def do_terraform(results: dict) -> state.ClusterHosts:
+        if terraform_mod.already_applied(config, paths):
+            prompter.say("terraform state present; converging existing deployment")
+        return terraform_mod.apply(config, paths, run=run, run_quiet=run_quiet)
+
+    job_kwargs = {"image": args.bench_image} if args.bench_image else {}
+    if args.checkpoint_dir:
+        job_kwargs["checkpoint_dir"] = args.checkpoint_dir
+    if args.bench_workload != "resnet50":
+        job_kwargs["workload"] = args.bench_workload
+    if args.bench_flags:
+        job_kwargs["bench_flags"] = tuple(shlex.split(args.bench_flags))
+    if args.workload_image:
+        job_kwargs["workload_image"] = args.workload_image
+        job_kwargs["workload_command"] = shlex.split(
+            args.workload_command or ""
+        )
+        job_kwargs["workload_name"] = args.workload_name
+    if args.independent_slices:
+        job_kwargs["cross_slice"] = False
+
+    manifest_key = journal_mod.inputs_hash(
+        "compile-manifests", cfg_fp, job_kwargs
+    )
+
+    def do_manifests(results: dict) -> list:
+        if cache.fresh("compile-manifests", manifest_key,
+                       artifacts=(paths.manifests_dir,)):
+            prompter.say("  compile-manifests: inputs unchanged "
+                         "(warm cache); reusing compiled manifests")
+            return sorted(paths.manifests_dir.glob("*.yaml"))
+        out = compiler.write_manifests(
+            config, paths.manifests_dir, **job_kwargs
+        )
+        cache.record("compile-manifests", manifest_key,
+                     artifacts=(paths.manifests_dir,))
+        return out
+
+    def do_probe(results: dict) -> None:
+        readiness.run_probe_job(
+            config,
+            paths.probe_dir,
+            run=run,
+            run_quiet=run_quiet,
+            timeout_seconds=args.readiness_timeout,
+            image=args.probe_image,
+        )
+
+    tf_task = Task(
+        "terraform-apply", do_terraform,
+        inputs_hash=journal_mod.inputs_hash(
+            "terraform-apply", compiler.to_tfvars(config)
+        ),
+        artifacts=(paths.tfstate(config.mode), paths.hosts_file),
+        restore=lambda results: state.load_hosts(paths),
+    )
+    manifests_task = Task(
+        "compile-manifests", do_manifests,
+        inputs_hash=manifest_key,
+        artifacts=(paths.manifests_dir,),
+        restore=lambda results: sorted(paths.manifests_dir.glob("*.yaml")),
+    )
+    tasks = [tf_task, manifests_task]
+
+    if config.mode == "tpu-vm":
+        tasks += build_slice_pipeline(
+            args, config, paths, cache,
+            run=run, run_quiet=run_quiet,
+            ssh_key=ssh_key, ssh_user=ssh_user, cfg_fp=cfg_fp,
+        )
+        return tasks
+
+    # ------------------------------------------------------------ gke mode
+
+    def do_ansible(results: dict) -> None:
+        ansible_mod.write_runtime_configs(
+            config, results["terraform-apply"], paths,
+            ssh_key=ssh_key, ansible_user=ssh_user,
+        )
+        ansible_mod.run_playbook(paths, run=run)
+
+    def do_readiness(results: dict) -> None:
+        wait_ready(config, args.readiness_timeout, run_quiet=run_quiet)
+
+    tasks.append(Task(
+        "host-configuration", do_ansible, after=("terraform-apply",),
+        inputs_hash=journal_mod.inputs_hash(
+            "host-configuration", cfg_fp, str(ssh_key), ssh_user
+        ),
+        artifacts=(paths.inventory, paths.hosts_file),
+    ))
+    ready_gate = "host-configuration"
+    if not args.skip_readiness:
+        tasks.append(Task(
+            "readiness-wait", do_readiness, after=("host-configuration",),
+            inputs_hash=journal_mod.inputs_hash("readiness-wait", cfg_fp),
+            artifacts=(paths.hosts_file,),
+        ))
+        ready_gate = "readiness-wait"
+    if args.probe:
+        # no journal metadata: the probe is an acceptance test, and a
+        # resumed run must re-prove the cluster, not trust a record
+        tasks.append(Task("probe-job", do_probe, after=(ready_gate,)))
+    return tasks
+
+
+def build_slice_pipeline(
+    args,
+    config: ClusterConfig,
+    paths: state.RunPaths,
+    cache: "cache_mod.WarmCache",
+    run: run_mod.RunFn,
+    run_quiet: run_mod.RunFn,
+    ssh_key: Path | str,
+    ssh_user: str,
+    cfg_fp: dict,
+) -> list[Task]:
+    """The tpu-vm per-slice tail of the DAG: one shared `host-prep`
+    (runtime configs — seconds of local file writes) plus, per slice, a
+    `readiness-slice-N` (shared fleet snapshot + adaptive-backoff polls)
+    and a `configure-slice-N` (cache-aware `ansible --limit`). The only
+    cross-slice edge is host-prep; each slice's converge starts the
+    moment ITS hosts accept authenticated SSH."""
+    # one batched `tpu-vm list` per TTL window serves every slice's poll
+    snapshot = readiness.FleetSnapshot(config, run_quiet=run_quiet)
+
+    def do_host_prep(results: dict) -> None:
+        ansible_mod.write_runtime_configs(
+            config, results["terraform-apply"], paths,
+            ssh_key=ssh_key, ansible_user=ssh_user,
+        )
+
+    tasks = [Task(
+        "host-prep", do_host_prep, after=("terraform-apply",),
+        inputs_hash=journal_mod.inputs_hash(
+            "host-prep", cfg_fp, str(ssh_key), ssh_user
+        ),
+        artifacts=(paths.inventory,),
+    )]
+
+    def slice_readiness_task(i: int) -> Task:
+        name = f"readiness-slice-{i}"
+        node = f"{config.node_prefix}-{i}"
+
+        def fn(results: dict) -> None:
+            # one shared budget for both polls — the user's timeout caps
+            # the whole slice's wait, not each poll
+            hosts = results["terraform-apply"]
+            poll_start = time.monotonic()
+            readiness.poll(
+                lambda: readiness.tpu_vm_probe(
+                    config, [node], run_quiet, snapshot=snapshot
+                ),
+                timeout=args.readiness_timeout,
+                adapt=readiness.AdaptiveInterval(base=5.0, max_interval=45.0),
+            )
+            remaining = max(
+                0.0,
+                args.readiness_timeout - (time.monotonic() - poll_start),
+            )
+            slice_ips = (
+                hosts.host_ips[i] if i < len(hosts.host_ips) else []
+            )
+            readiness.poll(
+                lambda: readiness.ssh_ready_probe(
+                    slice_ips, ssh_user=ssh_user, ssh_key=str(ssh_key),
+                    run_quiet=run_quiet,
+                ),
+                timeout=remaining,
+                adapt=readiness.AdaptiveInterval(base=2.0, max_interval=15.0),
+            )
+
+        return Task(
+            name, fn, after=("terraform-apply",),
+            inputs_hash=journal_mod.inputs_hash(name, cfg_fp),
+            artifacts=(paths.hosts_file,),
+        )
+
+    def slice_converge_task(i: int, after: tuple) -> Task:
+        name = f"configure-slice-{i}"
+
+        def fn(results: dict) -> bool:
+            return ansible_mod.converge_slice(
+                config, paths, results["terraform-apply"], i,
+                run=run, cache=cache,
+                ssh_key=ssh_key, ssh_user=ssh_user,
+            )
+
+        return Task(
+            name, fn, after=after,
+            inputs_hash=journal_mod.inputs_hash(
+                name, cfg_fp, str(ssh_key), ssh_user
+            ),
+            artifacts=(paths.inventory,),
+        )
+
+    for i in range(config.num_slices):
+        converge_after = ["host-prep"]
+        if not args.skip_readiness:
+            tasks.append(slice_readiness_task(i))
+            converge_after.append(f"readiness-slice-{i}")
+        tasks.append(slice_converge_task(i, tuple(converge_after)))
+    return tasks
+
+
+def wait_ready(
+    config: ClusterConfig,
+    timeout: float,
+    run_quiet: run_mod.RunFn = run_mod.run_capture,
+) -> None:
+    if config.mode == "gke":
+        readiness.poll(
+            lambda: readiness.gke_tpu_probe(config, run_quiet),
+            timeout=timeout,
+        )
+    else:
+        names = [
+            f"{config.node_prefix}-{i}" for i in range(config.num_slices)
+        ]
+        readiness.poll(
+            lambda: readiness.tpu_vm_probe(config, names, run_quiet),
+            timeout=timeout,
+        )
+
+
+def banner(config, hosts: state.ClusterHosts, manifest_paths, prompter: Prompter) -> None:
+    """Success banner with the URLs of record — the dashboard/kubectl-config
+    URL printout analogue (setup.sh:49-91). The benchmark line names the
+    port's module, as the compiled Jobs do."""
+    prompter.say("")
+    prompter.say("---------------------------------------------------------")
+    prompter.say(" Cluster is ready.")
+    prompter.say("---------------------------------------------------------")
+    if config.mode == "gke":
+        prompter.say(
+            "  Workloads:  https://console.cloud.google.com/kubernetes/"
+            f"workload/overview?project={config.project}"
+        )
+        prompter.say(
+            f"  kubeconfig: gcloud container clusters get-credentials "
+            f"{config.cluster_name} --zone {config.zone} --project {config.project}"
+        )
+        prompter.say(
+            f"  Benchmark:  kubectl apply -f {manifest_paths[0].parent}/"
+        )
+    else:
+        for i, slice_ips in enumerate(hosts.host_ips):
+            prompter.say(f"  slice {i}: {', '.join(slice_ips)}")
+        prompter.say(
+            f"  SSH:       gcloud compute tpus tpu-vm ssh {config.node_prefix}-0 "
+            f"--zone {config.zone}"
+        )
+        prompter.say(
+            "  Benchmark: python -m tritonk8ssupervisor_tpu_torch.benchmarks.resnet50"
+        )
 
 
 if __name__ == "__main__":

@@ -359,13 +359,16 @@ extern "C" {
 
 // dtype 0 = bf16, 1 = fp16. `partial` is (splits, n, c) f32 scratch, unused
 // (may be null) when splits == 1; rows_per_split is a multiple of 64 and
-// rows_per_split * splits covers m.
+// rows_per_split * splits covers m. The dgrad grid is persistent, so M has
+// no cap of its own: rows and dgrad's work items (C tiles of at least 64 x
+// 128-row tiles) are counted in int.
 int tk8s_conv1x1_bwd(int dtype, const void* x, const void* dy, const void* w, void* dx, float* dw,
                      float* partial, long long m, int c, int n, int splits, long long rows_per_split,
                      void* stream) {
   if (m <= 0 || c <= 0 || n <= 0 || c % 8 || n % 8 || splits < 1 || splits > 65535 ||
       rows_per_split <= 0 || rows_per_split % kStep || rows_per_split * splits < m ||
-      cdiv(m, kDgRows) > 65535 || m > 0x7fffffffLL || (splits > 1 && partial == nullptr)) {
+      m > 0x7fffffffLL || cdiv(c, 64) * cdiv(m, kDgRows) > 0x7fffffffLL ||
+      (splits > 1 && partial == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const Shape p = {dw, splits == 1 ? dw : partial, m, rows_per_split, c, n, splits};

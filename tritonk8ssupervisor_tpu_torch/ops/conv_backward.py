@@ -41,6 +41,16 @@ from torch.utils.flop_counter import register_flop_formula
 from tritonk8ssupervisor_tpu_torch.ops import conv_backward_cuda
 
 
+def backward_cost(m: int, c: int, n: int, elem: int) -> tuple[int, int]:
+    """(bytes, tensor-core operations) of one K4 call on X (M, C), dY (M,
+    N), W (N, C) of `elem` bytes an element: the three read once, dX
+    written once in their dtype and dW once in f32; two products of 2 *
+    M * C * N. `chip_smoke.py`'s bound and `utils/roofline.py` both read
+    it."""
+    n_bytes = elem * (m * c + m * n + n * c) + elem * m * c + 4 * n * c
+    return n_bytes, 4 * m * c * n
+
+
 def conv1x1_backward_plain(x2, dy2, w, compute_dtype):
     """K4's semantics in plain torch: X (M, C), dY (M, N), W (N, C) ->
     (dX (M, C) in x2's dtype, dW (N, C) f32). Each operand is rounded to
@@ -71,8 +81,6 @@ def _check_kernel_inputs(x2, dy2, w2) -> None:
     (m, c), n = x2.shape, dy2.shape[1]
     if c % conv_backward_cuda.WIDTH_MULTIPLE or n % conv_backward_cuda.WIDTH_MULTIPLE:
         raise ValueError(f"K4 takes channel widths that are multiples of 8, got C={c}, N={n}")
-    if m > conv_backward_cuda.MAX_ROWS:
-        raise ValueError(f"K4 takes at most {conv_backward_cuda.MAX_ROWS} rows, got {m}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError("K4 reads X, dY and W as contiguous, 16-byte aligned rows")
     if not _on_one_cuda_device(*tensors):

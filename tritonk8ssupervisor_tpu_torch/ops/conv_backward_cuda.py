@@ -23,8 +23,6 @@ SOURCE = "conv_backward.cu"
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 # widths are whole 16-byte rows of 2-byte elements
 WIDTH_MULTIPLE = 8
-# the dgrad grid's row axis (128 rows a CTA) is at most 65535 CTAs
-MAX_ROWS = 65535 * 128
 
 # dW is split over M so that the wgrad grid fills the card in one wave:
 # one CTA (128 x 128 of (N, C), 384 threads, 129 KB of shared memory) per

@@ -34,6 +34,32 @@ from tritonk8ssupervisor_tpu_torch.parallel import collectives as coll
 _LANE = 128
 
 
+# K1's f32 work per logit: max, subtract, exp, add, label compare; its
+# backward's: subtract lse, exp, subtract the one-hot, times g
+OPS_PER_LOGIT = 5
+BACKWARD_OPS_PER_LOGIT = 4
+
+
+def forward_cost(batch: int, classes: int, logits_bytes: int,
+                 labels_bytes: int) -> tuple[int, int]:
+    """(bytes, operations) of K1's forward on (batch, classes) logits of
+    `logits_bytes` an element and labels of `labels_bytes`: each input
+    read once, each output written once (the f32 loss, the 1-byte correct
+    and the f32 logsumexp), and OPS_PER_LOGIT f32 operations a logit.
+    `chip_smoke.py`'s bound and `utils/roofline.py` both read it."""
+    n_bytes = batch * classes * logits_bytes + batch * (labels_bytes + 4 + 1 + 4)
+    return n_bytes, batch * classes * OPS_PER_LOGIT
+
+
+def backward_cost(batch: int, classes: int, logits_bytes: int,
+                  labels_bytes: int) -> tuple[int, int]:
+    """(bytes, operations) of K1's backward: the logits, labels, f32
+    logsumexp and f32 g (one a row) read once, the logits' gradient
+    written once, BACKWARD_OPS_PER_LOGIT f32 operations a logit."""
+    n_bytes = 2 * batch * classes * logits_bytes + batch * (labels_bytes + 4 + 4)
+    return n_bytes, batch * classes * BACKWARD_OPS_PER_LOGIT
+
+
 def padded_classes(num_classes: int) -> int:
     """C rounded up to the TPU kernel's 128-lane multiple."""
     return -(-num_classes // _LANE) * _LANE

@@ -53,6 +53,20 @@ LAYOUTS = ("bhld", "blhd", "paged")
 NEG_INF = -1e30
 
 
+def cost(heads: int, head_dim: int, window: int, positions: int, q_bytes: int,
+         page_ids: int = 0) -> tuple[int, int]:
+    """(bytes, f32 operations) of one K3 call: the int8 K and V rows and
+    their f32 scales of the `positions` its queries attend (summed over
+    the batch rows) read once with the `page_ids` that name them (int32),
+    q (`q_bytes`) read and the output written in q's dtype; 4 * D
+    operations a position a query for the two products and ~10 for the
+    scale, mask and softmax. The positions come from the call's `pos`
+    values, which a profiler trace does not record, so only
+    `chip_smoke.py`'s bound reads it."""
+    n_bytes = heads * positions * (2 * head_dim + 2 * 4) + 2 * q_bytes + 4 * page_ids
+    return n_bytes, window * heads * positions * (4 * head_dim + 10)
+
+
 def _check_shapes(q, k8, k_scale, v8, v_scale, pos, layout: str, tables=None) -> None:
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r}: expected 'bhld', 'blhd' or 'paged'")

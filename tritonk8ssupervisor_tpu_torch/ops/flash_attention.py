@@ -168,6 +168,27 @@ def _pairs(seq: int, causal: bool) -> int:
     return seq * (seq + 1) // 2 if causal else seq * seq
 
 
+def forward_cost(b: int, h: int, s: int, d: int, causal: bool,
+                 elem: int) -> tuple[int, int]:
+    """(bytes, tensor-core operations) of K2's forward at (batch, heads,
+    seq, head_dim) in a dtype of `elem` bytes: q, k, v read and O written
+    once, the f32 logsumexp written; two products (4 * D a pair) over the
+    (query, key) pairs the mask keeps. `chip_smoke.py`'s bound and
+    `utils/roofline.py` both read it."""
+    n = b * s * h * d
+    return 4 * n * elem + b * h * s * 4, 4 * b * h * d * _pairs(s, causal)
+
+
+def backward_cost(b: int, h: int, s: int, d: int, causal: bool,
+                  elem: int) -> tuple[int, int]:
+    """(bytes, tensor-core operations) of K2's backward: q, k, v, O, dO
+    and the logsumexp read, dq, dk, dv written once; five products a
+    pair (the kernel recomputes P), against the model work of four that
+    the FLOP counter's formula below counts."""
+    n = b * s * h * d
+    return 8 * n * elem + b * h * s * 4, 10 * b * h * d * _pairs(s, causal)
+
+
 @register_flop_formula(torch.ops.tk8s.flash_attn_fwd)
 def _fwd_flops(q_shape, k_shape, v_shape, causal, layout, *args, **kwargs) -> int:
     b, h, s, d = _dims(q_shape, layout)

@@ -39,16 +39,23 @@ FLOPS_SOURCE = (
 )
 
 
+def peak_for_device(table: dict[str, float], device_name: str) -> float | None:
+    """Look a card's peak up in `table` by its name (exact, then prefix
+    match to tolerate suffixed names); None when the card is unknown.
+    Shared by the FLOPs table here and the HBM table in utils/roofline.py
+    so name matching cannot diverge between them."""
+    if device_name in table:
+        return table[device_name]
+    for name, peak in table.items():
+        if device_name.startswith(name):
+            return peak
+    return None
+
 
 def peak_flops_per_chip(device_name: str) -> float | None:
     """Dense bf16 peak of the card named `device_name` (exact name, then
     prefix), or None when the card is unknown."""
-    if device_name in PEAK_BF16_FLOPS:
-        return PEAK_BF16_FLOPS[device_name]
-    for name, peak in PEAK_BF16_FLOPS.items():
-        if device_name.startswith(name):
-            return peak
-    return None
+    return peak_for_device(PEAK_BF16_FLOPS, device_name)
 
 
 def flops_per_step(run_step: Callable[[], object]) -> dict:
@@ -152,15 +159,29 @@ def timing_summary(result: dict) -> str:
     return text
 
 
+def card_work(rows) -> list:
+    """The rows of a profiler's `key_averages()` that are work on the card
+    (kernels, copies, fills), without the device-side spans of user
+    annotations: a `record_function` range such as the optimizer's
+    `Optimizer.step#SGD.step` also appears on the card's timeline, over
+    kernels that are already rows of their own."""
+    return [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 @contextlib.contextmanager
 def maybe_trace(profile_dir: str | None) -> Iterator[None]:
     """Capture a torch.profiler trace (host and, where there is a card,
     device activity) of the wrapped steps into `profile_dir`: trace.json
     (viewable in Perfetto), ops.txt (operators by device time) and
     summary.json (wall time, device busy time and the device's idle
-    share over the wrapped span, which must end synchronised). The
-    profiler's own host overhead inflates the wall time, so the idle
-    share is an upper bound. No-op without a directory."""
+    share over the wrapped span, which must end synchronised). Each
+    operator is recorded with its input shapes and dtypes
+    (`record_shapes=True`) and, where torch counts them, its FLOPs
+    (`with_flops=True`): what `utils/roofline.py` reads. Both add host
+    work inside the profiled span, and the profiler's own host overhead
+    already inflated the wall time, so the idle share is an upper bound.
+    No-op without a directory."""
     if not profile_dir:
         yield
         return
@@ -168,7 +189,8 @@ def maybe_trace(profile_dir: str | None) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities, record_shapes=True,
+                                with_flops=True) as prof:
         start = time.monotonic()
         yield
         wall_ms = (time.monotonic() - start) * 1e3
@@ -179,11 +201,9 @@ def maybe_trace(profile_dir: str | None) -> Iterator[None]:
     )
     summary = {"wall_ms": wall_ms, "device_busy_ms": None, "device_idle_share": None}
     if torch.profiler.ProfilerActivity.CUDA in activities:
-        # kernels only: operator rows repeat their kernels' device time
-        busy_ms = sum(
-            e.self_device_time_total for e in ops
-            if e.device_type == torch.autograd.DeviceType.CUDA
-        ) / 1e3
+        # the card's own rows only: operator rows repeat their kernels'
+        # device time, annotation spans cover kernels
+        busy_ms = sum(e.self_device_time_total for e in card_work(ops)) / 1e3
         summary["device_busy_ms"] = busy_ms
         summary["device_idle_share"] = 1.0 - busy_ms / wall_ms
     Path(profile_dir, "summary.json").write_text(json.dumps(summary))

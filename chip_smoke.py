@@ -328,7 +328,25 @@ which raises on failure (exit code not 0, no result line):
    12 times its formulas' at (8, 1024, 12, 64) causal, no kernel above
    105% of the tensor-core peak, and none above 105% of the memory peak
    but those whose traffic a call fits in the L2 (printed). With
-   `--provision-roofline` this phase runs alone.
+   `--provision-roofline` this phase runs alone;
+36. the GPU cluster plane: in phase 35's stub world with GPU answers
+   (`gcloud compute instances list` names the host RUNNING, `kubectl`
+   reports allocatable `nvidia.com/gpu`), `cli.main --accelerator gpu`
+   through the wizard for `gke-gpu` (with `--probe`) and `gpu-vm`, each an
+   h100 1x1 slice with phase 32's LM flags: terraform applied in the
+   mode's module, the GPU playbook, the tfvars and ansible vars equal to
+   the compiler's, no TPU or JAX string in any GPU document; `-c --yes`
+   destroys each module's state. Then on the card, from an offline
+   install of the gke-gpu ConfigMap's archive: the probe Job's
+   `gpu_smoke_command`, the gpu-vm vars' `gpu_smoke_cmd` and its
+   `cluster_smoke_cmd` (an NCCL group at a world of one under `python -m
+   torch.distributed.run`), each printing its OK line; and the compiled
+   gke-gpu LM Job's command with the Service's hostname read as
+   127.0.0.1 and `JOB_COMPLETION_INDEX=0`: the launcher starts the LM at
+   the reference's widths, K1 and K2 are built by nvcc from the installed
+   sources, and phase 32's `runpy` wrapper counts K1 once each way and K2
+   12 + 12 times a step. It prints the step ms and the launcher's
+   start-up seconds. With `--gpu-plane` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time. Every phase
 that counts K1's launches in train steps asserts one launch of its
@@ -377,6 +395,7 @@ from tritonk8ssupervisor_tpu_torch.benchmarks import lm as lm_bench
 from tritonk8ssupervisor_tpu_torch.benchmarks.resnet50 import run_benchmark
 from tritonk8ssupervisor_tpu_torch.cli import main as cli
 from tritonk8ssupervisor_tpu_torch.config import compile as compiler
+from tritonk8ssupervisor_tpu_torch.config import store as store_lib
 from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig
 from tritonk8ssupervisor_tpu_torch.models import ResNet18, ResNet50, TransformerLM, ViT
 from tritonk8ssupervisor_tpu_torch.models import decode as dec
@@ -3534,9 +3553,12 @@ CONFIGMAP_LIMIT_BYTES = 1_048_576  # the API server's limit on one object
 # `python -m MODULE ARGS` of the installed package as runpy runs it, writing
 # the package it imported, the seconds of each nvcc build, the built
 # libraries' paths and K1's (each direction), K2's and K4's launch counts to
-# $TK8S_SMOKE_COUNTS at exit: the counters of the run's own process
+# $TK8S_SMOKE_COUNTS at exit: the counters of the run's own process; and
+# the wall-clock time its interpreter reached its first statement
 SHIPPED_CHILD = """
-import atexit, json, os, runpy, sys, time
+import time
+started_at = time.time()
+import atexit, json, os, runpy, sys
 import tritonk8ssupervisor_tpu_torch as package
 from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb, cross_entropy as ce
 from tritonk8ssupervisor_tpu_torch.ops import cuda_build, flash_attention as fa
@@ -3549,6 +3571,7 @@ def timed_build(source_name):
 def report():
     with open(os.environ["TK8S_SMOKE_COUNTS"], "w") as f:
         json.dump({"package": package.__file__, "build_seconds": builds,
+                   "started_at": started_at,
                    "libraries": {s: str(cuda_build.library_path(s))
                                  for s in ("cross_entropy.cu", "flash_attention.cu",
                                            "conv_backward.cu")},
@@ -4325,12 +4348,12 @@ LM_K2_SHAPE = (8, 12, 1024, 64)  # (batch, heads, seq, head_dim) of the LM
 
 
 @contextlib.contextmanager
-def _stub_world(root: pathlib.Path):
+def _stub_world(root: pathlib.Path, stubs: dict = PROVISION_STUBS):
     """PATH, HOME, CALLS_LOG and a deterministic retry for the duration,
     then the process environment as it was."""
     bin_dir = root / "bin"
     bin_dir.mkdir()
-    for name, body in PROVISION_STUBS.items():
+    for name, body in stubs.items():
         (bin_dir / name).write_text(body)
         (bin_dir / name).chmod(0o755)
     (root / "home" / ".ssh").mkdir(parents=True)
@@ -4566,6 +4589,240 @@ def run_provision_roofline(card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: the GPU cluster plane, both modes in a stub world, its smoke
+# commands and the compiled gke-gpu LM Job on the card
+
+# the cloud's tools for an H100 deployment of one host with one GPU
+GPU_PLANE_STUBS = {
+    **PROVISION_STUBS,
+    "terraform": """#!/bin/sh
+echo "terraform $* in $(basename "$PWD")" >> "$CALLS_LOG"
+case "$1" in
+  apply) echo '{"resources": [{"type": "gpu"}]}' > terraform.tfstate ;;
+  output) echo '{"host_ips": {"value": [["10.0.0.1"]]}, "internal_ips": {"value": [["10.1.0.1"]]}}' ;;
+  destroy) rm -f terraform.tfstate ;;
+esac
+""",
+    "gcloud": """#!/bin/sh
+echo "gcloud $*" >> "$CALLS_LOG"
+case "$*" in
+  "config get-value project") echo smoke-proj ;;
+  "config get-value account") echo smoke@stub.test ;;
+  *"instances list"*) printf 'gpunode-0-0\\tRUNNING\\n' ;;
+esac
+""",
+    "kubectl": """#!/bin/sh
+echo "kubectl $*" >> "$CALLS_LOG"
+case "$*" in
+  "get job gpu-probe -o json")
+    echo '{"spec": {"completions": 1}, "status": {"conditions": [{"type": "Complete", "status": "True"}]}}' ;;
+  *)
+    echo '{"items": [{"metadata": {"name": "n1"}, "status": {"allocatable": {"nvidia.com/gpu": "1"}, "conditions": [{"type": "Ready", "status": "True"}]}}]}' ;;
+esac
+""",
+}
+# the GPU wizard's answers (project, env name, env description, cluster name,
+# node prefix, mode, family, topology, slices, zone, network, subnetwork):
+# h100, 1x1 (one host, one GPU), one slice, the catalog's first zone
+GPU_PLANE_ANSWERS = {"gke-gpu": ["", "", "", "", "", "1", "", "1", "", "", "", "", "yes"],
+                     "gpu-vm": ["", "", "", "", "", "2", "", "1", "", "", "", "", "yes"]}
+# what no GPU document may name (the ConfigMap's base64 archive aside)
+TPU_STRINGS = ("jax", "libtpu", "JAX_", "TPU_", "google.com/tpu", "gke-tpu")
+GPU_SMOKE_TIMEOUT_S = 300
+
+
+def _no_tpu_strings(where: str, text: str) -> None:
+    found = [word for word in TPU_STRINGS if word in text]
+    if found:
+        raise AssertionError(f"{where} names {found}")
+
+
+def provision_gpu_plane(root: pathlib.Path) -> dict:
+    """Phase 36's provisioning half: `cli.main --accelerator gpu` through
+    the wizard for gke-gpu (with --probe) and gpu-vm in a stub world, the
+    documents each wrote, then `-c --yes`. Returns the documents phase 36
+    runs on the card."""
+    out: dict = {"seconds": {}, "calls": {}}
+    flags = " ".join(SHIPPED_FLAGS["lm"])
+    with _stub_world(root, GPU_PLANE_STUBS):
+        for mode, answers in GPU_PLANE_ANSWERS.items():
+            work = root / mode
+            (work / "ansible").mkdir(parents=True)
+            (work / "ansible" / "ansible.cfg").write_text(
+                "[defaults]\nhost_key_checking = False\nprivate_key_file =\n")
+            paths = RunPaths(work)
+            calls_log = root / "calls.log"
+            argv = ["--accelerator", "gpu", "--workdir", str(work), "--bench-workload", "lm",
+                    "--bench-flags", flags] + (["--probe"] if mode == "gke-gpu" else [])
+            started = time.monotonic()
+            rc, text, err, calls = _cli(argv, answers, calls_log)
+            out["seconds"][mode] = time.monotonic() - started
+            config = store_lib.load_config_file(paths.config_file) if paths.config_file.exists() \
+                else None
+            playbook = ("ansible-playbook -i hosts clusterUpGpu.yml" if mode == "gke-gpu" else
+                        "ansible-playbook -i hosts clusterUpGpu.yml --limit 10.0.0.1")
+            if (rc != 0 or "Cluster is ready" not in text or config is None
+                    or (config.mode, config.generation, config.topology) != (mode, "h100", "1x1")
+                    or f"terraform apply -auto-approve -input=false -no-color in {mode}"
+                    not in calls or playbook not in calls):
+                raise AssertionError(f"--accelerator gpu provisioned {mode}: exit {rc}, calls "
+                                     f"{calls}: {text[-3000:]} {err[-3000:]}")
+            tfvars = json.loads(paths.tfvars(mode).read_text())
+            group_vars = yaml.safe_load((paths.ansible_dir / "group_vars" / "all.yml").read_text())
+            if (tfvars != compiler.to_tfvars(config)
+                    or group_vars != compiler.to_ansible_vars(
+                        config, "10.1.0.1" if mode == "gpu-vm" else "")):
+                raise AssertionError(f"{mode}: tfvars {tfvars}, vars {group_vars}")
+            documents = {"tfvars": json.dumps(tfvars), "vars": json.dumps(group_vars),
+                         "inventory": paths.inventory.read_text()}
+            if mode == "gke-gpu":
+                docs = {p.name: yaml.safe_load(p.read_text())
+                        for d in (paths.manifests_dir, paths.probe_dir)
+                        for p in sorted(d.glob("*.yaml"))}
+                configmap = docs.pop("package-configmap.yaml")
+                out["archive"] = base64.b64decode(configmap["binaryData"][packaging.ARCHIVE_NAME])
+                out["job"], out["probe"] = docs["bench-job-0.yaml"], docs["gpu-probe.yaml"]
+                documents.update({name: json.dumps(doc) for name, doc in docs.items()})
+                if (sorted(docs) != ["bench-job-0.yaml", "bench-service.yaml", "gpu-probe.yaml"]
+                        or "kubectl get nodes -o json" not in calls):
+                    raise AssertionError(f"gke-gpu documents {sorted(docs)}, calls {calls}")
+            else:
+                out["vars"] = group_vars
+                if "[GPUHOST]" not in documents["inventory"] or not any(
+                        c.startswith("gcloud compute instances list") for c in calls):
+                    raise AssertionError(f"gpu-vm inventory {documents['inventory']}, calls {calls}")
+            for name, text_doc in documents.items():
+                _no_tpu_strings(f"{mode} {name}", text_doc)
+            out["calls"][mode] = len(calls)
+
+            cleaned = _cli(["-c", "--yes", "--workdir", str(work)], [], calls_log)
+            left = [p for p in (paths.config_file, paths.hosts_file, paths.tfstate(mode),
+                                paths.manifests_dir, paths.ansible_dir / "roles" / "gpuhost" /
+                                "files") if p.exists()]
+            if (cleaned[0] != 0 or left
+                    or f"terraform destroy -auto-approve -input=false -no-color in {mode}"
+                    not in cleaned[3]):
+                raise AssertionError(f"-c --yes on {mode} exited {cleaned[0]}, left {left}, "
+                                     f"calls {cleaned[3]}: {cleaned[1][-2000:]}")
+    return out
+
+
+def _smoke(command: str, env: dict, ok: str) -> tuple[float, str]:
+    """A smoke command as a host runs it: (its seconds, its OK line)."""
+    started = time.monotonic()
+    done = subprocess.run(["bash", "-c", command], env=env, capture_output=True, text=True,
+                          timeout=GPU_SMOKE_TIMEOUT_S)
+    seconds = time.monotonic() - started
+    lines = [line for line in done.stdout.splitlines() if line.startswith(ok)]
+    if done.returncode or len(lines) != 1:
+        raise AssertionError(f"`{command}` exited {done.returncode}: {done.stdout[-2000:]} "
+                             f"{done.stderr[-3000:]}")
+    return seconds, lines[0]
+
+
+def run_gpu_plane(card: str) -> dict:
+    """Phase 36: the GPU cluster plane provisioned through the wizard in a
+    stub world, then on the card, from the archive the gke-gpu ConfigMap
+    carries (installed offline, as phase 32 does): the probe Job's smoke,
+    the gpu-vm vars' smoke and NCCL cluster smoke at a world of one, and
+    the compiled gke-gpu LM Job's launcher command with K1 and K2 built
+    from the installed sources and counted."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        plane = provision_gpu_plane(root)
+        archive = root / packaging.ARCHIVE_NAME
+        archive.write_bytes(plane["archive"])
+        site = root / "site"
+        install_started = time.monotonic()
+        pip = subprocess.run(
+            [sys.executable, "-m", "pip", "install", "--quiet", "--no-index",
+             "--disable-pip-version-check", "--no-build-isolation", "--no-deps", "--target",
+             str(site), str(archive)], capture_output=True, text=True, timeout=300)
+        install_s = time.monotonic() - install_started
+        if pip.returncode:
+            raise AssertionError(f"pip install exited {pip.returncode}: {pip.stderr[-3000:]}")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(site)
+
+        install, probe_smoke = plane["probe"]["spec"]["template"]["spec"]["containers"][0][
+            "command"][-1].split(" && ")
+        if probe_smoke != compiler.gpu_smoke_command(1) or not install.startswith("pip install"):
+            raise AssertionError(f"the probe Job's command: {install} && {probe_smoke}")
+        probe_s, probe_line = _smoke(probe_smoke, env, "GPU OK: 1 devices")
+        host_s, host_line = _smoke(plane["vars"]["gpu_smoke_cmd"], env, "GPU OK: 1 devices")
+        cluster_cmd = (plane["vars"]["cluster_smoke_cmd"].replace("{{ node_rank }}", "0")
+                       .replace("{{ global_coordinator }}", "127.0.0.1"))
+        cluster_s, cluster_line = _smoke(cluster_cmd, env, "CLUSTER OK: 1 processes, 1 GPUs")
+
+        job = plane["job"]
+        container = job["spec"]["template"]["spec"]["containers"][0]
+        svc = f"{job['metadata']['name']}-0.{job['spec']['template']['spec']['subdomain']}"
+        install, launch = container["command"][-1].split(" && ")
+        module = "tritonk8ssupervisor_tpu_torch.benchmarks.lm"
+        child = root / "child.py"
+        child.write_text(SHIPPED_CHILD)
+        counted = launch.replace(svc, "127.0.0.1").replace(f"-m {module}", f"{child} {module}")
+        if (counted.count("127.0.0.1") != 1 or str(child) not in counted
+                or not launch.startswith("python -m torch.distributed.run --nnodes 1 "
+                                         "--nproc-per-node 1 --node-rank $JOB_COMPLETION_INDEX")):
+            raise AssertionError(f"the gke-gpu LM Job's command: {launch}")
+        counts_file = root / "counts.json"
+        job_env = {**env, "JOB_COMPLETION_INDEX": "0", "TK8S_SMOKE_COUNTS": str(counts_file),
+                   **{e["name"]: e["value"].replace(svc, "127.0.0.1") for e in container["env"]}}
+        launched_at = time.time()
+        run = subprocess.run(["bash", "-c", counted], env=job_env, cwd=root,
+                             capture_output=True, text=True, timeout=SHIPPED_RUN_TIMEOUT_S)
+        run_s = time.time() - launched_at
+        if run.returncode:
+            raise AssertionError(f"the gke-gpu LM Job exited {run.returncode}: "
+                                 f"{run.stderr[-3000:]}")
+        report = json.loads(run.stdout.strip().splitlines()[-1])
+        counts = json.loads(counts_file.read_text())
+        steps, layers = report["final_step"], report.get("num_layers")
+        launches = (counts["k1"], counts["k1_backward"], counts["k2_forward"],
+                    counts["k2_backward"])
+        csrc = site / "tritonk8ssupervisor_tpu_torch" / "csrc"
+        if (report["platform"] != "gpu" or not math.isfinite(report["final_loss"])
+                or (layers, report.get("seq_len"), report.get("embed_dim"),
+                    report.get("global_batch")) != (12, 1024, 768, 8)
+                or not counts["package"].startswith(str(site))
+                or set(counts["build_seconds"]) != {K1_SOURCE, K2_SOURCE}
+                or any(pathlib.Path(counts["libraries"][s]).parent != csrc / "build"
+                       for s in (K1_SOURCE, K2_SOURCE))
+                or not steps or launches != (steps, steps, layers * steps, layers * steps)):
+            raise AssertionError(f"the gke-gpu LM Job: launches {launches} in {steps} steps, "
+                                 f"counts {counts}, report {report}")
+    result = {
+        "provision_seconds": plane["seconds"], "stub_calls": plane["calls"],
+        "install_seconds": install_s, "probe_smoke_seconds": probe_s, "probe_line": probe_line,
+        "host_smoke_seconds": host_s, "host_line": host_line,
+        "cluster_smoke_seconds": cluster_s, "cluster_line": cluster_line,
+        "lm_job": {"command": counted, "step_ms": report["step_ms"],
+                   "step_ms_windows": report.get("step_ms_windows"),
+                   "tokens_per_sec": report["tokens_per_sec"], "final_step": steps,
+                   "launcher_startup_seconds": counts["started_at"] - launched_at,
+                   "build_seconds": counts["build_seconds"], "run_seconds": run_s},
+        "launches": {"k1": launches[0], "k1_backward": launches[1], "k2_forward": launches[2],
+                     "k2_backward": launches[3]},
+        "phase_seconds": time.monotonic() - started,
+    }
+    lm = result["lm_job"]
+    print("gpu plane: " + json.dumps(result, sort_keys=True, default=str), flush=True)
+    print(f"gpu plane (phase 36): provisioned gke-gpu and gpu-vm (h100 1x1) through the wizard "
+          f"in {plane['seconds']['gke-gpu']:.2f} + {plane['seconds']['gpu-vm']:.2f} s of stub "
+          f"calls and cleaned; pip install {install_s:.1f} s; probe smoke {probe_s:.1f} s, host "
+          f"smoke {host_s:.1f} s ({host_line}), NCCL cluster smoke {cluster_s:.1f} s "
+          f"({cluster_line}); the gke-gpu LM Job under the launcher, 12L/768/seq 1024/batch 8: "
+          f"launcher start-up {lm['launcher_startup_seconds']:.2f} s, nvcc "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in lm["build_seconds"].items())
+          + f", step {lm['step_ms']:.2f} ms, {lm['tokens_per_sec']:.1f} tokens/s, K1 "
+          f"{launches[0]} + {launches[1]}, K2 {launches[2]} + {launches[3]} in {steps} steps, "
+          f"run {run_s:.1f} s; {result['phase_seconds']:.1f} s; on {card}", flush=True)
+    return result
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -4737,6 +4994,7 @@ def main() -> int:
     supervised = run_supervised_elastic(card)
     worked = run_worked_example(card)
     provisioned = run_provision_roofline(card)
+    gpu_plane = run_gpu_plane(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -4762,7 +5020,8 @@ def main() -> int:
                                  "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1"],
                                  "supervised_elastic_lm": supervised["launches"]["k1"],
                                  "worked_example_lm": worked["launches"]["k1"],
-                                 "provisioned_lm_job": provisioned["launches"]["k1"]},
+                                 "provisioned_lm_job": provisioned["launches"]["k1"],
+                                 "gpu_plane_lm_job": gpu_plane["launches"]["k1"]},
             "design": "16-byte loads (one element a load where rows are not 16-byte aligned); "
                       "rows of at most 16 loads a lane: one warp a row, 4 rows a CTA, the row in "
                       "registers, max and sum by warp shuffles, the label's logit picked from "
@@ -4803,7 +5062,8 @@ def main() -> int:
                 "shipped_resnet50_job": shipped["resnet50"]["launches"]["k1_backward"],
                 "supervised_elastic_lm": supervised["launches"]["k1_backward"],
                 "worked_example_lm": worked["launches"]["k1_backward"],
-                "provisioned_lm_job": provisioned["launches"]["k1_backward"]},
+                "provisioned_lm_job": provisioned["launches"]["k1_backward"],
+                "gpu_plane_lm_job": gpu_plane["launches"]["k1_backward"]},
             "design": "one pass (exp(x - lse) - onehot) * g over the logits, read once and "
                       "written once in their dtype with 16-byte loads and stores, over a grid "
                       "of row groups x column chunks of up to 1024 loads (256 threads x 4 in "
@@ -4842,7 +5102,8 @@ def main() -> int:
                                  "shipped_lm_job": shipped["lm"]["launches"]["k2_forward"],
                                  "supervised_elastic_lm": supervised["launches"]["k2_forward"],
                                  "worked_example_lm": worked["launches"]["k2_forward"],
-                                 "provisioned_lm_job": provisioned["launches"]["k2_forward"]},
+                                 "provisioned_lm_job": provisioned["launches"]["k2_forward"],
+                                 "gpu_plane_lm_job": gpu_plane["launches"]["k2_forward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["forward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
         },
@@ -4878,7 +5139,8 @@ def main() -> int:
                                  "shipped_lm_job": shipped["lm"]["launches"]["k2_backward"],
                                  "supervised_elastic_lm": supervised["launches"]["k2_backward"],
                                  "worked_example_lm": worked["launches"]["k2_backward"],
-                                 "provisioned_lm_job": provisioned["launches"]["k2_backward"]},
+                                 "provisioned_lm_job": provisioned["launches"]["k2_backward"],
+                                 "gpu_plane_lm_job": gpu_plane["launches"]["k2_backward"]},
             "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
                               **r["backward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
         },
@@ -4975,6 +5237,8 @@ def main() -> int:
                                      "lm_step_profile": lm_profile}, sort_keys=True), flush=True)
     print("slice 19: " + json.dumps({"provision_roofline": provisioned}, sort_keys=True,
                                     default=str), flush=True)
+    print("slice 20: " + json.dumps({"gpu_plane": gpu_plane}, sort_keys=True, default=str),
+          flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -5044,6 +5308,13 @@ if __name__ == "__main__":
         rows = [worked_example_k2_row(), *worked_example_k3_rows()]
         print("worked example kernels: " + json.dumps(rows, sort_keys=True), flush=True)
         run_worked_example(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--gpu-plane"]:  # phase 36 alone, K1 and K2 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        cuda_build.load(K1_SOURCE)
+        cuda_build.load(K2_SOURCE)
+        run_gpu_plane(_card_line())
         sys.exit(0)
     if sys.argv[1:] == ["--provision-roofline"]:  # phase 35 alone, K1 and K2 built first
         if not torch.cuda.is_available():

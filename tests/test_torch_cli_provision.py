@@ -52,6 +52,10 @@ from tritonk8ssupervisor_tpu_torch.config import store
 from tritonk8ssupervisor_tpu_torch.provision import state
 from tritonk8ssupervisor_tpu_torch.testing import faults
 
+# autouse: the reference compiles the port's TPU cluster smoke, the one
+# string the compilers differ in by design (F9, tests/test_torch_compile.py)
+from test_torch_compile import port_cluster_smoke  # noqa: E402,F401
+
 SIDES = {
     "port": types.SimpleNamespace(cli=cli, io=cli_io, store=store, state=state,
                                   faults=faults),

@@ -31,6 +31,10 @@ from tritonk8ssupervisor_tpu_torch.cli import main as cli
 from tritonk8ssupervisor_tpu_torch.config import schema, store
 from tritonk8ssupervisor_tpu_torch.provision import state
 
+# autouse: the reference compiles the port's TPU cluster smoke, the one
+# string the compilers differ in by design (F9, tests/test_torch_compile.py)
+from test_torch_compile import port_cluster_smoke  # noqa: E402,F401
+
 SIDES = {
     "port": types.SimpleNamespace(cli=cli, schema=schema, store=store, state=state,
                                   module="tritonk8ssupervisor_tpu_torch.cli.main"),

@@ -8,10 +8,22 @@ the headless services and the files `write_manifests` writes are equal
 once the reference's `tritonk8ssupervisor_tpu` reads
 `tritonk8ssupervisor_tpu_torch` (and `tritonk8ssupervisor-tpu`,
 `tritonk8ssupervisor-tpu-torch`). The ConfigMap's archive is compared
-apart: the port's decodes to the port's archive. No tolerance."""
+apart: the port's decodes to the port's archive. One string differs by
+design: the TPU cluster smoke (`cluster_smoke_command`), which forms the
+JAX cluster itself where the reference's calls its own
+`initialize_from_env` (the port's forms a torch group on the card, F9).
+The parity tests compile the reference with the port's command in its
+place, and the command is held to the reference's behaviour instead: both
+form a two-process JAX cluster on the CPU and print the same line. No
+tolerance."""
 
 import base64
 import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import yaml
@@ -23,6 +35,17 @@ from tritonk8ssupervisor_tpu_torch.config import compile as cc
 from tritonk8ssupervisor_tpu_torch.config import schema
 
 SIDES = {"port": (cc, schema), "reference": (ref_cc, ref_schema)}
+REPO = Path(__file__).resolve().parent.parent
+REF_CLUSTER_SMOKE = ref_cc.cluster_smoke_command
+
+
+@pytest.fixture(autouse=True)
+def port_cluster_smoke(monkeypatch):
+    """The reference compiles the port's TPU cluster smoke, spelled with
+    the reference's names (which `port_names` renames back): the one
+    deliberate difference between the compilers (F9)."""
+    monkeypatch.setattr(ref_cc, "cluster_smoke_command", lambda *a, **k: cc.cluster_smoke_command(
+        *a, **k).replace("tritonk8ssupervisor_tpu_torch", "tritonk8ssupervisor_tpu"))
 
 
 def port_names(value):
@@ -167,8 +190,59 @@ def test_the_tpu_runtime_strings_are_the_reference_s_byte_for_byte():
     names = [[e["name"] for e in job["spec"]["template"]["spec"]["containers"][0]["env"]]
              for job in (ours, ref)]
     assert names[0] == names[1]
-    assert cc.cluster_smoke_command(16) == ref_cc.cluster_smoke_command(16).replace(
+    # the cluster smoke differs on purpose: it forms the JAX cluster
+    # itself instead of calling the port's torch rendezvous (F9)
+    ours, renamed = cc.cluster_smoke_command(16), REF_CLUSTER_SMOKE(16).replace(
         "tritonk8ssupervisor_tpu.", "tritonk8ssupervisor_tpu_torch.")
+    assert ours != renamed and "initialize_from_env" in renamed
+    assert "initialize_from_env" not in ours and "jax.distributed.initialize(" in ours
+    assert "tritonk8ssupervisor_tpu_torch.parallel.distributed import cluster_env" in ours
+    assert all(f"'{name}'" in ours for name in (
+        "MEGASCALE_COORDINATOR_ADDRESS", "MEGASCALE_NUM_SLICES", "MEGASCALE_SLICE_ID",
+        "MEGASCALE_PORT"))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _two_host_smoke(command: str, cross_slice: bool) -> list:
+    """`command` on two hosts at once, here two CPU processes with the
+    coordinates a two-host slice (or two one-host slices) gets: each
+    one's exit code and printed lines."""
+    port = _free_port()
+    procs = []
+    for pid in range(2):
+        env = {k: v for k, v in os.environ.items() if not k.startswith(
+            ("JAX_COORDINATOR", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID", "TK8S_", "MEGASCALE_",
+             "XLA_FLAGS"))}
+        env.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO),
+                   JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_NUM_PROCESSES="2",
+                   JAX_PROCESS_ID="0" if cross_slice else str(pid))
+        if cross_slice:
+            env.update(TK8S_NUM_SLICES="2", TK8S_SLICE_ID=str(pid), TK8S_PROCS_PER_SLICE="1")
+        procs.append(subprocess.Popen(["bash", "-c", command], env=env, cwd=REPO,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    out = []
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=120)
+        out.append([proc.returncode, stdout.splitlines(), stderr[-2000:] if proc.returncode else ""])
+    return out
+
+
+@pytest.mark.parametrize("cross_slice", [False, True])
+def test_the_tpu_cluster_smoke_forms_the_reference_s_jax_cluster(cross_slice):
+    """F9: the TPU cluster smoke on two hosts (two CPU processes) forms
+    one JAX cluster of two devices, as the reference's command does; the
+    old rename called the port's `initialize_from_env`, whose torch
+    rendezvous raises on a host without a CUDA card."""
+    ours = _two_host_smoke(cc.cluster_smoke_command(2, timeout_s=90), cross_slice)
+    ref = _two_host_smoke(REF_CLUSTER_SMOKE(2, timeout_s=90), cross_slice)
+    assert ref == [[0, ["CLUSTER OK: 2 processes, 2 chips"], ""]] * 2
+    assert ours == ref
 
 
 def _written(side: str, root, kwargs: dict, **job_kwargs) -> dict:

@@ -30,6 +30,10 @@ from tritonk8ssupervisor_tpu_torch.cli import main as cli
 from tritonk8ssupervisor_tpu_torch.config import schema, store
 from tritonk8ssupervisor_tpu_torch.provision import cache, heal, readiness, runner, state
 
+# autouse: the reference compiles the port's TPU cluster smoke, the one
+# string the compilers differ in by design (F9, tests/test_torch_compile.py)
+from test_torch_compile import port_cluster_smoke  # noqa: E402,F401
+
 SIDES = {
     "port": types.SimpleNamespace(schema=schema, store=store, cache=cache, heal=heal,
                                   readiness=readiness, runner=runner, state=state, cli=cli),

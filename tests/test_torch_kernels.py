@@ -1015,3 +1015,52 @@ def test_a_checkpointed_run_resumes_bit_equal_on_the_card(tmp_path):
     for p_a, p_b in zip(resumed.model.parameters(), straight.model.parameters()):
         assert torch.equal(resumed.optimizer.state[p_a]["momentum_buffer"],
                            straight.optimizer.state[p_b]["momentum_buffer"])
+
+
+# The GPU cluster plane's acceptance tests (config/compile.py), as a host
+# runs them: in their own process, the port importable from this checkout.
+
+def _host_env() -> dict:
+    import os
+    from pathlib import Path
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PET_")}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent.parent)
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+def test_gpu_smoke_command_passes_on_the_card():
+    import subprocess
+
+    from tritonk8ssupervisor_tpu_torch.config import compile as cc
+
+    _card()
+    n = torch.cuda.device_count()
+    out = subprocess.run(["bash", "-c", cc.gpu_smoke_command(n)], capture_output=True,
+                         text=True, env=_host_env(), timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith(f"GPU OK: {n} devices, capability 9.0, nvcc ")
+
+
+@pytest.mark.cuda
+def test_gpu_cluster_smoke_forms_an_nccl_group_of_one():
+    import subprocess
+
+    from tritonk8ssupervisor_tpu_torch.config import compile as cc
+
+    _card()
+    command = cc.gpu_cluster_smoke_command(1, 0, nnodes=1, gpus_per_node=1,
+                                           master_addr="127.0.0.1", master_port=_free_port())
+    out = subprocess.run(["bash", "-c", command], capture_output=True, text=True,
+                         env=_host_env(), timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.splitlines() == ["CLUSTER OK: 1 processes, 1 GPUs"]

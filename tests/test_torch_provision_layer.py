@@ -38,6 +38,10 @@ from tritonk8ssupervisor_tpu_torch.provision import (
     terraform,
 )
 
+# autouse: the reference compiles the port's TPU cluster smoke, the one
+# string the compilers differ in by design (F9, tests/test_torch_compile.py)
+from test_torch_compile import port_cluster_smoke  # noqa: E402,F401
+
 SIDES = {
     "port": types.SimpleNamespace(schema=schema, ansible=ansible, cache=cache,
                                   readiness=readiness, retry=retry, runner=runner,

@@ -11,7 +11,7 @@ All subprocess execution goes through an injectable runner so tests use a
 fake gcloud (SURVEY.md §4: testability designed in, not bolted on).
 
 The port's copy of `tritonk8ssupervisor_tpu/cli/discovery.py`, whole and
-under the reference's names.
+under the reference's names, with `list_gpu_zones` beside `list_tpu_zones`.
 """
 
 from __future__ import annotations
@@ -246,3 +246,26 @@ def list_tpu_zones(generation: str, run: Runner = _default_runner) -> list[str]:
         return list(spec.zones)
     live = [zone for zone, ok in zip(spec.zones, verdicts) if ok]
     return live or list(spec.zones)
+
+
+def list_gpu_zones(generation: str, run: Runner = _default_runner) -> list[str]:
+    """Zones offering the GPU family's accelerator, live when credentials
+    allow, otherwise the static catalog: one `gcloud compute
+    accelerator-types list` names every zone with the type (the listing
+    is project-wide, unlike the TPU one), narrowed to the catalog's zones.
+    Any gcloud failure, or no catalog zone in the listing, falls back to
+    the catalog."""
+    from tritonk8ssupervisor_tpu_torch.config import catalog
+
+    spec = catalog.get_spec(generation)
+    try:
+        proc = run([
+            "gcloud", "compute", "accelerator-types", "list",
+            f"--filter=name={spec.type_prefix}", "--format=value(zone)",
+        ])
+    except (OSError, subprocess.SubprocessError):
+        return list(spec.zones)
+    if proc.returncode != 0:
+        return list(spec.zones)
+    listed = {line.strip().rsplit("/", 1)[-1] for line in proc.stdout.splitlines()}
+    return [zone for zone in spec.zones if zone in listed] or list(spec.zones)

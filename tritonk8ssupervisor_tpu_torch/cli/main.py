@@ -3,7 +3,7 @@
 (reference setup.sh:8-92) and the commands beside it.
 
     python -m tritonk8ssupervisor_tpu_torch.cli.main [--workdir W] [--config F] [--yes] \
-        [--skip-readiness] [--readiness-timeout S] [--fault-plan PLAN] [--probe] \
+        [--accelerator tpu|gpu] [--skip-readiness] [--readiness-timeout S] [--fault-plan PLAN] [--probe] \
         [--probe-image IMAGE] [--bench-image IMAGE] [--checkpoint-dir DIR] \
         [--bench-workload resnet50|vit|lm|decode] [--bench-flags FLAGS] \
         [--workload-image IMAGE [--workload-command CMD] [--workload-name NAME]] \
@@ -105,6 +105,11 @@ cache makes an unchanged compile and converge no-ops. `--resize N`
 reconverges a saved deployment at N slices; `--show-config` prints the
 resolved configuration and provisions nothing. It drives `gcloud`,
 `terraform`, `ansible-playbook`, `ssh` and `kubectl`, and needs no card.
+`--accelerator gpu` makes the wizard ask for an H100 deployment: `gke-gpu`
+(a GKE cluster with A3 node pools; its Jobs launch the port under `python
+-m torch.distributed.run`) or `gpu-vm` (standalone A3 VMs configured by
+the GPU playbook); a saved GPU config resumes without the flag. `heal`
+and `supervise` refuse a GPU deployment (ROADMAP 7f-2).
 
 `-c`/`--clean` is the reference's `clean`: teardown
 (`provision/teardown.py`). It lists what it will destroy, asks (unless
@@ -129,12 +134,14 @@ import sys
 import time
 from pathlib import Path
 
+import yaml
+
 from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.cli import discovery, wizard
 from tritonk8ssupervisor_tpu_torch.cli.io import EndOfInput, Prompter
 from tritonk8ssupervisor_tpu_torch.config import compile as compiler
 from tritonk8ssupervisor_tpu_torch.config import store
-from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig, ConfigError
+from tritonk8ssupervisor_tpu_torch.config.schema import VM_MODES, ClusterConfig, ConfigError
 from tritonk8ssupervisor_tpu_torch.provision import ansible as ansible_mod
 from tritonk8ssupervisor_tpu_torch.provision import cache as cache_mod
 from tritonk8ssupervisor_tpu_torch.provision import heal as heal_mod
@@ -207,6 +214,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--readiness-timeout", type=float, default=900.0, metavar="SECONDS",
         help="provision: how long to wait for the cluster's readiness; heal, "
         "supervise: for the repaired slices' (default 900)",
+    )
+    parser.add_argument(
+        "--accelerator", choices=["tpu", "gpu"], default="tpu",
+        help="provision: the wizard's accelerator, the reference's TPU "
+        "catalog (default) or the H100 families (modes gke-gpu, gpu-vm); "
+        "a saved or --config configuration keeps its own",
     )
     parser.add_argument(
         "--skip-readiness",
@@ -1249,6 +1262,7 @@ def heal_cmd(args, say=print) -> int:
         )
     config = store.load_config_file(source)
     config.validate()
+    config.refuse_gpu("heal")
     prompter = _prompter(say)  # heal speaks through a Prompter
     timer = PhaseTimer(logfile=paths.runlog)
     run, run_quiet = build_runners(args.fault_plan, timer)
@@ -1336,6 +1350,7 @@ def supervise_cmd(args, say=print) -> int:
         )
     config = store.load_config_file(source)
     config.validate()
+    config.refuse_gpu("supervise")
     prompter = _prompter(say)
     timer = PhaseTimer(logfile=paths.runlog)
     run, run_quiet = build_runners(args.fault_plan, timer)
@@ -1489,7 +1504,7 @@ def provision(args, paths: state.RunPaths, prompter: Prompter) -> int:
         config = store.load_config_file(paths.config_file)
         config.validate()
     else:
-        config = wizard.run_wizard(prompter, env=env)
+        config = wizard.run_wizard(prompter, env=env, accelerator=args.accelerator)
 
     if args.resize is not None and args.resize != config.num_slices:
         prompter.say(
@@ -1502,12 +1517,16 @@ def provision(args, paths: state.RunPaths, prompter: Prompter) -> int:
     # validated its key up front too (setup.sh:231-237). Cheapest first.
     ssh_key: Path | str = ""
     ssh_user = ""
-    if config.mode == "tpu-vm":
+    if config.mode in VM_MODES:
         if args.probe:
             raise ConfigError(
                 "--probe runs a Kubernetes Job and requires mode=gke; "
                 "tpu-vm slices get the same acceptance test from the "
                 "tpuhost ansible role"
+                if config.mode == "tpu-vm" else
+                "--probe runs a Kubernetes Job and requires mode=gke-gpu; "
+                "gpu-vm hosts get the same acceptance test from the "
+                "gpuhost ansible role"
             )
         ssh_key = discovery.find_ssh_key()
         ssh_user = discovery.ssh_username()
@@ -1661,7 +1680,7 @@ def build_provision_dag(
     )
     tasks = [tf_task, manifests_task]
 
-    if config.mode == "tpu-vm":
+    if config.mode in VM_MODES:
         tasks += build_slice_pipeline(
             args, config, paths, cache,
             run=run, run_quiet=run_quiet,
@@ -1676,7 +1695,8 @@ def build_provision_dag(
             config, results["terraform-apply"], paths,
             ssh_key=ssh_key, ansible_user=ssh_user,
         )
-        ansible_mod.run_playbook(paths, run=run)
+        ansible_mod.run_playbook(paths, run=run,
+                                 playbook=ansible_mod.playbook_for(config))
 
     def do_readiness(results: dict) -> None:
         wait_ready(config, args.readiness_timeout, run_quiet=run_quiet)
@@ -1714,13 +1734,15 @@ def build_slice_pipeline(
     ssh_user: str,
     cfg_fp: dict,
 ) -> list[Task]:
-    """The tpu-vm per-slice tail of the DAG: one shared `host-prep`
-    (runtime configs — seconds of local file writes) plus, per slice, a
-    `readiness-slice-N` (shared fleet snapshot + adaptive-backoff polls)
-    and a `configure-slice-N` (cache-aware `ansible --limit`). The only
-    cross-slice edge is host-prep; each slice's converge starts the
-    moment ITS hosts accept authenticated SSH."""
-    # one batched `tpu-vm list` per TTL window serves every slice's poll
+    """The tpu-vm (and gpu-vm) per-slice tail of the DAG: one shared
+    `host-prep` (runtime configs — seconds of local file writes) plus, per
+    slice, a `readiness-slice-N` (shared fleet snapshot + adaptive-backoff
+    polls) and a `configure-slice-N` (cache-aware `ansible --limit`). The
+    only cross-slice edge is host-prep; each slice's converge starts the
+    moment ITS hosts accept authenticated SSH. A gpu-vm slice is ready
+    when each of its host VMs is RUNNING."""
+    # one batched `tpu-vm list` (`instances list`) per TTL window serves
+    # every slice's poll
     snapshot = readiness.FleetSnapshot(config, run_quiet=run_quiet)
 
     def do_host_prep(results: dict) -> None:
@@ -1741,15 +1763,20 @@ def build_slice_pipeline(
         name = f"readiness-slice-{i}"
         node = f"{config.node_prefix}-{i}"
 
+        def vm_probe() -> str:
+            if config.is_gpu:  # each host VM of the slice RUNNING
+                return readiness.gpu_vm_probe(
+                    config, readiness.gpu_vm_names(config, [i]), run_quiet,
+                    snapshot=snapshot)
+            return readiness.tpu_vm_probe(config, [node], run_quiet, snapshot=snapshot)
+
         def fn(results: dict) -> None:
             # one shared budget for both polls — the user's timeout caps
             # the whole slice's wait, not each poll
             hosts = results["terraform-apply"]
             poll_start = time.monotonic()
             readiness.poll(
-                lambda: readiness.tpu_vm_probe(
-                    config, [node], run_quiet, snapshot=snapshot
-                ),
+                vm_probe,
                 timeout=args.readiness_timeout,
                 adapt=readiness.AdaptiveInterval(base=5.0, max_interval=45.0),
             )
@@ -1812,6 +1839,17 @@ def wait_ready(
             lambda: readiness.gke_tpu_probe(config, run_quiet),
             timeout=timeout,
         )
+    elif config.mode == "gke-gpu":
+        readiness.poll(
+            lambda: readiness.gke_gpu_probe(config, run_quiet),
+            timeout=timeout,
+        )
+    elif config.mode == "gpu-vm":
+        readiness.poll(
+            lambda: readiness.gpu_vm_probe(
+                config, readiness.gpu_vm_names(config), run_quiet),
+            timeout=timeout,
+        )
     else:
         names = [
             f"{config.node_prefix}-{i}" for i in range(config.num_slices)
@@ -1830,7 +1868,9 @@ def banner(config, hosts: state.ClusterHosts, manifest_paths, prompter: Prompter
     prompter.say("---------------------------------------------------------")
     prompter.say(" Cluster is ready.")
     prompter.say("---------------------------------------------------------")
-    if config.mode == "gke":
+    if config.is_gpu:
+        gpu_banner(config, hosts, manifest_paths, prompter)
+    elif config.mode == "gke":
         prompter.say(
             "  Workloads:  https://console.cloud.google.com/kubernetes/"
             f"workload/overview?project={config.project}"
@@ -1852,6 +1892,36 @@ def banner(config, hosts: state.ClusterHosts, manifest_paths, prompter: Prompter
         prompter.say(
             "  Benchmark: python -m tritonk8ssupervisor_tpu_torch.benchmarks.resnet50"
         )
+
+
+def gpu_banner(config, hosts: state.ClusterHosts, manifest_paths, prompter: Prompter) -> None:
+    """The GPU modes' lines of the banner: the benchmark line is the GPU
+    Job's launcher command (gke-gpu), or the command each host runs with
+    its node rank (gpu-vm)."""
+    if config.mode == "gke-gpu":
+        prompter.say(
+            "  Workloads:  https://console.cloud.google.com/kubernetes/"
+            f"workload/overview?project={config.project}"
+        )
+        prompter.say(
+            f"  kubeconfig: gcloud container clusters get-credentials "
+            f"{config.cluster_name} --zone {config.zone} --project {config.project}"
+        )
+        prompter.say(f"  Benchmark:  kubectl apply -f {manifest_paths[0].parent}/")
+        job = yaml.safe_load((manifest_paths[0].parent / "bench-job-0.yaml").read_text())
+        command = job["spec"]["template"]["spec"]["containers"][0]["command"][-1]
+        prompter.say(f"  Job runs:   {command.split(' && ', 1)[-1]}")
+        return
+    for i, slice_ips in enumerate(hosts.host_ips):
+        prompter.say(f"  slice {i}: {', '.join(slice_ips)}")
+    prompter.say(f"  SSH:       gcloud compute ssh {config.node_prefix}-0-0 --zone {config.zone}")
+    launcher = compiler.gpu_launcher_args(
+        config.num_slices * config.hosts_per_slice,
+        config.spec.chips_on_host(config.parsed_topology), "RANK",
+        hosts.coordinator_ip or "COORDINATOR")
+    module = compiler.BENCH_WORKLOADS["resnet50"][0]
+    prompter.say(f"  Benchmark: python3 -m torch.distributed.run {launcher} -m {module}")
+    prompter.say("             (RANK: slice x hosts a slice + the host's index)")
 
 
 if __name__ == "__main__":

@@ -12,6 +12,10 @@ constraints (unlike the reference, whose regexes lived inline in prompts).
 
 The port's copy of `tritonk8ssupervisor_tpu/cli/wizard.py`, whole and under
 the reference's names: the menus are the TPU catalog's (`config/catalog.py`).
+With `accelerator="gpu"` (`cli.main --accelerator gpu`) it asks the GPU
+menus instead, in the same order: mode (`gke-gpu`, `gpu-vm`), family,
+topology, slices, zone, network, subnetwork; the TPU transcript is the
+reference's, unchanged.
 """
 
 from __future__ import annotations
@@ -19,7 +23,19 @@ from __future__ import annotations
 from tritonk8ssupervisor_tpu_torch.cli import discovery
 from tritonk8ssupervisor_tpu_torch.cli.io import Prompter
 from tritonk8ssupervisor_tpu_torch.config import catalog
-from tritonk8ssupervisor_tpu_torch.config.schema import MAX_SLICES, MODES, ClusterConfig, _NAME_RE
+from tritonk8ssupervisor_tpu_torch.config.schema import (
+    _NAME_RE,
+    GPU_MODES,
+    MAX_SLICES,
+    MODES,
+    ClusterConfig,
+)
+
+# a GPU deployment's names and descriptions until the user gives others
+GPU_DEFAULTS = dict(cluster_name="gpu-dev", node_prefix="gpunode", env_name="gpu dev",
+                    env_description="H100 Kubernetes environment",
+                    generation=catalog.DEFAULT_GPU_GENERATION,
+                    topology=catalog.DEFAULT_GPU_TOPOLOGY, mode="gke-gpu")
 
 
 def _name_validator(field: str):
@@ -85,20 +101,25 @@ def _choose_named(
 def run_wizard(
     prompter: Prompter,
     env: discovery.GcloudEnv | None = None,
-    zone_lister=discovery.list_tpu_zones,
+    zone_lister=None,
     network_lister=discovery.list_networks,
     subnet_lister=discovery.list_subnetworks,
+    accelerator: str = "tpu",
 ) -> ClusterConfig:
     """Collect a full ClusterConfig interactively.
 
     Question order mirrors the reference wizard (setup.sh:255-451):
-    identity -> naming -> sizing -> placement.
+    identity -> naming -> sizing -> placement. `accelerator` "gpu" asks
+    the GPU catalog's menus; `zone_lister` defaults to the kind's.
     """
+    gpu = accelerator == "gpu"
+    if zone_lister is None:
+        zone_lister = discovery.list_gpu_zones if gpu else discovery.list_tpu_zones
     env = env or discovery.GcloudEnv()
-    config = ClusterConfig()
+    config = ClusterConfig(**GPU_DEFAULTS) if gpu else ClusterConfig()
 
     prompter.say("---------------------------------------------------------")
-    prompter.say(" TPU Kubernetes cluster setup")
+    prompter.say(" H100 GPU Kubernetes cluster setup" if gpu else " TPU Kubernetes cluster setup")
     prompter.say("---------------------------------------------------------")
 
     # Identity (the reference read these from `triton env`, setup.sh:209-213)
@@ -119,9 +140,54 @@ def run_wizard(
         "Cluster name", config.cluster_name, _name_validator("cluster name")
     )
     config.node_prefix = prompter.ask_validated(
-        "TPU node name prefix", config.node_prefix, _name_validator("node prefix")
+        "GPU node name prefix" if gpu else "TPU node name prefix",
+        config.node_prefix, _name_validator("node prefix")
     )
 
+    if gpu:
+        _gpu_menus(prompter, config)
+    else:
+        _tpu_menus(prompter, config)
+
+    # Slice count keeps the reference's 1-9 guard-rail (setup.sh:297-307).
+    # Multiple slices form ONE cross-slice training surface by default
+    # (data parallel over DCN, docs/parallelism.md; --independent-slices
+    # restores per-slice clusters).
+    config.num_slices = int(
+        prompter.ask_validated(
+            "Number of slices (several = one cross-slice training surface)",
+            str(config.num_slices),
+            _int_range_validator(1, MAX_SLICES, "no HA support"),
+        )
+    )
+
+    # Placement (zones with capacity; live list when credentials exist —
+    # the `triton networks` live-menu analogue, setup.sh:257)
+    zones = zone_lister(config.generation)
+    default_zone_idx = zones.index(env.zone) if env.zone in zones else 0
+    config.zone = zones[prompter.menu("Zone:", zones, default_zone_idx)]
+
+    # Networking: live menus with defaults, like the reference's `triton
+    # networks` menu defaulting to Joyent-SDC-Public (setup.sh:309-400)
+    config.network = _choose_named(
+        prompter,
+        "VPC network:",
+        network_lister(config.project),
+        config.network,
+    )
+    config.subnetwork = _choose_named(
+        prompter,
+        f"VPC subnetwork ({config.region}):",
+        subnet_lister(config.project, config.region, config.network),
+        config.subnetwork,
+    )
+
+    config.validate()
+    return config
+
+
+def _tpu_menus(prompter: Prompter, config: ClusterConfig) -> None:
+    """The reference's mode, generation and topology menus."""
     # Deployment mode: GKE cluster vs standalone TPU VM slice.
     modes = (
         ("gke", "gke     - GKE cluster with a TPU node pool (full Kubernetes)"),
@@ -161,46 +227,53 @@ def run_wizard(
     )
     config.topology = spec.topologies[topo_idx]
 
-    # Slice count keeps the reference's 1-9 guard-rail (setup.sh:297-307).
-    # Multiple slices form ONE cross-slice training surface by default
-    # (data parallel over DCN, docs/parallelism.md; --independent-slices
-    # restores per-slice clusters).
-    config.num_slices = int(
-        prompter.ask_validated(
-            "Number of slices (several = one cross-slice training surface)",
-            str(config.num_slices),
-            _int_range_validator(1, MAX_SLICES, "no HA support"),
-        )
-    )
 
-    # Placement (zones with capacity; live list when credentials exist —
-    # the `triton networks` live-menu analogue, setup.sh:257)
-    zones = zone_lister(config.generation)
-    default_zone_idx = zones.index(env.zone) if env.zone in zones else 0
-    config.zone = zones[prompter.menu("Zone:", zones, default_zone_idx)]
-
-    # Networking: live menus with defaults, like the reference's `triton
-    # networks` menu defaulting to Joyent-SDC-Public (setup.sh:309-400)
-    config.network = _choose_named(
-        prompter,
-        "VPC network:",
-        network_lister(config.project),
-        config.network,
+def _gpu_menus(prompter: Prompter, config: ClusterConfig) -> None:
+    """The GPU catalog's mode, family and topology menus."""
+    modes = (
+        ("gke-gpu", "gke-gpu - GKE cluster with H100 (A3) node pools (full Kubernetes)"),
+        ("gpu-vm", "gpu-vm  - standalone H100 (A3) VMs configured by ansible"),
     )
-    config.subnetwork = _choose_named(
-        prompter,
-        f"VPC subnetwork ({config.region}):",
-        subnet_lister(config.project, config.region, config.network),
-        config.subnetwork,
-    )
+    assert {m for m, _ in modes} == set(GPU_MODES)
+    config.mode = modes[prompter.menu("Deployment mode:", [l for _, l in modes], 0)][0]
 
-    config.validate()
-    return config
+    families = sorted(catalog.GPU_ACCELERATORS)
+    family_idx = prompter.menu(
+        "GPU family:",
+        [
+            f"{g:<9} - {catalog.GPU_ACCELERATORS[g].type_prefix}, up to "
+            f"{catalog.GPU_ACCELERATORS[g].max_chips} GPUs, "
+            f"{catalog.GPU_ACCELERATORS[g].chips_per_host}/host"
+            for g in families
+        ],
+        families.index(catalog.DEFAULT_GPU_GENERATION),
+    )
+    config.generation = families[family_idx]
+    spec = catalog.GPU_ACCELERATORS[config.generation]
+
+    topo_default = (
+        spec.topologies.index(catalog.DEFAULT_GPU_TOPOLOGY)
+        if catalog.DEFAULT_GPU_TOPOLOGY in spec.topologies
+        else 0
+    )
+    topo_idx = prompter.menu(
+        f"Slice topology ({config.generation}, hosts x GPUs a host):",
+        [
+            f"{t:<5} = {spec.topology(t).chips} GPUs, "
+            f"{spec.hosts(spec.topology(t))} host(s)  "
+            f"[{spec.gke_machine_type[spec.chips_on_host(spec.topology(t))]}]"
+            for t in spec.topologies
+        ],
+        topo_default,
+    )
+    config.topology = spec.topologies[topo_idx]
 
 
 def config_rows(config: ClusterConfig) -> list[tuple[str, str]]:
     """The summary rows shared by the verify gate and --show-config (the
     debugVars dump analogue, setup.sh:522-531)."""
+    if config.is_gpu:
+        return _gpu_config_rows(config)
     rows = [
         ("GCP project", config.project),
         ("Zone", config.zone),
@@ -226,6 +299,29 @@ def config_rows(config: ClusterConfig) -> list[tuple[str, str]]:
         ))
     if config.mode == "gke":
         rows.append(("GKE machine type", config.gke_machine_type))
+    return rows
+
+
+def _gpu_config_rows(config: ClusterConfig) -> list[tuple[str, str]]:
+    per_host = config.spec.chips_on_host(config.parsed_topology)
+    rows = [
+        ("GCP project", config.project),
+        ("Zone", config.zone),
+        ("Mode", config.mode),
+        ("Cluster name", config.cluster_name),
+        ("Environment", f"{config.env_name} - {config.env_description}"),
+        ("GPU family", f"{config.generation} ({config.accelerator_type})"),
+        ("Slice topology", f"{config.topology} (hosts x GPUs a host)"),
+        ("Slices x hosts x GPUs",
+         f"{config.num_slices} x {config.hosts_per_slice} x {per_host}"),
+        ("Total GPUs", str(config.num_slices * config.chips_per_slice)),
+        ("Network", f"{config.network} / {config.subnetwork}"),
+        ("Machine type", config.gke_machine_type),
+    ]
+    if config.mode == "gpu-vm":
+        rows.append(("Boot image", config.effective_runtime_version))
+    else:
+        rows.append(("Job image", config.spec.job_image))
     return rows
 
 

@@ -10,6 +10,10 @@ share one source of truth.
 
 The port's copy of `tritonk8ssupervisor_tpu/config/schema.py`, whole and
 under the reference's names: the port imports nothing of the JAX package.
+It adds the GPU modes: a GPU family of the catalog (`h100`, `h100-mega`)
+deploys as `gke-gpu` (a GKE cluster with A3 node pools) or `gpu-vm`
+(standalone A3 VMs configured by ansible), and a TPU generation as the
+reference's `tpu-vm` or `gke`; validation refuses a mixed pair.
 """
 
 from __future__ import annotations
@@ -24,7 +28,11 @@ from tritonk8ssupervisor_tpu_torch.utils.topology import Topology
 # hostname regex (setup.sh:276) but matching what the google provider accepts.
 _NAME_RE = re.compile(r"^[a-z][a-z0-9-]{0,61}[a-z0-9]$")
 
-MODES = ("tpu-vm", "gke")
+MODES = ("tpu-vm", "gke")  # the TPU modes, the reference's
+GPU_MODES = ("gke-gpu", "gpu-vm")
+ALL_MODES = MODES + GPU_MODES
+# the modes whose hosts are standalone VMs configured over SSH by ansible
+VM_MODES = ("tpu-vm", "gpu-vm")
 
 # The reference capped clusters at 9 nodes with a "no HA support" comment
 # (setup.sh:297-307). We keep the same guard-rail for slice count.
@@ -81,6 +89,11 @@ class ClusterConfig:
     # heals into the dead compartment (docs/failure-modes.md, "blast
     # radius & correlated failures").
     failure_domains: int = 0
+
+    @property
+    def is_gpu(self) -> bool:
+        """A GPU deployment (`gke-gpu` or `gpu-vm`)."""
+        return self.mode in GPU_MODES
 
     @property
     def region(self) -> str:
@@ -150,8 +163,16 @@ class ClusterConfig:
         errors: list[str] = []
         if not self.project:
             errors.append("project is required (run `gcloud config set project ...`)")
-        if self.mode not in MODES:
-            errors.append(f"mode must be one of {MODES}, got {self.mode!r}")
+        gpu_family = self.generation in catalog.GPU_ACCELERATORS
+        modes, other = (GPU_MODES, MODES) if gpu_family else (MODES, GPU_MODES)
+        if self.mode in other:
+            errors.append(
+                f"mode {self.mode!r} does not deploy the "
+                f"{'GPU family' if gpu_family else 'TPU generation'} "
+                f"{self.generation!r}; choose one of {modes}"
+            )
+        elif self.mode not in modes:
+            errors.append(f"mode must be one of {modes}, got {self.mode!r}")
         for field in ("cluster_name", "node_prefix"):
             value = getattr(self, field)
             if not _NAME_RE.match(value):
@@ -197,6 +218,16 @@ class ClusterConfig:
                 )
         if errors:
             raise ConfigError("; ".join(errors))
+
+    def refuse_gpu(self, operation: str) -> None:
+        """Raise ConfigError for an operation the GPU modes do not have yet
+        (ROADMAP 7f-2), before it touches a TPU-only resource address."""
+        if self.is_gpu:
+            raise ConfigError(
+                f"{operation} is not available for {self.mode} deployments "
+                "yet: scoped heal, supervise, autoscale and allocate of "
+                "gpu-vm groups and gke-gpu pools are ROADMAP 7f-2"
+            )
 
     # ---- flat KEY=value round-trip (store.py uses these) ----
 

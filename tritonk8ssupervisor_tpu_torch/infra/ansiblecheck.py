@@ -14,7 +14,8 @@ dev loop the same floor (and more) without it:
   a filter-chain bug there.
 
 The port's copy of `tritonk8ssupervisor_tpu/infra/ansiblecheck.py`, whole
-and under the reference's names.
+and under the reference's names; `validate_playbook` also takes the GPU
+playbook (`clusterUpGpu.yml`).
 """
 
 from __future__ import annotations
@@ -108,9 +109,10 @@ def validate_tasks(tasks: list, where: str) -> list[str]:
     return problems
 
 
-def validate_playbook(ansible_dir: Path, inventory_groups: set[str]) -> list[str]:
+def validate_playbook(ansible_dir: Path, inventory_groups: set[str],
+                      playbook_name: str = "clusterUp.yml") -> list[str]:
     problems = []
-    playbook = ansible_dir / "clusterUp.yml"
+    playbook = ansible_dir / playbook_name
     plays = yaml.safe_load(playbook.read_text())
     if not isinstance(plays, list) or not plays:
         return [f"{playbook}: not a list of plays"]

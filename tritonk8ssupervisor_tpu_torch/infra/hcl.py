@@ -20,12 +20,14 @@ giving deterministic plan documents for golden tests — the SURVEY.md §4
 "plan golden tests against a stubbed provider" without the provider.
 
 The port's copy of `tritonk8ssupervisor_tpu/infra/hcl.py`, whole and under
-the reference's names.
+the reference's names, with two more functions for the GPU modules'
+fan-out: `floor` and `chunklist`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 import warnings
 from pathlib import Path
@@ -493,6 +495,9 @@ _FUNCTIONS = {
     "tostring": _to_str,
     "tonumber": lambda v: float(v) if "." in str(v) else int(v),
     "length": len,
+    # the GPU modules' host fan-out (terraform/gpu-vm)
+    "floor": math.floor,
+    "chunklist": lambda xs, n: [list(xs[i:i + int(n)]) for i in range(0, len(xs), int(n))],
 }
 
 

@@ -8,6 +8,7 @@ ansible.cfg at the discovered SSH key (the sed at setup.sh:133), then
 
 The port's copy of `tritonk8ssupervisor_tpu/provision/ansible.py`, whole and
 under the reference's names: the port imports nothing of the JAX package.
+A GPU deployment runs the GPU playbook (`playbook_for`).
 """
 
 from __future__ import annotations
@@ -61,15 +62,22 @@ def write_runtime_configs(
         patch_private_key(paths.ansible_cfg, ssh_key)
 
 
+def playbook_for(config: ClusterConfig) -> str:
+    """The playbook of the deployment's accelerator kind: `clusterUp.yml`
+    (tpuhost, gkejoin) or `clusterUpGpu.yml` (gpuhost, gkegpujoin)."""
+    return "clusterUpGpu.yml" if config.is_gpu else "clusterUp.yml"
+
+
 def run_playbook(
     paths: RunPaths,
     run: run_mod.RunFn = run_mod.run_streaming,
     extra_args: list[str] | None = None,
+    playbook: str = "clusterUp.yml",
 ) -> None:
     """`cd ansible && ansible-playbook -i hosts clusterUp.yml`
-    (setup.sh:111-115)."""
+    (setup.sh:111-115), or the GPU playbook."""
     run(
-        ["ansible-playbook", "-i", "hosts", "clusterUp.yml"] + (extra_args or []),
+        ["ansible-playbook", "-i", "hosts", playbook] + (extra_args or []),
         cwd=paths.ansible_dir,
     )
 
@@ -115,7 +123,8 @@ def converge_slice(
              "skipping ansible")
         return False
     run_playbook(paths, run=run,
-                 extra_args=["--limit", ",".join(slice_ips)])
+                 extra_args=["--limit", ",".join(slice_ips)],
+                 playbook=playbook_for(config))
     if cache is not None:
         cache.record(task, key)
     return True

@@ -320,6 +320,7 @@ def heal(
     never touched — so a follow-up provision run warm-skips them, and
     only the replaced slice's converge ever runs here.
     """
+    config.refuse_gpu("heal")
     if config.mode != "tpu-vm":
         raise ConfigError(
             "heal repairs standalone TPU VM slices; GKE node pools "

@@ -10,7 +10,10 @@ smoke test over SSH for standalone slices — with bounded timeouts.
 
 The port's copy of `tritonk8ssupervisor_tpu/provision/readiness.py`, whole
 and under the reference's names: the port imports nothing of the JAX
-package.
+package. The GPU modes have their counterparts: allocatable
+`nvidia.com/gpu` for gke-gpu (`gke_gpu_probe`), Compute Engine status
+RUNNING of every host VM for gpu-vm (`gpu_vm_states`, `gpu_vm_probe`,
+through the same batched snapshot), and the `gpu-probe` Job.
 """
 
 from __future__ import annotations
@@ -131,6 +134,32 @@ def gke_tpu_probe(
     expected_chips = config.num_slices * config.chips_per_slice
     if allocatable < expected_chips:
         return f"{allocatable}/{expected_chips} TPU chips allocatable"
+    return ""
+
+
+def gke_gpu_probe(
+    config: ClusterConfig,
+    run_quiet: run_mod.RunFn = run_mod.run_capture,
+) -> str:
+    """The gke-gpu counterpart of gke_tpu_probe: ready when every A3 node
+    is Ready and the summed allocatable `nvidia.com/gpu` covers the
+    deployment's GPUs (a node whose driver still installs reports 0)."""
+    raw = run_quiet(["kubectl", "get", "nodes", "-o", "json"])
+    nodes = json.loads(raw).get("items", [])
+    expected_hosts = config.num_slices * config.hosts_per_slice
+    gpu_nodes = [
+        n for n in nodes
+        if "nvidia.com/gpu" in n.get("status", {}).get("allocatable", {})
+    ]
+    if len(gpu_nodes) < expected_hosts:
+        return f"{len(gpu_nodes)}/{expected_hosts} GPU nodes registered"
+    not_ready = [n["metadata"]["name"] for n in gpu_nodes if not _node_is_ready(n)]
+    if not_ready:
+        return f"nodes not Ready: {', '.join(sorted(not_ready)[:3])}"
+    allocatable = sum(int(n["status"]["allocatable"]["nvidia.com/gpu"]) for n in gpu_nodes)
+    expected = config.num_slices * config.chips_per_slice
+    if allocatable < expected:
+        return f"{allocatable}/{expected} GPUs allocatable"
     return ""
 
 
@@ -322,12 +351,64 @@ def tpu_vm_states(
     return states
 
 
+def gpu_vm_names(config: ClusterConfig, slices: "Iterable[int] | None" = None) -> list[str]:
+    """The host VM names of the given slices (all by default): host h of
+    slice s is `<node_prefix>-<s>-<h>` (terraform/gpu-vm)."""
+    slices = range(config.num_slices) if slices is None else slices
+    return [f"{config.node_prefix}-{s}-{h}"
+            for s in slices for h in range(config.hosts_per_slice)]
+
+
+def gpu_vm_states(
+    config: ClusterConfig,
+    run_quiet: run_mod.RunFn = run_mod.run_capture,
+    names: "Iterable[str] | None" = None,
+) -> dict[str, str]:
+    """Compute Engine status per VM name from ONE batched `instances list`
+    call, the gpu-vm counterpart of tpu_vm_states (same paging)."""
+    if names is None:
+        name_filter = f"--filter=name~^{config.node_prefix}-"
+        page_size: list[str] = []
+    else:
+        page = [str(n) for n in names]
+        name_filter = f"--filter=name:({' '.join(page)})"
+        page_size = [f"--page-size={max(1, len(page))}"]
+    raw = run_quiet([
+        "gcloud", "compute", "instances", "list", f"--zones={config.zone}",
+        "--format=value(name,status)", name_filter, *page_size,
+    ])
+    states: dict[str, str] = {}
+    for line in raw.splitlines():
+        parts = line.split()
+        if parts:
+            states[parts[0].rsplit("/", 1)[-1]] = parts[1] if len(parts) > 1 else "UNKNOWN"
+    return states
+
+
+def gpu_vm_probe(
+    config: ClusterConfig,
+    vm_names: list[str],
+    run_quiet: run_mod.RunFn = run_mod.run_capture,
+    snapshot: "FleetSnapshot | None" = None,
+) -> str:
+    """Ready when every named host VM is RUNNING; a VM absent from the
+    listing is still being created."""
+    states = (snapshot.states() if snapshot is not None
+              else gpu_vm_states(config, run_quiet))
+    unready = [f"{name} is {states.get(name) or 'CREATING'}"
+               for name in vm_names if states.get(name) != "RUNNING"]
+    if unready:
+        return f"host VM(s) not running: {', '.join(unready)}"
+    return ""
+
+
 @dataclasses.dataclass
 class _SnapshotPage:
     """One window of the fleet listing: the node names it covers, the
     last good fetch, and the quota-backoff gate."""
 
     names: tuple
+    slices: tuple = ()  # the slice indices whose nodes the page lists
     states: dict | None = None
     fetched_at: float = float("-inf")
     backoff_until: float = float("-inf")
@@ -375,10 +456,17 @@ class FleetSnapshot:
         self._lock = threading.Lock()
         n = max(1, int(config.num_slices))
         size = n if int(page_size) <= 0 else min(int(page_size), n)
-        names = [f"{config.node_prefix}-{i}" for i in range(n)]
+        # a TPU slice is one node; a GPU slice lists each host VM
+        self._lister = gpu_vm_states if config.is_gpu else tpu_vm_states
+
+        def page_names(slices: range) -> tuple:
+            if config.is_gpu:
+                return tuple(gpu_vm_names(config, slices))
+            return tuple(f"{config.node_prefix}-{j}" for j in slices)
+
         self._pages = [
-            _SnapshotPage(tuple(names[i:i + size]))
-            for i in range(0, n, size)
+            _SnapshotPage(page_names(slices), tuple(slices))
+            for slices in (range(i, min(i + size, n)) for i in range(0, n, size))
         ]
         self._quota_backoff = (retry.QUOTA_BACKOFF_FLOOR
                                if quota_backoff_s is None
@@ -418,7 +506,7 @@ class FleetSnapshot:
                          and now - page.fetched_at <= ttl)
                 if not fresh and now >= page.backoff_until:
                     try:
-                        listing = tpu_vm_states(
+                        listing = self._lister(
                             self._config, self._run_quiet,
                             names=None if single else page.names,
                         )
@@ -455,14 +543,8 @@ class FleetSnapshot:
             now = self._clock() if now is None else now
             parked: set = set()
             for page in self._pages:
-                if page.backoff_until <= now:
-                    continue
-                for name in page.names:
-                    _, _, suffix = str(name).rpartition("-")
-                    try:
-                        parked.add(int(suffix))
-                    except ValueError:
-                        continue
+                if page.backoff_until > now:
+                    parked.update(page.slices)
             return parked
 
     def staleness(self, now: float | None = None) -> float:
@@ -515,9 +597,12 @@ def tpu_vm_probe(
     return ""
 
 
-# One definition of the per-host acceptance test, shared with the tpuhost
-# ansible role via to_ansible_vars (config/compile.py).
-from tritonk8ssupervisor_tpu_torch.config.compile import jax_smoke_command  # noqa: E402,F401
+# One definition of the per-host acceptance tests, shared with the tpuhost
+# and gpuhost ansible roles via to_ansible_vars (config/compile.py).
+from tritonk8ssupervisor_tpu_torch.config.compile import (  # noqa: E402,F401
+    gpu_smoke_command,
+    jax_smoke_command,
+)
 
 
 class ProbeFailed(NotReadyError):
@@ -529,11 +614,12 @@ def _probe_job_status(raw: str) -> str:
     ProbeFailed on the Failed condition (kubectl wait can't fast-fail:
     waiting on condition=complete never fires for a failed Job)."""
     job = json.loads(raw)
+    name = job.get("metadata", {}).get("name", "tpu-probe")
     status = job.get("status", {})
     for cond in status.get("conditions", []):
         if cond.get("type") == "Failed" and cond.get("status") == "True":
             raise ProbeFailed(
-                f"probe job failed: {cond.get('message', 'see kubectl logs job/tpu-probe')}"
+                f"probe job failed: {cond.get('message', f'see kubectl logs job/{name}')}"
             )
         if cond.get("type") == "Complete" and cond.get("status") == "True":
             return ""
@@ -617,7 +703,10 @@ def run_probe_job(
 ) -> None:
     """Apply the TPU probe Job (config/compile.py to_probe_job), poll until
     Complete (fast-failing on Failed), clean it up. Raises NotReadyError —
-    the workload-level acceptance test behind the node-level probes.
+    the workload-level acceptance test behind the node-level probes. A
+    GPU deployment's is `gpu-probe`, which installs the port from the
+    package ConfigMap: that is applied first and left in place (the
+    benchmark Jobs mount the same one).
 
     `probe_dir` must NOT be the benchmark manifests directory: the README
     tells users to `kubectl apply -f manifests/generated/` wholesale, and
@@ -630,16 +719,21 @@ def run_probe_job(
 
     probe_dir = Path(probe_dir)
     probe_dir.mkdir(parents=True, exist_ok=True)
-    manifest = probe_dir / "tpu-probe.yaml"
+    job_name = "gpu-probe" if config.is_gpu else "tpu-probe"
+    manifest = probe_dir / f"{job_name}.yaml"
     job_kwargs = {"image": image} if image else {}
     manifest.write_text(
         yaml.safe_dump(compiler.to_probe_job(config, **job_kwargs), sort_keys=False)
     )
+    if config.is_gpu:
+        package = probe_dir / "package-configmap.yaml"
+        package.write_text(yaml.safe_dump(compiler.to_package_configmap(), sort_keys=False))
+        run(["kubectl", "apply", "-f", str(package)])
     run(["kubectl", "apply", "-f", str(manifest)])
     try:
         poll(
             lambda: _probe_job_status(
-                run_quiet(["kubectl", "get", "job", "tpu-probe", "-o", "json"])
+                run_quiet(["kubectl", "get", "job", job_name, "-o", "json"])
             ),
             timeout=timeout_seconds,
             sleep=sleep,
@@ -649,7 +743,7 @@ def run_probe_job(
         # the operator would want to inspect, so capture their logs +
         # events first and point at the capture in the error itself.
         diag_dir = collect_job_diagnostics(
-            "tpu-probe", probe_dir, run_quiet=run_quiet
+            job_name, probe_dir, run_quiet=run_quiet
         )
         if diag_dir is not None:
             raise type(e)(f"{e} [diagnostics: {diag_dir}]") from e

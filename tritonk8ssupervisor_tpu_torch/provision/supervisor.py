@@ -482,6 +482,7 @@ class Supervisor:
         scale_down_fn=None,
         allocator: "allocator_mod.Allocator | None" = None,
     ) -> None:
+        config.refuse_gpu("supervise")
         if config.mode != "tpu-vm":
             raise ConfigError(
                 "supervise drives the tpu-vm heal path; GKE node pools "

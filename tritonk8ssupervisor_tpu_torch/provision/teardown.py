@@ -8,7 +8,9 @@ next run starts clean (509-513) and reset the ansible.cfg key path (511).
 The port's copy of `tritonk8ssupervisor_tpu/provision/teardown.py`, whole
 and under the reference's names: it stops a running supervisor first
 (`provision/supervisor.stop_running`) and scrubs the gateway fleet's
-journal and demand-signal shards with the ledgers.
+journal and demand-signal shards with the ledgers. The GPU modes'
+terraform state and staged archive are destroyed and scrubbed as the TPU
+modes' are.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import shutil
 
 from tritonk8ssupervisor_tpu_torch.cli.io import Prompter
-from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig
+from tritonk8ssupervisor_tpu_torch.config.schema import ALL_MODES, ClusterConfig
 from tritonk8ssupervisor_tpu_torch.provision import ansible as ansible_mod
 from tritonk8ssupervisor_tpu_torch.provision import events as events_mod
 from tritonk8ssupervisor_tpu_torch.provision import journal as journal_mod
@@ -151,8 +153,9 @@ def _describe_doomed(config: ClusterConfig | None, paths: RunPaths) -> list[str]
         ]
     hosts = _recorded_hosts(paths)
     if hosts is not None:
+        kind = "GPU" if config is not None and config.is_gpu else "TPU"
         for ip in hosts.flat_ips:
-            lines.append(f"TPU host {ip}")
+            lines.append(f"{kind} host {ip}")
         if hosts.gke_endpoint:
             lines.append(f"GKE cluster endpoint {hosts.gke_endpoint}")
     else:
@@ -174,8 +177,9 @@ def _scrub_known_hosts(paths: RunPaths, run: run_mod.RunFn) -> None:
 
 
 def _remove_generated_state(config: ClusterConfig | None, paths: RunPaths) -> None:
-    """Delete everything a run generated (setup.sh:509-513)."""
-    for mode in ("tpu-vm", "gke"):
+    """Delete everything a run generated (setup.sh:509-513), the GPU
+    modules' state and the gpuhost role's staged archive too."""
+    for mode in ALL_MODES:
         for name in (
             "terraform.tfvars.json",
             "terraform.tfstate",
@@ -189,7 +193,8 @@ def _remove_generated_state(config: ClusterConfig | None, paths: RunPaths) -> No
     paths.quarantine_file.unlink(missing_ok=True)
     paths.inventory.unlink(missing_ok=True)
     (paths.ansible_dir / "group_vars" / "all.yml").unlink(missing_ok=True)
-    shutil.rmtree(paths.ansible_dir / "roles" / "tpuhost" / "files", ignore_errors=True)
+    for role in ("tpuhost", "gpuhost"):
+        shutil.rmtree(paths.ansible_dir / "roles" / role / "files", ignore_errors=True)
     shutil.rmtree(paths.manifests_dir, ignore_errors=True)
     shutil.rmtree(paths.probe_dir, ignore_errors=True)
     paths.config_file.unlink(missing_ok=True)

@@ -13,7 +13,9 @@ terraform/hosts.json — the masters.ip/hosts.ip analogue
 
 The port's copy of `tritonk8ssupervisor_tpu/provision/terraform.py`, whole
 and under the reference's names: the port imports nothing of the JAX
-package.
+package. The GPU modes have modules of their own, terraform/gke-gpu and
+terraform/gpu-vm (one module per mode, as before); gpu-vm's outputs have
+tpu-vm's shape.
 """
 
 from __future__ import annotations
@@ -23,7 +25,12 @@ import os
 import sys
 
 from tritonk8ssupervisor_tpu_torch.config import compile as compiler
-from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig, ConfigError
+from tritonk8ssupervisor_tpu_torch.config.schema import (
+    ALL_MODES,
+    VM_MODES,
+    ClusterConfig,
+    ConfigError,
+)
 from tritonk8ssupervisor_tpu_torch.provision import runner as run_mod
 from tritonk8ssupervisor_tpu_torch.provision.state import ClusterHosts, RunPaths
 
@@ -192,16 +199,17 @@ def collect_outputs(
 ) -> ClusterHosts:
     """Read `terraform output -json` into ClusterHosts.
 
-    Expected outputs (declared in terraform/{tpu-vm,gke}/outputs.tf):
-    - tpu-vm: `host_ips` = per-slice lists of external IPs (SSH addressing),
-      `internal_ips` = per-slice lists of VPC IPs (coordinator addresses —
-      worker->coordinator rendezvous rides the VPC, never external NAT)
-    - gke:    `endpoint` = control-plane endpoint, `node_pool` = name
+    Expected outputs (declared in terraform/<mode>/outputs.tf):
+    - tpu-vm, gpu-vm: `host_ips` = per-slice lists of external IPs (SSH
+      addressing), `internal_ips` = per-slice lists of VPC IPs
+      (coordinator addresses — worker->coordinator rendezvous rides the
+      VPC, never external NAT)
+    - gke, gke-gpu: `endpoint` = control-plane endpoint, `node_pool` = name
     """
     module_dir = paths.terraform_module(config.mode)
     raw = run_quiet(["terraform", "output", "-json"], cwd=module_dir)
     outputs = {k: v.get("value") for k, v in json.loads(raw or "{}").items()}
-    if config.mode == "tpu-vm":
+    if config.mode in VM_MODES:
         host_ips = outputs.get("host_ips") or []
         internal_ips = outputs.get("internal_ips") or []
         coord_source = internal_ips or host_ips
@@ -291,9 +299,10 @@ def destroy_mode(
 
 
 def modes_with_state(paths: RunPaths) -> list[str]:
-    """Modes whose module dir holds a tfstate with resources."""
+    """Modes whose module dir holds a tfstate with resources: every mode's,
+    the GPU modules' too, so `-c` leaves no H100s running."""
     found = []
-    for mode in ("tpu-vm", "gke"):
+    for mode in ALL_MODES:
         state_file = paths.tfstate(mode)
         if not state_file.exists():
             continue

@@ -4609,7 +4609,7 @@ echo "gcloud $*" >> "$CALLS_LOG"
 case "$*" in
   "config get-value project") echo smoke-proj ;;
   "config get-value account") echo smoke@stub.test ;;
-  *"instances list"*) printf 'gpunode-0-0\\tRUNNING\\n' ;;
+  *"instances list"*) printf "${GPU_LISTING:-gpunode-0-0\\tRUNNING\\n}" ;;
 esac
 """,
     "kubectl": """#!/bin/sh
@@ -4630,6 +4630,12 @@ GPU_PLANE_ANSWERS = {"gke-gpu": ["", "", "", "", "", "1", "", "1", "", "", "", "
 # what no GPU document may name (the ConfigMap's base64 archive aside)
 TPU_STRINGS = ("jax", "libtpu", "JAX_", "TPU_", "google.com/tpu", "gke-tpu")
 GPU_SMOKE_TIMEOUT_S = 300
+# the refusal of `heal` on a GKE deployment, gke-gpu's as gke's: its node
+# pools self-repair (tests/test_torch_gpu_plane.py holds it to the JAX
+# package's message)
+GKE_HEAL_REFUSAL = ("heal repairs standalone TPU VM slices; GKE node pools self-repair "
+                    "(auto_repair) and gang-restart via the Job backoff budget — see "
+                    "docs/failure-modes.md")
 
 
 def _no_tpu_strings(where: str, text: str) -> None:
@@ -4638,12 +4644,74 @@ def _no_tpu_strings(where: str, text: str) -> None:
         raise AssertionError(f"{where} names {found}")
 
 
+def _no_tpu_words(where: str, text: str) -> None:
+    """What a gpu-vm heal or supervise prints names no TPU either."""
+    _no_tpu_strings(where, text)
+    if "TPU" in text or "tpu-vm" in text:
+        raise AssertionError(f"{where} names a TPU: {text[-3000:]}")
+
+
+def heal_gpu_plane(mode: str, work: pathlib.Path, config, calls_log: pathlib.Path,
+                   out: dict) -> dict:
+    """The provisioned deployment's heal and supervise in the stub world.
+    gke-gpu: `heal` exits 1 with the gke refusal. gpu-vm: the listing
+    reports host `gpunode-0-0` TERMINATED (a host maintenance event
+    stopped it); `heal` replaces its instance, reconverges it with the GPU
+    playbook and rewrites the ansible vars, whose smoke commands phase 36
+    then runs (`out["vars"]`); `supervise --ticks 2` over the restored
+    listing finds every slice healthy. Returns seconds and stub calls."""
+    paths = RunPaths(work)
+    started = time.monotonic()
+    rc, text, err, calls = _cli(["heal", "--workdir", str(work)], [], calls_log)
+    heal_s = time.monotonic() - started
+    if mode == "gke-gpu":
+        if rc != 1 or not err.endswith(f"ERROR: {GKE_HEAL_REFUSAL}\n") or calls:
+            raise AssertionError(f"heal of gke-gpu exited {rc}, calls {calls}: {err[-2000:]}")
+        return {"heal_seconds": heal_s, "heal_exit": rc}
+    os.environ["GPU_LISTING"] = "gpunode-0-0\\tTERMINATED\\n"
+    try:
+        started = time.monotonic()
+        rc, text, err, calls = _cli(["heal", "--workdir", str(work)], [], calls_log)
+        heal_s = time.monotonic() - started
+    finally:
+        del os.environ["GPU_LISTING"]
+    group_vars = yaml.safe_load((paths.ansible_dir / "group_vars" / "all.yml").read_text())
+    expected = ["terraform apply -auto-approve -input=false -no-color -lock-timeout=600s "
+                "-replace=google_compute_instance.host[0] in gpu-vm",
+                "terraform output -json in gpu-vm",
+                "ansible-playbook -i hosts clusterUpGpu.yml --limit 10.0.0.1"]
+    if (rc != 0 or [c for c in calls if c.startswith(("terraform apply", "terraform output",
+                                                       "ansible"))] != expected
+            or "slice 0: unready (host VM status gpunode-0-0 TERMINATED (want RUNNING))"
+            not in text or "Healed slice(s) 0; fleet fully healthy." not in text
+            or group_vars != compiler.to_ansible_vars(config, "10.1.0.1")):
+        raise AssertionError(f"heal of gpu-vm exited {rc}, calls {calls}, vars {group_vars}: "
+                             f"{text[-3000:]} {err[-3000:]}")
+    _no_tpu_words("gpu-vm heal", text + err)
+    out["vars"] = group_vars  # the healed deployment's smoke commands
+    heal_calls = len(calls)
+    started = time.monotonic()
+    rc, text, err, calls = _cli(["supervise", "--ticks", "2", "--interval", "0",
+                                 "--workdir", str(work)], [], calls_log)
+    supervise_s = time.monotonic() - started
+    status = json.loads(paths.fleet_status.read_text()) if paths.fleet_status.exists() else {}
+    if (rc != 0 or status.get("verdict") != "healthy"
+            or status.get("slice_states") != {"healthy": 1}
+            or any(c.startswith(("terraform", "ansible")) for c in calls)):
+        raise AssertionError(f"supervise of gpu-vm exited {rc}, status {status}, calls {calls}: "
+                             f"{text[-3000:]} {err[-3000:]}")
+    _no_tpu_words("gpu-vm supervise", text + err)
+    return {"heal_seconds": heal_s, "heal_calls": heal_calls,
+            "supervise_seconds": supervise_s, "supervise_calls": len(calls)}
+
+
 def provision_gpu_plane(root: pathlib.Path) -> dict:
     """Phase 36's provisioning half: `cli.main --accelerator gpu` through
     the wizard for gke-gpu (with --probe) and gpu-vm in a stub world, the
-    documents each wrote, then `-c --yes`. Returns the documents phase 36
+    documents each wrote, the heal and supervise of each
+    (`heal_gpu_plane`), then `-c --yes`. Returns the documents phase 36
     runs on the card."""
-    out: dict = {"seconds": {}, "calls": {}}
+    out: dict = {"seconds": {}, "calls": {}, "heal": {}}
     flags = " ".join(SHIPPED_FLAGS["lm"])
     with _stub_world(root, GPU_PLANE_STUBS):
         for mode, answers in GPU_PLANE_ANSWERS.items():
@@ -4695,6 +4763,7 @@ def provision_gpu_plane(root: pathlib.Path) -> dict:
             for name, text_doc in documents.items():
                 _no_tpu_strings(f"{mode} {name}", text_doc)
             out["calls"][mode] = len(calls)
+            out["heal"][mode] = heal_gpu_plane(mode, work, config, calls_log, out)
 
             cleaned = _cli(["-c", "--yes", "--workdir", str(work)], [], calls_log)
             left = [p for p in (paths.config_file, paths.hosts_file, paths.tfstate(mode),
@@ -4796,6 +4865,7 @@ def run_gpu_plane(card: str) -> dict:
                                  f"counts {counts}, report {report}")
     result = {
         "provision_seconds": plane["seconds"], "stub_calls": plane["calls"],
+        "heal": plane["heal"],
         "install_seconds": install_s, "probe_smoke_seconds": probe_s, "probe_line": probe_line,
         "host_smoke_seconds": host_s, "host_line": host_line,
         "cluster_smoke_seconds": cluster_s, "cluster_line": cluster_line,
@@ -4809,10 +4879,15 @@ def run_gpu_plane(card: str) -> dict:
         "phase_seconds": time.monotonic() - started,
     }
     lm = result["lm_job"]
+    healed = plane["heal"]["gpu-vm"]
     print("gpu plane: " + json.dumps(result, sort_keys=True, default=str), flush=True)
     print(f"gpu plane (phase 36): provisioned gke-gpu and gpu-vm (h100 1x1) through the wizard "
           f"in {plane['seconds']['gke-gpu']:.2f} + {plane['seconds']['gpu-vm']:.2f} s of stub "
-          f"calls and cleaned; pip install {install_s:.1f} s; probe smoke {probe_s:.1f} s, host "
+          f"calls; healed the gpu-vm host TERMINATED by a maintenance event in "
+          f"{healed['heal_seconds']:.2f} s ({healed['heal_calls']} stub calls) and supervised "
+          f"it healthy in {healed['supervise_seconds']:.2f} s ({healed['supervise_calls']} stub "
+          f"calls); gke-gpu heal refused in {plane['heal']['gke-gpu']['heal_seconds']:.2f} s; "
+          f"cleaned; pip install {install_s:.1f} s; probe smoke {probe_s:.1f} s, host "
           f"smoke {host_s:.1f} s ({host_line}), NCCL cluster smoke {cluster_s:.1f} s "
           f"({cluster_line}); the gke-gpu LM Job under the launcher, 12L/768/seq 1024/batch 8: "
           f"launcher start-up {lm['launcher_startup_seconds']:.2f} s, nvcc "

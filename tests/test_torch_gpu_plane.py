@@ -10,7 +10,13 @@ launcher's group under a GPU Job's env; `modes_with_state` and `-c` over
 GPU state; and `cli.main --accelerator gpu` provisioning both modes
 through the wizard in a stub world (sh stubs of terraform,
 ansible-playbook, gcloud, ssh, ssh-keygen and kubectl on PATH), resuming
-without the flag, refusing `heal` and `supervise`, and tearing down."""
+without the flag, healing a gpu-vm host VM that a maintenance event
+stopped and supervising (with the autoscaler and the allocator) a gpu-vm
+deployment, refusing both for gke-gpu as the reference refuses gke, and
+tearing down. The slice-scoped terraform addresses, the per-slice listing
+fold and the supervisor's listing signature are held on their own here;
+tests/test_torch_heal.py and tests/test_torch_supervisor.py hold gpu-vm's
+heal and supervisor against the reference's on a mirrored tpu-vm world."""
 
 import io
 import json
@@ -25,6 +31,10 @@ from pathlib import Path
 import pytest
 import yaml
 
+from tritonk8ssupervisor_tpu.config import schema as ref_schema
+from tritonk8ssupervisor_tpu.provision import heal as ref_heal
+from tritonk8ssupervisor_tpu.provision import supervisor as ref_supervisor
+from tritonk8ssupervisor_tpu.provision import terraform as ref_terraform
 from tritonk8ssupervisor_tpu_torch import packaging
 from tritonk8ssupervisor_tpu_torch.cli import main as cli
 from tritonk8ssupervisor_tpu_torch.cli.io import Prompter
@@ -351,15 +361,174 @@ def test_teardown_destroys_every_gpu_module_with_state(tmp_path):
     assert not paths.config_file.exists()
 
 
-def test_heal_and_supervise_refuse_a_gpu_config(tmp_path):
-    message = "ROADMAP 7f-2"
+def ref_gke_refusals(tmp_path) -> list:
+    """The reference's heal and supervisor refusals of a gke config."""
+    config = ref_schema.ClusterConfig(project="p", zone="us-west4-a", generation="v5e",
+                                      topology="2x2", mode="gke")
+    paths = state.RunPaths(tmp_path / "reference")
+    out = []
+    for refuse in (lambda: ref_heal.heal(config, paths, types.SimpleNamespace(say=print)),
+                   lambda: ref_supervisor.Supervisor(config, paths,
+                                                     types.SimpleNamespace(say=print))):
+        with pytest.raises(ref_schema.ConfigError) as e:
+            refuse()
+        out.append(str(e.value))
+    return out
+
+
+class GpuFleet:
+    """A gpu-vm fleet of healthy host VMs for `run_quiet`: the listing
+    from `status` ({host name: status}), every SSH probe answered."""
+
+    def __init__(self, config):
+        self.status = {n: "RUNNING" for n in readiness.gpu_vm_names(config)}
+        self.calls = []
+
+    def run_quiet(self, args, cwd=None, **kwargs):
+        self.calls.append(" ".join(map(str, args)))
+        if args[:4] == ["gcloud", "compute", "instances", "list"]:
+            return "\n".join(f"{n}\t{s}" for n, s in self.status.items())
+        return ""
+
+
+@pytest.mark.parametrize("mode", schema.GPU_MODES)
+def test_heal_and_supervise_refuse_a_gpu_config(tmp_path, mode):
+    """gke-gpu's node pools self-repair: heal and the supervisor refuse it
+    with the reference's gke messages, word for word. gpu-vm is served:
+    a healthy fleet heals to a no-op and a supervisor tick finds it
+    healthy."""
+    paths = state.RunPaths(tmp_path / "port")
+    config = gpu(mode=mode, topology="2x8", num_slices=2, node_prefix="gpunode")
+    if mode == "gke-gpu":
+        got = []
+        for refuse in (lambda: heal_mod.heal(config, paths, types.SimpleNamespace(say=print)),
+                       lambda: supervisor_mod.Supervisor(config, paths,
+                                                         types.SimpleNamespace(say=print))):
+            with pytest.raises(schema.ConfigError) as e:
+                refuse()
+            got.append(str(e.value))
+        assert got == ref_gke_refusals(tmp_path)
+        # phase 36 of chip_smoke.py holds the CLI's gke-gpu heal to this message
+        import sys
+
+        if str(REPO) not in sys.path:
+            sys.path.insert(0, str(REPO))
+        import chip_smoke
+
+        assert got[0] == chip_smoke.GKE_HEAL_REFUSAL
+        return
+    state.ClusterHosts(host_ips=[["34.0.0.1", "34.0.0.2"], ["34.0.1.1", "34.0.1.2"]],
+                       internal_ips=[["10.0.0.1", "10.0.0.2"], ["10.0.1.1", "10.0.1.2"]],
+                       coordinator_ip="10.0.0.1").save(paths.hosts_file)
+    fleet, said = GpuFleet(config), []
+    prompter = types.SimpleNamespace(say=said.append)
+    assert heal_mod.heal(config, paths, prompter, run_quiet=fleet.run_quiet)
+    assert said[-1] == "Fleet healthy; nothing to heal."
+    sup = supervisor_mod.Supervisor(config, paths, prompter, run_quiet=fleet.run_quiet)
+    assert sup.tick()["states"] == {"0": "healthy", "1": "healthy"}
+    assert fleet.calls[0] == ("gcloud compute instances list --zones=us-central1-a "
+                              "--format=value(name,status) --filter=name~^gpunode-")
+    assert not TPU_STRINGS.search("\n".join(said + fleet.calls))
+
+
+@pytest.mark.parametrize("indices", [[], [0], [1], [2, 0, 2], [5, 1, 3, 1], [8, 7]])
+def test_tpu_vm_slice_addresses_equal_the_reference_s(indices):
+    ours = [terraform_mod.slice_replace_addresses(indices),
+            terraform_mod.slice_target_addresses(indices),
+            terraform_mod.slice_replace_addresses(indices, "tpu-vm", 4),
+            terraform_mod.slice_target_addresses(indices, "tpu-vm", 4)]
+    ref = [ref_terraform.slice_replace_addresses(indices),
+           ref_terraform.slice_target_addresses(indices)] * 2
+    assert ours == ref
+
+
+@pytest.mark.parametrize("topology", ["1x8", "2x8", "4x8"])
+@pytest.mark.parametrize("indices", [[0], [1], [2, 0, 2], [3, 1, 3, 0]])
+def test_gpu_vm_slice_addresses_are_every_host_of_each_slice(topology, indices):
+    config = gpu(mode="gpu-vm", topology=topology, num_slices=4)
+    hosts = config.hosts_per_slice
+    slices = sorted(set(indices))
+    want = [s * hosts + h for s in slices for h in range(hosts)]
+    for kind, fn in (("replace", terraform_mod.slice_replace_addresses),
+                     ("target", terraform_mod.slice_target_addresses)):
+        got = fn(indices, "gpu-vm", hosts)
+        assert got == [f"-{kind}=google_compute_instance.host[{k}]" for k in want]
+        assert len(set(got)) == len(got) == hosts * len(slices)
+    # host k of the module's fan-out is the VM gpu_vm_names lists k-th
+    names = readiness.gpu_vm_names(config)
+    assert [names[k] for k in want] == readiness.gpu_vm_names(config, slices)
+    assert [f"{config.node_prefix}-{k // hosts}-{k % hosts}" for k in want] == \
+        readiness.gpu_vm_names(config, slices)
+
+
+# a tpu-vm slice's listed state, and its gpu-vm mirror: {host: status}, a
+# host left out being absent from the listing
+MIRRORED_LISTINGS = {
+    "ready": ("READY", {0: "RUNNING", 1: "RUNNING"}, readiness.LISTED),
+    "absent": (None, {0: "RUNNING"}, readiness.ABSENT),
+    "every host absent": (None, {}, readiness.ABSENT),
+    "preempted": ("PREEMPTED", {0: "RUNNING", 1: "TERMINATED"}, readiness.NOT_READY),
+    "creating": ("CREATING", {0: "STAGING", 1: "RUNNING"}, readiness.NOT_READY),
+    "absent and stopped": (None, {0: "TERMINATED"}, readiness.ABSENT),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MIRRORED_LISTINGS))
+def test_the_listing_fold_gives_mirrored_states_one_verdict(case):
+    tpu_state, hosts, verdict = MIRRORED_LISTINGS[case]
+    tpu_config = schema.ClusterConfig(project="p", zone="us-west4-a", generation="v5e",
+                                      topology="4x4", mode="tpu-vm", num_slices=2)
+    gpu_config = gpu(mode="gpu-vm", topology="2x8", num_slices=2, node_prefix="gpunode")
+    tpu_listing = {"tpunode-0": "READY"}
+    gpu_listing = {"gpunode-0-0": "RUNNING", "gpunode-0-1": "RUNNING"}
+    if tpu_state is not None:
+        tpu_listing["tpunode-1"] = tpu_state
+    gpu_listing.update({f"gpunode-1-{h}": s for h, s in hosts.items()})
+    tpu = readiness.fold_listing(tpu_config, tpu_listing, [0, 1])
+    ours = readiness.fold_listing(gpu_config, gpu_listing, [0, 1])
+    assert tpu[0].state == ours[0].state == readiness.LISTED
+    assert tpu[1].state == ours[1].state == verdict
+    detail = ours[1].detail
+    assert not TPU_STRINGS.search(detail) and "TPU" not in detail
+    if verdict == readiness.ABSENT:
+        absent = [f"gpunode-1-{h}" for h in range(2) if h not in hosts]
+        assert detail == "absent from the Compute Engine listing: " + ", ".join(absent)
+    elif verdict == readiness.NOT_READY:
+        stopped = ", ".join(f"gpunode-1-{h} {s}" for h, s in hosts.items() if s != "RUNNING")
+        assert detail == f"host VM status {stopped} (want RUNNING)"
+    # the reference's diagnosis of the tpu-vm listing: the same slice state
+    assert tpu[1].detail == {readiness.LISTED: "", readiness.ABSENT:
+                             "absent from the Cloud TPU listing",
+                             readiness.NOT_READY: f"TPU state {tpu_state}"}[verdict]
+
+
+def test_one_gpu_vm_host_s_status_dirties_only_its_slice(tmp_path):
+    config = gpu(mode="gpu-vm", topology="2x8", num_slices=4, node_prefix="gpunode")
     paths = state.RunPaths(tmp_path)
-    for mode in schema.GPU_MODES:
-        config = gpu(mode=mode)
-        with pytest.raises(schema.ConfigError, match=message):
-            heal_mod.heal(config, paths, types.SimpleNamespace(say=print))
-        with pytest.raises(schema.ConfigError, match=message):
-            supervisor_mod.Supervisor(config, paths, types.SimpleNamespace(say=print))
+    state.ClusterHosts(host_ips=[[f"34.0.{i}.1", f"34.0.{i}.2"] for i in range(4)],
+                       internal_ips=[[f"10.0.{i}.1", f"10.0.{i}.2"] for i in range(4)],
+                       coordinator_ip="10.0.0.1").save(paths.hosts_file)
+    fleet = GpuFleet(config)
+    sup = supervisor_mod.Supervisor(
+        config, paths, types.SimpleNamespace(say=lambda line: None), run_quiet=fleet.run_quiet,
+        policy=supervisor_mod.SupervisePolicy(interval=0.0, sweep_slices=1))
+    sup.tick()  # every slice diagnosed healthy, every signature recorded
+
+    def dirty():
+        sup.snapshot.invalidate()
+        sweep = sorted(sup._active)[sup._sweep_cursor % 4]
+        return sup._dirty_set(), sweep
+
+    got, sweep = dirty()
+    assert got == [sweep]  # an unchanged listing: the sweep's one slice
+    fleet.status["gpunode-2-1"] = "TERMINATED"
+    got, sweep = dirty()
+    assert got == sorted({2, sweep})
+    assert sup._listing_sig[2] == "RUNNING TERMINATED"
+    assert {i: v for i, v in sup._listing_sig.items() if i != 2} == {
+        i: "RUNNING RUNNING" for i in (0, 1, 3)}
+    got, sweep = dirty()  # the same listing again: nothing changed since
+    assert got == [sweep]
 
 
 # ------------------------------------------------- the CLI in a stub world
@@ -379,7 +548,7 @@ case "$*" in
   "config get-value project") echo stub-proj ;;
   "config get-value account") echo me@stub.test ;;
   *"accelerator-types list"*) printf 'us-east5-a\\nus-central1-c\\n' ;;
-  *"instances list"*) printf 'gpunode-0-0\\tRUNNING\\ngpunode-0-1\\tRUNNING\\n' ;;
+  *"instances list"*) printf "${GPU_LISTING:-gpunode-0-0\\tRUNNING\\ngpunode-0-1\\tRUNNING\\n}" ;;
 esac
 """,
     "kubectl": """#!/bin/sh
@@ -437,8 +606,45 @@ def world(tmp_path, monkeypatch):
     return types.SimpleNamespace(run=run, work=work, paths=state.RunPaths(work))
 
 
+def heal_and_supervise_gpu_vm(world, monkeypatch, capsys):
+    """The provisioned gpu-vm deployment: a heal of a healthy fleet is a
+    no-op; host 0 of slice 0 stopped by a maintenance event (TERMINATED)
+    is healed by replacing the slice's two host VMs and reconverging
+    them; supervise ticks over the restored fleet, alone and with the
+    autoscaler or the allocator."""
+    capsys.readouterr()
+    rc, out, calls = world.run(["heal"])
+    assert rc == 0 and "Fleet healthy; nothing to heal." in out, out
+    assert not [c for c in calls if c.startswith(("terraform", "ansible"))]
+    monkeypatch.setenv("GPU_LISTING", "gpunode-0-0\\tTERMINATED\\ngpunode-0-1\\tRUNNING\\n")
+    rc, out, calls = world.run(["heal"])
+    err = capsys.readouterr().err
+    assert rc == 0, out + err
+    assert ("slice 0: unready (host VM status gpunode-0-0 TERMINATED (want RUNNING))" in out
+            and "Healed slice(s) 0; fleet fully healthy." in out)
+    assert [c for c in calls if c.startswith(("terraform", "ansible"))] == [
+        "terraform init -input=false -no-color",  # the stub leaves no .terraform/
+        "terraform apply -auto-approve -input=false -no-color -lock-timeout=600s "
+        "-replace=google_compute_instance.host[0] -replace=google_compute_instance.host[1]",
+        "terraform output -json",
+        "ansible-playbook -i hosts clusterUpGpu.yml --limit 34.0.0.1,34.0.0.2"]
+    assert not TPU_STRINGS.search(out + err) and "TPU" not in out + err
+    vars_ = yaml.safe_load((world.paths.ansible_dir / "group_vars" / "all.yml").read_text())
+    config = store.load_config_file(world.paths.config_file)
+    assert vars_ == cc.to_ansible_vars(config, coordinator_ip="10.0.0.1")
+    monkeypatch.delenv("GPU_LISTING")
+    for flags in ([], ["--autoscale"], ["--allocate"]):
+        rc, out, _ = world.run(["supervise", "--ticks", "1", "--interval", "0", *flags])
+        err = capsys.readouterr().err
+        assert rc == 0, out + err
+        doc = json.loads(world.paths.fleet_status.read_text())
+        assert doc["verdict"] == "healthy" and doc["slice_states"] == {"healthy": 1}, doc
+        assert not TPU_STRINGS.search(out + err) and "TPU" not in out + err
+
+
 @pytest.mark.parametrize("mode", schema.GPU_MODES)
-def test_accelerator_gpu_provisions_resumes_refuses_heal_and_cleans(world, mode, capsys):
+def test_accelerator_gpu_provisions_resumes_refuses_heal_and_cleans(world, mode, capsys,
+                                                                    monkeypatch):
     flags = ["--accelerator", "gpu", "--bench-workload", "lm"]
     if mode == "gke-gpu":
         flags.append("--probe")
@@ -479,9 +685,13 @@ def test_accelerator_gpu_provisions_resumes_refuses_heal_and_cleans(world, mode,
     assert rc == 0 and "Previous run detected" in out
     assert not [c for c in calls if not c.startswith(("gcloud", "kubectl"))]
 
-    for command in ("heal", "supervise"):
-        rc, _, _ = world.run([command, "--ticks", "1"] if command == "supervise" else [command])
-        assert rc == 1 and "ROADMAP 7f-2" in capsys.readouterr().err
+    if mode == "gke-gpu":  # its node pools self-repair: refused as the reference refuses gke
+        for command, message in zip(("heal", "supervise"), ref_gke_refusals(world.work.parent)):
+            rc, _, _ = world.run([command, "--ticks", "1"] if command == "supervise"
+                                 else [command])
+            assert rc == 1 and capsys.readouterr().err.endswith(f"ERROR: {message}\n")
+    else:
+        heal_and_supervise_gpu_vm(world, monkeypatch, capsys)
 
     rc, out, calls = world.run(["-c", "--yes"])
     assert rc == 0 and "GPU host" in out if mode == "gpu-vm" else rc == 0

@@ -19,8 +19,16 @@ Heals of one parallel wave run on worker threads that append their
 records in arrival order, in the reference as in the port: where a
 scenario runs such a wave, records of one virtual instant are compared as
 a multiset, with the heal ids named by slice and printed lines compared
-sorted. No tolerance."""
+sorted. No tolerance.
 
+Every scenario that drives a supervisor also runs as the mirrored pair of
+tests/test_torch_heal.py: the reference on a tpu-vm fleet, the port on a
+gpu-vm `h100` `2x8` fleet of as many slices (two host VMs a slice, in
+both worlds), through `GpuMirror`; the port's ledger, status document,
+printed lines and the world's commands, its words mapped by `as_tpu`,
+equal the reference's."""
+
+import dataclasses
 import json
 import os
 import signal
@@ -57,6 +65,8 @@ from tritonk8ssupervisor_tpu_torch.provision import (
 )
 from tritonk8ssupervisor_tpu_torch.testing import chaos, faults, simclock
 
+from test_torch_heal import GPU_VM, MIRROR_PROBLEMS, MIRROR_ZONE, GpuMirror, as_tpu  # noqa: E402
+
 SIDES = {
     "port": types.SimpleNamespace(
         sup=supervisor, ev=events, heal=heal, state=state, runner=runner, schema=schema,
@@ -70,11 +80,32 @@ SIDES = {
 }
 
 
+def sides(mode: str) -> dict:
+    """The two packages for one mode: `tpu-vm` compares like for like;
+    `gpu-vm` is the mirrored pair (the port's side has `gpu`)."""
+    return {side: types.SimpleNamespace(**vars(m), mirror=mode == "gpu-vm",
+                                        gpu=mode == "gpu-vm" and side == "port")
+            for side, m in SIDES.items()}
+
+
 def cfg(m, num_slices=3, **overrides):
+    """A tpu-vm config, in the mirror's zone on a mirrored pair."""
     base = dict(project="my-proj", zone="us-west4-a", generation="v5e",
                 topology="4x4", mode="tpu-vm", num_slices=num_slices)
+    if getattr(m, "mirror", False):
+        base["zone"] = MIRROR_ZONE
     base.update(overrides)
     return m.schema.ClusterConfig(**base)
+
+
+def gpu_view(m, world, config):
+    """The config and the RunFn pair the side's supervisor runs on: the
+    world's own, or on the port's side of a mirrored pair the gpu-vm
+    config of as many slices and the world seen through `GpuMirror`."""
+    if not getattr(m, "gpu", False):
+        return config, world
+    gpu_config = m.schema.ClusterConfig(**{**dataclasses.asdict(config), **GPU_VM})
+    return gpu_config, GpuMirror(world, gpu_config)
 
 
 class Say:
@@ -99,8 +130,10 @@ class FleetSim:
                  heal_works=True, failure_domains=0):
         self.m = m
         self.paths = m.state.RunPaths(root)
-        self.paths.terraform_module("tpu-vm").mkdir(parents=True)
         self.config = cfg(m, num_slices, failure_domains=failure_domains)
+        self.sup_config, self.view = gpu_view(m, self, self.config)
+        self.paths.terraform_module(self.sup_config.mode).mkdir(parents=True)
+        self.hosts = 2 if getattr(m, "mirror", False) else 1
         self.clock = clock
         self.heal_seconds = heal_seconds
         self.heal_works = heal_works
@@ -110,14 +143,17 @@ class FleetSim:
         self.drain_windows: dict = {}
         self.applies: list = []
         self.plays: list = []
-        self.ips = {i: f"10.0.{i}.1" for i in range(num_slices)}
+        self.ips = {i: f"10.0.{i}" for i in range(num_slices)}  # host h is .h+1
         m.state.ClusterHosts(
-            host_ips=[[self.ips[i]] for i in range(num_slices)],
-            internal_ips=[[f"10.1.{i}.1"] for i in range(num_slices)],
+            host_ips=[self.slice_ips(i) for i in range(num_slices)],
+            internal_ips=[self.slice_ips(i, f"10.1.{i}") for i in range(num_slices)],
             coordinator_ip="10.1.0.1",
         ).save(self.paths.hosts_file)
-        self.paths.tfstate("tpu-vm").write_text(json.dumps(
+        self.paths.tfstate(self.sup_config.mode).write_text(json.dumps(
             {"resources": [{"index": i} for i in range(num_slices)]}))
+
+    def slice_ips(self, i, net=None):
+        return [f"{net or self.ips[i]}.{h + 1}" for h in range(self.hosts)]
 
     def preempt(self, slice_index, at):
         self.down_at.append((at, slice_index))
@@ -149,7 +185,7 @@ class FleetSim:
             if self.heal_works:
                 for i in replaced:
                     self.down.discard(i)
-                    self.ips[i] = f"10.9.{i}.1"
+                    self.ips[i] = f"10.9.{i}"
         elif line.startswith("ansible-playbook"):
             self.plays.append(line)
         return ""
@@ -158,15 +194,16 @@ class FleetSim:
         self._sync()
         if args[:3] == ["terraform", "output", "-json"]:
             return json.dumps({
-                "host_ips": {"value": [[self.ips[i]] for i in range(self.num_slices)]},
-                "internal_ips": {"value": [[f"10.1.{i}.1"] for i in range(self.num_slices)]},
+                "host_ips": {"value": [self.slice_ips(i) for i in range(self.num_slices)]},
+                "internal_ips": {"value": [self.slice_ips(i, f"10.1.{i}")
+                                           for i in range(self.num_slices)]},
             })
         if args and args[0] == "gcloud":
             return "\n".join(f"{self.config.node_prefix}-{i}\tREADY"
                              for i in range(self.num_slices) if i not in self.down)
         if args and args[0] == "ssh":
-            ip = args[-2]
-            index = next((i for i, x in self.ips.items() if x == ip), None)
+            net = args[-2].rsplit(".", 1)[0]
+            index = next((i for i, x in self.ips.items() if x == net), None)
             if "cat" in args[-1]:
                 if index is not None and self._draining(index):
                     return "maintenance-event: TERMINATE_ON_HOST_MAINTENANCE"
@@ -179,8 +216,8 @@ class FleetSim:
 
 def build(m, world, clock, prompter=None, policy=None, readiness_timeout=60.0, hooks=None):
     return m.sup.Supervisor(
-        world.config, world.paths, prompter or Say(),
-        run=world.run, run_quiet=world.run_quiet,
+        world.sup_config, world.paths, prompter or Say(),
+        run=world.view.run, run_quiet=world.view.run_quiet,
         policy=policy or m.sup.SupervisePolicy(),
         ledger=m.ev.EventLedger(world.paths.events, clock=clock.time, echo=lambda line: None),
         clock=clock.time, sleep=clock.sleep, rng=lambda: 0.0,
@@ -268,15 +305,22 @@ def unordered_waves(obs_doc: dict) -> dict:
                 applies=sorted(obs_doc["applies"]), plays=sorted(obs_doc["plays"]))
 
 
-def both(tmp_path, scenario, parallel=False) -> dict:
+def both(tmp_path, scenario, parallel=False, mode="tpu-vm") -> dict:
     out = {}
-    for side, m in SIDES.items():
+    MIRROR_PROBLEMS.clear()
+    for side, m in sides(mode).items():
         root = tmp_path / side
         root.mkdir()
         doc = normalized(scenario(m, root), root, side)
+        if m.gpu:
+            doc = as_tpu(doc)
         out[side] = unordered_waves(doc) if parallel else doc
+    assert MIRROR_PROBLEMS == []
     assert out["port"] == out["reference"]
     return out["port"]
+
+
+MODES = pytest.mark.parametrize("mode", ["tpu-vm", "gpu-vm"])
 
 
 # ------------------------------------------------------ rate limiter, breaker, flaps
@@ -561,11 +605,11 @@ def sc_dirty_set_probes_changed_not_fleet(m, root):
     seen = []
     run_sim(supervisor, clock, ticks=1)
     seen.append(dict(counts))
-    assert counts == {"list": 3, "ssh": 24}
+    assert counts == {"list": 3, "ssh": 24 * world.hosts}
     counts["list"] = counts["ssh"] = 0
     run_sim(supervisor, clock, ticks=1)
     seen.append(dict(counts))
-    assert counts == {"list": 3, "ssh": 4}
+    assert counts == {"list": 3, "ssh": 4 * world.hosts}
     world.preempt(7, at=clock.time())
     run_sim(supervisor, clock, ticks=4)
     assert world.applies == [[7]]
@@ -830,23 +874,29 @@ SCENARIOS = {
 }
 
 
+@MODES
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_supervisor_scenario_matches_the_reference(tmp_path, name):
+def test_supervisor_scenario_matches_the_reference(tmp_path, name, mode):
     scenario, parallel = SCENARIOS[name]
-    both(tmp_path, scenario, parallel=parallel)
+    both(tmp_path, scenario, parallel=parallel, mode=mode)
 
 
 # ---------------------------------------------------------------- housekeeping
 
 
-def test_supervisor_refuses_gke_and_a_second_instance_as_the_reference(tmp_path):
+@pytest.mark.parametrize("mode", ["tpu-vm", "gpu-vm"])
+def test_supervisor_refuses_gke_and_a_second_instance_as_the_reference(tmp_path, mode):
+    """gke-gpu, on the port's side of the mirrored pair, is refused with
+    the reference's gke message, word for word."""
     out = {}
-    for side, m in SIDES.items():
+    for side, m in sides(mode).items():
         root = tmp_path / side
         clock = m.simclock.SimClock()
         world = FleetSim(m, root, clock)
+        gke_config = (cfg(m, **{**GPU_VM, "mode": "gke-gpu", "topology": "1x8"}) if m.gpu
+                      else cfg(m, mode="gke", topology="2x2"))
         with pytest.raises(m.schema.ConfigError, match="self-repair") as gke:
-            m.sup.Supervisor(cfg(m, mode="gke", topology="2x2"), world.paths, Say())
+            m.sup.Supervisor(gke_config, world.paths, Say())
         world.paths.supervisor_pid.write_text(f"{os.getpid()}\n")
         with pytest.raises(m.sup.SupervisorError, match="already running") as second:
             build(m, world, clock).run(ticks=1)
@@ -917,13 +967,56 @@ def tick_n(m, supervisor, clock, world, n, interval=30.0, demand=None):
         clock.sleep(interval)
 
 
-def chaos_supervisor(m, root, clock, num_slices=4, heal_seconds=30.0, **controllers):
+class TwoHosts:
+    """A `ChaosFleet` seen with two host IPs a slice, for both sides of a
+    mirrored pair: host 1 of the slice at `10.a.b.c` is `11.a.b.c`, and
+    answers SSH as host 0 does."""
+
+    def __init__(self, world):
+        self.world = world
+        hosts = json.loads(world.paths.hosts_file.read_text())
+        for key in ("host_ips", "internal_ips"):
+            hosts[key] = [self.both(ips) for ips in hosts[key]]
+        world.paths.hosts_file.write_text(json.dumps(hosts))
+
+    @staticmethod
+    def both(ips):
+        return [ip for first in ips for ip in (first, "11." + first.split(".", 1)[1])]
+
+    def run(self, args, cwd=None, **kwargs):
+        return self.world.run(args, cwd=cwd, **kwargs)
+
+    def run_quiet(self, args, cwd=None, **kwargs):
+        args = list(args)
+        if args[:1] == ["ssh"] and args[-2].startswith("11."):
+            args[-2] = "10." + args[-2].split(".", 1)[1]
+        out = self.world.run_quiet(args, cwd=cwd, **kwargs)
+        if args[:3] == ["terraform", "output", "-json"]:
+            doc = json.loads(out)
+            out = json.dumps({k: {"value": [self.both(ips) for ips in v["value"]]}
+                              for k, v in doc.items()})
+        return out
+
+
+def chaos_world(m, root, clock, num_slices, **kwargs):
+    """The chaos fleet, its config and the RunFn pair the side's supervisor
+    runs on (two hosts a slice, and the gpu-vm view, on a mirrored pair)."""
     config = m.chaos.sim_config(num_slices)
-    world = m.chaos.ChaosFleet(root, clock, config, heal_seconds=heal_seconds,
-                               teardown_seconds=10.0)
+    if m.mirror:
+        config = dataclasses.replace(config, zone=MIRROR_ZONE)
+    world = m.chaos.ChaosFleet(root, clock, config, **kwargs)
+    sup_config, view = gpu_view(m, TwoHosts(world) if m.mirror else world, config)
+    if m.gpu:
+        world.paths.terraform_module(sup_config.mode).mkdir(parents=True)
+    return world, sup_config, view
+
+
+def chaos_supervisor(m, root, clock, num_slices=4, heal_seconds=30.0, **controllers):
+    world, config, view = chaos_world(m, root, clock, num_slices, heal_seconds=heal_seconds,
+                                      teardown_seconds=10.0)
     quiet = m.chaos._Quiet()
     sup = m.sup.Supervisor(
-        config, world.paths, quiet, run=world.run, run_quiet=world.run_quiet,
+        config, world.paths, quiet, run=view.run, run_quiet=view.run_quiet,
         policy=m.chaos.default_policy(),
         ledger=m.ev.EventLedger(world.paths.events, clock=clock.time, echo=lambda line: None),
         clock=clock.time, sleep=clock.sleep, rng=lambda: 0.0, readiness_timeout=60.0,
@@ -1024,13 +1117,12 @@ def sc_allocator_lends_idle_slices(m, root):
 
 def sc_supervisor_telemetry(m, root):
     clock = m.simclock.SimClock()
-    config = m.chaos.sim_config(2)
-    world = m.chaos.ChaosFleet(root, clock, config)
+    world, config, view = chaos_world(m, root, clock, 2)
     telemetry = m.obs.Telemetry.for_run(world.paths, clock=clock.time, plane="supervisor",
                                         fsync=False, echo=lambda line: None)
     quiet = m.chaos._Quiet()
     sup = m.sup.Supervisor(
-        config, world.paths, quiet, run=world.run, run_quiet=world.run_quiet,
+        config, world.paths, quiet, run=view.run, run_quiet=view.run_quiet,
         policy=m.chaos.default_policy(), clock=clock.time, sleep=clock.sleep,
         rng=lambda: 0.0, readiness_timeout=60.0, hooks=clock, telemetry=telemetry)
     clock.begin()
@@ -1062,9 +1154,10 @@ CONTROLLER_SCENARIOS = {
 }
 
 
+@MODES
 @pytest.mark.parametrize("name", sorted(CONTROLLER_SCENARIOS))
-def test_supervisor_controllers_match_the_reference(tmp_path, name):
-    both(tmp_path, CONTROLLER_SCENARIOS[name])
+def test_supervisor_controllers_match_the_reference(tmp_path, name, mode):
+    both(tmp_path, CONTROLLER_SCENARIOS[name], mode=mode)
 
 
 # ------------------------------------------------- the supervised elastic co-drive

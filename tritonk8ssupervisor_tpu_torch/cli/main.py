@@ -109,7 +109,9 @@ resolved configuration and provisions nothing. It drives `gcloud`,
 (a GKE cluster with A3 node pools; its Jobs launch the port under `python
 -m torch.distributed.run`) or `gpu-vm` (standalone A3 VMs configured by
 the GPU playbook); a saved GPU config resumes without the flag. `heal`
-and `supervise` refuse a GPU deployment (ROADMAP 7f-2).
+and `supervise` repair and watch a gpu-vm deployment as they do a tpu-vm
+one, a slice being its host VMs, and refuse gke-gpu as they refuse gke:
+its node pools self-repair.
 
 `-c`/`--clean` is the reference's `clean`: teardown
 (`provision/teardown.py`). It lists what it will destroy, asks (unless
@@ -1262,13 +1264,12 @@ def heal_cmd(args, say=print) -> int:
         )
     config = store.load_config_file(source)
     config.validate()
-    config.refuse_gpu("heal")
     prompter = _prompter(say)  # heal speaks through a Prompter
     timer = PhaseTimer(logfile=paths.runlog)
     run, run_quiet = build_runners(args.fault_plan, timer)
     ssh_key: Path | str = ""
     ssh_user = ""
-    if config.mode == "tpu-vm":
+    if config.mode in VM_MODES:
         ssh_key = discovery.find_ssh_key()
         ssh_user = discovery.ssh_username()
     heal_mod.heal(
@@ -1350,13 +1351,12 @@ def supervise_cmd(args, say=print) -> int:
         )
     config = store.load_config_file(source)
     config.validate()
-    config.refuse_gpu("supervise")
     prompter = _prompter(say)
     timer = PhaseTimer(logfile=paths.runlog)
     run, run_quiet = build_runners(args.fault_plan, timer)
     ssh_key: Path | str = ""
     ssh_user = ""
-    if config.mode == "tpu-vm":
+    if config.mode in VM_MODES:
         ssh_key = discovery.find_ssh_key()
         ssh_user = discovery.ssh_username()
     autoscaler = None

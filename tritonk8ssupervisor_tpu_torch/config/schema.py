@@ -219,16 +219,6 @@ class ClusterConfig:
         if errors:
             raise ConfigError("; ".join(errors))
 
-    def refuse_gpu(self, operation: str) -> None:
-        """Raise ConfigError for an operation the GPU modes do not have yet
-        (ROADMAP 7f-2), before it touches a TPU-only resource address."""
-        if self.is_gpu:
-            raise ConfigError(
-                f"{operation} is not available for {self.mode} deployments "
-                "yet: scoped heal, supervise, autoscale and allocate of "
-                "gpu-vm groups and gke-gpu pools are ROADMAP 7f-2"
-            )
-
     # ---- flat KEY=value round-trip (store.py uses these) ----
 
     _INT_FIELDS = ("num_slices", "failure_domains")

@@ -8,8 +8,9 @@ controller degrades instead of dying. Here the fleet gets a health model
 and a scoped repair path:
 
 - `diagnose()` builds a `FleetHealth`: per slice, `healthy`, `missing`
-  (no hosts recorded / node absent from the Cloud TPU listing), `unready`
-  (TPU state not READY, or a host refusing authenticated SSH), or
+  (no hosts recorded / node absent from the Cloud TPU listing, or a host
+  VM absent from the Compute Engine listing), `unready` (TPU state not
+  READY, a host VM not RUNNING, or a host refusing authenticated SSH), or
   `draining` (the maintenance watchdog's drain file is present on a host
   — provision/maintenance.py). One dead host condemns its slice (the JAX
   gang loses the collective anyway) but never the fleet.
@@ -25,8 +26,11 @@ and a scoped repair path:
   original slice count; `./setup.sh --resize` shrinks the training
   surface when the loss is long-lived — see docs/failure-modes.md.)
 
-tpu-vm mode only: GKE slice repair is the node pool's auto-repair job
-(terraform/gke/main.tf `management.auto_repair`), not ours.
+The VM modes only, tpu-vm and gpu-vm (whose slice is its H host VMs:
+`readiness.fold_listing` reads their listing, `terraform.apply_slices`
+replaces every one of them): GKE slice repair, gke-gpu's included, is the
+node pool's auto-repair job (terraform/gke*/main.tf
+`management.auto_repair`), not ours.
 
 The port's copy of `tritonk8ssupervisor_tpu/provision/heal.py`, whole and
 under the reference's names: the port imports nothing of the JAX package.
@@ -41,7 +45,11 @@ import json
 import threading
 import time
 
-from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig, ConfigError
+from tritonk8ssupervisor_tpu_torch.config.schema import (
+    VM_MODES,
+    ClusterConfig,
+    ConfigError,
+)
 from tritonk8ssupervisor_tpu_torch.provision import ansible as ansible_mod
 from tritonk8ssupervisor_tpu_torch.provision import cache as cache_mod
 from tritonk8ssupervisor_tpu_torch.provision import maintenance
@@ -166,7 +174,8 @@ def diagnose(
 ) -> FleetHealth:
     """Readiness verdicts + the drain signal, folded into per-slice
     health. Probes are batched and concurrent: one `tpu-vm
-    list` (windowed into pages at fleet scale) for the whole fleet, SSH
+    list`, or gpu-vm's `instances list`, (windowed into pages at fleet
+    scale) for the whole fleet, folded by `readiness.fold_listing`, SSH
     fan-out on a bounded pool. With `snapshot`
     (readiness.FleetSnapshot) the listing is the run's shared TTL-cached
     one — a heal that just polled readiness does not issue a second
@@ -185,7 +194,7 @@ def diagnose(
     try:
         listing = (
             snapshot.states() if snapshot is not None
-            else readiness.tpu_vm_states(config, run_quiet)
+            else readiness.vm_lister(config)(config, run_quiet)
         )
     except Exception:  # noqa: BLE001 - listing is advisory; SSH decides
         listing = {}
@@ -205,24 +214,21 @@ def diagnose(
         if check_drain else {}
     )
 
+    listed = readiness.fold_listing(config, listing, indices) if listing else {}
     slices = []
     for i in indices:
-        name = f"{config.node_prefix}-{i}"
         domain = config.domain_of(i)
         slice_ips = tuple(host_ips[i]) if i < len(host_ips) else ()
+        verdict = listed.get(i)
         if not slice_ips:
             slices.append(SliceHealth(i, MISSING, "no hosts recorded",
                                       domain=domain))
-        elif listing and name not in listing:
-            slices.append(SliceHealth(
-                i, MISSING, "absent from the Cloud TPU listing",
-                hosts=slice_ips, domain=domain,
-            ))
-        elif listing and listing.get(name) != "READY":
-            slices.append(SliceHealth(
-                i, UNREADY, f"TPU state {listing[name]}", hosts=slice_ips,
-                domain=domain,
-            ))
+        elif verdict is not None and verdict.state == readiness.ABSENT:
+            slices.append(SliceHealth(i, MISSING, verdict.detail,
+                                      hosts=slice_ips, domain=domain))
+        elif verdict is not None and verdict.state == readiness.NOT_READY:
+            slices.append(SliceHealth(i, UNREADY, verdict.detail,
+                                      hosts=slice_ips, domain=domain))
         elif i in drains:
             slices.append(SliceHealth(i, DRAINING, drains[i],
                                       hosts=slice_ips, domain=domain))
@@ -320,8 +326,7 @@ def heal(
     never touched — so a follow-up provision run warm-skips them, and
     only the replaced slice's converge ever runs here.
     """
-    config.refuse_gpu("heal")
-    if config.mode != "tpu-vm":
+    if config.mode not in VM_MODES:
         raise ConfigError(
             "heal repairs standalone TPU VM slices; GKE node pools "
             "self-repair (auto_repair) and gang-restart via the Job "

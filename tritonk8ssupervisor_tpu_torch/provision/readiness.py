@@ -385,6 +385,68 @@ def gpu_vm_states(
     return states
 
 
+def vm_lister(config: ClusterConfig) -> Callable[..., dict[str, str]]:
+    """The batched listing of the deployment's VM mode: a TPU slice is one
+    Cloud TPU node, a GPU slice lists each host VM."""
+    return gpu_vm_states if config.is_gpu else tpu_vm_states
+
+
+# The listing's verdict on a slice (`SliceListing.state`)
+LISTED = "listed"
+ABSENT = "absent"
+NOT_READY = "not-ready"
+
+
+@dataclasses.dataclass(frozen=True)
+class SliceListing:
+    """What one listing says of one slice: its verdict, the detail a
+    diagnosis prints, and the signature the supervisor's change detector
+    compares from tick to tick (the slice's raw listed states)."""
+
+    state: str  # LISTED / ABSENT / NOT_READY
+    detail: str = ""
+    signature: str = ""
+
+
+def fold_listing(
+    config: ClusterConfig, listing: dict[str, str], slices: Iterable[int],
+) -> dict[int, SliceListing]:
+    """Fold a `vm_lister` listing into per-slice verdicts, for either VM
+    mode. tpu-vm: node `<prefix>-<i>` absent, or in a state other than
+    READY. gpu-vm: ABSENT when any host VM `<prefix>-<i>-<h>` is absent,
+    else NOT_READY when any host's status is not RUNNING (TERMINATED after
+    a host maintenance event, STAGING while it boots); the detail names
+    each such host."""
+    out: dict[int, SliceListing] = {}
+    for i in slices:
+        if not config.is_gpu:
+            name = f"{config.node_prefix}-{i}"
+            state = listing.get(name, "")
+            if name not in listing:
+                out[i] = SliceListing(ABSENT, "absent from the Cloud TPU listing")
+            elif state != "READY":
+                out[i] = SliceListing(NOT_READY, f"TPU state {state}", state)
+            else:
+                out[i] = SliceListing(LISTED, signature=state)
+            continue
+        names = gpu_vm_names(config, [i])
+        signature = " ".join(listing.get(n, "") for n in names)
+        absent = [n for n in names if n not in listing]
+        stopped = [f"{n} {listing[n]}" for n in names
+                   if n in listing and listing[n] != "RUNNING"]
+        if absent:
+            out[i] = SliceListing(
+                ABSENT, "absent from the Compute Engine listing: "
+                + ", ".join(absent), signature)
+        elif stopped:
+            out[i] = SliceListing(
+                NOT_READY, "host VM status " + ", ".join(stopped)
+                + " (want RUNNING)", signature)
+        else:
+            out[i] = SliceListing(LISTED, signature=signature)
+    return out
+
+
 def gpu_vm_probe(
     config: ClusterConfig,
     vm_names: list[str],
@@ -456,8 +518,7 @@ class FleetSnapshot:
         self._lock = threading.Lock()
         n = max(1, int(config.num_slices))
         size = n if int(page_size) <= 0 else min(int(page_size), n)
-        # a TPU slice is one node; a GPU slice lists each host VM
-        self._lister = gpu_vm_states if config.is_gpu else tpu_vm_states
+        self._lister = vm_lister(config)
 
         def page_names(slices: range) -> tuple:
             if config.is_gpu:

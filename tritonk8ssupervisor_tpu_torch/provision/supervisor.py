@@ -53,7 +53,11 @@ The port's copy of `tritonk8ssupervisor_tpu/provision/supervisor.py`,
 whole and under the reference's names: the port imports nothing of the
 JAX package. The same scripted world gives the same event ledger,
 `fleet-status.json` and printed lines as the reference
-(tests/test_torch_supervisor.py).
+(tests/test_torch_supervisor.py). It supervises gpu-vm deployments
+too: the listing fold (`readiness.fold_listing`) signs a GPU slice by its
+host VMs' statuses, and the slice-scoped heal and scale-down address its
+host instances (`terraform.slice_addresses`); gke-gpu is refused as the
+reference refuses gke.
 """
 
 from __future__ import annotations
@@ -71,7 +75,11 @@ from pathlib import Path
 from typing import Callable
 
 from tritonk8ssupervisor_tpu_torch import obs as obs_mod
-from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig, ConfigError
+from tritonk8ssupervisor_tpu_torch.config.schema import (
+    VM_MODES,
+    ClusterConfig,
+    ConfigError,
+)
 from tritonk8ssupervisor_tpu_torch.provision import allocator as allocator_mod
 from tritonk8ssupervisor_tpu_torch.provision import autoscale as autoscale_mod
 from tritonk8ssupervisor_tpu_torch.provision import events as events_mod
@@ -482,8 +490,7 @@ class Supervisor:
         scale_down_fn=None,
         allocator: "allocator_mod.Allocator | None" = None,
     ) -> None:
-        config.refuse_gpu("supervise")
-        if config.mode != "tpu-vm":
+        if config.mode not in VM_MODES:
             raise ConfigError(
                 "supervise drives the tpu-vm heal path; GKE node pools "
                 "self-repair (auto_repair) — see docs/failure-modes.md"
@@ -972,11 +979,9 @@ class Supervisor:
         n = len(candidates)
         listing_sig: dict[int, str] | None = None
         try:
-            states = self.snapshot.states()
-            listing_sig = {
-                i: states.get(f"{self.config.node_prefix}-{i}", "")
-                for i in candidates
-            }
+            folded = readiness.fold_listing(
+                self.config, self.snapshot.states(), candidates)
+            listing_sig = {i: v.signature for i, v in folded.items()}
         except Exception:  # noqa: BLE001 - listing down: SSH still decides
             pass  # keep the previous signatures; the sweep still rotates
         dirty: set[int] = set()

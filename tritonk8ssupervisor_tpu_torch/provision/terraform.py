@@ -138,11 +138,27 @@ def apply(
     return hosts
 
 
-def slice_replace_addresses(slice_indices: list[int]) -> list[str]:
-    """Terraform `-replace=` addresses for the named slice instances of
-    the tpu-vm module's count fan-out (`google_tpu_v2_vm.slice`)."""
-    return [f"-replace=google_tpu_v2_vm.slice[{i}]"
-            for i in sorted(set(slice_indices))]
+def slice_addresses(
+    slice_indices: list[int], mode: str = "tpu-vm", hosts_per_slice: int = 1,
+) -> list[str]:
+    """The module resources of the named slices, sorted and without
+    duplicates: tpu-vm's count fan-out has one `google_tpu_v2_vm.slice[i]`
+    per slice; gpu-vm's has one `google_compute_instance.host[k]` per host,
+    slice s owning hosts s * hosts_per_slice ... (s + 1) * hosts_per_slice - 1
+    (terraform/gpu-vm/main.tf), in `readiness.gpu_vm_names` order."""
+    slices = sorted(set(slice_indices))
+    if mode == "gpu-vm":
+        return [f"google_compute_instance.host[{s * hosts_per_slice + h}]"
+                for s in slices for h in range(hosts_per_slice)]
+    return [f"google_tpu_v2_vm.slice[{i}]" for i in slices]
+
+
+def slice_replace_addresses(
+    slice_indices: list[int], mode: str = "tpu-vm", hosts_per_slice: int = 1,
+) -> list[str]:
+    """Terraform `-replace=` addresses for the named slices' instances."""
+    return [f"-replace={a}"
+            for a in slice_addresses(slice_indices, mode, hosts_per_slice)]
 
 
 def apply_slices(
@@ -158,10 +174,11 @@ def apply_slices(
     slice that is unreachable yet still in the state file would no-op
     too — `-replace=` (the taint successor) forces destroy+create for
     exactly the quarantined slice addresses while every healthy slice's
-    state entry is left untouched. tpu-vm only: GKE slice repair is the
-    node pool's auto-repair job (terraform/gke/main.tf), not ours.
+    state entry is left untouched. A gpu-vm slice is its hosts' instances,
+    every one replaced. The VM modes only: GKE slice repair is the node
+    pool's auto-repair job (terraform/gke*/main.tf), not ours.
     """
-    if config.mode != "tpu-vm":
+    if config.mode not in VM_MODES:
         raise ConfigError(
             "slice-scoped apply is a tpu-vm operation; gke node pools "
             "self-repair (management.auto_repair)"
@@ -183,7 +200,8 @@ def apply_slices(
         # converge — overlap across heal workers regardless)
         ["terraform", "apply", "-auto-approve", "-input=false", "-no-color",
          "-lock-timeout=600s"]
-        + slice_replace_addresses(slice_indices),
+        + slice_replace_addresses(slice_indices, config.mode,
+                                  config.hosts_per_slice),
         cwd=module_dir,
         env=env,
     )
@@ -237,12 +255,14 @@ def collect_outputs(
     )
 
 
-def slice_target_addresses(slice_indices: list[int]) -> list[str]:
-    """Terraform `-target=` addresses for the named slice instances —
+def slice_target_addresses(
+    slice_indices: list[int], mode: str = "tpu-vm", hosts_per_slice: int = 1,
+) -> list[str]:
+    """Terraform `-target=` addresses for the named slices' instances —
     the scale-down sibling of `slice_replace_addresses`: destroy ONLY
     these slices, leaving every other slice's state entry untouched."""
-    return [f"-target=google_tpu_v2_vm.slice[{i}]"
-            for i in sorted(set(slice_indices))]
+    return [f"-target={a}"
+            for a in slice_addresses(slice_indices, mode, hosts_per_slice)]
 
 
 def destroy_slices(
@@ -252,11 +272,11 @@ def destroy_slices(
     run: run_mod.RunFn = run_mod.run_streaming,
 ) -> None:
     """Scale-down-scoped teardown: destroy ONLY the named (drained)
-    slices of the tpu-vm module's count fan-out. The autoscaler's
+    slices of the VM module's count fan-out. The autoscaler's
     drain-then-teardown path (provision/supervisor.py) calls this after
     the request journal shows the slice's in-flight work settled —
     never the whole-deployment `destroy`, which is teardown's job."""
-    if config.mode != "tpu-vm":
+    if config.mode not in VM_MODES:
         raise ConfigError(
             "slice-scoped destroy is a tpu-vm operation; gke capacity "
             "is the node pool autoscaler's job"
@@ -266,7 +286,8 @@ def destroy_slices(
     run(
         ["terraform", "destroy", "-auto-approve", "-input=false",
          "-no-color", "-lock-timeout=600s"]
-        + slice_target_addresses(slice_indices),
+        + slice_target_addresses(slice_indices, config.mode,
+                                 config.hosts_per_slice),
         cwd=paths.terraform_module(config.mode),
         env=terraform_env(paths),
     )

@@ -63,7 +63,7 @@ which raises on failure (exit code not 0, no result line):
    (the drafter) and 128, and a head-major `bhld` case; the same engine
    shapes on a paged pool read through page tables (the engine's own
    calls); one query over 65,536 positions; the worked example's batch 1
-   over a 1024-position cache at pos 64 and 318 (phase 34); each with q
+   over a 1024-position cache at pos 64 and 190 (phase 34); each with q
    in its dtype and in f32; times the kernel and the plain version (no PyTorch call
    computes this function, so there is no library time) and one launch's
    floor (a one-element fill), printed beside K1's (256, 1000) and K3's
@@ -75,10 +75,11 @@ which raises on failure (exit code not 0, no result line):
    drafter and the int8 cache, tokens equal;
 13. the decode main path: `benchmarks.decode.run_benchmark` at its
    defaults (12 layers, 12 heads of 64, embed 768, vocab 32768, bf16,
-   batch 8, prompt 128, 512 new tokens) with the bf16 cache, the int8
-   cache, and int8 weights with the int8 cache, with K3's launches
-   counted around each (exactly num_layers x 511 a call with the int8
-   cache, 0 with the bf16 cache); before it, one decode forward of that
+   batch 8, prompt 128) cut to 64 new tokens and one timed call after
+   the first, with the bf16 cache, the int8 cache, and int8 weights with
+   the int8 cache, with K3's launches counted around each (exactly
+   num_layers x 63 a call with the int8 cache, 0 with the bf16 cache);
+   before it, one decode forward of that
    model with each cache: its wall time and the card's busy time by
    operator, K3's row of which is printed beside each int8 run;
 14. the serving main path: `run_engine_benchmark` at the LM's full width
@@ -148,12 +149,11 @@ which raises on failure (exit code not 0, no result line):
    that mesh: its first step with `seq_axis="model"` (one shard, the
    slot offsets from an all_gather of one) equal to the bit to the step
    without a sequence axis;
-26. decode over the mesh: `benchmarks.decode.run_benchmark` at its
-   defaults with the int8 cache on that mesh, its tokens equal to phase
-   13's single-device run's, K3 counted; then two processes sharing the
-   card over gloo, 4 of 8 streams each, 128 new tokens (cut from 512 to
-   keep the phase short), each rank's tokens equal to this process's
-   `generate` of its 4 rows (K3 at a rank's (4, 12, 256, 64) against its
+26. decode over the mesh: `benchmarks.decode.run_benchmark` as in 13
+   with the int8 cache on that mesh, its tokens equal to phase 13's
+   single-device run's, K3 counted; then two processes sharing the card
+   over gloo, 4 of 8 streams each, 64 new tokens, each rank's tokens equal to this process's
+   `generate` of its 4 rows (K3 at a rank's (4, 12, 192, 64) against its
    plain version in 11); tokens/s as two processes sharing one card, not
    a two-card rate; then the same two processes sampled at temperature
    1.5, each rank's tokens equal to its rows of this process's run on all
@@ -183,7 +183,7 @@ which raises on failure (exit code not 0, no result line):
    temporary workdir as `cli.main serve` wires them; the prefix store
    seeded by one warm-up request; `server.run_drill` with 16 requests of
    64-256 prompt tokens opening with 48-192 tokens of a shared 192-token
-   prefix, 64 new tokens each at temperature 0,
+   prefix, 32 new tokens each at temperature 0,
    with K3 counted around it, each request's tokens equal to a fresh
    engine's with the prompts run one at a time; then the analyzers over
    the drill's span log and journal: `cli.main trace KEY --json` of each
@@ -207,7 +207,7 @@ which raises on failure (exit code not 0, no result line):
    pool each, slice leases on the fsync'd event ledger, journal shards
    fsync'd), driven by `drive_fleet` on a wall clock: 8 keyed greedy
    requests, then 16 more (prompts of 64-256 tokens from seed 30, sharing
-   no prefix, 64 new tokens each), replica g1 killed at the first step
+   no prefix, 32 new tokens each), replica g1 killed at the first step
    boundary at which it holds an in-flight slot and a queued key and
    revived a few seconds later as a standby, and 4 duplicates of
    first-wave keys resubmitted. It fails unless every key settles
@@ -229,14 +229,14 @@ which raises on failure (exit code not 0, no result line):
    watchdog (`provision/maintenance.watch`, a thread polling every 0.05
    s a scripted metadata key: NONE, then TERMINATE_ON_HOST_MAINTENANCE
    from the run's first committed checkpoint until it exits, then NONE)
-   drains `python -m ...benchmarks.lm --steps 20 --warmup 1 --windows 4
+   drains `python -m ...benchmarks.lm --steps 20 --warmup 1 --windows 3
    --checkpoint-dir D` at a window boundary; the run must exit 0 with
    the event as its `drained` reason, before its last window, its last
    step committed; the watchdog removes the drain file once the event
    clears; the same command resumes from that step and finishes
-   undrained; a straight run to the same step (its windows and warm-up
-   derived from the two reports) must restore bit-equal, parameters and
-   momentum. K1's and K2's launches are counted in the three runs'
+   undrained; a straight run to the same step (its windows, run as one,
+   and warm-up derived from the two reports) must restore bit-equal,
+   parameters and momentum. K1's and K2's launches are counted in the three runs'
    processes. Then `python -m ...provision.maintenance --once` with its
    fetch sent to a closed local port exits 0 and writes no drain file.
    It prints the windows before the drain, the drain's latency from the
@@ -286,16 +286,16 @@ which raises on failure (exit code not 0, no result line):
    layers, 12 heads, embed 768, vocab 256, seq 1024 (bf16, flash
    attention) at batch 32 trained by `lm_optimizer(3e-4)` on a one-rank
    NCCL mesh from `corpus.batches` through `utils/data.prefetch_to_mesh`,
-   120 steps with warm-up 20 and decay 200 (the example's 500 and 20,000
-   cut to fit about a minute); the mean loss of the last 10 steps below
+   60 steps with warm-up 20 and decay 200 (the example's 500 and 20,000
+   cut to fit the whole script's time limit); the mean loss of the last 10 steps below
    the first 10's, the held-out loss of `make_lm_eval_step` falling, its
    perplexity below 256; K1 once each way and K2 12 + 12 times a train
    step, K1's forward once and K2 12 times an eval call; then greedy
    `models/decode.generate`
-   of 256 tokens from a 64-byte held-out prompt (the first capitalised
+   of 128 tokens from a 64-byte held-out prompt (the first capitalised
    held-out line of 64 bytes or more) with the default cache and the
-   int8 cache (K3 exactly 12 x 255 times), both decodable and not one
-   repeated byte; the int8 cache's logits of those 256 steps, fed the
+   int8 cache (K3 exactly 12 x 127 times), both decodable and not one
+   repeated byte; the int8 cache's logits of those 128 steps, fed the
    int8 output, through K3 and then with K3's plain version in its place,
    within 2^-5 of the largest logit; K1's forward and backward at the
    path's (32768, 256) bf16 against their plain versions, `F.cross_entropy`
@@ -346,7 +346,19 @@ which raises on failure (exit code not 0, no result line):
    the reference's widths, K1 and K2 are built by nvcc from the installed
    sources, and phase 32's `runpy` wrapper counts K1 once each way and K2
    12 + 12 times a step. It prints the step ms and the launcher's
-   start-up seconds. With `--gpu-plane` this phase runs alone.
+   start-up seconds. With `--gpu-plane` this phase runs alone;
+37. every head_dim: K2 against its plain version, forward and backward,
+   at (8, 1024, 8, 96), (8, 1024, 24, 32) and (8, 1024, 3, 256) causal
+   bf16 (the LM benchmark with 8, 24 and 3 heads), Phi-2's (8, 1024, 32,
+   80) causal, a ragged (2, 1000, 4, 40) and a padded (2, 1000, 4, 36)
+   full, and (2, 512, 2, 256) fp16 bhsd full, each timed beside SDPA; K3
+   against its plain version at head_dim 40 and 72 (dense and paged) and
+   256; the LM benchmark (`benchmarks.lm.run_benchmark`, attention "auto")
+   at its published widths with 8 and 3 heads (head_dim 96 and 256), its
+   first step against the same step with dense attention, K2 launched 12 +
+   12 times a step; and the int8-cache `generate` of an f32 2-layer LM
+   with 4 heads of 40, token-equal to the CPU. With `--head-dims` this
+   phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time. Every phase
 that counts K1's launches in train steps asserts one launch of its
@@ -807,7 +819,10 @@ def _k2_inputs(shape, dtype: torch.dtype, seed: int):
 
 
 def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
-             dtype=torch.bfloat16, seed: int = 0) -> dict:
+             dtype=torch.bfloat16, seed: int = 0, iters: int = 100, plain_iters: int = 20) -> dict:
+    """K2 against its plain version at one shape, forward and backward;
+    times `iters` calls of the kernel and of SDPA, `plain_iters` of the
+    plain version."""
     shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
     q, k, v, dout = _k2_inputs(shape, dtype, seed)
 
@@ -846,16 +861,16 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
     grads = {name: _grad_calls(fn, q, k, v, dout)
              for name, fn in (("", kernel), ("plain_", plain), ("library_", library))}
     times = {
-        "forward": _timings({"": (lambda: kernel(q, k, v), 100),
-                             "plain_": (lambda: plain(q, k, v), 20),
-                             "library_": (lambda: library(q, k, v), 100)}),
+        "forward": _timings({"": (lambda: kernel(q, k, v), iters),
+                             "plain_": (lambda: plain(q, k, v), plain_iters),
+                             "library_": (lambda: library(q, k, v), iters)}),
         # the kernel's backward alone is its op; plain and SDPA go through
         # autograd on a saved forward graph
         "backward": _timings({"": (lambda: torch.ops.tk8s.flash_attn_bwd(
-                                  dout, q, k, v, out, lse, causal, layout), 100),
-                              "plain_": (grads["plain_"][0], 20),
-                              "library_": (grads["library_"][0], 100)}),
-        "fwd_bwd": _timings({name: (calls[1], 20 if name == "plain_" else 100)
+                                  dout, q, k, v, out, lse, causal, layout), iters),
+                              "plain_": (grads["plain_"][0], plain_iters),
+                              "library_": (grads["library_"][0], iters)}),
+        "fwd_bwd": _timings({name: (calls[1], plain_iters if name == "plain_" else iters)
                              for name, calls in grads.items()}),
     }
 
@@ -1241,14 +1256,17 @@ def _decode_logits(model, params, prompt, tokens) -> torch.Tensor:
     return torch.stack(steps, 1).float().cpu()
 
 
-def check_decode_parity() -> None:
-    """Greedy int8-cache `generate` of f32 and bf16 2-layer LMs on the card
-    (K3) against the CPU (its plain version), from one set of weights."""
+def check_decode_parity(num_heads: int = 2, embed_dim: int = 128,
+                        dtypes=(torch.float32, torch.bfloat16)) -> int:
+    """Greedy int8-cache `generate` of 2-layer LMs in each of `dtypes` on
+    the card (K3) against the CPU (its plain version), from one set of
+    weights; f32 tokens must be equal. Returns K3's launches on the card."""
     prompt = torch.randint(0, 512, (4, 16), generator=torch.Generator().manual_seed(6))
-    for dtype in (torch.float32, torch.bfloat16):
-        model = TransformerLM(vocab_size=512, num_layers=2, num_heads=2, embed_dim=128,
-                              max_seq_len=64, dtype=dtype, logits_dtype=dtype,
-                              generator=torch.Generator().manual_seed(0))
+    k3 = 0
+    for dtype in dtypes:
+        model = TransformerLM(vocab_size=512, num_layers=2, num_heads=num_heads,
+                              embed_dim=embed_dim, max_seq_len=64, dtype=dtype,
+                              logits_dtype=dtype, generator=torch.Generator().manual_seed(0))
         tokens, logits = {}, {}
         for device in ("cpu", "cuda"):
             params = dec.lm_params(model, device)
@@ -1258,6 +1276,7 @@ def check_decode_parity() -> None:
             launched = da.decode_attention_kernel.launches - before
             if launched != (2 * 23 if device == "cuda" else 0):
                 raise AssertionError(f"K3 launched {launched} times on {device}")
+            k3 += launched
             logits[device] = _decode_logits(model, params, prompt.to(device),
                                             tokens["cpu"].to(device))
         diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
@@ -1265,13 +1284,15 @@ def check_decode_parity() -> None:
         margin = (top2[..., 0] - top2[..., 1]).min().item()
         flips = int((tokens["cuda"] != tokens["cpu"]).sum())
         name = str(dtype).removeprefix("torch.")
-        print(f"parity: decode {name} int8 cache, 4 x 24 tokens: {flips} tokens differ, max "
+        print(f"parity: decode {name} int8 cache, {num_heads} heads of {embed_dim // num_heads}, "
+              f"4 x 24 tokens: {flips} tokens differ, max "
               f"|logit diff| {diff:.2e} (tolerance {DECODE_LOGITS_ATOL[dtype]}), min top-2 "
               f"margin {margin:.3e}", flush=True)
         if not diff <= DECODE_LOGITS_ATOL[dtype]:
             raise AssertionError(f"card and CPU decode logits disagree ({name})")
         if dtype == torch.float32 and flips:
             raise AssertionError("card and CPU f32 decode tokens differ")
+    return k3
 
 
 def check_engine_parity() -> None:
@@ -1307,7 +1328,8 @@ def check_engine_parity() -> None:
 
 def profile_decode(card: str) -> dict | None:
     """One decode forward of the decode benchmark's model (batch 8, a
-    640-long cache, pos 383: the mean position of a call) with each cache:
+    640-long cache, pos 383: the mean position of a call at the
+    benchmark's defaults, 512 new tokens) with each cache:
     its wall time, and the card's busy time by operator from
     torch.profiler over 5 steps. (A step is ~700 launches, more than the
     launch queue holds behind `_device_ms`'s sleep, so the card's time is
@@ -1352,15 +1374,21 @@ def profile_decode(card: str) -> dict | None:
     return k3
 
 
+# the decode benchmark's runs in phases 13 and 26: its defaults with 64 new
+# tokens and one timed call after the first (cut from 512 and 3, and the
+# two-process runs' from 128, to keep the whole script inside its time limit)
+DECODE_DEPTH = dict(new_tokens=64, repeats=1)
+
+
 def run_decode(card: str, k3_step: dict | None) -> tuple[dict, dict]:
-    """The decode benchmark at its defaults three ways, with K3's launches
+    """The decode benchmark at DECODE_DEPTH three ways, with K3's launches
     counted around each; returns them and the int8-cache run's result
     (its tokens kept for phase 26)."""
     launches = {}
     for name, options in (("decode_bf16_cache", {}), ("decode_cache_int8", {"cache_int8": True}),
                           ("decode_int8_weights_cache_int8", {"int8": True, "cache_int8": True})):
         da.decode_attention_kernel.launches = 0
-        result = decode_bench.run_benchmark(keep_tokens=True, **options)
+        result = decode_bench.run_benchmark(keep_tokens=True, **DECODE_DEPTH, **options)
         launches[name] = da.decode_attention_kernel.launches
         tokens = result.pop("tokens")
         if name == "decode_cache_int8":
@@ -1368,7 +1396,7 @@ def run_decode(card: str, k3_step: dict | None) -> tuple[dict, dict]:
         print(f"{name}: " + json.dumps(result, sort_keys=True), flush=True)
         if result["platform"] != "gpu":
             raise AssertionError(f"{name} ran on {result['platform']}")
-        calls = 4  # the first call and the 3 timed repeats
+        calls = 1 + DECODE_DEPTH["repeats"]  # the first call and the timed repeats
         expected = result["num_layers"] * (result["new_tokens"] - 1) * calls
         if launches[name] != (expected if result["cache_int8"] else 0):
             raise AssertionError(f"{name}: K3 launched {launches[name]} times "
@@ -1380,7 +1408,8 @@ def run_decode(card: str, k3_step: dict | None) -> tuple[dict, dict]:
                    f"{k3_step['device_ms']:.4f} device ms in a step at pos {k3_step['pos']} "
                    f"({k3_step['device_ms'] / result['ms_per_token_per_stream']:.1%} of a "
                    f"step's wall time; torch.profiler)")
-        print(f"main path: {name} 12L/768/vocab 32768 bf16, batch 8, prompt 128, 512 new: "
+        print(f"main path: {name} 12L/768/vocab 32768 bf16, batch 8, prompt 128, "
+              f"{result['new_tokens']} new: "
               f"{result['tokens_per_sec']:.1f} tokens/s, "
               f"{result['ms_per_token_per_stream']:.3f} ms a step (ms/token/stream){k3_text}, "
               f"peak memory {result['peak_memory_gb']:.2f} GB, K3 launches "
@@ -2101,22 +2130,38 @@ def two_rank_step(name: str, reference_path: str, timed_steps: int) -> dict:
             "batch_per_rank": batch[0].shape[0]}
 
 
+def two_rank_steps(references: dict, timed_steps: int) -> dict:
+    """One rank of the two-process phase: `two_rank_step` of each model in
+    `references` ({name: reference path}) in turn, in one process."""
+    out = {}
+    for name, path in references.items():
+        out[name] = two_rank_step(name, path, timed_steps)
+        torch.cuda.empty_cache()
+    return out
+
+
+TWO_RANK_MODELS = (("lm", 8 * 1024, "tokens"), ("resnet50", 256, "images"))
+
+
 def run_two_ranks(card: str) -> dict:
     """Data parallelism in two processes on the one card over gloo: the LM
     (global batch 8, 4 a rank) and ResNet-50 with `fused_1x1_bwd` (256,
     128 a rank, BatchNorm over the global batch), each first step against
-    this process's step on the whole batch."""
+    this process's step on the whole batch. One launch of the two ranks
+    runs both models, one after the other."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, global_batch, unit in (("lm", 8 * 1024, "tokens"),
-                                         ("resnet50", 256, "images")):
+        references = {}
+        for name, _, _ in TWO_RANK_MODELS:
             single = _first_step(name)
-            path = f"{tmp}/{name}.pt"
-            torch.save({"loss": single["loss"], "after": single["after"]}, path)
+            references[name] = f"{tmp}/{name}.pt"
+            torch.save({"loss": single["loss"], "after": single["after"]}, references[name])
             del single
             torch.cuda.empty_cache()
-            ranks = run_ranks(two_rank_step, 2, args=(name, path, 3), backend="gloo",
-                              timeout=600, threads=4)
+        by_rank = run_ranks(two_rank_steps, 2, args=(references, 3), backend="gloo",
+                            timeout=600, threads=4)
+        for name, global_batch, unit in TWO_RANK_MODELS:
+            ranks = [rank[name] for rank in by_rank]
             r = ranks[0]
             loss_diff = abs(r["loss"] - r["ref_loss"])
             rate = global_batch / (max(x["step_ms"] for x in ranks) / 1e3)
@@ -2142,9 +2187,6 @@ def run_two_ranks(card: str) -> dict:
 PP_MICROBATCHES = 4
 # steps timed on the host clock, each ended by a host copy of its loss
 PP_TIMED_STEPS = 5
-# the two-process decode: 128 new tokens, one timed call after the first
-# (the one-rank run of phase 26 keeps the defaults)
-TWO_RANK_DECODE = dict(new_tokens=128, repeats=1)
 # the sampled run of the two-process decode
 DECODE_TEMPERATURE = 1.5
 
@@ -2268,16 +2310,17 @@ def run_moe_seq_one_rank(card: str, mesh) -> dict:
 
 
 def run_decode_mesh_one_rank(card: str, single: dict) -> dict:
-    """Phase 26, first part: the decode benchmark at its defaults with the
+    """Phase 26, first part: the decode benchmark at DECODE_DEPTH with the
     int8 cache on the (1, 1, 1, 1) mesh over NCCL: the tokens of phase
-    13's single-device run, K3 12 x 511 times a call."""
+    13's single-device run, K3 12 x 63 times a call."""
     da.decode_attention_kernel.launches = 0
-    result = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True)
+    result = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True, **DECODE_DEPTH)
     launches = da.decode_attention_kernel.launches
-    # the first call and the 3 timed repeats
-    expected = result["num_layers"] * (result["new_tokens"] - 1) * 4
+    # the first call and the timed repeats
+    expected = result["num_layers"] * (result["new_tokens"] - 1) * (1 + DECODE_DEPTH["repeats"])
     equal = result["tokens"] == single["tokens"]
-    print(f"decode over the mesh (phase 26), one rank over NCCL, defaults with the int8 cache: "
+    print(f"decode over the mesh (phase 26), one rank over NCCL, {result['new_tokens']} new "
+          f"tokens with the int8 cache: "
           f"num_chips {result['num_chips']}, {result['tokens_per_sec']:.1f} tokens/s, "
           f"{result['ms_per_token_per_stream']:.3f} ms a step against the single-device run's "
           f"{single['ms_per_token_per_stream']:.3f}; tokens equal the single-device run's: "
@@ -2305,9 +2348,9 @@ def run_two_rank_decode(card: str) -> dict:
     """Phase 26, second part: two processes sharing the card over gloo, 4
     of 8 streams each; each rank's tokens against this process's
     `generate` of the same 4 rows."""
-    ranks = run_ranks(two_rank_decode, 2, args=(TWO_RANK_DECODE,), backend="gloo", timeout=600,
+    ranks = run_ranks(two_rank_decode, 2, args=(DECODE_DEPTH,), backend="gloo", timeout=600,
                       threads=4)
-    new = TWO_RANK_DECODE["new_tokens"]
+    new = DECODE_DEPTH["new_tokens"]
     max_len = 128 + new
     model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, embed_dim=768,
                           max_seq_len=max_len, generator=torch.Generator().manual_seed(1))
@@ -2318,7 +2361,7 @@ def run_two_rank_decode(card: str) -> dict:
     # sampled: each rank's rows of one process's run on the 8 streams with
     # the same seed (every rank draws the whole batch's noise)
     single = decode_bench.run_benchmark(cache_int8=True, keep_tokens=True,
-                                        temperature=DECODE_TEMPERATURE, **TWO_RANK_DECODE)
+                                        temperature=DECODE_TEMPERATURE, **DECODE_DEPTH)
     sampled_equal = [single["tokens"][4 * r:4 * r + 4] == ranks[r]["sampled_tokens"]
                      for r in range(2)]
     distinct = single["tokens"][:4] != single["tokens"][4:]
@@ -2330,7 +2373,7 @@ def run_two_rank_decode(card: str) -> dict:
         raise AssertionError(f"sampled two-process decode: equal {sampled_equal}, halves "
                              f"differ {distinct}")
     r = ranks[0]
-    expected = 12 * (new - 1) * (1 + TWO_RANK_DECODE["repeats"])
+    expected = 12 * (new - 1) * (1 + DECODE_DEPTH["repeats"])
     print(f"decode in two processes (gloo) on one card (phase 26), 4 of 8 streams each, "
           f"{new} new tokens, int8 cache: num_chips {r['num_chips']}, {r['tokens_per_sec']:.1f} "
           f"tokens/s by two processes sharing one card (not a two-card number; the slowest "
@@ -2638,7 +2681,7 @@ def run_slice11(card: str) -> dict:
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 512
 SERVE_PREFIX = 192  # the shared system prompt, as the engine benchmark's
-SERVE_NEW_TOKENS = 64
+SERVE_NEW_TOKENS = 32  # cut from 64 to keep the whole script inside its time limit
 SERVE_SPEC_K = 4
 SERVE_REQUESTS = 16
 # the drill's prompts, cycled over its requests: (tokens of the shared
@@ -3304,7 +3347,7 @@ def run_gateway_fleet(card: str) -> dict:
 # Phase 31: a maintenance drain of the full-width LM
 
 DRAIN_STEPS = 20  # steps a window: ~1 s at the LM's step, 20 watch intervals
-DRAIN_WINDOWS = 4  # the drain lands after window 1 or 2: two or more are left
+DRAIN_WINDOWS = 3  # the drain lands after window 1 or 2: one or more are left
 DRAIN_INTERVAL_S = 0.05
 DRAIN_EVENT = "TERMINATE_ON_HOST_MAINTENANCE"
 DRAIN_RUN_TIMEOUT_S = 300
@@ -3461,12 +3504,13 @@ def run_maintenance_drain(card: str) -> dict:
                                  f"drained run's {drained['final_step']}, drained "
                                  f"{resumed['drained']!r}")
         # one step under the FLOP counter, `warmup` more, then windows x steps:
-        # the straight run's windows and warm-up come out of the two reports
+        # the straight run's windows and warm-up come out of the two reports,
+        # its windows run as one (one checkpoint save, the same steps)
         target = resumed["final_step"]
         windows = (target - 2) // DRAIN_STEPS
         warmup = target - 1 - windows * DRAIN_STEPS
         straight, straight_counts, _ = _lm_run(
-            ["--steps", str(DRAIN_STEPS), "--warmup", str(warmup), "--windows", str(windows),
+            ["--steps", str(windows * DRAIN_STEPS), "--warmup", str(warmup), "--windows", "1",
              "--checkpoint-dir", str(straight_dir)],
             root / "never-drained", root / "counts-straight.json")
         if straight["final_step"] != target or straight["drained"] is not None:
@@ -4034,12 +4078,12 @@ def run_supervised_elastic(card: str) -> dict:
 # steps to fit the phase in about a minute
 WORKED_LM = dict(vocab_size=256, num_layers=12, num_heads=12, embed_dim=768, max_seq_len=1024)
 WORKED_BATCH = 32
-WORKED_STEPS = 120
+WORKED_STEPS = 60
 WORKED_OPT = dict(learning_rate=3e-4, warmup_steps=20, decay_steps=200)
 WORKED_TIMED_FROM = 5  # steps before this one build, load and warm up
 WORKED_MEAN_OF = 10  # the loss falls: the mean of the last 10 steps below the first 10's
 WORKED_PROMPT = 64
-WORKED_NEW_TOKENS = 256
+WORKED_NEW_TOKENS = 128  # cut from 256 to keep the whole script inside its time limit
 CONTAINERBENCH_TIMEOUT_S = 300
 
 
@@ -4074,7 +4118,7 @@ def worked_example_k2_row() -> dict:
 def worked_example_k3_rows() -> list:
     """K3 at the worked example's int8 `generate`: batch 1 over the
     1024-position blhd cache, at its first and last decode positions (the
-    prompt's length, and that plus 254)."""
+    prompt's length, and that plus WORKED_NEW_TOKENS - 2)."""
     heads = WORKED_LM["num_heads"]
     shape = (1, 1, heads, WORKED_LM["max_seq_len"], WORKED_LM["embed_dim"] // heads)
     first, last = WORKED_PROMPT, WORKED_PROMPT + WORKED_NEW_TOKENS - 2
@@ -4125,17 +4169,17 @@ def run_worked_example(card: str) -> dict:
     scores, so it is not run); `lm_optimizer(learning_rate=3e-4)` on
     `make_lm_train_step` over a one-rank NCCL mesh, fed by
     `corpus.batches(batch_size=32, seq_len=1024)` through
-    `utils/data.prefetch_to_mesh`. The cut: 120 steps with warm-up 20 and
+    `utils/data.prefetch_to_mesh`. The cut: 60 steps with warm-up 20 and
     decay 200, instead of the example's warm-up 500 and decay 20,000; the
     widths are the example's. It fails unless the mean loss of the last 10
     steps is below the first 10's, the held-out loss of
     `make_lm_eval_step` on one validation batch falls, its perplexity is
     finite and below 256 (uniform over the bytes), K1 launches once a train
     step and once an eval call and K2 12 + 12 times a train step and 12
-    times an eval call. Then greedy `models/decode.generate` of 256 tokens
+    times an eval call. Then greedy `models/decode.generate` of 128 tokens
     from 64 bytes of the validation text (`worked_example_prompt`), with
     the default cache and with
-    the int8 cache: K3 exactly 12 x 255 times with the int8 cache and never
+    the int8 cache: K3 exactly 12 x 127 times with the int8 cache and never
     with the other, each output decodable and not one repeated byte; the
     int8 cache's logits of every step, fed the int8 output, through K3
     within WORKED_K3_LOGITS_REL of the same steps with K3's plain version
@@ -4898,6 +4942,150 @@ def run_gpu_plane(card: str) -> dict:
     return result
 
 
+# Phase 37: K2 at every head_dim up to 256 and K3 at any head_dim (faults
+# F10 and F11), and the LM at its published widths with 8 and 3 heads
+# (head_dim 96 and 256) through K2
+
+# K2's shapes: (b, s, h, d, causal, layout, dtype)
+HEAD_DIM_K2 = [
+    (8, 1024, 8, 96, True, "bshd", torch.bfloat16),   # benchmarks.lm --num-heads 8
+    (8, 1024, 24, 32, True, "bshd", torch.bfloat16),  # --num-heads 24
+    (8, 1024, 3, 256, True, "bshd", torch.bfloat16),  # --num-heads 3
+    (8, 1024, 32, 80, True, "bshd", torch.bfloat16),  # Phi-2's 32 heads of 80
+    (2, 1000, 4, 40, False, "bshd", torch.bfloat16),  # ragged; columns 40-63 read as zeros
+    (2, 1000, 4, 36, False, "bshd", torch.bfloat16),  # not a multiple of 8: the padded copy
+    (2, 512, 2, 256, False, "bhsd", torch.float16),
+]
+# timed calls of the kernel and SDPA, and of the plain version, at each
+HEAD_DIM_K2_ITERS = (30, 6)
+# K3's: (label, b, w, h, length, d, pos, layout); an inactive slot (-1)
+# reads all L
+HEAD_DIM_K3 = [
+    ("head_dim 40, pos 639", 8, 1, 4, 640, 40, 639, "blhd"),
+    ("head_dim 40, paged engine decode", 4, 1, 4, 512, 40, [300, 511, 17, -1], "paged"),
+    ("head_dim 72, pos 639", 8, 1, 8, 640, 72, 639, "blhd"),
+    ("head_dim 72, paged 5-query verify", 4, 5, 8, 512, 72,
+     [[p + i for i in range(5)] for p in (300, 507, 17, 0)], "paged"),
+    ("head_dim 256, pos 639", 8, 1, 3, 640, 256, 639, "bhld"),
+]
+HEAD_DIM_LM_HEADS = (8, 3)  # head_dim 96 and 256 at embed 768
+HEAD_DIM_LM_STEPS = dict(steps=3, warmup=1, windows=1)
+
+
+def _lm_first_update(num_heads: int, attention_fn) -> tuple[float, torch.Tensor]:
+    """The first step of `benchmarks.lm.run_benchmark` at `num_heads`, from
+    its weights (the seed-0 generator), optimizer and tokens, with
+    `attention_fn`: (its loss, the update of every parameter, flat)."""
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=num_heads, embed_dim=768,
+                          max_seq_len=1024, attention_fn=attention_fn)
+    state = train.create_train_state(model, train.default_optimizer(MESH_LR["lm"]), "cuda")
+    step = train.make_lm_train_step(state)
+    before = torch.cat([p.detach().flatten() for p in state.model.parameters()])
+    loss = step(_lm_tokens())["loss"].item()
+    return loss, torch.cat([p.detach().flatten() for p in state.model.parameters()]) - before
+
+
+def run_lm_heads(card: str, num_heads: int) -> dict:
+    """`benchmarks.lm.run_benchmark` at the published widths with
+    `num_heads` heads, attention "auto" (K2 on the card), after its first
+    step against the same step with dense attention: the loss to
+    PARITY_LOSS_ATOL, the update to VIT_UPDATE_REL (dense attention rounds
+    its scores to bf16 where K2 keeps them in f32). K2 must launch 12 + 12
+    times a step and copy nothing."""
+    first = {name: _lm_first_update(num_heads, fn)
+             for name, fn in (("flash", fa.flash_attention), ("dense", dense_attention))}
+    rel = ((first["flash"][1] - first["dense"][1]).norm() / first["dense"][1].norm()).item()
+    diff = abs(first["flash"][0] - first["dense"][0])
+    losses = {name: first[name][0] for name in first}
+    del first
+    counters = _k1_k2_counters()
+    for counter in counters:
+        counter.launches = 0
+    fa.flash_attention_forward.copies = 0
+    result = lm_bench.run_benchmark(num_heads=num_heads, attention="auto", **HEAD_DIM_LM_STEPS)
+    k1, k1_bwd, k2_fwd, k2_bwd = (c.launches for c in counters)
+    copies = fa.flash_attention_forward.copies
+    steps, layers = result["final_step"], result["num_layers"]
+    d = 768 // num_heads
+    print(f"LM 12L/768/seq 1024/batch 8 with {num_heads} heads of {d} (attention auto = "
+          f"{result['attention']}): first step loss flash {losses['flash']:.6f} dense "
+          f"{losses['dense']:.6f}, |diff| {diff:.2e} (tolerance {PARITY_LOSS_ATOL}), first update "
+          f"|d_flash - d_dense| / |d_dense| {rel:.2e} (tolerance {VIT_UPDATE_REL}); step "
+          f"{result['step_ms']:.2f} ms, {result['tokens_per_sec']:.1f} tokens/s, final loss "
+          f"{result['final_loss']:.6f}, launches in {steps} steps: K1 {k1} + {k1_bwd}, K2 "
+          f"{k2_fwd} + {k2_bwd}, K2 input copies {copies}, on {card}", flush=True)
+    if not (diff <= PARITY_LOSS_ATOL and rel <= VIT_UPDATE_REL):
+        raise AssertionError(f"LM at head_dim {d}: flash and dense attention disagree")
+    if (result["platform"] != "gpu" or result["attention"] != "flash"
+            or not math.isfinite(result["final_loss"])):
+        raise AssertionError(f"LM at head_dim {d}: {result}")
+    if (k1, k1_bwd, k2_fwd, k2_bwd, copies) != (steps, steps, layers * steps, layers * steps, 0):
+        raise AssertionError(f"LM at head_dim {d}: {steps} steps launched K1 {k1} + {k1_bwd}, "
+                             f"K2 {k2_fwd} + {k2_bwd}, {copies} K2 input copies")
+    return {"num_heads": num_heads, "head_dim": d, "first_step_loss": losses,
+            "first_update_rel": rel, "step_ms": result["step_ms"],
+            "tokens_per_sec": result["tokens_per_sec"], "final_step": steps,
+            "final_loss": result["final_loss"], "k1": k1, "k1_backward": k1_bwd,
+            "k2_forward": k2_fwd, "k2_backward": k2_bwd, "k2_copies": copies}
+
+
+def run_head_dims(card: str) -> dict:
+    """Phase 37: K2 against its plain version at the head_dims of the LM's
+    other head counts, Phi-2's, a ragged and a padded width and fp16 at
+    256; K3 at head_dim 40, 72 and 256; the LM benchmark at 8 and 3 heads
+    through K2; the int8-cache `generate` of a 2-layer LM with 4 heads of
+    40, token-equal to the CPU."""
+    started = time.monotonic()
+    iters, plain_iters = HEAD_DIM_K2_ITERS
+    k2_rows = [check_k2(b, s, h, d, causal, layout, dtype=dtype, seed=40 + i, iters=iters,
+                        plain_iters=plain_iters)
+               for i, (b, s, h, d, causal, layout, dtype) in enumerate(HEAD_DIM_K2)]
+    _print_k2(k2_rows, card)
+    k3_rows = [check_k3(label, b, w, h, length, d, pos, layout=layout, seed=40 + i)
+               for i, (label, b, w, h, length, d, pos, layout) in enumerate(HEAD_DIM_K3)]
+    _print_k3(k3_rows, card)
+    lm = {heads: run_lm_heads(card, heads) for heads in HEAD_DIM_LM_HEADS}
+    k3_generate = check_decode_parity(num_heads=4, embed_dim=160, dtypes=(torch.float32,))
+    result = {"k2": k2_rows, "k3": k3_rows, "lm": lm, "generate_k3": k3_generate,
+              "phase_seconds": time.monotonic() - started}
+    print("head dims: " + json.dumps(result, sort_keys=True, default=str), flush=True)
+    print(f"head dims (phase 37): K2 at head_dim "
+          f"{sorted({r['shape'][-1] for r in k2_rows})} and K3 at "
+          f"{sorted({r['shape'][-1] for r in k3_rows})} against their plain versions; the LM "
+          + ", ".join(f"at {r['num_heads']} heads of {r['head_dim']}: step {r['step_ms']:.2f} ms, "
+                      f"K2 {r['k2_forward']} + {r['k2_backward']} in {r['final_step']} steps"
+                      for r in lm.values())
+          + f"; generate at 4 heads of 40, K3 {k3_generate} launches, tokens equal to the CPU; "
+          f"{result['phase_seconds']:.1f} s; on {card}", flush=True)
+    return result
+
+
+def _print_k2(rows: list, card: str) -> None:
+    for row in rows:
+        for part, r in (("forward", row["forward"]), ("backward", row["backward"]),
+                        ("forward+backward", row["backward"]["forward_and_backward"])):
+            err = f", max |err| {r['max_abs_err']:.2e}" if "max_abs_err" in r else ""
+            ratio = _ratio_text(r, "SDPA") if part != "forward+backward" else ""
+            print(f"K2 {part} {row['shape']} {row['layout']} {row['dtype']} "
+                  f"causal={row['causal']}: {_times_text(r, 'SDPA')}{ratio}, bound "
+                  f"{r['bound_ms']:.4f} ms{err} on {card}", flush=True)
+
+
+def _print_k3(rows: list, card: str, floor_row: dict | None = None,
+              floor_ms: float | None = None) -> None:
+    for row in rows:
+        device = {k: "not measured" if row[k] is None else f"{row[k]:.4f}"
+                  for k in ("device_ms", "plain_device_ms")}
+        floor = (f", one launch's floor {floor_ms:.4f} ms" if row is floor_row
+                 and floor_ms is not None else "")
+        print(f"K3 {row['label']} {row['shape']} {row['layout']} {row['dtype']}: kernel "
+              f"{row['ms']:.4f} ms (device {device['device_ms']}), plain {row['plain_ms']:.4f} "
+              f"ms (device {device['plain_device_ms']}), no library call, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}){floor}, max |err| "
+              f"{row['max_abs_err']:.2e} (f32 q {row['max_abs_err_f32_q']:.2e}) on {card}",
+              flush=True)
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -4946,14 +5134,7 @@ def main() -> int:
         worked_example_k2_row(),  # phase 34
     ]
     k2_vit = k2_rows[4]
-    for row in k2_rows:
-        for part, r in (("forward", row["forward"]), ("backward", row["backward"]),
-                        ("forward+backward", row["backward"]["forward_and_backward"])):
-            err = f", max |err| {r['max_abs_err']:.2e}" if "max_abs_err" in r else ""
-            ratio = _ratio_text(r, "SDPA") if part != "forward+backward" else ""
-            print(f"K2 {part} {row['shape']} {row['layout']} causal={row['causal']}: "
-                  f"{_times_text(r, 'SDPA')}{ratio}, bound {r['bound_ms']:.4f} ms{err} on {card}",
-                  flush=True)
+    _print_k2(k2_rows, card)
 
     check_lm_parity()
     check_moe_lm_parity()
@@ -5033,20 +5214,10 @@ def main() -> int:
         # past the first design's 227 KB of scores in shared memory
         check_k3("one query over 65,536 positions", 1, 1, 12, 65536, 64, 65535, seed=12),
         # a rank's half of the batch in the two-process decode of phase 26
-        check_k3("two-process decode rank, pos 255", 4, 1, 12, 256, 64, 255, seed=13),
+        check_k3("two-process decode rank, pos 191", 4, 1, 12, 192, 64, 191, seed=13),
         *worked_example_k3_rows(),  # phase 34
     ]
-    for row in k3_rows:
-        device = {k: "not measured" if row[k] is None else f"{row[k]:.4f}"
-                  for k in ("device_ms", "plain_device_ms")}
-        floor = (f", one launch's floor {floor_ms:.4f} ms" if row is k3_rows[2]
-                 and floor_ms is not None else "")
-        print(f"K3 {row['label']} {row['shape']} {row['layout']} {row['dtype']}: kernel "
-              f"{row['ms']:.4f} ms (device {device['device_ms']}), plain {row['plain_ms']:.4f} "
-              f"ms (device {device['plain_device_ms']}), no library call, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}){floor}, max |err| "
-              f"{row['max_abs_err']:.2e} (f32 q {row['max_abs_err_f32_q']:.2e}) on {card}",
-              flush=True)
+    _print_k3(k3_rows, card, floor_row=k3_rows[2], floor_ms=floor_ms)
     print(f"one launch's floor (a one-element fill, device time): "
           f"{'not measured' if floor_ms is None else f'{floor_ms:.4f} ms'}, beside K1 "
           f"(256, 1000) f32 {k1_main['device_ms']} and K3 at pos 0 {k3_rows[2]['device_ms']} "
@@ -5070,6 +5241,7 @@ def main() -> int:
     worked = run_worked_example(card)
     provisioned = run_provision_roofline(card)
     gpu_plane = run_gpu_plane(card)
+    head_dims = run_head_dims(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -5096,7 +5268,9 @@ def main() -> int:
                                  "supervised_elastic_lm": supervised["launches"]["k1"],
                                  "worked_example_lm": worked["launches"]["k1"],
                                  "provisioned_lm_job": provisioned["launches"]["k1"],
-                                 "gpu_plane_lm_job": gpu_plane["launches"]["k1"]},
+                                 "gpu_plane_lm_job": gpu_plane["launches"]["k1"],
+                                 **{f"lm_num_heads_{n}": r["k1"]
+                                    for n, r in head_dims["lm"].items()}},
             "design": "16-byte loads (one element a load where rows are not 16-byte aligned); "
                       "rows of at most 16 loads a lane: one warp a row, 4 rows a CTA, the row in "
                       "registers, max and sum by warp shuffles, the label's logit picked from "
@@ -5138,7 +5312,8 @@ def main() -> int:
                 "supervised_elastic_lm": supervised["launches"]["k1_backward"],
                 "worked_example_lm": worked["launches"]["k1_backward"],
                 "provisioned_lm_job": provisioned["launches"]["k1_backward"],
-                "gpu_plane_lm_job": gpu_plane["launches"]["k1_backward"]},
+                "gpu_plane_lm_job": gpu_plane["launches"]["k1_backward"],
+                **{f"lm_num_heads_{n}": r["k1_backward"] for n, r in head_dims["lm"].items()}},
             "design": "one pass (exp(x - lse) - onehot) * g over the logits, read once and "
                       "written once in their dtype with 16-byte loads and stores, over a grid "
                       "of row groups x column chunks of up to 1024 loads (256 threads x 4 in "
@@ -5178,9 +5353,12 @@ def main() -> int:
                                  "supervised_elastic_lm": supervised["launches"]["k2_forward"],
                                  "worked_example_lm": worked["launches"]["k2_forward"],
                                  "provisioned_lm_job": provisioned["launches"]["k2_forward"],
-                                 "gpu_plane_lm_job": gpu_plane["launches"]["k2_forward"]},
-            "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["forward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
+                                 "gpu_plane_lm_job": gpu_plane["launches"]["k2_forward"],
+                                 **{f"lm_num_heads_{n}": r["k2_forward"]
+                                    for n, r in head_dims["lm"].items()}},
+            "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal", "dtype")},
+                              **r["forward"]}
+                             for r in (*k2_rows[1:4], *k2_rows[5:7], *head_dims["k2"])],
         },
         {
             "name": "flash_attn_bwd (K2)",
@@ -5215,9 +5393,12 @@ def main() -> int:
                                  "supervised_elastic_lm": supervised["launches"]["k2_backward"],
                                  "worked_example_lm": worked["launches"]["k2_backward"],
                                  "provisioned_lm_job": provisioned["launches"]["k2_backward"],
-                                 "gpu_plane_lm_job": gpu_plane["launches"]["k2_backward"]},
-            "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal")},
-                              **r["backward"]} for r in (*k2_rows[1:4], *k2_rows[5:7])],
+                                 "gpu_plane_lm_job": gpu_plane["launches"]["k2_backward"],
+                                 **{f"lm_num_heads_{n}": r["k2_backward"]
+                                    for n, r in head_dims["lm"].items()}},
+            "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal", "dtype")},
+                              **r["backward"]}
+                             for r in (*k2_rows[1:4], *k2_rows[5:7], *head_dims["k2"])],
         },
         *({
             "name": f"flash_attn_{part[0]}w{part[-1]} (K2), ViT-S/16 shape",  # fwd, bwd
@@ -5266,7 +5447,8 @@ def main() -> int:
                                  "serving_plane_drill": serving_plane["k3_launches"],
                                  "gateway_fleet_drive": gateway_fleet["k3_launches"],
                                  "worked_example_generate_cache_int8":
-                                     worked["decode"]["cache_int8"]["k3"]},
+                                     worked["decode"]["cache_int8"]["k3"],
+                                 "generate_head_dim_40_cache_int8": head_dims["generate_k3"]},
             "library_none_reason": "no PyTorch call computes attention over an int8 cache "
                                    "with per-token scales",
             "library_ratio": None,
@@ -5288,7 +5470,7 @@ def main() -> int:
             "decode_step": k3_step,
             # K3 and the page gathers in one engine decode step (torch.profiler)
             "engine_step": engine_step,
-            "other_shapes": k3_rows[1:],
+            "other_shapes": [*k3_rows[1:], *head_dims["k3"]],
         },
     ]
     print("slice 8: " + json.dumps({"vit": vit, "moe_lm": moe_lm, "checkpoint": ckpt,
@@ -5390,6 +5572,15 @@ if __name__ == "__main__":
         cuda_build.load(K1_SOURCE)
         cuda_build.load(K2_SOURCE)
         run_gpu_plane(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--head-dims"]:  # phase 37 alone, K1, K2 and K3 built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        torch.backends.cudnn.allow_tf32 = False  # as main() runs it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for source in (K1_SOURCE, K2_SOURCE, K3_SOURCE):
+            cuda_build.load(source)
+        run_head_dims(_card_line())
         sys.exit(0)
     if sys.argv[1:] == ["--provision-roofline"]:  # phase 35 alone, K1 and K2 built first
         if not torch.cuda.is_available():

@@ -197,6 +197,28 @@ K2_CASES = [
     pytest.param(3, 64, 2, 64, torch.bfloat16, True, "bshd", id="one-tile"),
     pytest.param(2, 1, 2, 64, torch.bfloat16, True, "bshd", id="one-token"),
     pytest.param(1, 130, 3, 64, torch.float16, False, "bhsd", id="fp16-ragged-full"),
+    # every other head_dim: d <= 64 on the 64 tile, <= 128 on the 128 tile,
+    # <= 256 on the 256 tile (64-row items, each warpgroup half of the
+    # output's columns); d not a multiple of 8 through a zero-padded copy
+    pytest.param(1, 65, 2, 1, torch.bfloat16, True, "bshd", id="d1-padded"),
+    pytest.param(2, 77, 3, 8, torch.bfloat16, True, "bshd", id="d8-causal"),
+    pytest.param(2, 130, 2, 8, torch.float16, False, "bhsd", id="d8-fp16-full"),
+    pytest.param(4, 1024, 24, 32, torch.bfloat16, True, "bshd", id="d32-lm-24-heads"),
+    pytest.param(2, 300, 4, 32, torch.float16, False, "bhsd", id="d32-fp16-full"),
+    pytest.param(2, 1000, 4, 36, torch.bfloat16, False, "bshd", id="d36-padded-full"),
+    pytest.param(1, 130, 2, 36, torch.float16, True, "bhsd", id="d36-padded-fp16-causal"),
+    pytest.param(2, 1000, 4, 40, torch.bfloat16, False, "bshd", id="d40-full"),
+    pytest.param(2, 129, 3, 40, torch.float16, True, "bhsd", id="d40-fp16-causal"),
+    pytest.param(2, 1024, 32, 80, torch.bfloat16, True, "bshd", id="d80-phi2"),
+    pytest.param(1, 200, 2, 80, torch.float16, False, "bhsd", id="d80-fp16-full"),
+    pytest.param(8, 1024, 8, 96, torch.bfloat16, True, "bshd", id="d96-lm-8-heads"),
+    pytest.param(2, 333, 3, 96, torch.float16, False, "bhsd", id="d96-fp16-full"),
+    pytest.param(2, 257, 2, 112, torch.bfloat16, True, "bhsd", id="d112-causal"),
+    pytest.param(1, 100, 3, 112, torch.float16, False, "bshd", id="d112-fp16-full"),
+    pytest.param(8, 1024, 3, 256, torch.bfloat16, True, "bshd", id="d256-lm-3-heads"),
+    pytest.param(2, 512, 2, 256, torch.float16, False, "bhsd", id="d256-fp16-full"),
+    pytest.param(2, 200, 2, 256, torch.bfloat16, True, "bhsd", id="d256-ragged-causal"),
+    pytest.param(1, 1, 2, 256, torch.float16, True, "bshd", id="d256-one-token"),
 ]
 
 
@@ -219,17 +241,33 @@ def _fwd_bwd(fn, q, k, v, dout):
     return [out.detach(), q.grad, k.grad, v.grad]
 
 
+def _k2_lse_matches(q, k, lse, causal, layout):
+    """K2's (B, H, S) logsumexp against the f32 scores' own."""
+    if layout == "bhsd":
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
+    s, d = q.shape[1], q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    if causal:
+        scores = scores.masked_fill(torch.ones(s, s, device="cuda").triu(1).bool(), float("-inf"))
+    torch.testing.assert_close(lse, scores.logsumexp(-1), rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,d,dtype,causal,layout", K2_CASES)
 def test_k2_matches_plain_version(b, s, h, d, dtype, causal, layout):
     _card()
     q, k, v, dout = _k2_inputs(b, s, h, d, dtype, layout)
     fwd, bwd = fa.flash_attention_forward.launches, fa.flash_attention_backward.launches
+    copies = fa.flash_attention_forward.copies
     got = _fwd_bwd(lambda *x: fa.flash_attention(*x, causal=causal, layout=layout),
                    q, k, v, dout)
     torch.cuda.synchronize()
     assert fa.flash_attention_forward.launches == fwd + 1
     assert fa.flash_attention_backward.launches == bwd + 1
+    # dense q, k, v are read in place unless d is not a multiple of 8
+    assert fa.flash_attention_forward.copies == copies + (3 if d % 8 else 0)
+    _k2_lse_matches(q, k, torch.ops.tk8s.flash_attn_fwd(q, k, v, causal, layout)[1], causal,
+                    layout)
     assert all(g.dtype == dtype and g.shape == q.shape for g in got)
     plain = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, causal, layout),
                      q, k, v, dout)
@@ -369,9 +407,13 @@ def test_k2_reads_qkv_views_in_place_and_its_logsumexp():
 @pytest.mark.cuda
 def test_k2_wrapper_raises_on_what_it_does_not_take():
     _card()
-    x = torch.zeros(1, 128, 2, 32, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
+    x = torch.zeros(1, 128, 2, 264, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim from 1 to 256"):
         fa.flash_attention(x, x, x)
+    # head_dim 32, outside the first kernels' 64 and 128, runs
+    x = torch.randn(1, 128, 2, 32, device="cuda", dtype=torch.bfloat16)
+    got = fa.flash_attention(x, x, x)
+    assert _rel_err(got, fa.attention_reference_layout(x, x, x, True, "bshd")) <= K2_REL_SAME_DTYPE
     y = torch.zeros(1, 128, 2, 64, device="cuda")
     with pytest.raises(TypeError, match="bf16"):
         fa.flash_attention(y, y, y)
@@ -687,6 +729,20 @@ K3_CASES = [
                  [[61 + i for i in range(5)], [124 + i for i in range(5)]],
                  id="chunk-edges-window-paged"),
     pytest.param(2, 12, 2, 300, 256, torch.float16, "blhd", "window", id="window12-d256"),
+    # head_dims that are not multiples of 16: rows copied in 8-byte (40,
+    # 72), 4-byte (36), 2-byte (2) or 1-byte (33, 1) units
+    pytest.param(4, 1, 12, 512, 40, torch.bfloat16, "blhd", "rows", id="d40-rows"),
+    pytest.param(4, 1, 4, 512, 40, torch.bfloat16, "paged", [300, 511, 17, -1],
+                 id="d40-paged-engine-decode"),
+    pytest.param(4, 5, 4, 512, 40, torch.bfloat16, "paged",
+                 [[p + i for i in range(5)] for p in (300, 507, 17, 0)], id="d40-paged-verify5"),
+    pytest.param(3, 5, 4, 300, 72, torch.float16, "bhld", "window", id="d72-window5-bhld"),
+    pytest.param(2, 1, 6, 640, 72, torch.float32, "blhd", 639, id="d72-blhd-last"),
+    pytest.param(2, 1, 2, 256, 36, torch.bfloat16, "paged", [100, 255], id="d36-paged"),
+    pytest.param(2, 3, 2, 200, 33, torch.float32, "blhd", "window", id="d33-window3"),
+    pytest.param(2, 1, 3, 130, 2, torch.float32, "bhld", 129, id="d2"),
+    pytest.param(2, 1, 2, 130, 1, torch.bfloat16, "blhd", "rows", id="d1-rows"),
+    pytest.param(2, 1, 3, 640, 256, torch.bfloat16, "bhld", 639, id="d256-bhld-last"),
 ]
 PAGE_SIZE = 16
 
@@ -766,7 +822,7 @@ def test_k3_reads_the_gathered_pages_and_strided_queries():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 40, 64, 128])
 def test_k3_query_is_bit_equal_alone_in_a_window_and_paged(d):
     """A query's output depends only on its own pos and the cache: bit-equal
     alone (W = 1) and inside a 5-query window, and bit-equal on the paged
@@ -827,12 +883,14 @@ def test_k3_raises_on_what_it_does_not_take():
         call(q, k8, ks, v8, vs, pos.cpu(), layout="blhd")
     with pytest.raises(ValueError, match="CUDA"):
         call(q.cpu(), k8, ks, v8, vs, 3, layout="blhd")
-    with pytest.raises(ValueError, match="multiple of 16"):
-        q24, k24, ks24, v24, vs24, _, _ = _k3_inputs(2, 1, 2, 64, 24, torch.bfloat16, "blhd", 3)
-        call(q24, k24, ks24, v24, vs24, 3, layout="blhd")
-    with pytest.raises(ValueError, match="aligned"):
-        buf = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.int8, device="cuda")
-        call(q, buf[1:].view(2, 64, 2, 64), ks, v8, vs, 3, layout="blhd")
+    with pytest.raises(ValueError, match="from 1 to 256"):
+        q2, k2, ks2, v2, vs2, _, _ = _k3_inputs(2, 1, 2, 64, 264, torch.bfloat16, "blhd", 3)
+        call(q2, k2, ks2, v2, vs2, 3, layout="blhd")
+    # rows that start off a 16-byte line are read, one byte a copy
+    buf = torch.zeros(k8.numel() + 1, dtype=torch.int8, device="cuda")
+    odd = buf[1:].view(k8.shape)
+    odd.copy_(k8)
+    _k3_check(q, odd, ks, v8, vs, 3, "blhd")
     with pytest.raises(ValueError, match="unit stride"):
         call(q, k8.transpose(-1, -2).contiguous().transpose(-1, -2), ks, v8, vs, 3,
              layout="blhd")
@@ -847,9 +905,11 @@ def test_k3_raises_on_what_it_does_not_take():
         call(qp, pk, pks, pv, pvs, ppos, layout="paged", tables=tables.long())
     with pytest.raises(ValueError, match="CUDA"):
         call(qp, pk, pks, pv, pvs, ppos, layout="paged", tables=tables.cpu())
-    with pytest.raises(ValueError, match="aligned"):
-        buf = torch.zeros(pk.numel() + 8, dtype=torch.int8, device="cuda")
-        call(qp, buf[8:].view(pk.shape), pks, pv, pvs, ppos, layout="paged", tables=tables)
+    # a pool that starts 8 bytes off a 16-byte line is read 8 bytes a copy
+    buf = torch.zeros(pk.numel() + 8, dtype=torch.int8, device="cuda")
+    odd = buf[8:].view(pk.shape)
+    odd.copy_(pk)
+    _k3_check(qp, odd, pks, pv, pvs, ppos, "paged", tables)
 
 
 @pytest.mark.cuda

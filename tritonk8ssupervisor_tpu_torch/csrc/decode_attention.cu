@@ -38,8 +38,10 @@
 //    host sizes the grid from L, or from pos when it is a Python int; it
 //    never reads a device pos.
 // 2. One DRAM round trip a chunk. The CTA issues all of the chunk's K and
-//    V rows (16-byte cp.async, one copy a row, so a page run never crosses
-//    a page) and both scale vectors (4-byte cp.async) before it waits:
+//    V rows (cp.async of 16 bytes, or of 8 or 4 where the row's width,
+//    strides or start allow no wider unit, and plain 2- or 1-byte loads
+//    below that; never across a row, so a page run never crosses a page)
+//    and both scale vectors (4-byte cp.async) before it waits:
 //    V does not depend on the softmax. Then everything runs from shared
 //    memory, for up to 8 queries a pass (a longer window takes more
 //    passes over the same chunk). int8 becomes f32 by a byte permute and
@@ -71,12 +73,20 @@
 // exp(m_c - M) = 1, which gives the uniform softmax over all L; the mask
 // value stays -1e30, not -inf, whose rescale would be exp(-inf + inf).
 //
+// Any head_dim D from 1 to 256. Everything after the copy runs at Dp, D
+// rounded up to 16: the scores in 8-byte runs of int8 over Dp / 2 columns
+// a thread, the values 4 columns a thread, the partials Dp wide. The
+// columns [D, Dp) of q in shared memory are zeros, so whatever bytes lie
+// past D in a shared K row (every int8 is a finite value) add an exact 0 to
+// the scores; the values' columns past D are computed and never stored.
+//
 // Shared memory holds one chunk, not the scores of all positions, so L is
 // limited only by int32 positions. Takes q in bf16, fp16 or f32 with unit
-// stride on D; k8/v8 int8 with unit stride on D and 16-byte aligned rows;
-// f32 scales, an int32 pos (a pointer with (b, w) strides, or one scalar
-// for every row) and int32 page tables, with any strides; D a multiple of
-// 16 up to 256. The wrapper (ops/decode_attention.py) checks all of it,
+// stride on D; k8/v8 int8 with unit stride on D, at any row stride and
+// start (the copy unit is the widest that divides D, every k8/v8 stride
+// and both starts); f32 scales, an int32 pos (a pointer with (b, w)
+// strides, or one scalar for every row) and int32 page tables, with any
+// strides. The wrapper (ops/decode_attention.py) checks all of it,
 // allocates the f32 scratch of the partial results and keeps the
 // counters.
 //
@@ -111,7 +121,7 @@ struct Params {
   int pos_scalar;
   int page_size;
   void* out;
-  float* part_o;    // (B, H, W, n_chunks, D) f32
+  float* part_o;    // (B, H, W, n_chunks, Dp) f32
   float2* part_ml;  // (B, H, W, n_chunks): (m_c, l_c)
   int* counters;    // (B, H), zero before and after a launch
   // strides in elements: q (b, w, h); k8, ks, v8, vs (b, page, l, h);
@@ -125,6 +135,8 @@ struct Params {
   long long sp_b, sp_w;
   long long so_b, so_w, so_h;
   int b, w, h, l, d;
+  int dp;   // d rounded up to 16: the width of the scores, values and partials
+  int vec;  // bytes a copy of a K or V row: 16, 8, 4, 2 or 1
   int n_chunks;
   float inv_sqrt_d;
 };
@@ -150,6 +162,11 @@ __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2hal
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -185,9 +202,29 @@ __host__ __device__ constexpr int pow2_at_least(int x) {
   return y;
 }
 
-// Row stride of a chunk's K and V rows in shared memory: D + 16 bytes, so
-// that neighbouring rows start on other banks.
+// Row stride of a chunk's K and V rows in shared memory: Dp + 16 bytes,
+// so that neighbouring rows start on other banks.
 __host__ __device__ constexpr int smem_row(int d) { return d + 16; }
+
+// d rounded up to whole 16-byte int8 vectors
+__host__ __device__ constexpr int padded_dim(int d) { return (d + 15) / 16 * 16; }
+
+// One V-byte unit of a K or V row from global to shared memory: cp.async
+// for 16, 8 and 4 bytes, a plain load and store below that.
+template <int V>
+__device__ __forceinline__ void copy_unit(int8_t* dst, const int8_t* src) {
+  if constexpr (V == 16) {
+    cp_async16(dst, src);
+  } else if constexpr (V == 8) {
+    cp_async8(dst, src);
+  } else if constexpr (V == 4) {
+    cp_async4(dst, src);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
+  } else {
+    *dst = *src;
+  }
+}
 
 // Dynamic shared memory of a CTA, in bytes: K and V rows (C rows of D + 16
 // bytes each), their scales (C f32 each), q and the scores of a group of
@@ -238,10 +275,20 @@ struct GlobalPartials {
 // `f_s` holds 32 floats and `o_s` 128, the warp's own.
 constexpr int kPrefetch = 6;
 
+// out[4 g + i] = o_i / l for the columns below D
+template <typename T>
+__device__ __forceinline__ void store4(T* out, int g, float4 o, float l, int D) {
+  const float v[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (4 * g + i < D) out[4 * g + i] = from_f32<T>(__fdiv_rn(v[i], l));
+  }
+}
+
 template <typename T>
 __device__ void combine_warp(const Params& p, int b, int h, int w, int nc,
                              const GlobalPartials& src, float* f_s, float* o_s) {
-  const int D = p.d, lane = threadIdx.x % 32;
+  const int D = p.dp, lane = threadIdx.x % 32;
   const int groups = D / 4;
   const int slices = groups < 32 ? 32 / groups : 1;
   const int sl = lane / groups, g0 = lane % groups;
@@ -295,12 +342,7 @@ __device__ void combine_warp(const Params& p, int b, int h, int w, int nc,
         }
       }
     }
-    if (lane < groups || slices == 1) {
-      out[4 * g] = from_f32<T>(__fdiv_rn(o.x, l));
-      out[4 * g + 1] = from_f32<T>(__fdiv_rn(o.y, l));
-      out[4 * g + 2] = from_f32<T>(__fdiv_rn(o.z, l));
-      out[4 * g + 3] = from_f32<T>(__fdiv_rn(o.w, l));
-    }
+    if (lane < groups || slices == 1) store4<T>(out, g, o, l, p.d);
   }
   __syncwarp();  // f_s and o_s are free again
 }
@@ -314,7 +356,7 @@ __device__ void combine_warp(const Params& p, int b, int h, int w, int nc,
 template <typename T>
 __device__ void combine_block(const Params& p, int b, int h, int w, int nc,
                               const GlobalPartials& src, float* red, float* f_s, int f_cap) {
-  const int D = p.d, t = threadIdx.x;
+  const int D = p.dp, t = threadIdx.x;
   const int groups = D / 4, slices = kThreads / groups;  // D <= 256: at least 2 slices
   const int sl = t / groups, g0 = t % groups;
   float m = -FLT_MAX;
@@ -349,12 +391,39 @@ __device__ void combine_block(const Params& p, int b, int h, int w, int nc,
       o = make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y), __fadd_rn(o.z, v.z),
                       __fadd_rn(o.w, v.w));
     }
-    out[4 * g] = from_f32<T>(__fdiv_rn(o.x, l));
-    out[4 * g + 1] = from_f32<T>(__fdiv_rn(o.y, l));
-    out[4 * g + 2] = from_f32<T>(__fdiv_rn(o.z, l));
-    out[4 * g + 3] = from_f32<T>(__fdiv_rn(o.w, l));
+    store4<T>(out, g, o, l, p.d);
   }
   __syncthreads();  // red and f_s are free again
+}
+
+// Bytes [0, D) of the chunk's `cnt` K and V rows into shared rows `rs`
+// bytes apart, V bytes a copy: thread t copies unit u of rows j, j +
+// kThreads / units, ... when the units of a row divide kThreads, else
+// walks i. The paged layout reads each row's page from `page_s`.
+template <int V>
+__device__ __forceinline__ void copy_rows(const Params& p, int8_t* k_s, int8_t* v_s, int rs,
+                                          const long long* page_s, int b, int h, int j0, int cnt) {
+  const int units = p.d / V, t = threadIdx.x;
+  const int8_t* k8 = p.k8 + h * p.sk_h;
+  const int8_t* v8 = p.v8 + h * p.sv_h;
+  const bool even = kThreads % units == 0;
+  const int rows_step = even ? kThreads / units : 0;
+  for (int i = t, j = t / units, u = t % units; i < cnt * units;
+       i += kThreads, j = even ? j + rows_step : i / units, u = even ? u : i % units) {
+    const int pj = j0 + j;
+    long long ko, vo;
+    if (p.tables) {
+      const long long page = page_s[j];
+      const int off = pj % p.page_size;
+      ko = page * p.sk_p + off * p.sk_l;
+      vo = page * p.sv_p + off * p.sv_l;
+    } else {
+      ko = b * p.sk_b + pj * p.sk_l;
+      vo = b * p.sv_b + pj * p.sv_l;
+    }
+    copy_unit<V>(k_s + j * rs + u * V, k8 + ko + u * V);
+    copy_unit<V>(v_s + j * rs + u * V, v8 + vo + u * V);
+  }
 }
 
 // One CTA per (b, h, chunk): the chunk's partial results for every query
@@ -370,7 +439,7 @@ __global__ void __launch_bounds__(kThreads, kG == 1 ? 8 : 4) decode_attn(const P
   __shared__ float m_s[kG], l_s[kG];        // the chunk's m and l of each query of a group
   __shared__ float wmax_s[kG][kWarps], wsum_s[kG][kWarps];  // each warp's max and sum
   __shared__ __align__(16) float cmb_s[kWarps][32 + 128];  // each warp's combine scratch
-  const int W = p.w, L = p.l, D = p.d, H = p.h;
+  const int W = p.w, L = p.l, D = p.dp, H = p.h;
   const int rs = smem_row(D);
   const int gw = group_of(W);
   int8_t* k_s = reinterpret_cast<int8_t*>(smem);
@@ -403,28 +472,12 @@ __global__ void __launch_bounds__(kThreads, kG == 1 ? 8 : 4) decode_attn(const P
   if (p.tables) __syncthreads();
 
   // all of the chunk's bytes in flight at once: K and V rows, then scales
-  const int vecs = D / 16;
-  const int8_t* k8 = p.k8 + h * p.sk_h;
-  const int8_t* v8 = p.v8 + h * p.sv_h;
-  // thread t copies 16-byte vector u of rows j, j + kThreads / vecs, ...
-  // when vecs divides kThreads (D = 16, 32, 64, 128, 256), else walks i
-  const bool even = kThreads % vecs == 0;
-  const int rows_step = even ? kThreads / vecs : 0;
-  for (int i = t, j = t / vecs, u = t % vecs; i < cnt * vecs;
-       i += kThreads, j = even ? j + rows_step : i / vecs, u = even ? u : i % vecs) {
-    const int pj = j0 + j;
-    long long ko, vo;
-    if (p.tables) {
-      const long long page = page_s[j];
-      const int off = pj % p.page_size;
-      ko = page * p.sk_p + off * p.sk_l;
-      vo = page * p.sv_p + off * p.sv_l;
-    } else {
-      ko = b * p.sk_b + pj * p.sk_l;
-      vo = b * p.sv_b + pj * p.sv_l;
-    }
-    cp_async16(k_s + j * rs + u * 16, k8 + ko + u * 16);
-    cp_async16(v_s + j * rs + u * 16, v8 + vo + u * 16);
+  switch (p.vec) {
+    case 16: copy_rows<16>(p, k_s, v_s, rs, page_s, b, h, j0, cnt); break;
+    case 8: copy_rows<8>(p, k_s, v_s, rs, page_s, b, h, j0, cnt); break;
+    case 4: copy_rows<4>(p, k_s, v_s, rs, page_s, b, h, j0, cnt); break;
+    case 2: copy_rows<2>(p, k_s, v_s, rs, page_s, b, h, j0, cnt); break;
+    default: copy_rows<1>(p, k_s, v_s, rs, page_s, b, h, j0, cnt); break;
   }
   const float* ks = p.ks + h * p.sks_h;
   const float* vs = p.vs + h * p.svs_h;
@@ -455,8 +508,9 @@ __global__ void __launch_bounds__(kThreads, kG == 1 ? 8 : 4) decode_attn(const P
   for (int w0 = 0; w0 < W; w0 += kG) {
     const int nw = min(kG, W - w0);
     if (w0) __syncthreads();  // the previous group is done with q_s, s_s, red_s
-    for (int i = t; i < nw * D; i += kThreads) {
-      q_s[i] = to_f32<T>(q[(w0 + i / D) * p.sq_w + i % D]);
+    for (int i = t; i < nw * D; i += kThreads) {  // zeros past the real d
+      const int d = i % D;
+      q_s[i] = d < p.d ? to_f32<T>(q[(w0 + i / D) * p.sq_w + d]) : 0.f;
     }
     for (int i = t; i < nw; i += kThreads) pos_s[i] = query_pos(p, b, w0 + i);
     if (!w0) cp_async_wait_all();
@@ -569,8 +623,10 @@ __global__ void __launch_bounds__(kThreads, kG == 1 ? 8 : 4) decode_attn(const P
       for (int k = 0; k < pg; ++k) o = __fadd_rn(o, red_s[(wi * pg + k) * D + d]);
       if (single) {
         // the combine of one chunk: M = m_0, l = l_0, o = o_0 exactly
-        static_cast<T*>(p.out)[b * p.so_b + (w0 + wi) * p.so_w + h * p.so_h + d] =
-            from_f32<T>(__fdiv_rn(o, l_s[wi]));
+        if (d < p.d) {
+          static_cast<T*>(p.out)[b * p.so_b + (w0 + wi) * p.so_w + h * p.so_h + d] =
+              from_f32<T>(__fdiv_rn(o, l_s[wi]));
+        }
       } else {
         const long long idx = ((static_cast<long long>(bh) * W + w0 + wi) * p.n_chunks + c);
         p.part_o[idx * D + d] = o;
@@ -618,7 +674,7 @@ __global__ void __launch_bounds__(kThreads, kG == 1 ? 8 : 4) decode_attn(const P
 
 template <typename T, int kC, int kG>
 cudaError_t launch(const Params& prm, cudaStream_t st) {
-  const long long smem = smem_bytes(kC, prm.d, prm.w);
+  const long long smem = smem_bytes(kC, prm.dp, prm.w);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attn<T, kC, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -646,15 +702,16 @@ extern "C" {
 // `page_size` positions a page. `pos` null: every row reads `pos_scalar`.
 // `chunk` is kChunk = 64 positions and `n_chunks` at least
 // ceil(n / chunk) for the largest n any query reads; `part_o` holds
-// b * h * w * n_chunks * d f32, `part_ml` b * h * w * n_chunks pairs, and
-// `counters` b * h int32 zeros, which the launch leaves zero.
+// b * h * w * n_chunks * dp f32 (dp = d rounded up to 16), `part_ml`
+// b * h * w * n_chunks pairs, and `counters` b * h int32 zeros, which the
+// launch leaves zero. d is any head_dim from 1 to 256.
 int tk8s_decode_attn_int8(int dtype, const void* q, const int8_t* k8, const float* ks,
                           const int8_t* v8, const float* vs, const int* tables, int page_size,
                           const int* pos, int pos_scalar, void* out, float* part_o,
                           float* part_ml, int* counters, const long long* strides, int n_strides,
                           int b, int w, int h, int l, int d, int chunk, int n_chunks,
                           float inv_sqrt_d, void* stream) {
-  if (n_strides != kStrides || b <= 0 || w <= 0 || h <= 0 || l <= 0 || d <= 0 || d % 16 ||
+  if (n_strides != kStrides || b <= 0 || w <= 0 || h <= 0 || l <= 0 || d <= 0 ||
       d > kMaxHeadDim || chunk != kChunk || n_chunks <= 0 ||
       static_cast<long long>(n_chunks) * chunk < (pos ? l : row_len(pos_scalar, l)) ||
       (tables != nullptr && page_size <= 0) ||
@@ -662,12 +719,21 @@ int tk8s_decode_attn_int8(int dtype, const void* q, const int8_t* k8, const floa
     return cudaErrorInvalidValue;
   }
   const long long* s = strides;
+  // the widest copy unit that divides the row width, every k8 and v8
+  // stride (b, page, l, h) and both starts
+  int vec = 16;
+  const long long unit_of[] = {d, s[3], s[4], s[5], s[6], s[11], s[12], s[13], s[14],
+                               static_cast<long long>(reinterpret_cast<uintptr_t>(k8)),
+                               static_cast<long long>(reinterpret_cast<uintptr_t>(v8))};
+  for (const long long x : unit_of) {
+    while (x % vec) vec >>= 1;
+  }
   const Params prm = {q, k8, ks, v8, vs, tables, pos, pos_scalar, page_size, out, part_o,
                       reinterpret_cast<float2*>(part_ml), counters,
                       s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
                       s[12], s[13], s[14], s[15], s[16], s[17], s[18], s[19], s[20], s[21], s[22],
                       s[23], s[24], s[25],
-                      b, w, h, l, d, n_chunks, inv_sqrt_d};
+                      b, w, h, l, d, padded_dim(d), vec, n_chunks, inv_sqrt_d};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_for<__nv_bfloat16>(prm, st);
   if (dtype == 1) return launch_for<__half>(prm, st);

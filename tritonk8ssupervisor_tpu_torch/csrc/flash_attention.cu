@@ -30,8 +30,8 @@
 //
 // The forward, `attn_fwd`: items of (128-row q tile, batch*head). q comes
 // once (two buffers, so the next item's q loads while this item's O
-// leaves), k and v 64-wide (head_dim 128) or 128-wide (head_dim 64)
-// through a 4-stage ring:
+// leaves), k and v 64-wide (tile 128 or 256) or 128-wide (tile 64)
+// through a 4-stage ring (2 stages at tile 256, below):
 //
 //   S = Q K^T       wgmma, both operands K-major in shared memory;
 //   softmax         online, in f32 registers: a running max and a
@@ -80,11 +80,37 @@
 // dK and dV accumulators beside two score tiles, so the producer's
 // warpgroup gives its registers to them (`setmaxnreg`).
 //
-// The scale 1/sqrt(d) is applied to the f32 scores (the splash kernel
-// folds it into bf16 q instead). TMA needs the (batch, seq, head) strides
-// in multiples of 8 elements with a unit head_dim stride, and 16-byte
-// aligned starts (the wrapper copies anything else). Template instances:
-// head_dim 64 and 128, bf16 and fp16.
+// Any head_dim d from 1 to 256. The kernels are instantiated for three
+// tile widths D, 64, 128 and 256, in bf16 and fp16; d runs on the narrowest
+// tile that holds it (the wrapper picks it). The tensor maps give TMA the
+// real d as the innermost dimension, so every load fills the columns [d,
+// D) of a tile with zeros and every store of O, dQ, dK and dV clips them:
+// zero columns add nothing to Q K^T or dO V^T, and the columns of O, dQ,
+// dK and dV they give are never stored. The row pre-pass masks them. The
+// scale 1/sqrt(d) of the real d comes from the wrapper.
+//
+// At D = 256 the plan above does not fit: two 128-row q buffers and a
+// 4-stage ring of 64-key k/v tiles need ~384 KB of shared memory against a
+// block's 227 KB, and a warpgroup's 64 x 256 f32 accumulator is 128
+// registers a thread for O, twice that for dK and dV together. So at that
+// width an item is 64 rows (q rows, or keys for dK/dV) that both consumer
+// warpgroups share, and each accumulates one half of the output's columns
+// (warpgroup w the columns [128 w, 128 w + 128)). Both compute the item's
+// whole 64 x 64 score (and dP) tiles over all 256 columns, which is the
+// price of the split: 3 units of tensor-core work for the forward's 2, and
+// 11 for the backward's 7. Every accumulator is then the D = 128 one, in
+// the same registers. Shared memory at D = 256: forward two 64-row q
+// buffers (64 KB) and a 2-stage ring of k and v (128 KB); dK/dV one K and
+// V buffer (64 KB) and a 2-stage ring of Q, dO and their rows (130 KB);
+// dQ one Q and dO buffer (64 KB) and a 2-stage ring of K and V (128 KB).
+// The two warpgroups meet at a named barrier before either stages its
+// half of the output in the item's shared input tiles.
+//
+// The scale is applied to the f32 scores (the splash kernel folds it into
+// bf16 q instead). TMA needs the (batch, seq, head) strides in multiples
+// of 8 elements with a unit head_dim stride, and 16-byte aligned starts
+// (the wrapper copies anything else, and pads a d that is not a multiple
+// of 8 to one).
 //
 // Plain C interface, loaded with ctypes (ops/flash_attention_cuda.py).
 // Each entry point launches on the caller's stream, allocates nothing,
@@ -118,6 +144,7 @@ struct Params {
   float* rows;       // the backward's lse2 and D rows (attn_bwd_rows)
   long long strides[kTensors][3];
   int batch, heads, seq, causal;
+  int dim;           // the tensors' head_dim, at most the tile's width D
   float scale;       // 1/sqrt(head_dim)
 };
 
@@ -145,34 +172,46 @@ __device__ __forceinline__ void zero(float (&c)[N]) {
 
 // ----- the forward (csrc/hopper.cuh)
 
-constexpr int kStages = 4;  // the forward's k/v ring
+// At tile width D > 128 an item's 64 rows are shared by both consumer
+// warpgroups, each accumulating half of the output's columns (the header)
+template <int D>
+struct Split {
+  static constexpr bool kOn = D > 128;
+  static constexpr int kRows = kOn ? 64 : kItemRows;  // rows an item
+  static constexpr int kCols = kOn ? D / 2 : D;       // output columns a warpgroup
+  // this warpgroup's first row of the item, and its first 64-column chunk
+  __device__ static int row0(int wg) { return kOn ? 0 : wg * 64; }
+  __device__ static int chunk0(int wg) { return kOn ? wg * (kCols / 64) : 0; }
+};
 
 template <int D>
-struct Fwd {
-  static constexpr int kBN = D == 64 ? 128 : 64;  // keys a tile
-  static constexpr int kQ = kItemRows * D * 2;     // D / 64 chunks of 128 lines
-  static constexpr int kKV = kBN * D * 2;         // one k or v tile
+struct Fwd : Split<D> {
+  static constexpr int kBN = D == 64 ? 128 : 64;     // keys a tile
+  static constexpr int kStages = D > 128 ? 2 : 4;    // the k/v ring
+  static constexpr int kQ = Split<D>::kRows * D * 2;  // D / 64 chunks of kRows lines
+  static constexpr int kKV = kBN * D * 2;            // one k or v tile
   // two q buffers (the next item's q loads while this item's O leaves
   // through the other), the ring of k and v tiles
   static constexpr int kSmem = 2 * kQ + 2 * kStages * kKV + tk8s::kAtom;
+  static_assert(kSmem <= 227 * 1024, "a CTA's shared memory");
 };
 
 struct FwdMaps {
-  CUtensorMap q;  // boxes 64 x 128 rows
+  CUtensorMap q;  // boxes 64 x kRows
   CUtensorMap k;  // boxes 64 x kBN rows
   CUtensorMap v;  // boxes 64 x kBN rows
   CUtensorMap o;  // boxes 64 x 64 rows, stored
 };
 
-// Work item i of a call: a 128-row q tile of one (batch, head), the
+// Work item i of a call: a `rows`-row q tile of one (batch, head), the
 // longest causal rows first; (q0, bh, k/v tiles).
 struct Item {
   int q0, bh, tiles;
-  __device__ Item(const Params& p, int i, int bn) {
+  __device__ Item(const Params& p, int i, int bn, int rows) {
     const int bhs = p.batch * p.heads;
-    q0 = (cdiv(p.seq, kItemRows) - 1 - i / bhs) * kItemRows;
+    q0 = (cdiv(p.seq, rows) - 1 - i / bhs) * rows;
     bh = i % bhs;
-    tiles = p.causal ? min(cdiv(p.seq, bn), cdiv(q0 + kItemRows, bn)) : cdiv(p.seq, bn);
+    tiles = p.causal ? min(cdiv(p.seq, bn), cdiv(q0 + rows, bn)) : cdiv(p.seq, bn);
   }
 };
 
@@ -183,13 +222,13 @@ struct Item {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1) attn_fwd(const __grid_constant__ FwdMaps maps, Params p) {
   using F = Fwd<D>;
-  constexpr int BN = F::kBN;
+  constexpr int BN = F::kBN, kStages = F::kStages, R = F::kRows, N = F::kCols;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full[2], q_empty[2], k_full[kStages], v_full[kStages], empty[kStages];
   uint8_t* sQ = tk8s::align_atom(smem_raw);  // two buffers of F::kQ
   uint8_t* sK = sQ + 2 * F::kQ;
   uint8_t* sV = sK + kStages * F::kKV;
-  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  const int items = cdiv(p.seq, R) * p.batch * p.heads;
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       tk8s::mbar_init(&q_full[i], 1);
@@ -211,14 +250,13 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd(const __grid_constant__ 
       tk8s::prefetch_map(&maps.v);
       int t = 0;  // k/v tiles loaded so far: the ring position
       for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
-        const Item it(p, i, BN);
+        const Item it(p, i, BN, R);
         const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1;
         tk8s::mbar_wait(&q_empty[qb], ((n >> 1) & 1) ^ 1);
         tk8s::mbar_expect_tx(&q_full[qb], F::kQ);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
-          tk8s::tma_load_4d(sQ + qb * F::kQ + c * kItemRows * tk8s::kLine, &maps.q, &q_full[qb], 64 * c, it.q0,
-                            h, b);
+          tk8s::tma_load_4d(sQ + qb * F::kQ + c * R * tk8s::kLine, &maps.q, &q_full[qb], 64 * c, it.q0, h, b);
         }
         for (int j = 0; j < it.tiles; ++j, ++t) {
           const int s = t % kStages;
@@ -243,16 +281,17 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd(const __grid_constant__ 
   const int t4 = lane & 3, seq = p.seq;
   const float sl2 = p.scale * kLog2e;  // exp(x * scale) = exp2(x * sl2)
   int t = 0;
+  const int c0 = F::chunk0(wg);  // this warpgroup's first column chunk of O
   for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
-    const Item it(p, i, BN);
-    const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1, wg_row0 = it.q0 + wg * 64;
+    const Item it(p, i, BN, R);
+    const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1, wg_row0 = it.q0 + F::row0(wg);
     const int row[2] = {wg_row0 + warp * 16 + (lane >> 2), wg_row0 + warp * 16 + (lane >> 2) + 8};
-    uint8_t* q_tile = sQ + qb * F::kQ + wg * 64 * tk8s::kLine;  // this warpgroup's rows
+    uint8_t* q_tile = sQ + qb * F::kQ + F::row0(wg) * tk8s::kLine;  // this warpgroup's rows
     const uint32_t q_addr = tk8s::smem_addr(q_tile);
 
-    float o[D / 2];
+    float o[N / 2];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    for (int e = 0; e < N / 2; ++e) o[e] = 0.f;
     // running max of the scaled scores (log2 units) and this thread's
     // share of the running sum
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -273,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd(const __grid_constant__ 
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int c = kk / 4, in = 32 * (kk % 4);
-          tk8s::wgmma_ss<T, 0, 0>(sc, tk8s::desc_k_major(q_addr + c * kItemRows * tk8s::kLine + in),
+          tk8s::wgmma_ss<T, 0, 0>(sc, tk8s::desc_k_major(q_addr + c * R * tk8s::kLine + in),
                                   tk8s::desc_k_major(k_addr + c * BN * tk8s::kLine + in), 1);
         }
         tk8s::wgmma_commit();
@@ -317,10 +356,11 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd(const __grid_constant__ 
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
 #pragma unroll
-        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+        for (int e = 0; e < N / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 
         tk8s::mbar_wait(&v_full[s], parity);
-        const uint32_t v_addr = tk8s::smem_addr(sV + s * F::kKV);
+        // this warpgroup's columns of V
+        const uint32_t v_addr = tk8s::smem_addr(sV + s * F::kKV) + c0 * BN * tk8s::kLine;
         tk8s::fence_regs(o);
         tk8s::wgmma_fence();
 #pragma unroll
@@ -344,28 +384,32 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd(const __grid_constant__ 
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
     const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    // split: the other warpgroup may still read these q rows
+    if (F::kOn) tk8s::named_sync(3, kConsumers);
+    uint8_t* o_tile = q_tile + c0 * R * tk8s::kLine;  // this warpgroup's first chunk
 #pragma unroll
-    for (int e = 0; e < D / 2; e += 2) {
+    for (int e = 0; e < N / 2; e += 2) {
       const int r = (e >> 1) & 1, lr = warp * 16 + (lane >> 2) + 8 * r, col = 8 * (e >> 2) + 2 * t4;
-      // chunks of the q buffer are kItemRows lines apart; the swizzle runs
-      // over the warpgroup's 64 lines
-      const uint32_t off = (col >> 6) * kItemRows * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
-      *reinterpret_cast<uint32_t*>(q_tile + off) = tk8s::pack2<T>(o[e] * inv[r], o[e + 1] * inv[r]);
+      // chunks of the q buffer are R lines apart; the swizzle runs over
+      // the warpgroup's 64 lines
+      const uint32_t off = (col >> 6) * R * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
+      *reinterpret_cast<uint32_t*>(o_tile + off) = tk8s::pack2<T>(o[e] * inv[r], o[e + 1] * inv[r]);
     }
     tk8s::fence_proxy_async();
     tk8s::named_sync(1 + wg, 128);
     if (threadIdx.x % 128 == 0) {
       if (wg_row0 < seq) {
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          tk8s::tma_store_4d(&maps.o, q_tile + c * kItemRows * tk8s::kLine, 64 * c, wg_row0, h, b);
+        for (int c = 0; c < N / 64; ++c) {
+          tk8s::tma_store_4d(&maps.o, o_tile + c * R * tk8s::kLine, 64 * (c0 + c), wg_row0, h, b);
         }
         tk8s::tma_store_commit();
         tk8s::tma_store_wait_read();
       }
       tk8s::mbar_arrive(&q_empty[qb]);  // the q buffer may take the item after next
     }
-    if (t4 == 0) {
+    // split: both warpgroups hold the same rows' logsumexp; one writes it
+    if (t4 == 0 && (!F::kOn || wg == 0)) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (row[r] < seq) p.lse[(long long)it.bh * seq + row[r]] = (m[r] + log2f(l[r])) * kLn2;
@@ -401,17 +445,18 @@ __device__ __forceinline__ long long row_at(int bh, int seq, int r) {
 }
 
 template <int D>
-struct Bwd {
+struct Bwd : Split<D> {
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kTile = kItemRows * D * 2;  // a 128-row tile: D / 64 chunks of 128 lines
-  static constexpr int kRing = kStep * D * 2;      // a 64-row tile: D / 64 chunks of 64 lines
-  static constexpr int kRowBytes = 2 * kStep * 4;  // a q tile's lse2 and D
-  // dK/dV: two buffers of (K, V), a ring of (Q, dO, lse2 and D) with each
-  // stage padded to whole atoms
+  static constexpr int kBufs = D > 128 ? 1 : 2;          // buffers of the item's own tiles
+  static constexpr int kTile = Split<D>::kRows * D * 2;  // an item's tile: D / 64 chunks of kRows lines
+  static constexpr int kRing = kStep * D * 2;            // a 64-row tile: D / 64 chunks of 64 lines
+  static constexpr int kRowBytes = 2 * kStep * 4;        // a q tile's lse2 and D
+  // dK/dV: kBufs buffers of (K, V), a ring of (Q, dO, lse2 and D) with
+  // each stage padded to whole atoms
   static constexpr int kKVStage = 2 * kRing + tk8s::kAtom;
-  static constexpr int kKVSmem = 4 * kTile + kStages * kKVStage + tk8s::kAtom;
-  // dQ: two buffers of (Q, dO), a ring of (K, V)
-  static constexpr int kQSmem = 4 * kTile + kStages * 2 * kRing + tk8s::kAtom;
+  static constexpr int kKVSmem = 2 * kBufs * kTile + kStages * kKVStage + tk8s::kAtom;
+  // dQ: kBufs buffers of (Q, dO), a ring of (K, V)
+  static constexpr int kQSmem = 2 * kBufs * kTile + kStages * 2 * kRing + tk8s::kAtom;
   static_assert(kKVSmem <= 227 * 1024 && kQSmem <= 227 * 1024, "a CTA's shared memory");
 };
 
@@ -434,34 +479,37 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, 
   }
 }
 
-// A warpgroup's 64 x D f32 accumulator times `scale`, rounded to T, into
-// its 64 `rows` of a 128-row tile, laid out as TMA reads them
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(uint8_t* rows, const float (&acc)[D / 2], float scale) {
+// A warpgroup's 64 x N f32 accumulator times `scale`, rounded to T, into
+// its 64 `rows` of a tile whose chunks are R lines apart, laid out as TMA
+// reads them
+template <typename T, int N, int R>
+__device__ __forceinline__ void stage_rows(uint8_t* rows, const float (&acc)[N / 2], float scale) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int e = 0; e < D / 2; e += 2) {
+  for (int e = 0; e < N / 2; e += 2) {
     const int lr = warp * 16 + (lane >> 2) + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * (lane & 3);
-    const uint32_t off = (col >> 6) * kItemRows * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
+    const uint32_t off = (col >> 6) * R * tk8s::kLine + tk8s::swizzled(lr, col & 63, 64);
     *reinterpret_cast<uint32_t*>(rows + off) = tk8s::pack2<T>(acc[e] * scale, acc[e + 1] * scale);
   }
 }
 
-// those rows to device memory at row r0 (the box clips the ragged end)
-template <int D>
-__device__ __forceinline__ void store_rows(const CUtensorMap* map, const uint8_t* rows, int r0, int h, int b) {
+// those rows to device memory at row r0 and column col0 (the box clips
+// the ragged end and the columns past head_dim)
+template <int N, int R>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, const uint8_t* rows, int col0, int r0, int h,
+                                           int b) {
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) tk8s::tma_store_4d(map, rows + c * kItemRows * tk8s::kLine, 64 * c, r0, h, b);
+  for (int c = 0; c < N / 64; ++c) tk8s::tma_store_4d(map, rows + c * R * tk8s::kLine, col0 + 64 * c, r0, h, b);
 }
 
-// acc (64 x 64) = A B^T over head_dim: A a warpgroup's 64 rows of a
-// 128-row tile, B a 64-row tile of the ring, both K-major
-template <typename T, int D>
+// acc (64 x 64) = A B^T over head_dim: A a warpgroup's 64 rows of a tile
+// whose chunks are R lines apart, B a 64-row tile of the ring, both K-major
+template <typename T, int D, int R>
 __device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk / 4, in = 32 * (kk % 4);
-    tk8s::wgmma_ss<T, 0, 0>(acc, tk8s::desc_k_major(a + c * kItemRows * tk8s::kLine + in),
+    tk8s::wgmma_ss<T, 0, 0>(acc, tk8s::desc_k_major(a + c * R * tk8s::kLine + in),
                             tk8s::desc_k_major(b + c * kStep * tk8s::kLine + in), 1);
   }
 }
@@ -477,7 +525,8 @@ __device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (
 }
 
 // lse2 = logsumexp * log2(e) and D = rowsum(dO * O) in f32 for every row
-// of the padded sequence: D / 8 threads a row, 16 bytes each
+// of the padded sequence: D / 8 threads a row, 16 bytes each; the threads
+// past head_dim (a multiple of 8) add nothing
 template <typename T, int D>
 __global__ void __launch_bounds__(256) attn_bwd_rows(Params p) {
   constexpr int kPer = D / 8;
@@ -486,7 +535,7 @@ __global__ void __launch_bounds__(256) attn_bwd_rows(Params p) {
   const int part = (int)(id % kPer), s = (int)(row % padded), bh = (int)(row / padded);
   const bool in = row < (long long)p.batch * p.heads * padded, real = in && s < p.seq;
   float acc = 0.f;
-  if (real) {
+  if (real && part * 8 < p.dim) {
     const int b = bh / p.heads, h = bh % p.heads;
     const T* o = head<T>(p, p.o, kO, b, h) + s * p.strides[kO][1] + part * 8;
     const T* d = head<T>(p, p.dout, kDO, b, h) + s * p.strides[kDO][1] + part * 8;
@@ -507,14 +556,14 @@ __global__ void __launch_bounds__(256) attn_bwd_rows(Params p) {
   }
 }
 
-// Work item i of the dK/dV kernel: a 128-key tile of one (batch, head),
-// the first keys (the most q tiles under a causal mask) first, and its
-// 64-row q tiles [first, last)
+// Work item i of the dK/dV kernel: a `rows`-key tile of one (batch,
+// head), the first keys (the most q tiles under a causal mask) first, and
+// its 64-row q tiles [first, last)
 struct KVItem {
   int k0, bh, first, last;
-  __device__ KVItem(const Params& p, int i) {
+  __device__ KVItem(const Params& p, int i, int rows) {
     const int bhs = p.batch * p.heads;
-    k0 = i / bhs * kItemRows;
+    k0 = i / bhs * rows;
     bh = i % bhs;
     first = p.causal ? k0 / kStep : 0;
     last = cdiv(p.seq, kStep);
@@ -524,14 +573,14 @@ struct KVItem {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_constant__ BwdMaps maps, Params p) {
   using B = Bwd<D>;
-  constexpr int S = B::kStages;
+  constexpr int S = B::kStages, NB = B::kBufs, R = B::kRows, N = B::kCols;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t kv_full[2], kv_empty[2], full[S], empty[S];
+  __shared__ __align__(8) uint64_t kv_full[NB], kv_empty[NB], full[S], empty[S];
   uint8_t* sKV = tk8s::align_atom(smem_raw);  // buffer kb: K at 2 kb kTile, V after it
-  uint8_t* sRing = sKV + 4 * B::kTile;        // stage s: Q, dO, then the lse2 and D rows
-  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  uint8_t* sRing = sKV + 2 * NB * B::kTile;   // stage s: Q, dO, then the lse2 and D rows
+  const int items = cdiv(p.seq, R) * p.batch * p.heads;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NB; ++i) {
       tk8s::mbar_init(&kv_full[i], 1);
       tk8s::mbar_init(&kv_empty[i], 2);  // one arrival per consumer warpgroup
     }
@@ -552,13 +601,13 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_consta
       tk8s::prefetch_map(&maps.dout);
       int t = 0;  // q tiles loaded so far: the ring position
       for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
-        const KVItem it(p, i);
-        const int b = it.bh / p.heads, h = it.bh % p.heads, kb = n & 1;
+        const KVItem it(p, i, R);
+        const int b = it.bh / p.heads, h = it.bh % p.heads, kb = n % NB;
         uint8_t* kv = sKV + 2 * kb * B::kTile;
-        tk8s::mbar_wait(&kv_empty[kb], ((n >> 1) & 1) ^ 1);
+        tk8s::mbar_wait(&kv_empty[kb], ((n / NB) & 1) ^ 1);
         tk8s::mbar_expect_tx(&kv_full[kb], 2 * B::kTile);
-        load_tile<D, kItemRows>(kv, &maps.k, &kv_full[kb], it.k0, h, b);
-        load_tile<D, kItemRows>(kv + B::kTile, &maps.v, &kv_full[kb], it.k0, h, b);
+        load_tile<D, R>(kv, &maps.k, &kv_full[kb], it.k0, h, b);
+        load_tile<D, R>(kv + B::kTile, &maps.v, &kv_full[kb], it.k0, h, b);
         for (int j = it.first; j < it.last; ++j, ++t) {
           const int s = t % S;
           uint8_t* stage = sRing + s * B::kKVStage;
@@ -576,18 +625,20 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_consta
     const int wg = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int t4 = lane & 3;
     const float sl2 = p.scale * kLog2e;  // exp(x * scale) = exp2(x * sl2)
+    const int c0 = B::chunk0(wg);  // this warpgroup's first column chunk of dK and dV
     int t = 0;
     for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
-      const KVItem it(p, i);
-      const int b = it.bh / p.heads, h = it.bh % p.heads, kb = n & 1, key0 = it.k0 + wg * 64;
+      const KVItem it(p, i, R);
+      const int b = it.bh / p.heads, h = it.bh % p.heads, kb = n % NB, key0 = it.k0 + B::row0(wg);
       const int key[2] = {key0 + warp * 16 + (lane >> 2), key0 + warp * 16 + (lane >> 2) + 8};
-      uint8_t* k_rows = sKV + 2 * kb * B::kTile + wg * 64 * tk8s::kLine;  // this warpgroup's keys
+      // this warpgroup's keys
+      uint8_t* k_rows = sKV + 2 * kb * B::kTile + B::row0(wg) * tk8s::kLine;
       uint8_t* v_rows = k_rows + B::kTile;
       const uint32_t k_addr = tk8s::smem_addr(k_rows), v_addr = tk8s::smem_addr(v_rows);
-      float dk[D / 2], dv[D / 2];
+      float dk[N / 2], dv[N / 2];
       zero(dk);
       zero(dv);
-      tk8s::mbar_wait(&kv_full[kb], (n >> 1) & 1);
+      tk8s::mbar_wait(&kv_full[kb], (n / NB) & 1);
       for (int j = it.first; j < it.last; ++j, ++t) {
         const int s = t % S, q0 = j * kStep;
         tk8s::mbar_wait(&full[s], (t / S) & 1);
@@ -605,8 +656,8 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_consta
           tk8s::fence_regs(st);
           tk8s::fence_regs(dpt);
           tk8s::wgmma_fence();
-          product_ss<T, D>(st, k_addr, q_addr);
-          product_ss<T, D>(dpt, v_addr, do_addr);
+          product_ss<T, D, R>(st, k_addr, q_addr);
+          product_ss<T, D, R>(dpt, v_addr, do_addr);
           tk8s::wgmma_commit();
           tk8s::wgmma_wait<0>();
           tk8s::fence_regs(st);
@@ -636,12 +687,14 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_consta
             }
           }
 
-          // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+          // dV += P^T dO and dK += dS^T Q over this warpgroup's columns,
+          // dO and Q read MN-major
+          const uint32_t cols = c0 * kStep * tk8s::kLine;
           tk8s::fence_regs(dk);
           tk8s::fence_regs(dv);
           tk8s::wgmma_fence();
-          product_rs<T, D>(dv, pa, do_addr);
-          product_rs<T, D>(dk, da, q_addr);
+          product_rs<T, N>(dv, pa, do_addr + cols);
+          product_rs<T, N>(dk, da, q_addr + cols);
           tk8s::wgmma_commit();
           tk8s::wgmma_wait<0>();
           tk8s::fence_regs(dk);
@@ -651,15 +704,19 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_consta
       }
 
       // dK (times the scale) and dV in the input dtype, staged in this
-      // warpgroup's rows of the K and V tiles
-      stage_rows<T, D>(k_rows, dk, p.scale);
-      stage_rows<T, D>(v_rows, dv, 1.f);
+      // warpgroup's rows and columns of the K and V tiles (split: once the
+      // other warpgroup has read them too)
+      if (B::kOn) tk8s::named_sync(3, kConsumers);
+      uint8_t* dk_rows = k_rows + c0 * R * tk8s::kLine;
+      uint8_t* dv_rows = v_rows + c0 * R * tk8s::kLine;
+      stage_rows<T, N, R>(dk_rows, dk, p.scale);
+      stage_rows<T, N, R>(dv_rows, dv, 1.f);
       tk8s::fence_proxy_async();
       tk8s::named_sync(1 + wg, 128);
       if (threadIdx.x % 128 == 0) {
         if (key0 < p.seq) {
-          store_rows<D>(&maps.dk, k_rows, key0, h, b);
-          store_rows<D>(&maps.dv, v_rows, key0, h, b);
+          store_rows<N, R>(&maps.dk, dk_rows, 64 * c0, key0, h, b);
+          store_rows<N, R>(&maps.dv, dv_rows, 64 * c0, key0, h, b);
           tk8s::tma_store_commit();
           tk8s::tma_store_wait_read();
         }
@@ -672,14 +729,14 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv(const __grid_consta
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant__ BwdMaps maps, Params p) {
   using B = Bwd<D>;
-  constexpr int S = B::kStages;
+  constexpr int S = B::kStages, NB = B::kBufs, R = B::kRows, N = B::kCols;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t q_full[2], q_empty[2], full[S], empty[S];
+  __shared__ __align__(8) uint64_t q_full[NB], q_empty[NB], full[S], empty[S];
   uint8_t* sQ = tk8s::align_atom(smem_raw);  // buffer qb: Q at 2 qb kTile, dO after it
-  uint8_t* sRing = sQ + 4 * B::kTile;        // stage s: K, then V
-  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  uint8_t* sRing = sQ + 2 * NB * B::kTile;   // stage s: K, then V
+  const int items = cdiv(p.seq, R) * p.batch * p.heads;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NB; ++i) {
       tk8s::mbar_init(&q_full[i], 1);
       tk8s::mbar_init(&q_empty[i], 2);  // one arrival per consumer warpgroup
     }
@@ -700,13 +757,13 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant
       tk8s::prefetch_map(&maps.dout);
       int t = 0;  // k/v tiles loaded so far: the ring position
       for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
-        const Item it(p, i, kStep);
-        const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1;
+        const Item it(p, i, kStep, R);
+        const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n % NB;
         uint8_t* qd = sQ + 2 * qb * B::kTile;
-        tk8s::mbar_wait(&q_empty[qb], ((n >> 1) & 1) ^ 1);
+        tk8s::mbar_wait(&q_empty[qb], ((n / NB) & 1) ^ 1);
         tk8s::mbar_expect_tx(&q_full[qb], 2 * B::kTile);
-        load_tile<D, kItemRows>(qd, &maps.q, &q_full[qb], it.q0, h, b);
-        load_tile<D, kItemRows>(qd + B::kTile, &maps.dout, &q_full[qb], it.q0, h, b);
+        load_tile<D, R>(qd, &maps.q, &q_full[qb], it.q0, h, b);
+        load_tile<D, R>(qd + B::kTile, &maps.dout, &q_full[qb], it.q0, h, b);
         for (int j = 0; j < it.tiles; ++j, ++t) {
           const int s = t % S;
           uint8_t* stage = sRing + s * 2 * B::kRing;
@@ -722,12 +779,14 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant
     const int wg = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int t4 = lane & 3;
     const float sl2 = p.scale * kLog2e;
+    const int c0 = B::chunk0(wg);  // this warpgroup's first column chunk of dQ
     int t = 0;
     for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
-      const Item it(p, i, kStep);
-      const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n & 1, row0 = it.q0 + wg * 64;
+      const Item it(p, i, kStep, R);
+      const int b = it.bh / p.heads, h = it.bh % p.heads, qb = n % NB, row0 = it.q0 + B::row0(wg);
       const int row[2] = {row0 + warp * 16 + (lane >> 2), row0 + warp * 16 + (lane >> 2) + 8};
-      uint8_t* q_rows = sQ + 2 * qb * B::kTile + wg * 64 * tk8s::kLine;  // this warpgroup's rows
+      // this warpgroup's rows
+      uint8_t* q_rows = sQ + 2 * qb * B::kTile + B::row0(wg) * tk8s::kLine;
       const uint32_t q_addr = tk8s::smem_addr(q_rows), do_addr = q_addr + B::kTile;
       float lse2[2], dd[2];
 #pragma unroll
@@ -736,9 +795,9 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant
         lse2[r] = at[0];
         dd[r] = at[kStep];
       }
-      float dq[D / 2];
+      float dq[N / 2];
       zero(dq);
-      tk8s::mbar_wait(&q_full[qb], (n >> 1) & 1);
+      tk8s::mbar_wait(&q_full[qb], (n / NB) & 1);
       for (int j = 0; j < it.tiles; ++j, ++t) {
         const int s = t % S, k0 = j * kStep;
         tk8s::mbar_wait(&full[s], (t / S) & 1);
@@ -753,8 +812,8 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant
           tk8s::fence_regs(sc);
           tk8s::fence_regs(dp);
           tk8s::wgmma_fence();
-          product_ss<T, D>(sc, q_addr, k_addr);
-          product_ss<T, D>(dp, do_addr, v_addr);
+          product_ss<T, D, R>(sc, q_addr, k_addr);
+          product_ss<T, D, R>(dp, do_addr, v_addr);
           tk8s::wgmma_commit();
           tk8s::wgmma_wait<0>();
           tk8s::fence_regs(sc);
@@ -780,10 +839,10 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant
             }
           }
 
-          // dQ += dS K, K read MN-major
+          // dQ += dS K over this warpgroup's columns, K read MN-major
           tk8s::fence_regs(dq);
           tk8s::wgmma_fence();
-          product_rs<T, D>(dq, da, k_addr);
+          product_rs<T, N>(dq, da, k_addr + c0 * kStep * tk8s::kLine);
           tk8s::wgmma_commit();
           tk8s::wgmma_wait<0>();
           tk8s::fence_regs(dq);
@@ -792,13 +851,16 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq(const __grid_constant
       }
 
       // dQ (times the scale) in q's dtype, staged in this warpgroup's rows
-      // of its Q tile
-      stage_rows<T, D>(q_rows, dq, p.scale);
+      // and columns of its Q tile (split: once the other warpgroup has read
+      // them too)
+      if (B::kOn) tk8s::named_sync(3, kConsumers);
+      uint8_t* dq_rows = q_rows + c0 * R * tk8s::kLine;
+      stage_rows<T, N, R>(dq_rows, dq, p.scale);
       tk8s::fence_proxy_async();
       tk8s::named_sync(1 + wg, 128);
       if (threadIdx.x % 128 == 0) {
         if (row0 < p.seq) {
-          store_rows<D>(&maps.dq, q_rows, row0, h, b);
+          store_rows<N, R>(&maps.dq, dq_rows, 64 * c0, row0, h, b);
           tk8s::tma_store_commit();
           tk8s::tma_store_wait_read();
         }
@@ -815,17 +877,17 @@ cudaError_t forward(const Params& p, cudaStream_t stream) {
   FwdMaps maps;
   CUtensorMap* out[4] = {&maps.q, &maps.k, &maps.v, &maps.o};
   const void* base[4] = {p.q, p.k, p.v, p.o};
-  const int rows[4] = {kItemRows, F::kBN, F::kBN, 64};
+  const int rows[4] = {F::kRows, F::kBN, F::kBN, 64};
   const long long b = p.batch, h = p.heads, s = p.seq;
   for (int i = 0; i < 4; ++i) {
     const long long* st = p.strides[i];
     const cudaError_t err =
-        tk8s::make_map<T>(out[i], base[i], {D, s, h, b}, {st[1], st[2], st[0]}, {64, rows[i], 1, 1});
+        tk8s::make_map<T>(out[i], base[i], {p.dim, s, h, b}, {st[1], st[2], st[0]}, {64, rows[i], 1, 1});
     if (err != cudaSuccess) return err;
   }
   static const cudaError_t attr = tk8s::allow_smem(attn_fwd<T, D>, F::kSmem);
   if (attr != cudaSuccess) return attr;
-  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  const int items = cdiv(p.seq, F::kRows) * p.batch * p.heads;
   attn_fwd<T, D><<<(items < sm_count() ? items : sm_count()), kThreads, F::kSmem, stream>>>(maps, p);
   return cudaGetLastError();
 }
@@ -843,7 +905,7 @@ cudaError_t backward(const Params& p, cudaStream_t stream) {
   for (int i = 0; i < 7; ++i) {
     const long long* st = p.strides[which[i]];
     const cudaError_t err =
-        tk8s::make_map<T>(out[i], base[i], {D, s, h, b}, {st[1], st[2], st[0]}, {64, kStep, 1, 1});
+        tk8s::make_map<T>(out[i], base[i], {p.dim, s, h, b}, {st[1], st[2], st[0]}, {64, kStep, 1, 1});
     if (err != cudaSuccess) return err;
   }
   static const cudaError_t attr_kv = tk8s::allow_smem(attn_bwd_dkdv<T, D>, B::kKVSmem);
@@ -854,7 +916,7 @@ cudaError_t backward(const Params& p, cudaStream_t stream) {
   attn_bwd_rows<T, D><<<cdiv(rows * (D / 8), 256), 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int items = cdiv(p.seq, kItemRows) * p.batch * p.heads;
+  const int items = cdiv(p.seq, B::kRows) * p.batch * p.heads;
   const int grid = items < sm_count() ? items : sm_count();
   attn_bwd_dkdv<T, D><<<grid, kThreads, B::kKVSmem, stream>>>(maps, p);
   err = cudaGetLastError();
@@ -863,17 +925,24 @@ cudaError_t backward(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype 0 = bf16, 1 = fp16
-int dispatch(int dtype, int head_dim, bool fwd, const Params& p, cudaStream_t s) {
-  if (dtype == 0 && head_dim == 64) return fwd ? forward<__nv_bfloat16, 64>(p, s) : backward<__nv_bfloat16, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return fwd ? forward<__nv_bfloat16, 128>(p, s) : backward<__nv_bfloat16, 128>(p, s);
-  if (dtype == 1 && head_dim == 64) return fwd ? forward<__half, 64>(p, s) : backward<__half, 64>(p, s);
-  if (dtype == 1 && head_dim == 128) return fwd ? forward<__half, 128>(p, s) : backward<__half, 128>(p, s);
+template <typename T>
+int dispatch_tile(int tile, bool fwd, const Params& p, cudaStream_t s) {
+  if (tile == 64) return fwd ? forward<T, 64>(p, s) : backward<T, 64>(p, s);
+  if (tile == 128) return fwd ? forward<T, 128>(p, s) : backward<T, 128>(p, s);
+  if (tile == 256) return fwd ? forward<T, 256>(p, s) : backward<T, 256>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+// dtype 0 = bf16, 1 = fp16; the tile width holds head_dim, a multiple of 8
+int dispatch(int dtype, int tile, bool fwd, const Params& p, cudaStream_t s) {
+  if (p.dim <= 0 || p.dim > tile || p.dim % 8) return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_tile<__nv_bfloat16>(tile, fwd, p, s);
+  if (dtype == 1) return dispatch_tile<__half>(tile, fwd, p, s);
   return cudaErrorInvalidValue;
 }
 
 Params make_params(const long long* strides, int n_tensors, int batch, int heads, int seq, int causal,
-                   float scale) {
+                   int head_dim, float scale) {
   Params p = {};
   for (int t = 0; t < n_tensors; ++t) {
     for (int d = 0; d < 3; ++d) p.strides[t][d] = strides[3 * t + d];
@@ -882,6 +951,7 @@ Params make_params(const long long* strides, int n_tensors, int batch, int heads
   p.heads = heads;
   p.seq = seq;
   p.causal = causal;
+  p.dim = head_dim;
   p.scale = scale;
   return p;
 }
@@ -890,27 +960,29 @@ Params make_params(const long long* strides, int n_tensors, int batch, int heads
 
 extern "C" {
 
+// tile: the kernels' width, 64, 128 or 256, at least head_dim (a
+// multiple of 8); scale: 1/sqrt(head_dim) of the caller's own head_dim;
 // strides: (batch, seq, head) of q, k, v, o (12 values)
-int tk8s_attn_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v, void* o, float* lse,
-                  const long long* strides, int batch, int heads, int seq, int causal, float scale,
+int tk8s_attn_fwd(int dtype, int tile, int head_dim, const void* q, const void* k, const void* v, void* o,
+                  float* lse, const long long* strides, int batch, int heads, int seq, int causal, float scale,
                   void* stream) {
-  Params p = make_params(strides, 4, batch, heads, seq, causal, scale);
+  Params p = make_params(strides, 4, batch, heads, seq, causal, head_dim, scale);
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
   p.lse = lse;
-  return dispatch(dtype, head_dim, true, p, static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, tile, true, p, static_cast<cudaStream_t>(stream));
 }
 
-// strides: (batch, seq, head) of q, k, v, o, dout, dq, dk, dv (24 values);
-// rows is f32 scratch of batch * heads * 2 * (seq rounded up to 128)
-// values, 16-byte aligned
-int tk8s_attn_bwd(int dtype, int head_dim, const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, const float* lse, float* rows, void* dq, void* dk, void* dv,
+// tile, head_dim and scale as the forward's; strides: (batch, seq, head)
+// of q, k, v, o, dout, dq, dk, dv (24 values); rows is f32 scratch of
+// batch * heads * 2 * (seq rounded up to 128) values, 16-byte aligned
+int tk8s_attn_bwd(int dtype, int tile, int head_dim, const void* q, const void* k, const void* v,
+                  const void* o, const void* dout, const float* lse, float* rows, void* dq, void* dk, void* dv,
                   const long long* strides, int batch, int heads, int seq, int causal, float scale,
                   void* stream) {
-  Params p = make_params(strides, kTensors, batch, heads, seq, causal, scale);
+  Params p = make_params(strides, kTensors, batch, heads, seq, causal, head_dim, scale);
   p.q = q;
   p.k = k;
   p.v = v;
@@ -921,7 +993,7 @@ int tk8s_attn_bwd(int dtype, int head_dim, const void* q, const void* k, const v
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
-  return dispatch(dtype, head_dim, false, p, static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, tile, false, p, static_cast<cudaStream_t>(stream));
 }
 
 const char* tk8s_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

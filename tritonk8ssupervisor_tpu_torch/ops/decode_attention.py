@@ -164,13 +164,13 @@ def _check_kernel_inputs(q, k8, k_scale, v8, v_scale, pos, tables) -> None:
             + ("" if tables is None else f", tables {tables.dtype}")
         )
     b, w, h, d = q.shape
-    if d % decode_attention_cuda.HEAD_DIM_MULTIPLE or d > decode_attention_cuda.MAX_HEAD_DIM:
-        raise ValueError(f"K3 takes a head_dim that is a multiple of 16 up to 256, got {d}")
+    if not 1 <= d <= decode_attention_cuda.MAX_HEAD_DIM:
+        raise ValueError(f"K3 takes a head_dim from 1 to "
+                         f"{decode_attention_cuda.MAX_HEAD_DIM}, got {d}")
+    # rows at any stride and start: the kernel copies them in the widest
+    # unit (16 bytes down to 1) that their width, strides and starts allow
     if q.stride(-1) != 1 or k8.stride(-1) != 1 or v8.stride(-1) != 1:
         raise ValueError("K3 reads q, k8 and v8 with unit stride on head_dim")
-    if not all(x.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in x.stride()[:3])
-               for x in (k8, v8)):
-        raise ValueError("K3 reads k8 and v8 as 16-byte aligned rows")
     length = tables.shape[1] * k8.shape[1] if tables is not None else k8.numel() // (b * h * d)
     if length > 2**31 - 1:
         raise ValueError(f"K3 indexes positions with int32, got L = {length}")

@@ -25,7 +25,9 @@ from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 SOURCE = "decode_attention.cu"
 # q's dtypes the kernel is instantiated for -> their code in the C interface
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-HEAD_DIM_MULTIPLE = 16  # a key row is whole 16-byte vectors of int8
+# the kernel computes at head_dim rounded up to whole 16-byte vectors of
+# int8 (the columns past it add exact zeros); it reads rows of any width
+HEAD_DIM_MULTIPLE = 16
 MAX_HEAD_DIM = 256
 # positions a chunk (one CTA each), the kernel's kChunk
 CHUNK = 64
@@ -56,6 +58,12 @@ def counters(device: torch.device, stream: int, rows: int) -> torch.Tensor:
     if buf is None or buf.numel() < rows:
         buf = _counters[key] = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
     return buf
+
+
+def padded_dim(head_dim: int) -> int:
+    """The width of the kernel's scores, values and partial results:
+    head_dim rounded up to a multiple of 16."""
+    return -(-head_dim // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE
 
 
 def n_chunks(pos, length: int) -> int:
@@ -97,8 +105,10 @@ def forward(q, k8, k_scale, v8, v_scale, pos, out, layout: str, tables=None) -> 
     else:
         pos_ptr, pos_scalar, pos_strides = None, int(pos), (0, 0)
     chunks = n_chunks(pos, length)
-    # the partial results of every (b, h, query, chunk): o over D, then (m, l)
-    part_o = torch.empty(b * h * w * chunks * d, dtype=torch.float32, device=q.device)
+    # the partial results of every (b, h, query, chunk): o over the padded
+    # width, then (m, l)
+    part_o = torch.empty(b * h * w * chunks * padded_dim(d), dtype=torch.float32,
+                         device=q.device)
     part_ml = torch.empty(b * h * w * chunks * 2, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rows = counters(q.device, stream, b * h)

@@ -7,13 +7,16 @@ head_dim) inputs, or (batch, heads, seq, head_dim) with layout="bhsd",
 and scales the scores by 1/sqrt(head_dim). On CPU tensors it is the
 plain version (`ops/ring_attention.attention_reference_layout`). On CUDA
 tensors it launches kernel K2 (`csrc/flash_attention.cu`), forward and
-backward, for every sequence length: the kernel masks a ragged last
-tile, so there is no dense branch. K2 reads q, k, v (and O and dO) in
-place where TMA can address them, which the LM's qkv views allow; any
-other view is copied first (`_kernel_view`, counted in
-`flash_attention_forward.copies`). What K2 does not take (a head_dim
-other than 64 or 128, a dtype other than bf16 or fp16) raises; nothing
-falls back to the plain version on the card.
+backward, for every sequence length and every head_dim from 1 to 256:
+the kernel masks a ragged last tile, so there is no dense branch, and
+runs a head_dim on the narrowest of its 64, 128 and 256 tiles that holds
+it, reading the columns past it as zeros. K2 reads q, k, v (and O and dO)
+in place where TMA can address them, which the LM's qkv views allow; any
+other view is copied first, and a head_dim that is not a multiple of 8
+into rows zero-padded to one, whose outputs are sliced back
+(`_kernel_view`, counted in `flash_attention_forward.copies`). What K2
+does not take (a head_dim above 256, a dtype other than bf16 or fp16)
+raises; nothing falls back to the plain version on the card.
 
 K2 is bound as two `torch.library` custom ops, `tk8s::flash_attn_fwd`
 and `tk8s::flash_attn_bwd`, with fake (shape) implementations, the
@@ -33,7 +36,6 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention_cuda
-from tritonk8ssupervisor_tpu_torch.ops.flash_attention_cuda import HEAD_DIMS
 from tritonk8ssupervisor_tpu_torch.ops.flash_attention_cuda import dims as _dims
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import (
     attention_reference_layout,
@@ -45,7 +47,14 @@ LAYOUTS = ("bshd", "bhsd")
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     """`x` itself when K2's TMA can read it in place (unit head_dim
     stride, the other strides whole 16-byte chunks, a 16-byte aligned
-    start), else a contiguous copy in fresh (aligned) memory."""
+    start), else a contiguous copy in fresh (aligned) memory; a head_dim
+    that is not a multiple of 8 is copied into rows zero-padded to the
+    next one (`flash_attention_cuda.padded_width`)."""
+    d = x.shape[-1]
+    if d % flash_attention_cuda.HEAD_DIM_MULTIPLE:
+        padded = x.new_zeros((*x.shape[:-1], flash_attention_cuda.padded_width(d)))
+        padded[..., :d] = x
+        return padded
     ok = (
         x.stride(-1) == 1
         and all(s % 8 == 0 for s in x.stride()[:-1])
@@ -70,14 +79,9 @@ def _check_kernel_inputs(q, k, v, layout: str) -> None:
         raise TypeError(
             f"K2 takes bf16 or fp16 q, k, v, got {q.dtype}, {k.dtype}, "
             f"{v.dtype}: other dtypes on the card are a gap (ROADMAP.md "
-            "queue 2, K2)"
+            "queue 3, F12)"
         )
-    d = _dims(q.shape, layout)[3]
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"K2 is built for head_dim {HEAD_DIMS}, got {d}: other widths "
-            "are a gap (ROADMAP.md queue 2, K2)"
-        )
+    flash_attention_cuda.tile_width(_dims(q.shape, layout)[3])  # raises past 256
 
 
 def flash_attention_forward(q, k, v, causal: bool, layout: str):
@@ -85,15 +89,17 @@ def flash_attention_forward(q, k, v, causal: bool, layout: str):
     logsumexp). q, k and v are read in place where TMA can address them,
     else copied (each copy counted in `flash_attention_forward.copies`).
     One launch, counted in `flash_attention_forward.launches`."""
-    b, h, s, _ = _dims(q.shape, layout)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    b, h, s, d = _dims(q.shape, layout)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if out.numel():
-        views = [_kernel_view(x) for x in (q, k, v)]
-        flash_attention_forward.copies += sum(y is not x for x, y in zip((q, k, v), views))
-        flash_attention_cuda.forward(*views, out, lse, causal, layout)
-        flash_attention_forward.launches += 1
-    return out, lse
+    if not q.numel():
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device), lse
+    views = [_kernel_view(x) for x in (q, k, v)]
+    flash_attention_forward.copies += sum(y is not x for x, y in zip((q, k, v), views))
+    out = torch.empty(views[0].shape, dtype=q.dtype, device=q.device)
+    flash_attention_cuda.forward(*views, out, lse, causal, layout, d ** -0.5)
+    flash_attention_forward.launches += 1
+    # a padded head_dim's O: its first d columns
+    return (out if out.shape == q.shape else out[..., :d].contiguous()), lse
 
 
 flash_attention_forward.launches = 0
@@ -104,15 +110,17 @@ def flash_attention_backward(dout, q, k, v, out, lse, causal: bool, layout: str)
     """K2's backward wrapper: (dq, dk, dv), contiguous in the layout of q.
     One call launches the pre-pass, the dK/dV and the dQ kernels and is
     counted once in `flash_attention_backward.launches`."""
+    shape, d = q.shape, q.shape[-1]
     dout, q, k, v, out = (_kernel_view(x) for x in (dout, q, k, v, out))
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
     if q.numel():
         rows = torch.empty(flash_attention_cuda.rows_numel(*_dims(q.shape, layout)[:3]),
                            dtype=torch.float32, device=q.device)
         flash_attention_cuda.backward(dout, q, k, v, out, lse, rows, *grads,
-                                      causal, layout)
+                                      causal, layout, d ** -0.5)
         flash_attention_backward.launches += 1
-    return tuple(grads)
+    # a padded head_dim's gradients: their first d columns
+    return tuple(g if g.shape == shape else g[..., :d].contiguous() for g in grads)
 
 
 flash_attention_backward.launches = 0
@@ -173,8 +181,10 @@ def forward_cost(b: int, h: int, s: int, d: int, causal: bool,
     """(bytes, tensor-core operations) of K2's forward at (batch, heads,
     seq, head_dim) in a dtype of `elem` bytes: q, k, v read and O written
     once, the f32 logsumexp written; two products (4 * D a pair) over the
-    (query, key) pairs the mask keeps. `chip_smoke.py`'s bound and
-    `utils/roofline.py` both read it."""
+    (query, key) pairs the mask keeps. d is the caller's head_dim, not
+    the tile or padded width the kernel runs at: work on the zero columns
+    lowers the kernel's share of this bound, it never raises the count.
+    `chip_smoke.py`'s bound and `utils/roofline.py` both read it."""
     n = b * s * h * d
     return 4 * n * elem + b * h * s * 4, 4 * b * h * d * _pairs(s, causal)
 

@@ -1,10 +1,12 @@
 """K2's launcher: the ctypes binding of `csrc/flash_attention.cu`.
 
 The kernel source says what it replaces and how it is built; this module
-turns tensors into its arguments: data pointers, (batch, seq, head)
-strides for either layout, and PyTorch's current stream. The caller
-(`ops/flash_attention.py`) has checked device, dtype and head_dim and
-allocated the outputs. Both directions read and write every tile
+turns tensors into its arguments: the tile width that holds the tensors'
+head_dim (`tile_width`), data pointers, (batch, seq, head) strides for
+either layout, and PyTorch's current stream. The caller
+(`ops/flash_attention.py`) has checked device, dtype and head_dim, padded
+a head_dim that is not a multiple of 8 (`padded_width`) and allocated the
+outputs. Both directions read and write every tile
 through TMA tensor maps, which take only what `check_tma_operand` lets
 through; a launch that the runtime refuses raises here.
 """
@@ -20,9 +22,14 @@ from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 
 SOURCE = "flash_attention.cu"
 # what the kernel is instantiated for: dtype -> its code in the C
-# interface, and head_dim
+# interface, and the tile widths; a head_dim d runs on the narrowest tile
+# that holds it, with the columns [d, tile) read as zeros
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-HEAD_DIMS = (64, 128)
+TILE_WIDTHS = (64, 128, 256)
+MAX_HEAD_DIM = TILE_WIDTHS[-1]
+# TMA reads rows of whole 16-byte units: a head_dim of bf16 or fp16 that
+# is not a multiple of 8 is padded to one
+HEAD_DIM_MULTIPLE = 8
 # the backward's work items are 128 rows of one (batch, head)
 ITEM_ROWS = 128
 
@@ -33,10 +40,10 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
-    lib.tk8s_attn_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _STRIDES,
+    lib.tk8s_attn_fwd.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _STRIDES,
                                   _I, _I, _I, _I, _F, _P]
     lib.tk8s_attn_fwd.restype = _I
-    lib.tk8s_attn_bwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P,
+    lib.tk8s_attn_bwd.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _STRIDES, _I, _I, _I, _I,
                                   _F, _P]
     lib.tk8s_attn_bwd.restype = _I
@@ -63,6 +70,24 @@ def dims(shape, layout: str) -> tuple[int, int, int, int]:
     else:
         b, h, s, d = shape
     return b, h, s, d
+
+
+def tile_width(head_dim: int) -> int:
+    """The kernels' tile width for `head_dim`: the narrowest of
+    `TILE_WIDTHS` that holds it. Raises above `MAX_HEAD_DIM`."""
+    for tile in TILE_WIDTHS:
+        if 1 <= head_dim <= tile:
+            return tile
+    raise ValueError(
+        f"K2 takes a head_dim from 1 to {MAX_HEAD_DIM}, got {head_dim}: wider heads are "
+        "outside its contract (ROADMAP.md, the kernels' limits)"
+    )
+
+
+def padded_width(head_dim: int) -> int:
+    """The width K2 reads a head_dim at: the next multiple of 8 (itself
+    when it is one). Narrower rows are copied into zero-padded ones."""
+    return -(-head_dim // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE
 
 
 def rows_numel(batch: int, heads: int, seq: int) -> int:
@@ -96,33 +121,41 @@ def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
         )
 
 
-def forward(q, k, v, out, lse, causal: bool, layout: str) -> None:
-    """O and the (B, H, S) f32 logsumexp into `out` and `lse`."""
+def forward(q, k, v, out, lse, causal: bool, layout: str,
+            scale: float | None = None) -> None:
+    """O and the (B, H, S) f32 logsumexp into `out` and `lse`; the scores
+    are scaled by `scale` (1/sqrt(head_dim) of the tensors' own by
+    default; the caller's real head_dim where it padded them)."""
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         check_tma_operand(name, x)
-    lib = _lib()
     b, h, s, d = dims(q.shape, layout)
+    tile = tile_width(d)
+    lib = _lib()
     code = lib.tk8s_attn_fwd(
-        DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        DTYPES[q.dtype], tile, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), _strides(layout, q, k, v, out),
-        b, h, s, int(causal), d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, s, int(causal), d ** -0.5 if scale is None else scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, code, "forward")
 
 
 def backward(dout, q, k, v, out, lse, rows, dq, dk, dv, causal: bool,
-             layout: str) -> None:
-    """dq, dk, dv; `rows` is f32 scratch of `rows_numel` values."""
+             layout: str, scale: float | None = None) -> None:
+    """dq, dk, dv; `rows` is f32 scratch of `rows_numel` values; `scale`
+    as the forward's."""
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout),
                     ("dq", dq), ("dk", dk), ("dv", dv)):
         check_tma_operand(name, x)
-    lib = _lib()
     b, h, s, d = dims(q.shape, layout)
+    tile = tile_width(d)
+    lib = _lib()
     code = lib.tk8s_attn_bwd(
-        DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        DTYPES[q.dtype], tile, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _strides(layout, q, k, v, out, dout, dq, dk, dv),
-        b, h, s, int(causal), d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, s, int(causal), d ** -0.5 if scale is None else scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, code, "backward")

@@ -10,8 +10,10 @@ which raises on failure (exit code not 0, no result line):
 1. the card: name and power limit, as nvidia-smi reports them; kernels
    K1, K2, K4 and K3 (CUDA C++, `csrc/cross_entropy.cu`,
    `csrc/flash_attention.cu`, `csrc/conv_backward.cu` and
-   `csrc/decode_attention.cu`) start building from the checkout in the
-   background, one nvcc each, all at once;
+   `csrc/decode_attention.cu`) and the FMA instances of K2 and K4
+   (`csrc/flash_attention_fma.cu`, `csrc/conv_backward_fma.cu`) start
+   building from the checkout in the background, one nvcc each, all at
+   once;
 2. kernel K1's forward and backward (once K1 is built) against their
    plain PyTorch versions on the card: f32 at the ResNet shape
    (256, 1000) and at (4096, 32000), bf16 at the LM shape (8192, 32768),
@@ -321,8 +323,9 @@ which raises on failure (exit code not 0, no result line):
    reference's widths: 12 layers, 12 heads of 64, embed 768, vocab 32768,
    seq 1024, batch 8) with K1's and K2's launches counted by phase 32's
    `runpy` wrapper: K1 once each way and K2 12 + 12 times a step. Last
-   `python -m tritonk8ssupervisor_tpu_torch.utils.roofline DIR` (text and
-   `--json`) over the Job's profile, printed; the roofline's device time
+   `python -m tritonk8ssupervisor_tpu_torch.utils.roofline DIR --json`
+   over the Job's profile, and its text report through the same `main`
+   in this process, printed; the roofline's device time
    within 2% of the profile's busy time, K1's forward operator's bytes
    exactly its cost function's at (8192, 32768) bf16, K2's FLOPs exactly
    12 times its formulas' at (8, 1024, 12, 64) causal, no kernel above
@@ -338,9 +341,10 @@ which raises on failure (exit code not 0, no result line):
    the compiler's, no TPU or JAX string in any GPU document; `-c --yes`
    destroys each module's state. Then on the card, from an offline
    install of the gke-gpu ConfigMap's archive: the probe Job's
-   `gpu_smoke_command`, the gpu-vm vars' `gpu_smoke_cmd` and its
-   `cluster_smoke_cmd` (an NCCL group at a world of one under `python -m
-   torch.distributed.run`), each printing its OK line; and the compiled
+   `gpu_smoke_command` (the gpu-vm vars' `gpu_smoke_cmd` is held byte-equal
+   to it and not started again) and the vars' `cluster_smoke_cmd` (an
+   NCCL group at a world of one under `python -m torch.distributed.run`),
+   each printing its OK line; and the compiled
    gke-gpu LM Job's command with the Service's hostname read as
    127.0.0.1 and `JOB_COMPLETION_INDEX=0`: the launcher starts the LM at
    the reference's widths, K1 and K2 are built by nvcc from the installed
@@ -358,7 +362,20 @@ which raises on failure (exit code not 0, no result line):
    first step against the same step with dense attention, K2 launched 12 +
    12 times a step; and the int8-cache `generate` of an f32 2-layer LM
    with 4 heads of 40, token-equal to the CPU. With `--head-dims` this
-   phase runs alone.
+   phase runs alone;
+38. every dtype and width (F12, F13, F14): K2's FMA instance (float32)
+   forward and backward at the LM's (8, 1024, 12, 64), its 8- and 3-head
+   (8, 1024, 8, 96) and (8, 1024, 3, 256) causal, ViT-S/16's (256, 197, 6,
+   64) full and a ragged (2, 1000, 4, 40) causal bhsd, and K4's at
+   ResNet-50's 12 shapes in f32, each against a float64 evaluation (the
+   f32 bound, which the plain f32 version is held to as well) and its
+   plain version, timed beside SDPA and cuDNN in f32 (TF32 off), and K4's
+   at bf16 widths (3, 13) and (100, 36); the LM at its published widths
+   in f32 with `flash_attention`, 3 steps against 3 from the same weights
+   with dense attention (K2 12 + 12 a step, all on the FMA instance, K1
+   1 + 1 on f32 logits); ResNet-50 at batch 256 in f32 with
+   `fused_1x1_bwd`, 3 steps against the default path (K4 33 a step, all
+   on the FMA instance). With `--f32` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time. Every phase
 that counts K1's launches in train steps asserts one launch of its
@@ -421,6 +438,7 @@ from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 from tritonk8ssupervisor_tpu_torch.ops import decode_attention as da
 from tritonk8ssupervisor_tpu_torch.ops import decode_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops import flash_attention as fa
+from tritonk8ssupervisor_tpu_torch.ops import flash_attention_cuda
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import attention_reference, ring_attention
 from tritonk8ssupervisor_tpu_torch.parallel import checkpoint as ckpt_lib
 from tritonk8ssupervisor_tpu_torch.parallel import distributed, elastic
@@ -446,14 +464,14 @@ from tritonk8ssupervisor_tpu_torch.utils.data import (
 )
 
 # H100 SXM data sheet, from the port's peak tables: device memory rate,
-# f32 rate outside the tensor cores (K1's and K3's bounds), dense bf16/fp16
-# tensor-core rate (K2's and K4's bounds). Each kernel's bytes and
+# f32 rate outside the tensor cores (K1's and K3's bounds); K2's and K4's
+# take the f32 rate for their FMA instances' f32 and the dense bf16/fp16
+# tensor-core rate otherwise (`_peak_flops`). Each kernel's bytes and
 # operations come from its module's cost function, which utils/roofline.py
 # reads too.
 H100 = "NVIDIA H100 80GB HBM3"
 HBM_BYTES_PER_S = roofline.PEAK_HBM_BYTES[H100]
 F32_FLOPS = roofline.PEAK_F32_FLOPS[H100]
-BF16_FLOPS = perf.PEAK_BF16_FLOPS[H100]
 # the kernel against its plain version (same f32 arithmetic, reduced in
 # another order; exp and log on the card's fast units)
 K1_RTOL = K1_ATOL = 1e-5
@@ -475,6 +493,12 @@ K1_PLAIN_ITERS = 20
 # f32 copies of the same inputs it rounds nothing (1e-2)
 K2_REL_SAME_DTYPE = 2e-2
 K2_REL_F32 = 1e-2
+# float32 q, k, v on K2's FMA instance (F12), as tests/test_torch_kernels.py
+# states: against a float64 evaluation of the same inputs, relative to the
+# f64 result's largest magnitude, O within 2e-5 and dq, dk, dv within 1e-4;
+# the plain f32 version on the card within the same, and the kernel within
+# twice it of the plain version (both lie within it of f64)
+K2_F32_REL = {"out": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
 # the loss of one bf16 step on the card against the CPU: bf16 activations
 # rounded at other points by cuDNN/cuBLAS/K2 and by the CPU kernels
 PARITY_LOSS_ATOL = 2e-2
@@ -488,12 +512,22 @@ VIT_UPDATE_REL = 5e-2
 # magnitude; dW, f32 throughout, relative to its own
 K4_REL_DX = 1e-2
 K4_REL_DW = 1e-3
+# an f32 compute dtype on K4's FMA instance (F13), as
+# tests/test_torch_kernels.py states: elementwise |got - f64| <= 1.01 K
+# 2^-24 (|A||B|)_64 + 1e-30 (the forward error bound of an f32 FMA sum in
+# any order, K = N for dX and M for dW; 1e-30 covers results flushed to
+# zero), for the kernel and the plain f32 version alike, and the kernel
+# within twice it of the plain version
+K4_F32_REL = 1.01 * 2.0**-24
+K4_F32_ATOL = 1e-30
 # a fused step's FLOP count against the default path's
 FLOPS_RTOL = 1e-3
 K1_SOURCE = "cross_entropy.cu"
 K2_SOURCE = "flash_attention.cu"
 K4_SOURCE = conv_backward_cuda.SOURCE
 K3_SOURCE = decode_attention_cuda.SOURCE
+K2_FMA_SOURCE = flash_attention_cuda.FMA_SOURCE
+K4_FMA_SOURCE = conv_backward_cuda.FMA_SOURCE
 # K3 against its plain version, relative to the reference's own largest
 # magnitude, as tests/test_torch_kernels.py states: both compute the same
 # f32 output up to summation order and __expf (f32: 2e-5) and round it once
@@ -634,6 +668,12 @@ def _max_abs_err(actual: torch.Tensor, expected: torch.Tensor) -> float:
 def _bound(cost: tuple[int, int], peak_flops: float) -> tuple[float, str]:
     """(bound ms, what sets it) of a kernel's (bytes, operations)."""
     return roofline.bound_ms(*cost, HBM_BYTES_PER_S, peak_flops)
+
+
+def _peak_flops(dtype: torch.dtype) -> float:
+    """K2's and K4's compute ceiling at `dtype`: the f32 rate for their
+    FMA instances' f32, the tensor cores' for bf16 and fp16."""
+    return roofline.kernel_peak_flops(torch.empty((), dtype=dtype).element_size(), H100)
 
 
 def _library_ratio(r: dict) -> float | None:
@@ -841,20 +881,34 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
     got = _attention_grads(kernel, q, k, v, dout)
     torch.cuda.synchronize()
     same = _attention_grads(plain, q, k, v, dout)
-    f32 = _attention_grads(plain, q.float(), k.float(), v.float(), dout.float())
-    errors = {}
-    for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, same, f32):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"K2 {name} not finite at {shape}")
-        scale_p = p.float().abs().max().clamp(min=1.0).item()
-        scale_e = e.float().abs().max().clamp(min=1.0).item()
-        errors[name] = _max_abs_err(a, p)
-        rel_p, rel_e = errors[name] / scale_p, _max_abs_err(a, e) / scale_e
-        if not (rel_p <= K2_REL_SAME_DTYPE and rel_e <= K2_REL_F32):
-            raise AssertionError(
-                f"K2 {name} at {shape} {layout} causal={causal}: relative error "
-                f"{rel_p:.2e} vs the plain version, {rel_e:.2e} vs f32"
-            )
+    errors, f64_errors = {}, {}
+    if dtype == torch.float32:  # the FMA instance: the bound against float64
+        f64 = _attention_grads(lambda *x: fa.attention_f64(*x, causal, layout),
+                               *(x.double() for x in (q, k, v, dout)))
+        for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, same, f64):
+            bound = K2_F32_REL[name] * e.abs().max().item()
+            errors[name] = (a.double() - p.double()).abs().max().item()
+            f64_errors[name] = {"kernel": (a.double() - e).abs().max().item(),
+                                "plain": (p.double() - e).abs().max().item(), "bound": bound}
+            if not (torch.isfinite(a).all() and f64_errors[name]["kernel"] <= bound
+                    and f64_errors[name]["plain"] <= bound and errors[name] <= 2 * bound):
+                raise AssertionError(f"K2 f32 {name} at {shape} {layout} causal={causal}: "
+                                     f"{f64_errors[name]}, kernel - plain {errors[name]:.2e}")
+        del f64
+    else:
+        f32 = _attention_grads(plain, q.float(), k.float(), v.float(), dout.float())
+        for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, same, f32):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K2 {name} not finite at {shape}")
+            scale_p = p.float().abs().max().clamp(min=1.0).item()
+            scale_e = e.float().abs().max().clamp(min=1.0).item()
+            errors[name] = _max_abs_err(a, p)
+            rel_p, rel_e = errors[name] / scale_p, _max_abs_err(a, e) / scale_e
+            if not (rel_p <= K2_REL_SAME_DTYPE and rel_e <= K2_REL_F32):
+                raise AssertionError(
+                    f"K2 {name} at {shape} {layout} causal={causal}: relative error "
+                    f"{rel_p:.2e} vs the plain version, {rel_e:.2e} vs f32"
+                )
 
     out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, causal, layout)
 
@@ -878,15 +932,20 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
     # q, k, v, O, dO and the logsumexp read, dq, dk, dv written, and five
     # products (the kernel recomputes P) against the forward's two
     elem = q.element_size()
-    fwd_bound, fwd_by = _bound(fa.forward_cost(b, h, s, d, causal, elem), BF16_FLOPS)
-    bwd_bound, bwd_by = _bound(fa.backward_cost(b, h, s, d, causal, elem), BF16_FLOPS)
+    fwd_bound, fwd_by = _bound(fa.forward_cost(b, h, s, d, causal, elem), _peak_flops(dtype))
+    bwd_bound, bwd_by = _bound(fa.backward_cost(b, h, s, d, causal, elem), _peak_flops(dtype))
+    f64_part = ({"forward": {"f64": f64_errors["out"]},
+                 "backward": {"f64": {n: f64_errors[n] for n in ("dq", "dk", "dv")}}}
+                if f64_errors else {"forward": {}, "backward": {}})
     return {
         "shape": list(shape), "layout": layout, "causal": causal, "seed": seed,
         "dtype": str(dtype).removeprefix("torch."),
+        "instance": flash_attention_cuda.instance(dtype, d),
         "forward": {"max_abs_err": errors["out"], **times["forward"],
-                    "bound_ms": fwd_bound, "bound_by": fwd_by},
+                    "bound_ms": fwd_bound, "bound_by": fwd_by, **f64_part["forward"]},
         "backward": {"max_abs_err": max(errors["dq"], errors["dk"], errors["dv"]),
                      **times["backward"], "bound_ms": bwd_bound, "bound_by": bwd_by,
+                     **f64_part["backward"],
                      "forward_and_backward": {**times["fwd_bwd"],
                                               "bound_ms": fwd_bound + bwd_bound}},
     }
@@ -975,24 +1034,45 @@ def run_resnet50(card: str, fused_1x1_bwd: bool = False) -> dict:
     return {"k1": k1, "k1_backward": k1_bwd, "k4": k4, **result}
 
 
-def check_k4(size: int, c: int, n: int, calls: int, seed: int) -> dict:
-    """K4 against its plain version at one full-width shape, with the
-    times of the kernel, the plain version and cuDNN's backward."""
+def _k4_f32_errors(dx, dw, ref_dx, ref_dw, x2, dy2, w2) -> dict:
+    """K4 in f32 against float64: for the kernel and the plain version,
+    the largest |got - f64| over K4_F32's bound (at most 1 to pass), and
+    the kernel against the plain version over twice it."""
+    f64_dx, f64_dw, mag_dx, mag_dw = cb.conv1x1_backward_f64(x2, dy2, w2)
+    m, n = dy2.shape
+    out = {}
+    for name, got, plain, f64, mag, k in (("dx", dx, ref_dx, f64_dx, mag_dx, n),
+                                         ("dw", dw, ref_dw, f64_dw, mag_dw, m)):
+        bound = K4_F32_REL * k * mag + K4_F32_ATOL
+        out[name] = {"kernel": ((got.double() - f64).abs() / bound).max().item(),
+                     "plain": ((plain.double() - f64).abs() / bound).max().item(),
+                     "kernel_vs_plain": ((got.double() - plain.double()).abs()
+                                         / (2 * bound)).max().item()}
+    return out
+
+
+def check_k4(size: int, c: int, n: int, calls: int, seed: int, dtype=torch.bfloat16,
+             by_kernel: bool = True) -> dict:
+    """K4 against its plain version at one full-width shape (an f32 compute
+    dtype also against float64), with the times of the kernel, the plain
+    version and cuDNN's backward; with `by_kernel`, its device ms by kernel."""
     m = K4_BATCH * size * size
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x2 = torch.randn(m, c, generator=gen, device="cuda").bfloat16()
-    dy2 = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
-    w2 = (torch.randn(n, c, generator=gen, device="cuda") / c ** 0.5).bfloat16()
+    x2 = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
+    dy2 = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+    w2 = (torch.randn(n, c, generator=gen, device="cuda") / c ** 0.5).to(dtype)
     dx, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
     torch.cuda.synchronize()
-    ref_dx, ref_dw = cb.conv1x1_backward_plain(x2, dy2, w2, torch.bfloat16)
+    ref_dx, ref_dw = cb.conv1x1_backward_plain(x2, dy2, w2, dtype)
     err_dx, err_dw = _max_abs_err(dx, ref_dx), _max_abs_err(dw, ref_dw)
     rel_dx = err_dx / ref_dx.float().abs().max().item()
     rel_dw = err_dw / ref_dw.abs().max().item()
-    if not (torch.isfinite(dx).all() and torch.isfinite(dw).all()
-            and rel_dx <= K4_REL_DX and rel_dw <= K4_REL_DW):
-        raise AssertionError(f"K4 at (M, C, N) = {(m, c, n)}: relative error dX "
-                             f"{rel_dx:.2e}, dW {rel_dw:.2e}")
+    f64 = _k4_f32_errors(dx, dw, ref_dx, ref_dw, x2, dy2, w2) if dtype == torch.float32 else {}
+    within = (all(v <= 1.0 for e in f64.values() for v in e.values()) if f64
+              else rel_dx <= K4_REL_DX and rel_dw <= K4_REL_DW)
+    if not (torch.isfinite(dx).all() and torch.isfinite(dw).all() and within):
+        raise AssertionError(f"K4 {dtype} at (M, C, N) = {(m, c, n)}: relative error dX "
+                             f"{rel_dx:.2e}, dW {rel_dw:.2e}; against f64 over the bound {f64}")
     del ref_dx, ref_dw, dx, dw
 
     # the memory one call holds beyond its inputs and outputs (the dW
@@ -1017,19 +1097,24 @@ def check_k4(size: int, c: int, n: int, calls: int, seed: int) -> dict:
     iters = 50 if m * (c + n) < 2e8 else 20
     times = _timings({
         "": (lambda: cb.conv1x1_backward_kernel(x2, dy2, w2), iters),
-        "plain_": (lambda: cb.conv1x1_backward_plain(x2, dy2, w2, torch.bfloat16), 10),
+        "plain_": (lambda: cb.conv1x1_backward_plain(x2, dy2, w2, dtype), 10),
         "library_": (library, iters),
     })
-    # the call's device time by kernel: dgrad, wgrad and the reduction
+    # the call's device time by kernel: dgrad, wgrad and the reduction (the
+    # FMA instance's two products are both `gemm`)
     parts = {}
-    for key, ms in _kernels_ms(lambda: cb.conv1x1_backward_kernel(x2, dy2, w2)).items():
-        part = next((p for p in ("dgrad", "wgrad", "reduce") if p in key), "other")
+    for key, ms in (_kernels_ms(lambda: cb.conv1x1_backward_kernel(x2, dy2, w2)).items()
+                    if by_kernel else ()):
+        part = next((p for p in ("dgrad", "wgrad", "reduce", "gemm") if p in key), "other")
         parts[part] = parts.get(part, 0.0) + ms
-    # X, dY and W read once; dX (bf16) and dW (f32) written once
-    bound_ms, bound_by = _bound(cb.backward_cost(m, c, n, 2), BF16_FLOPS)
+    # X, dY and W read once; dX (in their dtype) and dW (f32) written once
+    elem = x2.element_size()
+    bound_ms, bound_by = _bound(cb.backward_cost(m, c, n, elem), _peak_flops(dtype))
     return {
-        "shape": [m, c, n], "calls_per_step": calls, "dtype": "bfloat16",
+        "shape": [m, c, n], "calls_per_step": calls, "dtype": str(dtype).removeprefix("torch."),
+        "instance": conv_backward_cuda.instance(dtype, c, n),
         "max_abs_err": err_dx, "max_abs_err_dw": err_dw,
+        **({"f64_over_bound": f64} if f64 else {}),
         **times, "bound_ms": bound_ms, "bound_by": bound_by,
         "workspace_bytes": workspace, "device_ms_by_kernel": parts,
     }
@@ -3590,8 +3675,9 @@ SHIPPED_FLAGS = {
 }
 # what each workload builds besides K1
 SHIPPED_KERNEL = {"lm": K2_SOURCE, "resnet50": K4_SOURCE}
-SHIPPED_SOURCES = ["conv_backward.cu", "cross_entropy.cu", "decode_attention.cu",
-                   "flash_attention.cu", "hopper.cuh"]
+SHIPPED_SOURCES = ["conv_backward.cu", "conv_backward_fma.cu", "cross_entropy.cu",
+                   "decode_attention.cu", "flash_attention.cu", "flash_attention_fma.cu",
+                   "hopper.cuh"]
 SHIPPED_RUN_TIMEOUT_S = 600
 CONFIGMAP_LIMIT_BYTES = 1_048_576  # the API server's limit on one object
 # `python -m MODULE ARGS` of the installed package as runpy runs it, writing
@@ -4491,18 +4577,22 @@ def provision_lm_job(root: pathlib.Path, profile_dir: pathlib.Path) -> dict:
 
 
 def check_lm_roofline(profile_dir: pathlib.Path) -> dict:
-    """The roofline of the Job's profiled step, from the port's CLI (text
-    and --json, printed) and in process, held to its checks."""
+    """The roofline of the Job's profiled step, from the port's CLI (--json
+    in a process of its own, the text through the same `main` in this one;
+    printed) and in process, held to its checks."""
     root = pathlib.Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": str(root)}
-    runs = {}
-    for name, flags in (("text", []), ("json", ["--json"])):
-        out = subprocess.run([sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.utils.roofline",
-                              str(profile_dir), *flags], cwd=root, env=env, capture_output=True,
-                             text=True, timeout=300)
-        if out.returncode:
-            raise AssertionError(f"roofline {flags} exited {out.returncode}: {out.stderr}")
-        runs[name] = out.stdout
+    out = subprocess.run([sys.executable, "-m", "tritonk8ssupervisor_tpu_torch.utils.roofline",
+                          str(profile_dir), "--json"], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode:
+        raise AssertionError(f"roofline --json exited {out.returncode}: {out.stderr}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        code = roofline.main([str(profile_dir)])
+    if code:
+        raise AssertionError(f"roofline's text report returned {code}")
+    runs = {"json": out.stdout, "text": text.getvalue()}
     for line in runs["text"].splitlines():
         print(f"roofline: {line}", flush=True)
     as_json = json.loads(runs["json"])
@@ -4864,7 +4954,13 @@ def run_gpu_plane(card: str) -> dict:
         if probe_smoke != compiler.gpu_smoke_command(1) or not install.startswith("pip install"):
             raise AssertionError(f"the probe Job's command: {install} && {probe_smoke}")
         probe_s, probe_line = _smoke(probe_smoke, env, "GPU OK: 1 devices")
-        host_s, host_line = _smoke(plane["vars"]["gpu_smoke_cmd"], env, "GPU OK: 1 devices")
+        # the gpu-vm host's smoke is the probe's command byte for byte (one
+        # GPU a host on both 1x1 slices): the probe's run on this host is its
+        # run, so it is not started a second time
+        if plane["vars"]["gpu_smoke_cmd"] != probe_smoke:
+            raise AssertionError(f"the gpu-vm vars' smoke {plane['vars']['gpu_smoke_cmd']!r} is "
+                                 f"not the probe Job's {probe_smoke!r}")
+        host_s, host_line = probe_s, probe_line
         cluster_cmd = (plane["vars"]["cluster_smoke_cmd"].replace("{{ node_rank }}", "0")
                        .replace("{{ global_coordinator }}", "127.0.0.1"))
         cluster_s, cluster_line = _smoke(cluster_cmd, env, "CLUSTER OK: 1 processes, 1 GPUs")
@@ -4931,8 +5027,8 @@ def run_gpu_plane(card: str) -> dict:
           f"{healed['heal_seconds']:.2f} s ({healed['heal_calls']} stub calls) and supervised "
           f"it healthy in {healed['supervise_seconds']:.2f} s ({healed['supervise_calls']} stub "
           f"calls); gke-gpu heal refused in {plane['heal']['gke-gpu']['heal_seconds']:.2f} s; "
-          f"cleaned; pip install {install_s:.1f} s; probe smoke {probe_s:.1f} s, host "
-          f"smoke {host_s:.1f} s ({host_line}), NCCL cluster smoke {cluster_s:.1f} s "
+          f"cleaned; pip install {install_s:.1f} s; probe smoke {probe_s:.1f} s ({host_line}; "
+          f"the host smoke is the same command), NCCL cluster smoke {cluster_s:.1f} s "
           f"({cluster_line}); the gke-gpu LM Job under the launcher, 12L/768/seq 1024/batch 8: "
           f"launcher start-up {lm['launcher_startup_seconds']:.2f} s, nvcc "
           + ", ".join(f"{k} {v:.1f} s" for k, v in lm["build_seconds"].items())
@@ -5060,6 +5156,187 @@ def run_head_dims(card: str) -> dict:
     return result
 
 
+# Phase 38: K2 and K4 at every dtype and width the reference takes (F12,
+# F13, F14): their FMA instances against float64 and their plain versions,
+# the f32 LM and the f32 fused ResNet-50 stepped through them
+
+# K2's f32 shapes: (b, s, h, d, causal, layout)
+F32_K2 = [
+    (8, 1024, 12, 64, True, "bshd"),   # the LM
+    (8, 1024, 8, 96, True, "bshd"),    # the LM with --num-heads 8
+    (8, 1024, 3, 256, True, "bshd"),   # the LM with --num-heads 3
+    (256, 197, 6, 64, False, "bshd"),  # ViT-S/16's attention
+    (2, 1000, 4, 40, True, "bhsd"),    # ragged, head-major
+]
+# timed calls of the kernel and SDPA, and of the plain version, at each
+F32_K2_ITERS = (20, 3)
+# bf16 rows at widths that are not multiples of 8 (the FMA instance's):
+# (spatial size at batch 256, C, N)
+F32_K4_NARROW = [(14, 3, 13), (4, 100, 36)]
+F32_LM_STEPS = 3
+F32_RESNET_STEPS = 3
+F32_RESNET_BATCH = 256
+# the first step of the f32 LM through K2's FMA instance against the same
+# step with dense attention (the f32 plain version), and of the f32 fused
+# ResNet-50 through K4's against the default path (cuDNN, TF32 off): the
+# loss to 1e-5 relative, the first SGD update to 1e-3 of its largest entry
+# (f32 sums in other orders, through 12 layers or 53 convolutions)
+F32_LOSS_REL = 1e-5
+F32_UPDATE_REL = 1e-3
+
+
+def _f32_steps(make_model, make_step, lr: float, batch: tuple, steps: int) -> dict:
+    """`steps` SGD steps at `lr` of a fresh f32 model on `batch`: its
+    losses, its first update (every parameter, flat) and the mean step ms
+    of the steps after the first (host clock, fenced by reading the loss)."""
+    state = train.create_train_state(make_model(), train.default_optimizer(lr), "cuda")
+    step = make_step(state)
+    before = torch.cat([p.detach().flatten() for p in state.model.parameters()])
+    losses, times = [step(*batch)["loss"].item()], []
+    update = torch.cat([p.detach().flatten() for p in state.model.parameters()]) - before
+    del before
+    for _ in range(steps - 1):
+        started = time.perf_counter()
+        losses.append(step(*batch)["loss"].item())
+        times.append((time.perf_counter() - started) * 1e3)
+    del state, step
+    return {"losses": losses, "update": update, "step_ms": statistics.mean(times)}
+
+
+def _first_steps_agree(what: str, ours: dict, ref: dict) -> dict:
+    loss_rel = abs(ours["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    update_rel = ((ours["update"] - ref["update"]).abs().max()
+                  / ref["update"].abs().max()).item()
+    if not (loss_rel <= F32_LOSS_REL and update_rel <= F32_UPDATE_REL
+            and all(math.isfinite(x) for x in ours["losses"] + ref["losses"])):
+        raise AssertionError(f"{what}: first-step loss {loss_rel:.2e} (tolerance {F32_LOSS_REL}), "
+                             f"first update {update_rel:.2e} (tolerance {F32_UPDATE_REL}), "
+                             f"losses {ours['losses']} against {ref['losses']}")
+    return {"first_step_loss_rel": loss_rel, "first_update_rel": update_rel}
+
+
+def run_f32_lm(card: str) -> dict:
+    """The LM at its published widths in f32 (`dtype = logits_dtype =
+    float32`) with `flash_attention`: F32_LM_STEPS steps through K2's FMA
+    instance and K1 on f32 logits, then as many from the same weights with
+    dense attention. K2 must launch 12 + 12 times a step, all on the FMA
+    instance, and K1 1 + 1."""
+    def model(attention_fn):
+        return lambda: TransformerLM(vocab_size=32768, num_layers=12, num_heads=12,
+                                     embed_dim=768, max_seq_len=1024, attention_fn=attention_fn,
+                                     dtype=torch.float32, logits_dtype=torch.float32)
+
+    counters = _k1_k2_counters()
+    for counter in counters:
+        counter.launches = 0
+    fa.flash_attention_forward.fma_launches = fa.flash_attention_backward.fma_launches = 0
+    fa.flash_attention_forward.copies = 0
+    flash = _f32_steps(model(fa.flash_attention), train.make_lm_train_step, MESH_LR["lm"],
+                       (_lm_tokens(),), F32_LM_STEPS)
+    launches = [c.launches for c in counters]
+    fma = [fa.flash_attention_forward.fma_launches, fa.flash_attention_backward.fma_launches]
+    copies = fa.flash_attention_forward.copies
+    dense = _f32_steps(model(dense_attention), train.make_lm_train_step, MESH_LR["lm"],
+                       (_lm_tokens(),), F32_LM_STEPS)
+    agree = _first_steps_agree("the f32 LM, flash against dense attention", flash, dense)
+    steps = F32_LM_STEPS
+    if (launches != [steps, steps, 12 * steps, 12 * steps] or fma != launches[2:]
+            or copies != 0):
+        raise AssertionError(f"the f32 LM: {steps} steps launched K1 {launches[:2]}, K2 "
+                             f"{launches[2:]} ({fma} on the FMA instance), {copies} copies")
+    result = {**agree, "losses": {"flash": flash["losses"], "dense": dense["losses"]},
+              "step_ms": {"flash": flash["step_ms"], "dense": dense["step_ms"]}, "steps": steps,
+              "k1": launches[0], "k1_backward": launches[1], "k2_forward": launches[2],
+              "k2_backward": launches[3], "k2_fma": fma, "k2_copies": copies}
+    print(f"f32 LM 12L/768/seq 1024/batch 8, flash_attention (K2's FMA instance) against dense "
+          f"attention from one set of weights: first-step loss {flash['losses'][0]:.6f} against "
+          f"{dense['losses'][0]:.6f} (rel {agree['first_step_loss_rel']:.2e}, tolerance "
+          f"{F32_LOSS_REL}), first update within {agree['first_update_rel']:.2e} of its largest "
+          f"entry (tolerance {F32_UPDATE_REL}); step {flash['step_ms']:.2f} ms against dense "
+          f"{dense['step_ms']:.2f} ms; launches in {steps} steps: K1 {launches[0]} + "
+          f"{launches[1]}, K2 {launches[2]} + {launches[3]} ({fma[0]} + {fma[1]} FMA), "
+          f"{copies} copies, on {card}", flush=True)
+    return result
+
+
+def run_f32_resnet50(card: str) -> dict:
+    """ResNet-50 at batch 256, 224x224, in f32 with `fused_1x1_bwd` (K4's
+    FMA instance for its 33 stride-1 1x1 convolutions a step) against the
+    default path (cuDNN, TF32 off), from one set of weights and batch."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn((F32_RESNET_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (F32_RESNET_BATCH,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    k4 = cb.conv1x1_backward_kernel
+    k4.launches = k4.fma_launches = 0
+    cb.conv1x1_backward.copies = 0
+    torch.cuda.reset_peak_memory_stats()
+    fused = _f32_steps(lambda: ResNet50(num_classes=1000, dtype=torch.float32,
+                                        fused_1x1_bwd=True),
+                       train.make_train_step, MESH_LR["resnet50"], (images, labels),
+                       F32_RESNET_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    launches, fma, copies = k4.launches, k4.fma_launches, cb.conv1x1_backward.copies
+    default = _f32_steps(lambda: ResNet50(num_classes=1000, dtype=torch.float32),
+                         train.make_train_step, MESH_LR["resnet50"], (images, labels),
+                         F32_RESNET_STEPS)
+    agree = _first_steps_agree("the f32 ResNet-50, fused_1x1_bwd against the default path",
+                               fused, default)
+    per_step = sum(calls for *_, calls in K4_SHAPES)
+    if (launches, fma) != (per_step * F32_RESNET_STEPS,) * 2 or copies:
+        raise AssertionError(f"the f32 fused ResNet-50: K4 launched {launches} times ({fma} "
+                             f"on the FMA instance), {copies} copies in {F32_RESNET_STEPS} steps")
+    result = {**agree, "losses": {"fused": fused["losses"], "default": default["losses"]},
+              "step_ms": {"fused": fused["step_ms"], "default": default["step_ms"]},
+              "steps": F32_RESNET_STEPS, "batch": F32_RESNET_BATCH, "k4": launches,
+              "k4_fma": fma, "k4_copies": copies, "peak_memory_bytes": peak}
+    print(f"f32 ResNet-50 batch {F32_RESNET_BATCH} 224x224, fused_1x1_bwd (K4's FMA instance) "
+          f"against the default path (cuDNN, TF32 off) from one set of weights: first-step loss "
+          f"{fused['losses'][0]:.6f} against {default['losses'][0]:.6f} (rel "
+          f"{agree['first_step_loss_rel']:.2e}), first update within "
+          f"{agree['first_update_rel']:.2e} of its largest entry; step {fused['step_ms']:.2f} ms "
+          f"against {default['step_ms']:.2f} ms; K4 {launches} launches ({fma} FMA) in "
+          f"{F32_RESNET_STEPS} steps; peak memory {peak / 1e9:.2f} GB; on {card}", flush=True)
+    return result
+
+
+def run_f32(card: str) -> dict:
+    """Phase 38: K2's FMA instance against float64 and its plain version at
+    the LM's, its 8- and 3-head, ViT-S/16's and a ragged head-major shape,
+    timed beside SDPA in f32; K4's at ResNet-50's 12 shapes in f32 and two
+    bf16 shapes of widths that are not multiples of 8, timed beside cuDNN;
+    the f32 LM and the f32 fused ResNet-50 stepped through them."""
+    started = time.monotonic()
+    iters, plain_iters = F32_K2_ITERS
+    k2_rows = [check_k2(b, s, h, d, causal, layout, dtype=torch.float32, seed=60 + i,
+                        iters=iters, plain_iters=plain_iters)
+               for i, (b, s, h, d, causal, layout) in enumerate(F32_K2)]
+    _print_k2(k2_rows, card)
+    k4_rows = [check_k4(size, c, n, calls, seed=60 + i, dtype=torch.float32, by_kernel=False)
+               for i, (size, c, n, calls) in enumerate(K4_SHAPES)]
+    k4_rows += [check_k4(size, c, n, 0, seed=80 + i, dtype=torch.bfloat16, by_kernel=False)
+                for i, (size, c, n) in enumerate(F32_K4_NARROW)]
+    _print_k4(k4_rows, card)
+    k4_step = _k4_step(k4_rows[:len(K4_SHAPES)])
+    print("K4 f32 per ResNet-50 step (sum of calls x device time): " + ", ".join(
+        f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in k4_step.items())
+        + f" (library_ratio: kernel / cuDNN in f32) on {card}", flush=True)
+    lm = run_f32_lm(card)
+    resnet50 = run_f32_resnet50(card)
+    result = {"k2": k2_rows, "k4": k4_rows, "k4_per_step": k4_step, "lm": lm,
+              "resnet50": resnet50, "phase_seconds": time.monotonic() - started}
+    print("f32: " + json.dumps(result, sort_keys=True, default=str), flush=True)
+    print(f"f32 (phase 38): K2's FMA instance at {[r['shape'] for r in k2_rows]} and K4's at "
+          f"ResNet-50's 12 shapes in f32 within their float64 bounds, K4's at bf16 widths "
+          f"{[tuple(r['shape'][1:]) for r in k4_rows[len(K4_SHAPES):]]}; the f32 LM's first step "
+          f"within {lm['first_step_loss_rel']:.1e} (loss) and {lm['first_update_rel']:.1e} "
+          f"(update) of dense attention, K2 {lm['k2_forward']} + {lm['k2_backward']} FMA in "
+          f"{lm['steps']} steps; the f32 ResNet-50's within {resnet50['first_step_loss_rel']:.1e} "
+          f"and {resnet50['first_update_rel']:.1e} of the default path, K4 {resnet50['k4']} FMA "
+          f"in {resnet50['steps']} steps; {result['phase_seconds']:.1f} s; on {card}", flush=True)
+    return result
+
+
 def _print_k2(rows: list, card: str) -> None:
     for row in rows:
         for part, r in (("forward", row["forward"]), ("backward", row["backward"]),
@@ -5086,6 +5363,37 @@ def _print_k3(rows: list, card: str, floor_row: dict | None = None,
               flush=True)
 
 
+def _print_k4(rows: list, card: str) -> None:
+    for row in rows:
+        f64 = row.get("f64_over_bound")
+        print(f"K4 {row['dtype']} ({row['instance']}) (M, C, N) {tuple(row['shape'])} "
+              f"x{row['calls_per_step']}: {_times_text(row, 'cuDNN')}{_ratio_text(row, 'cuDNN')}, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), max |err| dX "
+              f"{row['max_abs_err']:.2e} dW {row['max_abs_err_dw']:.2e}"
+              + ("" if f64 is None else ", against f64 over the bound " + ", ".join(
+                  f"{part} {who} {v:.3f}" for part, e in f64.items() for who, v in e.items()))
+              + (", device ms by kernel " + (", ".join(
+                  f"{k} {v:.4f}" for k, v in row["device_ms_by_kernel"].items())
+                  or "not measured (the profiler recorded no kernels)")
+                 if row["calls_per_step"] and f64 is None else "")
+              + f" on {card}", flush=True)
+
+
+def _k4_step(rows: list) -> dict:
+    """A ResNet-50 step's K4 time: the sum over its shapes of calls x
+    device ms, for the kernel, the plain version and cuDNN."""
+    step = {
+        prefix + "device_ms": sum(r["calls_per_step"] * r[prefix + "device_ms"] for r in rows)
+        if all(r[prefix + "device_ms"] is not None for r in rows) else None
+        for prefix in ("", "plain_", "library_")
+    }
+    step["bound_ms"] = sum(r["calls_per_step"] * r["bound_ms"] for r in rows)
+    step["max_workspace_bytes"] = max(r["workspace_bytes"] for r in rows)
+    step["library_ratio"] = (None if None in (step["device_ms"], step["library_device_ms"])
+                             else step["device_ms"] / step["library_device_ms"])
+    return step
+
+
 def _times_text(r: dict, library: str) -> str:
     def device(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -5110,7 +5418,8 @@ def main() -> int:
     card = _card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     builds = {source: _build_in_background(source)
-              for source in (K1_SOURCE, K2_SOURCE, K4_SOURCE, K3_SOURCE)}
+              for source in (K1_SOURCE, K2_SOURCE, K4_SOURCE, K3_SOURCE, K2_FMA_SOURCE,
+                             K4_FMA_SOURCE)}
 
     _join_build(K1_SOURCE, builds[K1_SOURCE], started)
     k1_main = check_k1(256, 1000, seed=0)
@@ -5156,24 +5465,8 @@ def main() -> int:
 
     k4_rows = [check_k4(size, c, n, calls, seed)
                for seed, (size, c, n, calls) in enumerate(K4_SHAPES)]
-    for row in k4_rows:
-        print(f"K4 (M, C, N) {tuple(row['shape'])} x{row['calls_per_step']}: "
-              f"{_times_text(row, 'cuDNN')}{_ratio_text(row, 'cuDNN')}, "
-              f"bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), max |err| dX {row['max_abs_err']:.2e} "
-              f"dW {row['max_abs_err_dw']:.2e}, device ms by kernel "
-              + (", ".join(f"{k} {v:.4f}" for k, v in row["device_ms_by_kernel"].items())
-                 or "not measured (the profiler recorded no kernels)")
-              + f" on {card}", flush=True)
-    k4_step = {
-        prefix + "device_ms": sum(r["calls_per_step"] * r[prefix + "device_ms"] for r in k4_rows)
-        if all(r[prefix + "device_ms"] is not None for r in k4_rows) else None
-        for prefix in ("", "plain_", "library_")
-    }
-    k4_step["bound_ms"] = sum(r["calls_per_step"] * r["bound_ms"] for r in k4_rows)
-    k4_step["max_workspace_bytes"] = max(r["workspace_bytes"] for r in k4_rows)
-    k4_step["library_ratio"] = (None if None in (k4_step["device_ms"], k4_step["library_device_ms"])
-                                else k4_step["device_ms"] / k4_step["library_device_ms"])
+    _print_k4(k4_rows, card)
+    k4_step = _k4_step(k4_rows)
     print("K4 per ResNet-50 step (sum of calls x device time): " + ", ".join(
         f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in k4_step.items())
         + f" (library_ratio: kernel / cuDNN) on {card}", flush=True)
@@ -5242,6 +5535,9 @@ def main() -> int:
     provisioned = run_provision_roofline(card)
     gpu_plane = run_gpu_plane(card)
     head_dims = run_head_dims(card)
+    _join_build(K2_FMA_SOURCE, builds[K2_FMA_SOURCE], started)
+    _join_build(K4_FMA_SOURCE, builds[K4_FMA_SOURCE], started)
+    f32 = run_f32(card)
 
     k2_lm = k2_rows[0]
     k4_main = max(k4_rows, key=lambda r: r["calls_per_step"] * (r["device_ms"] or r["ms"]))
@@ -5434,6 +5730,48 @@ def main() -> int:
             "per_step": k4_step,
             "other_shapes": [r for r in k4_rows if r is not k4_main],
         },
+        *({
+            "name": f"flash_attn_{part[0]}w{part[-1]} (K2, FMA instance)",  # fwd, bwd
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention_fma.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:128",
+            "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
+            "launches": f32["lm"][f"k2_{part}"],
+            "path": "the f32 LM (dtype = logits_dtype = float32) with flash_attention",
+            "design": ("f32 FMAs on the CUDA cores, no TF32: CTAs of 256 threads (16 x 16) "
+                       "over 64 or 32 q rows of one (batch, head) with a tile width of 64, 128 "
+                       "or 256, every tile in shared memory transposed and padded (conflict-free "
+                       "column reads, broadcast row reads), a register tile of scores a thread, "
+                       "online softmax with half-warp shuffles, P through shared memory, O += PV "
+                       "in registers; tensors read and written through their strides")
+            if part == "forward" else
+            ("f32 FMAs, no TF32: a rows pre-pass (rowsum(dO*O), one warp a row), a dK/dV "
+             "kernel over 64- or 32-key items and a dQ kernel over q items, each recomputing S "
+             "and dP from the logsumexp in register tiles; no atomics, bit-equal calls"),
+            "shape": f32["k2"][0]["shape"], "layout": f32["k2"][0]["layout"], "dtype": "float32",
+            **f32["k2"][0][part],
+            "library_ratio": _library_ratio(f32["k2"][0][part]),
+            "other_shapes": [{**{k: r[k] for k in ("shape", "layout", "causal", "dtype")},
+                              **r[part]} for r in f32["k2"][1:]],
+        } for part in ("forward", "backward")),
+        {
+            "name": "conv1x1_bwd (K4, FMA instance)",
+            "route": "cuda",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/conv_backward_fma.cu",
+            "replaces": "tritonk8ssupervisor_tpu/ops/conv_backward.py:83",
+            "launches": f32["resnet50"]["k4"],
+            "path": "ResNet-50 in f32 with fused_1x1_bwd; bf16 and fp16 at widths that are not "
+                    "multiples of 8",
+            "design": "f32 FMAs on the CUDA cores, no TF32: a SIMT GEMM for dgrad and one for "
+                      "wgrad over a fixed split of M, 128 x 128 output tiles of 256 threads, 8 x 8 "
+                      "a thread from float4 reads of k-major shared tiles of depth 8, double "
+                      "buffered with the next depth in registers; rows read element by element "
+                      "(any width, any alignment); partials summed in split order",
+            **f32["k4"][0],
+            "library_ratio": _library_ratio(f32["k4"][0]),
+            "per_step": f32["k4_per_step"],
+            "other_shapes": f32["k4"][1:],
+        },
         {
             "name": "decode_attn_int8 (K3)",
             "route": "cuda",
@@ -5495,6 +5833,8 @@ def main() -> int:
     print("slice 19: " + json.dumps({"provision_roofline": provisioned}, sort_keys=True,
                                     default=str), flush=True)
     print("slice 20: " + json.dumps({"gpu_plane": gpu_plane}, sort_keys=True, default=str),
+          flush=True)
+    print("every dtype and width: " + json.dumps({"f32": f32}, sort_keys=True, default=str),
           flush=True)
     print(f"chip_smoke: all phases passed in {time.monotonic() - started:.1f} s", flush=True)
     print(card)
@@ -5581,6 +5921,15 @@ if __name__ == "__main__":
         for source in (K1_SOURCE, K2_SOURCE, K3_SOURCE):
             cuda_build.load(source)
         run_head_dims(_card_line())
+        sys.exit(0)
+    if sys.argv[1:] == ["--f32"]:  # phase 38 alone, K1 and the FMA instances built first
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        torch.backends.cudnn.allow_tf32 = False  # as main() runs it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for source in (K1_SOURCE, K2_FMA_SOURCE, K4_FMA_SOURCE):
+            cuda_build.load(source)
+        run_f32(_card_line())
         sys.exit(0)
     if sys.argv[1:] == ["--provision-roofline"]:  # phase 35 alone, K1 and K2 built first
         if not torch.cuda.is_available():

@@ -164,16 +164,20 @@ def test_rows_are_read_in_place_or_copied_and_counted():
 
 def test_kernel_inputs_that_k4_does_not_take_raise():
     """K4's wrapper checks dtype, shapes, widths and layout, then the
-    device, before any launch: CPU tensors are refused, never launched."""
+    device, before any launch: CPU tensors are refused, never launched.
+    f32 and widths that are not multiples of 8 are K4's too (its FMA
+    instance): float64 is refused in their place, at width 12 as at 24."""
     bf16 = torch.bfloat16
     x2 = torch.zeros(16, 24, dtype=bf16)
     dy2 = torch.zeros(16, 8, dtype=bf16)
     w2 = torch.zeros(8, 24, dtype=bf16)
+    f64 = torch.float64
     bad = [
-        (TypeError, "bf16 or fp16", (x2.float(), dy2.float(), w2.float())),
+        (TypeError, "float32, bf16 or fp16", (x2.to(f64), dy2.to(f64), w2.to(f64))),
         (TypeError, "one dtype", (x2, dy2.half(), w2)),
         (ValueError, "W \\(N, C\\)", (x2, dy2, w2.t().contiguous())),
-        (ValueError, "multiples of 8", (x2[:, :12], dy2, w2[:, :12])),
+        (TypeError, "float32, bf16 or fp16", (x2[:, :12].to(f64), dy2.to(f64),
+                                              w2[:, :12].to(f64))),
         (ValueError, "contiguous", (torch.zeros(24, 16, dtype=bf16).t(), dy2, w2)),
         (ValueError, "aligned", (torch.zeros(16 * 24 + 1, dtype=bf16)[1:].view(16, 24),
                                  dy2, w2)),

@@ -185,6 +185,13 @@ def test_k1_bf16_at_the_lm_shape():
 # inputs, 1e-2.
 K2_REL_SAME_DTYPE = 2e-2
 K2_REL_F32 = 1e-2
+# float32 q, k, v (the FMA instance, f32 products, no TF32): an error bound
+# against a float64 evaluation of the same inputs, relative to the f64
+# result's largest magnitude: 2e-5 for O, 1e-4 for dq, dk and dv. Each case
+# also holds the plain f32 version on the card to it, so the bound is known
+# to be attainable; products of TF32's 10-bit inputs miss it
+# (tests/test_torch_f32_kernels.py).
+K2_F32_REL = {"out": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
 
 K2_CASES = [
     pytest.param(8, 1024, 12, 64, torch.bfloat16, True, "bshd", id="lm-bshd"),
@@ -219,6 +226,18 @@ K2_CASES = [
     pytest.param(2, 512, 2, 256, torch.float16, False, "bhsd", id="d256-fp16-full"),
     pytest.param(2, 200, 2, 256, torch.bfloat16, True, "bhsd", id="d256-ragged-causal"),
     pytest.param(1, 1, 2, 256, torch.float16, True, "bshd", id="d256-one-token"),
+    # float32 on the FMA instance, every head_dim 1-256 at any stride
+    pytest.param(8, 1024, 12, 64, torch.float32, True, "bshd", id="f32-lm"),
+    pytest.param(8, 1024, 8, 96, torch.float32, True, "bshd", id="f32-d96-lm-8-heads"),
+    pytest.param(8, 1024, 3, 256, torch.float32, True, "bshd", id="f32-d256-lm-3-heads"),
+    pytest.param(256, 197, 6, 64, torch.float32, False, "bshd", id="f32-vit-s16"),
+    pytest.param(2, 1000, 4, 40, torch.float32, False, "bhsd", id="f32-d40-ragged-bhsd"),
+    pytest.param(1, 65, 2, 1, torch.float32, True, "bshd", id="f32-d1"),
+    pytest.param(2, 77, 3, 8, torch.float32, True, "bshd", id="f32-d8-causal"),
+    pytest.param(1, 130, 2, 36, torch.float32, True, "bhsd", id="f32-d36-causal"),
+    pytest.param(2, 333, 3, 100, torch.float32, False, "bshd", id="f32-d100-full"),
+    pytest.param(2, 200, 2, 256, torch.float32, True, "bhsd", id="f32-d256-ragged-causal"),
+    pytest.param(1, 1, 2, 256, torch.float32, True, "bshd", id="f32-d256-one-token"),
 ]
 
 
@@ -264,13 +283,24 @@ def test_k2_matches_plain_version(b, s, h, d, dtype, causal, layout):
     torch.cuda.synchronize()
     assert fa.flash_attention_forward.launches == fwd + 1
     assert fa.flash_attention_backward.launches == bwd + 1
-    # dense q, k, v are read in place unless d is not a multiple of 8
-    assert fa.flash_attention_forward.copies == copies + (3 if d % 8 else 0)
+    # dense q, k, v are read in place unless d is not a multiple of 8 (the
+    # wgmma instances' TMA); the FMA instance reads every head_dim in place
+    padded = d % 8 and dtype != torch.float32
+    assert fa.flash_attention_forward.copies == copies + (3 if padded else 0)
     _k2_lse_matches(q, k, torch.ops.tk8s.flash_attn_fwd(q, k, v, causal, layout)[1], causal,
                     layout)
     assert all(g.dtype == dtype and g.shape == q.shape for g in got)
     plain = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, causal, layout),
                      q, k, v, dout)
+    if dtype == torch.float32:
+        f64 = _fwd_bwd(lambda *x: fa.attention_f64(*x, causal, layout),
+                       *(x.double() for x in (q, k, v, dout)))
+        for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, plain, f64):
+            bound = K2_F32_REL[name] * e.abs().max().item()
+            assert torch.isfinite(a).all(), name
+            assert (a.double() - e).abs().max().item() <= bound, name
+            assert (p.double() - e).abs().max().item() <= bound, (name, "plain")
+        return
     f32 = _fwd_bwd(lambda *x: fa.attention_reference_layout(*x, causal, layout),
                    q.float(), k.float(), v.float(), dout.float())
     for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, plain, f32):
@@ -358,11 +388,13 @@ def test_k2_copies_inputs_that_tma_cannot_address(pad_last, offset):
 
 
 @pytest.mark.cuda
-def test_k2_backward_is_deterministic():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k2_backward_is_deterministic(dtype):
     """No atomics: every dQ, dK and dV row is written by one CTA in a fixed
-    order, so two backward calls on the same inputs agree bit for bit."""
+    order, so two backward calls on the same inputs agree bit for bit, on
+    the wgmma and the FMA instance."""
     _card()
-    q, k, v, dout = _k2_inputs(4, 1024, 12, 64, torch.bfloat16, "bshd", seed=11)
+    q, k, v, dout = _k2_inputs(4, 1024, 12, 64, dtype, "bshd", seed=11)
     out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, True, "bshd")
     first = torch.ops.tk8s.flash_attn_bwd(dout, q, k, v, out, lse, True, "bshd")
     second = torch.ops.tk8s.flash_attn_bwd(dout, q, k, v, out, lse, True, "bshd")
@@ -415,8 +447,12 @@ def test_k2_wrapper_raises_on_what_it_does_not_take():
     got = fa.flash_attention(x, x, x)
     assert _rel_err(got, fa.attention_reference_layout(x, x, x, True, "bshd")) <= K2_REL_SAME_DTYPE
     y = torch.zeros(1, 128, 2, 64, device="cuda")
-    with pytest.raises(TypeError, match="bf16"):
-        fa.flash_attention(y, y, y)
+    # f32 runs (the FMA instance); float64 is refused in its place
+    with pytest.raises(TypeError, match="float32, bf16 or fp16"):
+        fa.flash_attention(y.double(), y.double(), y.double())
+    wide = torch.zeros(1, 128, 2, 264, device="cuda")
+    with pytest.raises(ValueError, match="head_dim from 1 to 256"):
+        fa.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(y.bfloat16(), y.bfloat16().cpu(), y.bfloat16())
     with pytest.raises(ValueError, match="layout"):
@@ -500,7 +536,34 @@ K4_CASES = [
     pytest.param(802816, 256, 64, torch.bfloat16, id="stage0-full"),
     pytest.param(50176, 256, 1024, torch.bfloat16, id="stage2-full"),
     pytest.param(12544, 2048, 512, torch.float16, id="stage3-full-fp16"),
+    # the FMA instance: float32 at ResNet-50's widths, and any width in f32,
+    # bf16 or fp16
+    pytest.param(128, 24, 32, torch.float32, id="f32-small"),
+    pytest.param(1000, 3, 13, torch.float32, id="f32-widths-3-13"),
+    pytest.param(4099, 100, 36, torch.float32, id="f32-widths-100-36"),
+    pytest.param(802816, 64, 64, torch.float32, id="f32-stage0-full"),
+    pytest.param(50176, 256, 1024, torch.float32, id="f32-stage2-full"),
+    pytest.param(12544, 2048, 512, torch.float32, id="f32-stage3-full"),
+    pytest.param(50176, 3, 13, torch.bfloat16, id="bf16-widths-3-13"),
+    pytest.param(4096, 100, 36, torch.bfloat16, id="bf16-widths-100-36"),
+    pytest.param(1000, 12, 20, torch.float16, id="fp16-widths-12-20"),
 ]
+
+# float32 (the FMA instance): elementwise |kernel - f64| <= 1.01 K 2^-24
+# (|A| |B|)_64 + 1e-30 against a float64 evaluation, K the contraction
+# length (N for dX, M for dW): the forward error bound of an f32 FMA sum in
+# any order; the 1e-30 covers results flushed to zero. The plain f32
+# version on the card is held to it too; TF32 products miss it.
+
+
+def _k4_f32_bound_ratio(dx, dw, x2, dy2, w2):
+    """max over dX and dW of |got - f64| over the bound above."""
+    from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
+
+    ref_dx, ref_dw, mag_dx, mag_dw = cb.conv1x1_backward_f64(x2, dy2, w2)
+    m, n = dy2.shape
+    return max(((got.double() - ref).abs() / (1.01 * k * 2.0**-24 * mag + 1e-30)).max().item()
+               for got, ref, mag, k in ((dx, ref_dx, mag_dx, n), (dw, ref_dw, mag_dw, m)))
 
 
 def _k4_inputs(m, c, n, dtype, seed=0):
@@ -525,6 +588,10 @@ def test_k4_matches_plain_version(m, c, n, dtype):
     assert dx.dtype == dtype and dx.shape == (m, c) and dw.dtype == torch.float32
     ref_dx, ref_dw = cb.conv1x1_backward_plain(x2, dy2, w2, dtype)
     assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    if dtype == torch.float32:
+        assert _k4_f32_bound_ratio(dx, dw, x2, dy2, w2) <= 1.0
+        assert _k4_f32_bound_ratio(ref_dx, ref_dw, x2, dy2, w2) <= 1.0  # the plain version
+        return
     assert _rel_err(dx, ref_dx) <= K4_REL_DX, _rel_err(dx, ref_dx)
     scale = ref_dw.abs().max().item()
     assert (dw - ref_dw).abs().max().item() <= K4_REL_DW * scale
@@ -551,13 +618,15 @@ def test_k4_at_widths_and_rows_that_are_not_whole_tiles(m, c, n, dtype):
 
 
 @pytest.mark.cuda
-def test_k4_is_deterministic():
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 128), (torch.float32, 128),
+                                     (torch.bfloat16, 100)], ids=["bf16", "f32", "bf16-fma"])
+def test_k4_is_deterministic(dtype, c):
     """dW is summed over a fixed split of M in a fixed order: two calls on
-    the same inputs agree bit for bit."""
+    the same inputs agree bit for bit, on the wgmma and the FMA instance."""
     _card()
     from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
 
-    x2, dy2, w2 = _k4_inputs(200704, 128, 512, torch.bfloat16, seed=1)
+    x2, dy2, w2 = _k4_inputs(200704, c, 512, dtype, seed=1)
     first = cb.conv1x1_backward_kernel(x2, dy2, w2)
     second = cb.conv1x1_backward_kernel(x2, dy2, w2)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
@@ -609,16 +678,17 @@ def test_k4_raises_on_what_it_does_not_take():
     x = torch.zeros(2, 16, 4, 4, device="cuda").to(memory_format=torch.channels_last)
     w = torch.zeros(8, 16, 1, 1, device="cuda")
     dy = torch.zeros(2, 8, 4, 4, device="cuda").to(memory_format=torch.channels_last)
-    with pytest.raises(TypeError, match="bf16"):
-        cb.conv1x1_backward(x, w, dy, torch.float32)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        cb.conv1x1_backward(x[:, :12], w[:, :12], dy, torch.bfloat16)
+    # f32 and width 12 run on the FMA instance; float64 is refused in their place
+    with pytest.raises(TypeError, match="float32, bf16 or fp16"):
+        cb.conv1x1_backward(x, w, dy, torch.float64)
+    with pytest.raises(TypeError, match="float32, bf16 or fp16"):
+        cb.conv1x1_backward(x[:, :12], w[:, :12], dy, torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         cb.conv1x1_backward(x, w.cpu(), dy, torch.bfloat16)
     # the wrapper itself, on rows that are not K4's
     x2, dy2, w2 = _k4_inputs(64, 16, 8, torch.bfloat16)
-    with pytest.raises(TypeError, match="bf16"):
-        cb.conv1x1_backward_kernel(x2.float(), dy2.float(), w2.float())
+    with pytest.raises(TypeError, match="float32, bf16 or fp16"):
+        cb.conv1x1_backward_kernel(x2.double(), dy2.double(), w2.double())
     with pytest.raises(ValueError, match="contiguous"):
         cb.conv1x1_backward_kernel(x2.t().contiguous().t(), dy2, w2)
     with pytest.raises(ValueError, match="aligned"):

@@ -16,10 +16,15 @@ cuDNN backward gives a bf16 weight gradient that autograd upcasts: the
 two models' gradients differ slightly, as the JAX package's do.
 
 On CPU tensors the backward is the plain version
-(`conv1x1_backward_plain`). On CUDA tensors it launches kernel K4
-(`csrc/conv_backward.cu`) for every M; what K4 does not take (a compute
-dtype other than bf16 or fp16, a width that is not a multiple of 8, a
-mismatched device) raises, and nothing falls back to the plain version.
+(`conv1x1_backward_plain`). On CUDA tensors it launches kernel K4 for
+every M, on the instance `conv_backward_cuda.instance` names from the
+compute dtype and widths alone: the wgmma kernels
+(`csrc/conv_backward.cu`) for bf16 and fp16 at widths that are multiples
+of 8, the FMA kernels (`csrc/conv_backward_fma.cu`: f32 products on the
+CUDA cores, no TF32) for a float32 compute dtype and any other width.
+What K4 does not take (another compute dtype, a mismatched device)
+raises, and nothing falls back to the plain version or to the other
+instance.
 
 K4 is bound as the `torch.library` custom op `tk8s::conv1x1_bwd`, with a
 fake implementation and a FLOP formula of 4 M C N (the two products), so
@@ -42,11 +47,11 @@ from tritonk8ssupervisor_tpu_torch.ops import conv_backward_cuda
 
 
 def backward_cost(m: int, c: int, n: int, elem: int) -> tuple[int, int]:
-    """(bytes, tensor-core operations) of one K4 call on X (M, C), dY (M,
-    N), W (N, C) of `elem` bytes an element: the three read once, dX
-    written once in their dtype and dW once in f32; two products of 2 *
-    M * C * N. `chip_smoke.py`'s bound and `utils/roofline.py` both read
-    it."""
+    """(bytes, operations) of one K4 call on X (M, C), dY (M, N), W (N,
+    C) of `elem` bytes an element (4 for an f32 compute dtype): the three
+    read once, dX written once in their dtype and dW once in f32; two
+    products of 2 * M * C * N. `chip_smoke.py`'s bound and
+    `utils/roofline.py` both read it."""
     n_bytes = elem * (m * c + m * n + n * c) + elem * m * c + 4 * n * c
     return n_bytes, 4 * m * c * n
 
@@ -61,6 +66,16 @@ def conv1x1_backward_plain(x2, dy2, w, compute_dtype):
     return dx, dy.t() @ x
 
 
+def conv1x1_backward_f64(x2, dy2, w2):
+    """K4's function in float64 on the values of X (M, C), dY (M, N), W
+    (N, C), with the magnitudes its f32 error bound reads: (dX, dW,
+    |dY| |W|, |dY|^T |X|), all float64. The yardstick of the FMA
+    instance in tests/test_torch_kernels.py and `chip_smoke.py`; no path
+    of the port calls it."""
+    x, dy, w = (t.double() for t in (x2, dy2, w2))
+    return dy @ w, dy.t() @ x, dy.abs() @ w.abs(), dy.abs().t() @ x.abs()
+
+
 def _on_one_cuda_device(*tensors) -> bool:
     return all(t.device.type == "cuda" and t.device == tensors[0].device for t in tensors)
 
@@ -68,21 +83,18 @@ def _on_one_cuda_device(*tensors) -> bool:
 def _check_kernel_inputs(x2, dy2, w2) -> None:
     """Raise unless X (M, C), dY (M, N) and W (N, C) are what K4 takes."""
     tensors = (x2, dy2, w2)
-    if x2.dtype not in conv_backward_cuda.DTYPES or any(t.dtype != x2.dtype for t in tensors):
-        raise TypeError(
-            f"K4 computes in bf16 or fp16, one dtype for X, dY and W, got "
-            f"{[t.dtype for t in tensors]}: other compute dtypes on the card are a "
-            "gap (ROADMAP.md queue 2, K4)"
-        )
+    if any(t.dtype != x2.dtype for t in tensors):
+        raise TypeError(f"K4 computes in one dtype for X, dY and W (float32, bf16 or fp16), "
+                        f"got {[t.dtype for t in tensors]}")
     if (x2.dim() != 2 or dy2.dim() != 2 or dy2.shape[0] != x2.shape[0]
             or w2.shape != (dy2.shape[1], x2.shape[1])):
         raise ValueError(f"K4 takes X (M, C), dY (M, N), W (N, C), got "
                          f"{[tuple(t.shape) for t in tensors]}")
-    (m, c), n = x2.shape, dy2.shape[1]
-    if c % conv_backward_cuda.WIDTH_MULTIPLE or n % conv_backward_cuda.WIDTH_MULTIPLE:
-        raise ValueError(f"K4 takes channel widths that are multiples of 8, got C={c}, N={n}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
-        raise ValueError("K4 reads X, dY and W as contiguous, 16-byte aligned rows")
+    route = conv_backward_cuda.instance(x2.dtype, x2.shape[1], dy2.shape[1])
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("K4 reads X, dY and W as contiguous rows")
+    if route != "fma" and not all(t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("K4's wgmma instances read X, dY and W as 16-byte aligned rows")
     if not _on_one_cuda_device(*tensors):
         raise ValueError(
             f"X on {x2.device}, dY on {dy2.device}, W on {w2.device}: K4 needs all "
@@ -91,12 +103,13 @@ def _check_kernel_inputs(x2, dy2, w2) -> None:
 
 
 def conv1x1_backward_kernel(x2, dy2, w2):
-    """K4's wrapper: contiguous, 16-byte aligned (M, C), (M, N), (N, C)
-    CUDA tensors in one compute dtype -> (dX (M, C) in that dtype, dW
-    (N, C) f32); anything else raises. One call launches dgrad, wgrad
-    and, with more than one split of M, the reduction; it is counted once
-    in `conv1x1_backward_kernel.launches`. An empty M launches nothing:
-    dX is empty and dW zero, as the reference returns."""
+    """K4's wrapper: contiguous (M, C), (M, N), (N, C) CUDA tensors in
+    one compute dtype (16-byte aligned on the wgmma instances) -> (dX (M,
+    C) in that dtype, dW (N, C) f32); anything else raises. One call
+    launches dgrad, wgrad and, with more than one split of M, the
+    reduction; it is counted once in `conv1x1_backward_kernel.launches`
+    (and in its `fma_launches` on the FMA instance). An empty M launches
+    nothing: dX is empty and dW zero, as the reference returns."""
     _check_kernel_inputs(x2, dy2, w2)
     m, c = x2.shape
     n = dy2.shape[1]
@@ -106,10 +119,12 @@ def conv1x1_backward_kernel(x2, dy2, w2):
     dw = torch.empty((n, c), dtype=torch.float32, device=x2.device)
     conv_backward_cuda.backward(x2, dy2, w2, dx2, dw)
     conv1x1_backward_kernel.launches += 1
+    conv1x1_backward_kernel.fma_launches += conv_backward_cuda.instance(x2.dtype, c, n) == "fma"
     return dx2, dw
 
 
 conv1x1_backward_kernel.launches = 0
+conv1x1_backward_kernel.fma_launches = 0  # of `launches`, those on the FMA instance
 
 
 @torch.library.custom_op(
@@ -133,7 +148,8 @@ def _bwd_flops(x_shape, dy_shape, w_shape, *args, **kwargs) -> int:
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """An NCHW tensor as its (B*H*W, C) rows: a view when its memory is
-    channels_last-dense and 16-byte aligned, else a counted copy."""
+    channels_last-dense and 16-byte aligned, else a counted copy (fresh
+    memory, so aligned)."""
     rows = t.permute(0, 2, 3, 1)
     if not (rows.is_contiguous() and t.data_ptr() % 16 == 0):
         rows = rows.contiguous()
@@ -189,7 +205,8 @@ def conv1x1(x, weight, compute_dtype=torch.bfloat16):
       x: (B, C, H, W) activations (any float dtype; channels_last memory
         lets K4 read them in place).
       weight: (N, C, 1, 1) parameters (the plain `Conv`'s layout and name).
-      compute_dtype: the products' input dtype (bf16 in the model).
+      compute_dtype: the products' input dtype (the model's dtype: bf16 by
+        default; float32, bf16 or fp16 on the card).
 
     Returns (B, N, H, W) in compute_dtype, like the plain `Conv`.
     """

@@ -1,11 +1,15 @@
-"""K4's launcher: the ctypes binding of `csrc/conv_backward.cu`.
+"""K4's launcher: the ctypes binding of `csrc/conv_backward.cu` and of its
+FMA instance, `csrc/conv_backward_fma.cu`.
 
-The kernel source says what it replaces and how it is built; this module
-turns tensors into its arguments (data pointers, the row count, the split
-of M for dW, PyTorch's current stream) and allocates dW's f32 workspace.
-The caller (`ops/conv_backward.py`) has checked device, dtype, widths and
-layout and allocated the outputs; a launch that the runtime refuses
-raises here.
+The kernel sources say what they replace and how they are built; this
+module picks the instance an input runs on from its dtype and widths
+alone (`instance`): the wgmma kernels for bf16 and fp16 at widths that
+are multiples of 8, the FMA kernels for float32 and for every other
+width. It turns tensors into their arguments (data pointers, the row
+count, the split of M for dW, PyTorch's current stream) and allocates
+dW's f32 workspace. The caller (`ops/conv_backward.py`) has checked
+device, dtype, widths and layout and allocated the outputs; a launch that
+the runtime refuses raises here, and nothing picks another instance.
 """
 
 from __future__ import annotations
@@ -18,11 +22,14 @@ import torch
 from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 
 SOURCE = "conv_backward.cu"
-# the compute dtypes the kernel is instantiated for -> their code in the C
-# interface
+FMA_SOURCE = "conv_backward_fma.cu"
+# the compute dtypes the wgmma kernels are instantiated for -> their code
+# in the C interface
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-# widths are whole 16-byte rows of 2-byte elements
+# their widths are whole 16-byte rows of 2-byte elements
 WIDTH_MULTIPLE = 8
+# the FMA kernels' dtypes -> their codes; they take any width
+FMA_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # dW is split over M so that the wgrad grid fills the card in one wave:
 # one CTA (128 x 128 of (N, C), 384 threads, 129 KB of shared memory) per
@@ -35,6 +42,13 @@ WAVE = 132
 MIN_SPLIT_ROWS = 512
 _WG_TILE = 128
 _WG_STEP = 64
+
+# the FMA wgrad's splits of M: two CTAs of 256 threads (a 128 x 128 tile
+# of dW each) an SM, one wave, each split at least MIN_SPLIT_ROWS rows and
+# a whole number of its 8-row stages; the workspace is then at most
+# 2 * WAVE * 128 * 128 * 4 bytes (17.3 MB)
+_FMA_TILE = 128
+_FMA_STEP = 8
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -55,6 +69,43 @@ def split(m: int, c: int, n: int) -> tuple[int, int]:
     return _cdiv(m, rows), rows
 
 
+def instance(dtype: torch.dtype, c: int, n: int) -> str:
+    """The kernel instance that takes X (M, C), dY (M, N), W (N, C) of
+    compute `dtype`, a function of the dtype and widths alone: "wgmma-64",
+    "wgmma-128" or "wgmma-256" (dgrad's tile of C) for bf16 and fp16 at
+    widths that are multiples of 8, "fma" for float32 and for bf16 or fp16
+    at any other width. Raises TypeError for any other dtype."""
+    if dtype not in FMA_DTYPES:
+        raise TypeError(
+            f"K4 computes in float32, bf16 or fp16, got {dtype}: other dtypes are "
+            "outside its contract (ROADMAP.md, the kernels' limits)"
+        )
+    if dtype in DTYPES and c % WIDTH_MULTIPLE == 0 and n % WIDTH_MULTIPLE == 0:
+        return f"wgmma-{64 if c <= 64 else 128 if c <= 128 else 256}"
+    return "fma"
+
+
+def fma_split(m: int, c: int, n: int) -> tuple[int, int]:
+    """(splits, rows per split) of M for the FMA instance's dW, a fixed
+    function of the shape as `split` is for the wgmma one."""
+    if m == 0:
+        return 1, 0
+    tiles = _cdiv(c, _FMA_TILE) * _cdiv(n, _FMA_TILE)
+    splits = max(1, min(2 * WAVE // tiles, _cdiv(m, MIN_SPLIT_ROWS)))
+    rows = _cdiv(_cdiv(m, splits), _FMA_STEP) * _FMA_STEP
+    return _cdiv(m, rows), rows
+
+
+@functools.cache
+def _fma_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(FMA_SOURCE)
+    lib.tk8s_conv1x1_fma_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _P]
+    lib.tk8s_conv1x1_fma_bwd.restype = _I
+    lib.tk8s_conv1x1_fma_error_string.argtypes = [_I]
+    lib.tk8s_conv1x1_fma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
@@ -67,20 +118,25 @@ def _lib() -> ctypes.CDLL:
 
 def backward(x2, dy2, w2, dx2, dw) -> None:
     """dX (M, C) into `dx2` and dW (N, C) f32 into `dw`, from X (M, C),
-    dY (M, N) and W (N, C), all dense and in one compute dtype."""
-    lib = _lib()
+    dY (M, N) and W (N, C), all dense and in one compute dtype, on the
+    instance `instance` names."""
     m, c = x2.shape
     n = dy2.shape[1]
-    splits, rows = split(m, c, n)
+    fma = instance(x2.dtype, c, n) == "fma"
+    lib = _fma_lib() if fma else _lib()
+    splits, rows = (fma_split if fma else split)(m, c, n)
     partial = (torch.empty((splits, n, c), dtype=torch.float32, device=x2.device)
                if splits > 1 else None)
-    code = lib.tk8s_conv1x1_bwd(
-        DTYPES[x2.dtype], x2.data_ptr(), dy2.data_ptr(), w2.data_ptr(), dx2.data_ptr(),
+    launch, codes, error_string = (
+        (lib.tk8s_conv1x1_fma_bwd, FMA_DTYPES, lib.tk8s_conv1x1_fma_error_string) if fma
+        else (lib.tk8s_conv1x1_bwd, DTYPES, lib.tk8s_conv1x1_error_string))
+    code = launch(
+        codes[x2.dtype], x2.data_ptr(), dy2.data_ptr(), w2.data_ptr(), dx2.data_ptr(),
         dw.data_ptr(), None if partial is None else partial.data_ptr(),
         m, c, n, splits, rows, torch.cuda.current_stream(x2.device).cuda_stream,
     )
     if code != 0:
         raise RuntimeError(
-            f"K4 launch failed at (M, C, N) = {(m, c, n)}: "
-            f"{lib.tk8s_conv1x1_error_string(code).decode()} ({code})"
+            f"K4 {'fma' if fma else 'wgmma'} launch failed at (M, C, N) = {(m, c, n)}: "
+            f"{error_string(code).decode()} ({code})"
         )

@@ -6,17 +6,22 @@
 head_dim) inputs, or (batch, heads, seq, head_dim) with layout="bhsd",
 and scales the scores by 1/sqrt(head_dim). On CPU tensors it is the
 plain version (`ops/ring_attention.attention_reference_layout`). On CUDA
-tensors it launches kernel K2 (`csrc/flash_attention.cu`), forward and
-backward, for every sequence length and every head_dim from 1 to 256:
-the kernel masks a ragged last tile, so there is no dense branch, and
-runs a head_dim on the narrowest of its 64, 128 and 256 tiles that holds
-it, reading the columns past it as zeros. K2 reads q, k, v (and O and dO)
-in place where TMA can address them, which the LM's qkv views allow; any
-other view is copied first, and a head_dim that is not a multiple of 8
-into rows zero-padded to one, whose outputs are sliced back
-(`_kernel_view`, counted in `flash_attention_forward.copies`). What K2
-does not take (a head_dim above 256, a dtype other than bf16 or fp16)
-raises; nothing falls back to the plain version on the card.
+tensors it launches kernel K2, forward and backward, for every sequence
+length and every head_dim from 1 to 256, on the instance that
+`flash_attention_cuda.instance` names from the dtype and head_dim alone:
+bf16 and fp16 run on the wgmma kernels (`csrc/flash_attention.cu`), on the
+narrowest of their 64, 128 and 256 tiles that holds the head_dim, with
+the columns past it read as zeros; float32 runs on the FMA kernels
+(`csrc/flash_attention_fma.cu`), f32 products on the CUDA cores and no
+TF32. Both mask a ragged last tile, so there is no dense branch. The wgmma
+kernels read q, k, v (and O and dO) in place where TMA can address them,
+which the LM's qkv views allow; any other view is copied first, and a
+head_dim that is not a multiple of 8 into rows zero-padded to one, whose
+outputs are sliced back (`_kernel_view`, counted in
+`flash_attention_forward.copies`). The FMA kernels read any strides and
+copy nothing. What K2 does not take (a head_dim above 256, another dtype,
+mixed dtypes) raises; nothing falls back to the plain version on the card
+and no failure switches the instance.
 
 K2 is bound as two `torch.library` custom ops, `tk8s::flash_attn_fwd`
 and `tk8s::flash_attn_bwd`, with fake (shape) implementations, the
@@ -31,6 +36,8 @@ The reference's block-size overrides from the environment (`_env_block`,
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -75,43 +82,51 @@ def _check_kernel_inputs(q, k, v, layout: str) -> None:
             f"q on {q.device}, k on {k.device}, v on {v.device}: K2 needs "
             "all three on one CUDA device (CPU tensors take the plain version)"
         )
-    if q.dtype not in flash_attention_cuda.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"K2 takes bf16 or fp16 q, k, v, got {q.dtype}, {k.dtype}, "
-            f"{v.dtype}: other dtypes on the card are a gap (ROADMAP.md "
-            "queue 3, F12)"
+            f"K2 takes q, k, v of one dtype (float32, bf16 or fp16), got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}"
         )
-    flash_attention_cuda.tile_width(_dims(q.shape, layout)[3])  # raises past 256
+    # raises for another dtype or a head_dim past 256
+    flash_attention_cuda.instance(q.dtype, _dims(q.shape, layout)[3])
 
 
 def flash_attention_forward(q, k, v, causal: bool, layout: str):
     """K2's forward wrapper: (O in q's layout and dtype, (B, H, S) f32
-    logsumexp). q, k and v are read in place where TMA can address them,
-    else copied (each copy counted in `flash_attention_forward.copies`).
-    One launch, counted in `flash_attention_forward.launches`."""
+    logsumexp). On the wgmma instances q, k and v are read in place where
+    TMA can address them, else copied (each copy counted in
+    `flash_attention_forward.copies`); the FMA instance reads them in
+    place. One launch, counted in `flash_attention_forward.launches` (and
+    in its `fma_launches` on the FMA instance)."""
     b, h, s, d = _dims(q.shape, layout)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if not q.numel():
         return torch.empty(q.shape, dtype=q.dtype, device=q.device), lse
-    views = [_kernel_view(x) for x in (q, k, v)]
+    fma = flash_attention_cuda.instance(q.dtype, d) == "fma"
+    views = [x if fma else _kernel_view(x) for x in (q, k, v)]
     flash_attention_forward.copies += sum(y is not x for x, y in zip((q, k, v), views))
     out = torch.empty(views[0].shape, dtype=q.dtype, device=q.device)
     flash_attention_cuda.forward(*views, out, lse, causal, layout, d ** -0.5)
     flash_attention_forward.launches += 1
+    flash_attention_forward.fma_launches += fma
     # a padded head_dim's O: its first d columns
     return (out if out.shape == q.shape else out[..., :d].contiguous()), lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.fma_launches = 0  # of `launches`, those on the FMA instance
 flash_attention_forward.copies = 0
 
 
 def flash_attention_backward(dout, q, k, v, out, lse, causal: bool, layout: str):
     """K2's backward wrapper: (dq, dk, dv), contiguous in the layout of q.
     One call launches the pre-pass, the dK/dV and the dQ kernels and is
-    counted once in `flash_attention_backward.launches`."""
+    counted once in `flash_attention_backward.launches` (and in its
+    `fma_launches` on the FMA instance)."""
     shape, d = q.shape, q.shape[-1]
-    dout, q, k, v, out = (_kernel_view(x) for x in (dout, q, k, v, out))
+    fma = flash_attention_cuda.instance(q.dtype, d) == "fma"
+    if not fma:
+        dout, q, k, v, out = (_kernel_view(x) for x in (dout, q, k, v, out))
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
     if q.numel():
         rows = torch.empty(flash_attention_cuda.rows_numel(*_dims(q.shape, layout)[:3]),
@@ -119,11 +134,13 @@ def flash_attention_backward(dout, q, k, v, out, lse, causal: bool, layout: str)
         flash_attention_cuda.backward(dout, q, k, v, out, lse, rows, *grads,
                                       causal, layout, d ** -0.5)
         flash_attention_backward.launches += 1
+        flash_attention_backward.fma_launches += fma
     # a padded head_dim's gradients: their first d columns
     return tuple(g if g.shape == shape else g[..., :d].contiguous() for g in grads)
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.fma_launches = 0
 
 
 @torch.library.custom_op(
@@ -178,12 +195,13 @@ def _pairs(seq: int, causal: bool) -> int:
 
 def forward_cost(b: int, h: int, s: int, d: int, causal: bool,
                  elem: int) -> tuple[int, int]:
-    """(bytes, tensor-core operations) of K2's forward at (batch, heads,
-    seq, head_dim) in a dtype of `elem` bytes: q, k, v read and O written
-    once, the f32 logsumexp written; two products (4 * D a pair) over the
-    (query, key) pairs the mask keeps. d is the caller's head_dim, not
-    the tile or padded width the kernel runs at: work on the zero columns
-    lowers the kernel's share of this bound, it never raises the count.
+    """(bytes, operations) of K2's forward at (batch, heads, seq,
+    head_dim) in a dtype of `elem` bytes (4 for the FMA instance's f32):
+    q, k, v read and O written once, the f32 logsumexp written; two
+    products (4 * D a pair) over the (query, key) pairs the mask keeps. d
+    is the caller's head_dim, not the tile or padded width the kernel runs
+    at: work on the zero columns lowers the kernel's share of this bound,
+    it never raises the count.
     `chip_smoke.py`'s bound and `utils/roofline.py` both read it."""
     n = b * s * h * d
     return 4 * n * elem + b * h * s * 4, 4 * b * h * d * _pairs(s, causal)
@@ -191,7 +209,7 @@ def forward_cost(b: int, h: int, s: int, d: int, causal: bool,
 
 def backward_cost(b: int, h: int, s: int, d: int, causal: bool,
                   elem: int) -> tuple[int, int]:
-    """(bytes, tensor-core operations) of K2's backward: q, k, v, O, dO
+    """(bytes, operations) of K2's backward: q, k, v, O, dO
     and the logsumexp read, dq, dk, dv written once; five products a
     pair (the kernel recomputes P), against the model work of four that
     the FLOP counter's formula below counts."""
@@ -210,6 +228,23 @@ def _bwd_flops(dout_shape, q_shape, k_shape, v_shape, out_shape_, lse_shape,
                causal, layout, *args, **kwargs) -> int:
     b, h, s, d = _dims(q_shape, layout)
     return 8 * b * h * d * _pairs(s, causal)
+
+
+def attention_f64(q, k, v, causal: bool, layout: str):
+    """The attention function in float64 on the values of q, k, v (any
+    float dtype, any device; differentiable): the yardstick of the FMA
+    instance's error bound in tests/test_torch_kernels.py and
+    `chip_smoke.py`. No path of the port calls it."""
+    q, k, v = (x.double() for x in (q, k, v))
+    if layout == "bhsd":
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    s, d = q.shape[1], q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        scores = scores.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+    return out.transpose(1, 2) if layout == "bhsd" else out
 
 
 def flash_attention(q, k, v, causal: bool = True, layout: str = "bshd"):

@@ -1,14 +1,18 @@
-"""K2's launcher: the ctypes binding of `csrc/flash_attention.cu`.
+"""K2's launcher: the ctypes binding of `csrc/flash_attention.cu` and of
+its f32 instance, `csrc/flash_attention_fma.cu`.
 
-The kernel source says what it replaces and how it is built; this module
-turns tensors into its arguments: the tile width that holds the tensors'
-head_dim (`tile_width`), data pointers, (batch, seq, head) strides for
-either layout, and PyTorch's current stream. The caller
+The kernel sources say what they replace and how they are built; this
+module picks the instance an input runs on from its dtype and head_dim
+alone (`instance`): the wgmma kernels at the tile width that holds the
+head_dim (`tile_width`) for bf16 and fp16, the FMA kernels for float32.
+It turns tensors into their arguments: data pointers, strides for either
+layout, and PyTorch's current stream. The caller
 (`ops/flash_attention.py`) has checked device, dtype and head_dim, padded
-a head_dim that is not a multiple of 8 (`padded_width`) and allocated the
-outputs. Both directions read and write every tile
+a bf16/fp16 head_dim that is not a multiple of 8 (`padded_width`) and
+allocated the outputs. The wgmma instances read and write every tile
 through TMA tensor maps, which take only what `check_tma_operand` lets
-through; a launch that the runtime refuses raises here.
+through; the FMA instance reads any strides. A launch that the runtime
+refuses raises here; nothing picks another instance.
 """
 
 from __future__ import annotations
@@ -21,10 +25,13 @@ import torch
 from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 
 SOURCE = "flash_attention.cu"
-# what the kernel is instantiated for: dtype -> its code in the C
+FMA_SOURCE = "flash_attention_fma.cu"
+# what the wgmma kernels are instantiated for: dtype -> its code in the C
 # interface, and the tile widths; a head_dim d runs on the narrowest tile
 # that holds it, with the columns [d, tile) read as zeros
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+# the FMA kernels' dtypes -> their codes; they take head_dim 1-256 too
+FMA_DTYPES = {torch.float32: 0}
 TILE_WIDTHS = (64, 128, 256)
 MAX_HEAD_DIM = TILE_WIDTHS[-1]
 # TMA reads rows of whole 16-byte units: a head_dim of bf16 or fp16 that
@@ -35,6 +42,21 @@ ITEM_ROWS = 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+
+@functools.cache
+def _fma_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(FMA_SOURCE)
+    lib.tk8s_attn_fma_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _STRIDES,
+                                      _I, _I, _I, _I, _F, _P]
+    lib.tk8s_attn_fma_fwd.restype = _I
+    lib.tk8s_attn_fma_bwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _STRIDES, _I, _I, _I, _I,
+                                      _F, _P]
+    lib.tk8s_attn_fma_bwd.restype = _I
+    lib.tk8s_attn_fma_error_string.argtypes = [_I]
+    lib.tk8s_attn_fma_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.cache
@@ -63,6 +85,12 @@ def _strides(layout: str, *tensors: torch.Tensor):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
+def _fma_strides(layout: str, *tensors: torch.Tensor):
+    """(batch, seq, head, head_dim) strides of each tensor, flat."""
+    flat = [s for x in tensors for s in (*_bsh(x, layout), x.stride(-1))]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 def dims(shape, layout: str) -> tuple[int, int, int, int]:
     """(batch, heads, seq, head_dim) of a q/k/v shape in `layout`."""
     if layout == "bshd":
@@ -82,6 +110,20 @@ def tile_width(head_dim: int) -> int:
         f"K2 takes a head_dim from 1 to {MAX_HEAD_DIM}, got {head_dim}: wider heads are "
         "outside its contract (ROADMAP.md, the kernels' limits)"
     )
+
+
+def instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel instance that takes q, k, v of `dtype` at `head_dim`, a
+    function of those two alone: "wgmma-64", "wgmma-128" or "wgmma-256"
+    (the tile) for bf16 and fp16, "fma" for float32. Raises TypeError for
+    any other dtype and ValueError for a head_dim outside 1-256."""
+    if dtype not in DTYPES and dtype not in FMA_DTYPES:
+        raise TypeError(
+            f"K2 takes float32, bf16 or fp16 q, k, v, got {dtype}: other dtypes are "
+            "outside its contract (ROADMAP.md, the kernels' limits)"
+        )
+    tile = tile_width(head_dim)
+    return "fma" if dtype in FMA_DTYPES else f"wgmma-{tile}"
 
 
 def padded_width(head_dim: int) -> int:
@@ -121,21 +163,38 @@ def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
         )
 
 
+def _raise_on_fma(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"K2 f32 {what} launch failed: {lib.tk8s_attn_fma_error_string(code).decode()} "
+            f"({code})"
+        )
+
+
 def forward(q, k, v, out, lse, causal: bool, layout: str,
             scale: float | None = None) -> None:
     """O and the (B, H, S) f32 logsumexp into `out` and `lse`; the scores
     are scaled by `scale` (1/sqrt(head_dim) of the tensors' own by
     default; the caller's real head_dim where it padded them)."""
+    b, h, s, d = dims(q.shape, layout)
+    scale = d ** -0.5 if scale is None else scale
+    if instance(q.dtype, d) == "fma":
+        lib = _fma_lib()
+        code = lib.tk8s_attn_fma_fwd(
+            FMA_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _fma_strides(layout, q, k, v, out),
+            b, h, s, int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _raise_on_fma(lib, code, "forward")
+        return
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         check_tma_operand(name, x)
-    b, h, s, d = dims(q.shape, layout)
     tile = tile_width(d)
     lib = _lib()
     code = lib.tk8s_attn_fwd(
         DTYPES[q.dtype], tile, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), _strides(layout, q, k, v, out),
-        b, h, s, int(causal), d ** -0.5 if scale is None else scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, s, int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, code, "forward")
 
@@ -144,10 +203,22 @@ def backward(dout, q, k, v, out, lse, rows, dq, dk, dv, causal: bool,
              layout: str, scale: float | None = None) -> None:
     """dq, dk, dv; `rows` is f32 scratch of `rows_numel` values; `scale`
     as the forward's."""
+    b, h, s, d = dims(q.shape, layout)
+    scale = d ** -0.5 if scale is None else scale
+    if instance(q.dtype, d) == "fma":
+        lib = _fma_lib()
+        code = lib.tk8s_attn_fma_bwd(
+            FMA_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _fma_strides(layout, q, k, v, out, dout, dq, dk, dv),
+            b, h, s, int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _raise_on_fma(lib, code, "backward")
+        return
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout),
                     ("dq", dq), ("dk", dk), ("dv", dv)):
         check_tma_operand(name, x)
-    b, h, s, d = dims(q.shape, layout)
     tile = tile_width(d)
     lib = _lib()
     code = lib.tk8s_attn_bwd(
@@ -155,7 +226,6 @@ def backward(dout, q, k, v, out, lse, rows, dq, dk, dv, causal: bool,
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _strides(layout, q, k, v, out, dout, dq, dk, dv),
-        b, h, s, int(causal), d ** -0.5 if scale is None else scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, s, int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, code, "backward")

@@ -33,7 +33,10 @@ So this module:
   depend on which of its dims is the sequence: the layout is read from
   the op's recorded arguments where torch records strings, else from the
   (B, H, S) logsumexp that a backward op on the same q dims takes; left
-  unknown, the forward keeps its bytes and counts 0 FLOPs;
+  unknown, the forward keeps its bytes and counts 0 FLOPs. An f32 call of
+  K2 or K4 runs on their FMA instances, outside the tensor cores: its
+  FLOPs count against the card's f32 rate (`PEAK_F32_FLOPS`) in the
+  compute bound and the claw-back, the rest against the tensor cores';
 - shares an operator's bytes and FLOPs among its device events in
   proportion to their device time, so the totals stay exact (K2's
   backward launches three kernels, cuBLAS's split-K two).
@@ -74,12 +77,18 @@ PEAK_HBM_BYTES = {
     "NVIDIA H200": 4.8e12,  # H200 SXM
 }
 # Data-sheet f32 rate outside the tensor cores (FLOP/s): the ceiling of
-# K1's and K3's f32 arithmetic in chip_smoke.py's bounds.
+# K1's and K3's f32 arithmetic and of K2's and K4's FMA instances in
+# chip_smoke.py's bounds.
 PEAK_F32_FLOPS = {
     "NVIDIA H100 80GB HBM3": 67e12,
     "NVIDIA H100 PCIe": 51e12,
     "NVIDIA H200": 67e12,
 }
+
+# the port's kernels whose float32 calls run on their FMA instances
+# (csrc/flash_attention_fma.cu, csrc/conv_backward_fma.cu), not on the
+# tensor cores
+FMA_KERNELS = ("tk8s::flash_attn_fwd", "tk8s::flash_attn_bwd", "tk8s::conv1x1_bwd")
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 NO_OPERATOR = "no operator"
@@ -149,6 +158,17 @@ def peak_tensor_flops_per_sec(device_name: str | None = None) -> float | None:
     return None if name is None else perf.peak_flops_per_chip(name)
 
 
+def kernel_peak_flops(elem: int, device_name: str | None = None) -> float | None:
+    """The compute ceiling of K2's and K4's arithmetic on `elem`-byte
+    operands: the f32 rate outside the tensor cores for 4 (their FMA
+    instances), the dense bf16/fp16 tensor-core rate for 2. None when the
+    card is unknown or there is none."""
+    name = _device_name(device_name)
+    if name is None:
+        return None
+    return perf.peak_for_device(PEAK_F32_FLOPS if elem == 4 else perf.PEAK_BF16_FLOPS, name)
+
+
 def bound_ms(n_bytes: float, flops: float, peak_bytes_per_sec: float,
              peak_flops_per_sec: float) -> tuple[float, str]:
     """The least time the work can take on the card, in ms, and what sets
@@ -170,6 +190,7 @@ class OpStat:
     bytes_accessed: float
     flops: float
     occurrences: int = 1
+    on_cuda_cores: bool = False  # an f32 call of K2 or K4 (FMA_KERNELS)
 
     @property
     def gbytes_per_sec(self) -> float:
@@ -196,6 +217,8 @@ class RooflineReport:
     peak_bytes_per_sec: float | None = None
     peak_flops_per_sec: float | None = None
     dispatches: int = 1
+    f32_flops: float = 0.0  # of total_flops, what runs outside the tensor cores
+    peak_f32_flops_per_sec: float | None = None
 
     @property
     def achieved_bytes_per_sec(self) -> float:
@@ -214,11 +237,15 @@ class RooflineReport:
 
     @property
     def mxu_bound_ms(self) -> float | None:
-        """Lower bound on device time if every FLOP ran at the
-        tensor-core peak (the reference's name, kept for `--json`)."""
+        """Lower bound on device time if every FLOP ran at its unit's
+        peak: the tensor cores', and the f32 rate for `f32_flops` where
+        that rate is known (the reference's name, kept for `--json`)."""
         if not self.peak_flops_per_sec:
             return None
-        return self.total_flops / self.peak_flops_per_sec * 1e3
+        if not (self.f32_flops and self.peak_f32_flops_per_sec):
+            return self.total_flops / self.peak_flops_per_sec * 1e3
+        return ((self.total_flops - self.f32_flops) / self.peak_flops_per_sec
+                + self.f32_flops / self.peak_f32_flops_per_sec) * 1e3
 
     @property
     def hbm_efficiency(self) -> float | None:
@@ -240,12 +267,13 @@ class RooflineReport:
             return []
         bw_cut = self.peak_bytes_per_sec * bw_fraction / 1e9
         mxu_cut = self.peak_flops_per_sec * mxu_fraction / 1e12
+        f32_cut = (self.peak_f32_flops_per_sec or self.peak_flops_per_sec) * mxu_fraction / 1e12
         return [
             op
             for op in self.ops
             if op.duration_ms >= min_ms
             and op.gbytes_per_sec < bw_cut
-            and op.tflops_per_sec < mxu_cut
+            and op.tflops_per_sec < (f32_cut if op.on_cuda_cores else mxu_cut)
         ]
 
 
@@ -442,6 +470,17 @@ def op_cost(event: dict, layouts: dict | None = None) -> tuple[float, float]:
     return 0.0, float(recorded_flops or 0)
 
 
+def on_cuda_cores(event: dict) -> bool:
+    """Whether a CPU operator event is an f32 call of K2 or K4, whose FMA
+    instance runs its FLOPs outside the tensor cores."""
+    name = operator_name(event)
+    if name not in FMA_KERNELS:
+        return False
+    tensors = _tensor_inputs(event.get("args") or {})
+    q = 1 if name == "tk8s::flash_attn_bwd" else 0  # the backward's first input is dO
+    return len(tensors) > q and tensors[q][1] == 4
+
+
 def attention_layouts(operators) -> dict:
     """q dims -> K2 layout, read off each backward op's (B, H, S)
     logsumexp input: the forward op on those q dims has the same."""
@@ -465,21 +504,23 @@ def analyze(
     dispatches: int = 1,
     peak_bytes_per_sec: float | None = None,
     peak_flops_per_sec: float | None = None,
+    peak_f32_flops_per_sec: float | None = None,
 ) -> RooflineReport:
     """Aggregate the capture into a RooflineReport. `dispatches` divides
     everything when the capture wrapped more than one step dispatch, so
-    the report reads per-step."""
+    the report reads per-step. The peaks default to this host's card."""
     events = load_device_ops(find_trace_file(profile_dir))
     operators = {id(e["operator"]): e["operator"] for e in events if e["operator"]}
     layouts = attention_layouts(operators.values())
     costs = {key: op_cost(op, layouts) for key, op in operators.items()}
+    f32 = {key for key, op in operators.items() if on_cuda_cores(op)}
     op_device_us: dict = collections.defaultdict(float)
     for e in events:
         if e["operator"] is not None:
             op_device_us[id(e["operator"])] += float(e.get("dur", 0))
     merged: dict[tuple, OpStat] = {}
     by_cat: dict[str, float] = collections.defaultdict(float)
-    total_ms = total_bytes = total_flops = 0.0
+    total_ms = total_bytes = total_flops = f32_flops = 0.0
     for e in events:
         dur_us = float(e.get("dur", 0))
         op = e["operator"]
@@ -500,10 +541,13 @@ def analyze(
         total_bytes += nbytes
         total_flops += flops
         by_cat[cat] += dur_ms
+        cores = op is not None and id(op) in f32
+        if cores:
+            f32_flops += flops
         key = (e.get("name", "?"), cat)
         stat = merged.get(key)
         if stat is None:
-            merged[key] = OpStat(key[0], cat, dur_ms, nbytes, flops)
+            merged[key] = OpStat(key[0], cat, dur_ms, nbytes, flops, on_cuda_cores=cores)
         else:
             stat.duration_ms += dur_ms
             stat.bytes_accessed += nbytes
@@ -518,6 +562,8 @@ def analyze(
         peak_bytes_per_sec = peak_hbm_bytes_per_sec()
     if peak_flops_per_sec is None:
         peak_flops_per_sec = peak_tensor_flops_per_sec()
+    if peak_f32_flops_per_sec is None:
+        peak_f32_flops_per_sec = kernel_peak_flops(4)
     ops = sorted(merged.values(), key=lambda s: -s.duration_ms)
     return RooflineReport(
         total_ms=total_ms,
@@ -528,6 +574,8 @@ def analyze(
         peak_bytes_per_sec=peak_bytes_per_sec,
         peak_flops_per_sec=peak_flops_per_sec,
         dispatches=dispatches,
+        f32_flops=f32_flops,
+        peak_f32_flops_per_sec=peak_f32_flops_per_sec,
     )
 
 

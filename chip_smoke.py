@@ -10,10 +10,10 @@ which raises on failure (exit code not 0, no result line):
 1. the card: name and power limit, as nvidia-smi reports them; kernels
    K1, K2, K4 and K3 (CUDA C++, `csrc/cross_entropy.cu`,
    `csrc/flash_attention.cu`, `csrc/conv_backward.cu` and
-   `csrc/decode_attention.cu`) and the FMA instances of K2 and K4
-   (`csrc/flash_attention_fma.cu`, `csrc/conv_backward_fma.cu`) start
-   building from the checkout in the background, one nvcc each, all at
-   once;
+   `csrc/decode_attention.cu`), K2's 3xTF32 instance
+   (`csrc/flash_attention_tf32.cu`) and K4's FMA instance
+   (`csrc/conv_backward_fma.cu`) start building from the checkout in the
+   background, one nvcc each, all at once;
 2. kernel K1's forward and backward (once K1 is built) against their
    plain PyTorch versions on the card: f32 at the ResNet shape
    (256, 1000) and at (4096, 32000), bf16 at the LM shape (8192, 32768),
@@ -363,7 +363,7 @@ which raises on failure (exit code not 0, no result line):
    12 times a step; and the int8-cache `generate` of an f32 2-layer LM
    with 4 heads of 40, token-equal to the CPU. With `--head-dims` this
    phase runs alone;
-38. every dtype and width (F12, F13, F14): K2's FMA instance (float32)
+38. every dtype and width (F12, F13, F14): K2's 3xTF32 instance (float32)
    forward and backward at the LM's (8, 1024, 12, 64), its 8- and 3-head
    (8, 1024, 8, 96) and (8, 1024, 3, 256) causal, ViT-S/16's (256, 197, 6,
    64) full and a ragged (2, 1000, 4, 40) causal bhsd, and K4's at
@@ -372,8 +372,8 @@ which raises on failure (exit code not 0, no result line):
    plain version, timed beside SDPA and cuDNN in f32 (TF32 off), and K4's
    at bf16 widths (3, 13) and (100, 36); the LM at its published widths
    in f32 with `flash_attention`, 3 steps against 3 from the same weights
-   with dense attention (K2 12 + 12 a step, all on the FMA instance, K1
-   1 + 1 on f32 logits); ResNet-50 at batch 256 in f32 with
+   with dense attention (K2 12 + 12 a step, all on the 3xTF32 instance,
+   K1 1 + 1 on f32 logits); ResNet-50 at batch 256 in f32 with
    `fused_1x1_bwd`, 3 steps against the default path (K4 33 a step, all
    on the FMA instance). With `--f32` this phase runs alone.
 
@@ -465,8 +465,9 @@ from tritonk8ssupervisor_tpu_torch.utils.data import (
 
 # H100 SXM data sheet, from the port's peak tables: device memory rate,
 # f32 rate outside the tensor cores (K1's and K3's bounds); K2's and K4's
-# take the f32 rate for their FMA instances' f32 and the dense bf16/fp16
-# tensor-core rate otherwise (`_peak_flops`). Each kernel's bytes and
+# take the rate of f32-accurate products (3xTF32: a third of dense TF32)
+# for f32 and the dense bf16/fp16 tensor-core rate otherwise
+# (`_peak_flops`). Each kernel's bytes and
 # operations come from its module's cost function, which utils/roofline.py
 # reads too.
 H100 = "NVIDIA H100 80GB HBM3"
@@ -493,7 +494,7 @@ K1_PLAIN_ITERS = 20
 # f32 copies of the same inputs it rounds nothing (1e-2)
 K2_REL_SAME_DTYPE = 2e-2
 K2_REL_F32 = 1e-2
-# float32 q, k, v on K2's FMA instance (F12), as tests/test_torch_kernels.py
+# float32 q, k, v on K2's 3xTF32 instance (F12), as tests/test_torch_kernels.py
 # states: against a float64 evaluation of the same inputs, relative to the
 # f64 result's largest magnitude, O within 2e-5 and dq, dk, dv within 1e-4;
 # the plain f32 version on the card within the same, and the kernel within
@@ -526,7 +527,7 @@ K1_SOURCE = "cross_entropy.cu"
 K2_SOURCE = "flash_attention.cu"
 K4_SOURCE = conv_backward_cuda.SOURCE
 K3_SOURCE = decode_attention_cuda.SOURCE
-K2_FMA_SOURCE = flash_attention_cuda.FMA_SOURCE
+K2_TF32_SOURCE = flash_attention_cuda.TF32_SOURCE
 K4_FMA_SOURCE = conv_backward_cuda.FMA_SOURCE
 # K3 against its plain version, relative to the reference's own largest
 # magnitude, as tests/test_torch_kernels.py states: both compute the same
@@ -671,8 +672,9 @@ def _bound(cost: tuple[int, int], peak_flops: float) -> tuple[float, str]:
 
 
 def _peak_flops(dtype: torch.dtype) -> float:
-    """K2's and K4's compute ceiling at `dtype`: the f32 rate for their
-    FMA instances' f32, the tensor cores' for bf16 and fp16."""
+    """K2's and K4's compute ceiling at `dtype`: the rate of f32-accurate
+    products (3xTF32) for f32, the tensor cores' bf16 rate for bf16 and
+    fp16."""
     return roofline.kernel_peak_flops(torch.empty((), dtype=dtype).element_size(), H100)
 
 
@@ -882,7 +884,7 @@ def check_k2(b: int, s: int, h: int, d: int, causal: bool, layout: str,
     torch.cuda.synchronize()
     same = _attention_grads(plain, q, k, v, dout)
     errors, f64_errors = {}, {}
-    if dtype == torch.float32:  # the FMA instance: the bound against float64
+    if dtype == torch.float32:  # the 3xTF32 instance: the bound against float64
         f64 = _attention_grads(lambda *x: fa.attention_f64(*x, causal, layout),
                                *(x.double() for x in (q, k, v, dout)))
         for name, a, p, e in zip(("out", "dq", "dk", "dv"), got, same, f64):
@@ -3676,7 +3678,7 @@ SHIPPED_FLAGS = {
 # what each workload builds besides K1
 SHIPPED_KERNEL = {"lm": K2_SOURCE, "resnet50": K4_SOURCE}
 SHIPPED_SOURCES = ["conv_backward.cu", "conv_backward_fma.cu", "cross_entropy.cu",
-                   "decode_attention.cu", "flash_attention.cu", "flash_attention_fma.cu",
+                   "decode_attention.cu", "flash_attention.cu", "flash_attention_tf32.cu",
                    "hopper.cuh"]
 SHIPPED_RUN_TIMEOUT_S = 600
 CONFIGMAP_LIMIT_BYTES = 1_048_576  # the API server's limit on one object
@@ -5157,8 +5159,9 @@ def run_head_dims(card: str) -> dict:
 
 
 # Phase 38: K2 and K4 at every dtype and width the reference takes (F12,
-# F13, F14): their FMA instances against float64 and their plain versions,
-# the f32 LM and the f32 fused ResNet-50 stepped through them
+# F13, F14): K2's 3xTF32 and K4's FMA instances against float64 and their
+# plain versions, the f32 LM and the f32 fused ResNet-50 stepped through
+# them
 
 # K2's f32 shapes: (b, s, h, d, causal, layout)
 F32_K2 = [
@@ -5176,7 +5179,7 @@ F32_K4_NARROW = [(14, 3, 13), (4, 100, 36)]
 F32_LM_STEPS = 3
 F32_RESNET_STEPS = 3
 F32_RESNET_BATCH = 256
-# the first step of the f32 LM through K2's FMA instance against the same
+# the first step of the f32 LM through K2's 3xTF32 instance against the same
 # step with dense attention (the f32 plain version), and of the f32 fused
 # ResNet-50 through K4's against the default path (cuDNN, TF32 off): the
 # loss to 1e-5 relative, the first SGD update to 1e-3 of its largest entry
@@ -5217,10 +5220,10 @@ def _first_steps_agree(what: str, ours: dict, ref: dict) -> dict:
 
 def run_f32_lm(card: str) -> dict:
     """The LM at its published widths in f32 (`dtype = logits_dtype =
-    float32`) with `flash_attention`: F32_LM_STEPS steps through K2's FMA
-    instance and K1 on f32 logits, then as many from the same weights with
-    dense attention. K2 must launch 12 + 12 times a step, all on the FMA
-    instance, and K1 1 + 1."""
+    float32`) with `flash_attention`: F32_LM_STEPS steps through K2's
+    3xTF32 instance and K1 on f32 logits, then as many from the same
+    weights with dense attention. K2 must launch 12 + 12 times a step, all
+    on the 3xTF32 instance, and K1 1 + 1."""
     def model(attention_fn):
         return lambda: TransformerLM(vocab_size=32768, num_layers=12, num_heads=12,
                                      embed_dim=768, max_seq_len=1024, attention_fn=attention_fn,
@@ -5229,32 +5232,32 @@ def run_f32_lm(card: str) -> dict:
     counters = _k1_k2_counters()
     for counter in counters:
         counter.launches = 0
-    fa.flash_attention_forward.fma_launches = fa.flash_attention_backward.fma_launches = 0
+    fa.flash_attention_forward.tf32_launches = fa.flash_attention_backward.tf32_launches = 0
     fa.flash_attention_forward.copies = 0
     flash = _f32_steps(model(fa.flash_attention), train.make_lm_train_step, MESH_LR["lm"],
                        (_lm_tokens(),), F32_LM_STEPS)
     launches = [c.launches for c in counters]
-    fma = [fa.flash_attention_forward.fma_launches, fa.flash_attention_backward.fma_launches]
+    tf32 = [fa.flash_attention_forward.tf32_launches, fa.flash_attention_backward.tf32_launches]
     copies = fa.flash_attention_forward.copies
     dense = _f32_steps(model(dense_attention), train.make_lm_train_step, MESH_LR["lm"],
                        (_lm_tokens(),), F32_LM_STEPS)
     agree = _first_steps_agree("the f32 LM, flash against dense attention", flash, dense)
     steps = F32_LM_STEPS
-    if (launches != [steps, steps, 12 * steps, 12 * steps] or fma != launches[2:]
+    if (launches != [steps, steps, 12 * steps, 12 * steps] or tf32 != launches[2:]
             or copies != 0):
         raise AssertionError(f"the f32 LM: {steps} steps launched K1 {launches[:2]}, K2 "
-                             f"{launches[2:]} ({fma} on the FMA instance), {copies} copies")
+                             f"{launches[2:]} ({tf32} on the 3xTF32 instance), {copies} copies")
     result = {**agree, "losses": {"flash": flash["losses"], "dense": dense["losses"]},
               "step_ms": {"flash": flash["step_ms"], "dense": dense["step_ms"]}, "steps": steps,
               "k1": launches[0], "k1_backward": launches[1], "k2_forward": launches[2],
-              "k2_backward": launches[3], "k2_fma": fma, "k2_copies": copies}
-    print(f"f32 LM 12L/768/seq 1024/batch 8, flash_attention (K2's FMA instance) against dense "
+              "k2_backward": launches[3], "k2_tf32": tf32, "k2_copies": copies}
+    print(f"f32 LM 12L/768/seq 1024/batch 8, flash_attention (K2's 3xTF32 instance) against dense "
           f"attention from one set of weights: first-step loss {flash['losses'][0]:.6f} against "
           f"{dense['losses'][0]:.6f} (rel {agree['first_step_loss_rel']:.2e}, tolerance "
           f"{F32_LOSS_REL}), first update within {agree['first_update_rel']:.2e} of its largest "
           f"entry (tolerance {F32_UPDATE_REL}); step {flash['step_ms']:.2f} ms against dense "
           f"{dense['step_ms']:.2f} ms; launches in {steps} steps: K1 {launches[0]} + "
-          f"{launches[1]}, K2 {launches[2]} + {launches[3]} ({fma[0]} + {fma[1]} FMA), "
+          f"{launches[1]}, K2 {launches[2]} + {launches[3]} ({tf32[0]} + {tf32[1]} 3xTF32), "
           f"{copies} copies, on {card}", flush=True)
     return result
 
@@ -5301,7 +5304,7 @@ def run_f32_resnet50(card: str) -> dict:
 
 
 def run_f32(card: str) -> dict:
-    """Phase 38: K2's FMA instance against float64 and its plain version at
+    """Phase 38: K2's 3xTF32 instance against float64 and its plain version at
     the LM's, its 8- and 3-head, ViT-S/16's and a ragged head-major shape,
     timed beside SDPA in f32; K4's at ResNet-50's 12 shapes in f32 and two
     bf16 shapes of widths that are not multiples of 8, timed beside cuDNN;
@@ -5326,11 +5329,11 @@ def run_f32(card: str) -> dict:
     result = {"k2": k2_rows, "k4": k4_rows, "k4_per_step": k4_step, "lm": lm,
               "resnet50": resnet50, "phase_seconds": time.monotonic() - started}
     print("f32: " + json.dumps(result, sort_keys=True, default=str), flush=True)
-    print(f"f32 (phase 38): K2's FMA instance at {[r['shape'] for r in k2_rows]} and K4's at "
+    print(f"f32 (phase 38): K2's 3xTF32 instance at {[r['shape'] for r in k2_rows]} and K4's at "
           f"ResNet-50's 12 shapes in f32 within their float64 bounds, K4's at bf16 widths "
           f"{[tuple(r['shape'][1:]) for r in k4_rows[len(K4_SHAPES):]]}; the f32 LM's first step "
           f"within {lm['first_step_loss_rel']:.1e} (loss) and {lm['first_update_rel']:.1e} "
-          f"(update) of dense attention, K2 {lm['k2_forward']} + {lm['k2_backward']} FMA in "
+          f"(update) of dense attention, K2 {lm['k2_forward']} + {lm['k2_backward']} 3xTF32 in "
           f"{lm['steps']} steps; the f32 ResNet-50's within {resnet50['first_step_loss_rel']:.1e} "
           f"and {resnet50['first_update_rel']:.1e} of the default path, K4 {resnet50['k4']} FMA "
           f"in {resnet50['steps']} steps; {result['phase_seconds']:.1f} s; on {card}", flush=True)
@@ -5418,7 +5421,7 @@ def main() -> int:
     card = _card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     builds = {source: _build_in_background(source)
-              for source in (K1_SOURCE, K2_SOURCE, K4_SOURCE, K3_SOURCE, K2_FMA_SOURCE,
+              for source in (K1_SOURCE, K2_SOURCE, K4_SOURCE, K3_SOURCE, K2_TF32_SOURCE,
                              K4_FMA_SOURCE)}
 
     _join_build(K1_SOURCE, builds[K1_SOURCE], started)
@@ -5535,7 +5538,7 @@ def main() -> int:
     provisioned = run_provision_roofline(card)
     gpu_plane = run_gpu_plane(card)
     head_dims = run_head_dims(card)
-    _join_build(K2_FMA_SOURCE, builds[K2_FMA_SOURCE], started)
+    _join_build(K2_TF32_SOURCE, builds[K2_TF32_SOURCE], started)
     _join_build(K4_FMA_SOURCE, builds[K4_FMA_SOURCE], started)
     f32 = run_f32(card)
 
@@ -5731,23 +5734,27 @@ def main() -> int:
             "other_shapes": [r for r in k4_rows if r is not k4_main],
         },
         *({
-            "name": f"flash_attn_{part[0]}w{part[-1]} (K2, FMA instance)",  # fwd, bwd
+            "name": f"flash_attn_{part[0]}w{part[-1]} (K2, 3xTF32 instance)",  # fwd, bwd
             "route": "cuda",
-            "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention_fma.cu",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/flash_attention_tf32.cu",
             "replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:128",
             "also_replaces": "tritonk8ssupervisor_tpu/ops/flash_attention.py:163",
             "launches": f32["lm"][f"k2_{part}"],
             "path": "the f32 LM (dtype = logits_dtype = float32) with flash_attention",
-            "design": ("f32 FMAs on the CUDA cores, no TF32: CTAs of 256 threads (16 x 16) "
-                       "over 64 or 32 q rows of one (batch, head) with a tile width of 64, 128 "
-                       "or 256, every tile in shared memory transposed and padded (conflict-free "
-                       "column reads, broadcast row reads), a register tile of scores a thread, "
-                       "online softmax with half-warp shuffles, P through shared memory, O += PV "
-                       "in registers; tensors read and written through their strides")
+            "design": ("3xTF32 wgmma (lo*hi + hi*lo + hi*hi into f32): a producer warpgroup "
+                       "reads K and V with plain loads (any strides), splits them and writes hi "
+                       "and lo K-major (V transposed, keys permuted to P's fragment order) into an "
+                       "mbarrier ring of 64-column chunks; two consumer warpgroups of 64 q rows "
+                       "split q's A fragments from a raw tile, S = QK^T, online softmax in f32 "
+                       "registers, O += PV with P split in registers; persistent CTAs, longest "
+                       "causal items first")
             if part == "forward" else
-            ("f32 FMAs, no TF32: a rows pre-pass (rowsum(dO*O), one warp a row), a dK/dV "
-             "kernel over 64- or 32-key items and a dQ kernel over q items, each recomputing S "
-             "and dP from the logsumexp in register tiles; no atomics, bit-equal calls"),
+            ("3xTF32 wgmma: a rows pre-pass (rowsum(dO*O), a warp a row), a dK/dV kernel "
+             "(K, V raw; Q and dO split as rows and transposed in 32-row steps) and a dQ kernel "
+             "(Q, dO raw; K and V split as rows, K transposed), each recomputing S and dP; dS "
+             "of a single-key row set to its exact 0; no atomics, bit-equal calls"),
+            "first_design": "f32 FMAs on the CUDA cores: CTAs of 16 x 16 threads with register "
+                            "tiles of scores over tiles transposed in shared memory",
             "shape": f32["k2"][0]["shape"], "layout": f32["k2"][0]["layout"], "dtype": "float32",
             **f32["k2"][0][part],
             "library_ratio": _library_ratio(f32["k2"][0][part]),
@@ -5922,12 +5929,12 @@ if __name__ == "__main__":
             cuda_build.load(source)
         run_head_dims(_card_line())
         sys.exit(0)
-    if sys.argv[1:] == ["--f32"]:  # phase 38 alone, K1 and the FMA instances built first
+    if sys.argv[1:] == ["--f32"]:  # phase 38 alone, K1 and the f32 instances built first
         if not torch.cuda.is_available():
             sys.exit(2)
         torch.backends.cudnn.allow_tf32 = False  # as main() runs it
         torch.backends.cuda.matmul.allow_tf32 = False
-        for source in (K1_SOURCE, K2_FMA_SOURCE, K4_FMA_SOURCE):
+        for source in (K1_SOURCE, K2_TF32_SOURCE, K4_FMA_SOURCE):
             cuda_build.load(source)
         run_f32(_card_line())
         sys.exit(0)

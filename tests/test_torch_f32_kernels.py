@@ -1,14 +1,16 @@
 """K2 and K4 at every dtype and width the reference takes, on the CPU.
 
-The FMA instances (`csrc/flash_attention_fma.cu`, `csrc/conv_backward_fma.cu`)
-run only on the card (tests/test_torch_kernels.py holds them to their
-bound there). Here, without a card:
+K2's 3xTF32 instance (`csrc/flash_attention_tf32.cu`) and K4's FMA
+instance (`csrc/conv_backward_fma.cu`) run only on the card
+(tests/test_torch_kernels.py holds them to their bound there). Here,
+without a card:
 
 - the route: the instance an input runs on is a function of its dtype
   and head_dim (K2) or widths (K4) alone, and a failed build raises
   instead of picking another instance;
-- the wrappers hand f32 inputs, and K4's narrow widths, to the FMA
-  launchers (recorded, not run) without copies;
+- the wrappers hand f32 inputs to K2's 3xTF32 launchers, and K4's f32
+  and narrow widths to its FMA launcher (recorded, not run), without
+  copies;
 - K4's plain version in f32 and at widths 3, 13, 100 and 36 against the
   reference's `_fused_backward_2d` (its Pallas kernel interpreted, or its
   XLA-dot fallback) and `conv1x1(compute_dtype=float32, interpret=True)`;
@@ -17,7 +19,8 @@ bound there). Here, without a card:
 - the f32 bound the card tests use: the plain f32 versions meet it
   against a float64 evaluation, products of TF32's 10-bit inputs miss it
   (by more than 10x for K4);
-- the f32 cost and bound helpers and the roofline's f32 FLOPs.
+- the f32 cost and bound helpers and the roofline's f32 FLOPs, at the
+  rate of f32-accurate products (3xTF32, a third of dense TF32).
 
 Inputs are drawn with numpy from a seed and handed to both sides.
 """
@@ -51,8 +54,9 @@ H100 = "NVIDIA H100 80GB HBM3"
 # ----------------------------------------------------------------- the route
 
 K2_ROUTES = [
-    (torch.float32, 1, "fma"), (torch.float32, 40, "fma"), (torch.float32, 64, "fma"),
-    (torch.float32, 96, "fma"), (torch.float32, 256, "fma"),
+    (torch.float32, 1, "tf32x3-64"), (torch.float32, 40, "tf32x3-64"),
+    (torch.float32, 64, "tf32x3-64"), (torch.float32, 96, "tf32x3-128"),
+    (torch.float32, 256, "tf32x3-256"),
     (torch.bfloat16, 1, "wgmma-64"), (torch.bfloat16, 64, "wgmma-64"),
     (torch.bfloat16, 65, "wgmma-128"), (torch.bfloat16, 128, "wgmma-128"),
     (torch.bfloat16, 129, "wgmma-256"), (torch.bfloat16, 256, "wgmma-256"),
@@ -113,15 +117,16 @@ def _unbuilt(name):
 
 
 def test_a_failed_build_raises_and_never_switches_the_instance(monkeypatch):
-    """The f32 inputs' FMA library fails to build: both wrappers raise the
-    build's error, and neither reaches for the wgmma library."""
-    monkeypatch.setattr(flash_attention_cuda, "_fma_lib", _unbuilt("flash_attention_fma.cu"))
+    """The f32 inputs' 3xTF32 library (K2) and FMA library (K4) fail to
+    build: both wrappers raise the build's error, and neither reaches for
+    the bf16/fp16 library."""
+    monkeypatch.setattr(flash_attention_cuda, "_tf32_lib", _unbuilt("flash_attention_tf32.cu"))
     monkeypatch.setattr(flash_attention_cuda, "_lib", _unbuilt("the wgmma library"))
     monkeypatch.setattr(conv_backward_cuda, "_fma_lib", _unbuilt("conv_backward_fma.cu"))
     monkeypatch.setattr(conv_backward_cuda, "_lib", _unbuilt("the wgmma library"))
     monkeypatch.setattr(cb, "_on_one_cuda_device", lambda *tensors: True)
     q = torch.empty(2, 16, 3, 40, device="meta")
-    with pytest.raises(RuntimeError, match="flash_attention_fma.cu"):
+    with pytest.raises(RuntimeError, match="flash_attention_tf32.cu"):
         fa.flash_attention_forward(q, q, q, True, "bshd")
     with pytest.raises(RuntimeError, match="conv_backward_fma.cu"):
         cb.conv1x1_backward_kernel(torch.empty(32, 24, device="meta"),
@@ -140,8 +145,8 @@ def test_a_failed_build_raises_and_never_switches_the_instance(monkeypatch):
 @pytest.mark.parametrize("d", [8, 36, 64, 100, 256])
 def test_k2_wrappers_hand_f32_views_to_the_fma_launchers_without_a_copy(monkeypatch, layout, d):
     """f32 q, k, v as strided views of one projection (and any head_dim,
-    not padded) reach the FMA launchers as they are: no copy, outputs of
-    q's shape, one launch counted each way."""
+    not padded) reach the 3xTF32 launchers as they are: no copy, outputs
+    of q's shape, one launch counted each way, on that instance."""
     calls = []
     monkeypatch.setattr(flash_attention_cuda, "forward",
                         lambda q, k, v, out, lse, causal, lay, scale: calls.append(
@@ -151,7 +156,7 @@ def test_k2_wrappers_hand_f32_views_to_the_fma_launchers_without_a_copy(monkeypa
                         calls.append(("bwd", dout, q, dq.shape, rows.numel())))
     for counter in (fa.flash_attention_forward, fa.flash_attention_backward):
         monkeypatch.setattr(counter, "launches", 0)
-        monkeypatch.setattr(counter, "fma_launches", 0)
+        monkeypatch.setattr(counter, "tf32_launches", 0)
     monkeypatch.setattr(fa.flash_attention_forward, "copies", 0)
     b, s, h = 2, 24, 3
     qkv = torch.empty(b, s, 3 * h * d + 1, device="meta")[..., 1:]  # an odd start and stride
@@ -162,7 +167,7 @@ def test_k2_wrappers_hand_f32_views_to_the_fma_launchers_without_a_copy(monkeypa
     grads = fa.flash_attention_backward(out, q, k, v, out, lse, True, layout)
     assert fa.flash_attention_forward.copies == 0
     assert (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches) == (1, 1)
-    assert fa.flash_attention_forward.fma_launches == fa.flash_attention_backward.fma_launches == 1
+    assert fa.flash_attention_forward.tf32_launches == fa.flash_attention_backward.tf32_launches == 1
     (_, fq, fk, fv, out_shape, lse_shape, scale), (_, dout, bq, dq_shape, rows) = calls
     assert fq is q and fk is k and fv is v and bq is q and dout is out
     assert out_shape == q.shape and lse_shape == (b, h, s) and scale == d ** -0.5
@@ -354,7 +359,7 @@ def test_k4_bound_holds_for_f32_products_and_not_for_tf32(m, c, n):
     assert _k4_bound_ratio(*tf32, x2, dy2, w2) > 10.0
 
 
-# K2-fma's bound against float64, relative to the f64 output's largest
+# K2's f32 bound against float64, relative to the f64 output's largest
 # magnitude: O 2e-5, dq, dk and dv 1e-4 (as tests/test_torch_kernels.py)
 K2_F32_REL = {"out": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
 
@@ -388,10 +393,12 @@ def test_k2_bound_holds_for_the_plain_f32_version_and_not_for_tf32(b, s, h, d, c
 
 
 def test_f32_kernels_count_4_byte_elements_against_the_f32_peak():
-    """An f32 row's bound: 4-byte elements and the CUDA cores' 67 TFLOP/s.
-    At the LM's (8, 1024, 12, 64) causal the forward is 12.9 GFLOP, so its
-    f32 bound is 0.19 ms, set by the operations."""
-    assert roofline.kernel_peak_flops(4, H100) == 67e12
+    """An f32 row's bound: 4-byte elements and the rate of f32-accurate
+    products, 495 / 3 = 165 TFLOP/s (3xTF32). At the LM's (8, 1024, 12,
+    64) causal the forward is 12.9 GFLOP, so its f32 bound is 0.0782 ms and
+    the backward's (32.2 GFLOP) 0.1954 ms, both set by the operations."""
+    assert roofline.kernel_peak_flops(4, H100) == pytest.approx(165e12)
+    assert roofline.PEAK_F32_FLOPS[H100] == 67e12  # K1's and K3's f32 arithmetic
     assert roofline.kernel_peak_flops(2, H100) == 989e12
     assert roofline.kernel_peak_flops(4, "cpu") is None
     b, h, s, d = 8, 12, 1024, 64
@@ -400,7 +407,10 @@ def test_f32_kernels_count_4_byte_elements_against_the_f32_peak():
     assert n_bytes - fa.forward_cost(b, h, s, d, True, 2)[0] == 4 * b * s * h * d * 2
     assert flops == 4 * b * h * d * s * (s + 1) // 2
     ms, by = roofline.bound_ms(n_bytes, flops, 3.35e12, roofline.kernel_peak_flops(4, H100))
-    assert by == "operations" and ms == pytest.approx(0.1925, abs=1e-4)
+    assert by == "operations" and ms == pytest.approx(0.0782, abs=1e-4)
+    ms, by = roofline.bound_ms(*fa.backward_cost(b, h, s, d, True, 4), 3.35e12,
+                               roofline.kernel_peak_flops(4, H100))
+    assert by == "operations" and ms == pytest.approx(0.1954, abs=1e-4)
     m, c, n = 256 * 56 * 56, 64, 256
     assert cb.backward_cost(m, c, n, 4) == (4 * (m * c + m * n + n * c) + 4 * m * c + 4 * n * c,
                                             4 * m * c * n)
@@ -408,16 +418,17 @@ def test_f32_kernels_count_4_byte_elements_against_the_f32_peak():
 
 def test_roofline_counts_f32_k2_and_k4_calls_against_the_f32_peak(tmp_path):
     """In a trace with f32 calls of K2 and K4 beside a bf16 product, the
-    compute bound takes the f32 calls' FLOPs at 67 TFLOP/s and the rest at
+    compute bound takes the f32 calls' FLOPs at the 3xTF32 rate (165
+    TFLOP/s, what `analyze` reads by default for an H100) and the rest at
     989; the FLOPs themselves are the cost functions' as for bf16."""
     b, s, h, d, m, c, n = 2, 256, 4, 64, 4096, 24, 13
     ops = [
         {"name": "tk8s::flash_attn_fwd", "concrete": ["", "", "", "True", ""],
          "inputs": [([b, s, h, d], F32)] * 3 + [([], "Scalar"), ([], "")],
-         "kernels": [("attn_fma_fwd", 300)]},
+         "kernels": [("attn_tf32_fwd", 300)]},
         {"name": "tk8s::flash_attn_bwd", "concrete": ["", "", "", "", "", "", "True", ""],
          "inputs": [([b, s, h, d], F32)] * 5 + [([b, h, s], F32), ([], "Scalar"), ([], "")],
-         "kernels": [("attn_fma_rows", 10), ("attn_fma_dkdv", 500), ("attn_fma_dq", 400)]},
+         "kernels": [("attn_tf32_rows", 10), ("attn_tf32_dkdv", 500), ("attn_tf32_dq", 400)]},
         {"name": "tk8s::conv1x1_bwd", "inputs": [([m, c], F32), ([m, n], F32), ([n, c], F32)],
          "kernels": [("gemm", 50), ("gemm", 60), ("reduce", 5)]},
         {"name": "aten::mm", "inputs": [([512, 256], "c10::BFloat16"),
@@ -425,16 +436,18 @@ def test_roofline_counts_f32_k2_and_k4_calls_against_the_f32_peak(tmp_path):
          "kernels": [("sm90_xmma_gemm", 40)]},
     ]
     (tmp_path / "trace.json").write_text(__import__("json").dumps(torch_trace(ops, "inner")))
-    report = roofline.analyze(str(tmp_path), 1, 3.35e12, 989e12, 67e12)
+    f32_peak = roofline.kernel_peak_flops(4, H100)
+    assert f32_peak == pytest.approx(165e12)
+    report = roofline.analyze(str(tmp_path), 1, 3.35e12, 989e12, f32_peak)
     f32 = (fa.forward_cost(b, h, s, d, True, 4)[1] + fa.backward_cost(b, h, s, d, True, 4)[1]
            + cb.backward_cost(m, c, n, 4)[1])
     tensor = 2.0 * 512 * 128 * 256
     assert report.total_flops == pytest.approx(f32 + tensor)
     assert report.f32_flops == pytest.approx(f32)
-    assert report.mxu_bound_ms == pytest.approx((tensor / 989e12 + f32 / 67e12) * 1e3)
-    cores = {op.name for op in report.ops if op.on_cuda_cores}
-    assert cores == {"attn_fma_fwd", "attn_fma_rows", "attn_fma_dkdv", "attn_fma_dq", "gemm",
-                     "reduce"}
+    assert report.mxu_bound_ms == pytest.approx((tensor / 989e12 + f32 / 165e12) * 1e3)
+    f32_ops = {op.name for op in report.ops if op.f32_products}
+    assert f32_ops == {"attn_tf32_fwd", "attn_tf32_rows", "attn_tf32_dkdv", "attn_tf32_dq",
+                       "gemm", "reduce"}
     # bf16 calls of the same ops stay on the tensor cores' peak
-    assert not roofline.on_cuda_cores({"name": "tk8s::conv1x1_bwd", "args": {
+    assert not roofline.f32_products({"name": "tk8s::conv1x1_bwd", "args": {
         "Input Dims": [[m, c]], "Input type": ["c10::BFloat16"]}})

@@ -185,8 +185,8 @@ def test_k1_bf16_at_the_lm_shape():
 # inputs, 1e-2.
 K2_REL_SAME_DTYPE = 2e-2
 K2_REL_F32 = 1e-2
-# float32 q, k, v (the FMA instance, f32 products, no TF32): an error bound
-# against a float64 evaluation of the same inputs, relative to the f64
+# float32 q, k, v (the 3xTF32 instance: each product three TF32 ones): an
+# error bound against a float64 evaluation of the same inputs, relative to the f64
 # result's largest magnitude: 2e-5 for O, 1e-4 for dq, dk and dv. Each case
 # also holds the plain f32 version on the card to it, so the bound is known
 # to be attainable; products of TF32's 10-bit inputs miss it
@@ -226,7 +226,7 @@ K2_CASES = [
     pytest.param(2, 512, 2, 256, torch.float16, False, "bhsd", id="d256-fp16-full"),
     pytest.param(2, 200, 2, 256, torch.bfloat16, True, "bhsd", id="d256-ragged-causal"),
     pytest.param(1, 1, 2, 256, torch.float16, True, "bshd", id="d256-one-token"),
-    # float32 on the FMA instance, every head_dim 1-256 at any stride
+    # float32 on the 3xTF32 instance, every head_dim 1-256 at any stride
     pytest.param(8, 1024, 12, 64, torch.float32, True, "bshd", id="f32-lm"),
     pytest.param(8, 1024, 8, 96, torch.float32, True, "bshd", id="f32-d96-lm-8-heads"),
     pytest.param(8, 1024, 3, 256, torch.float32, True, "bshd", id="f32-d256-lm-3-heads"),
@@ -238,6 +238,8 @@ K2_CASES = [
     pytest.param(2, 333, 3, 100, torch.float32, False, "bshd", id="f32-d100-full"),
     pytest.param(2, 200, 2, 256, torch.float32, True, "bhsd", id="f32-d256-ragged-causal"),
     pytest.param(1, 1, 2, 256, torch.float32, True, "bshd", id="f32-d256-one-token"),
+    # the widest tile's transposed splits in the head-major layout
+    pytest.param(8, 1024, 3, 256, torch.float32, True, "bhsd", id="f32-d256-lm-3-heads-bhsd"),
 ]
 
 
@@ -284,7 +286,7 @@ def test_k2_matches_plain_version(b, s, h, d, dtype, causal, layout):
     assert fa.flash_attention_forward.launches == fwd + 1
     assert fa.flash_attention_backward.launches == bwd + 1
     # dense q, k, v are read in place unless d is not a multiple of 8 (the
-    # wgmma instances' TMA); the FMA instance reads every head_dim in place
+    # bf16/fp16 instances' TMA); the 3xTF32 instance reads every head_dim in place
     padded = d % 8 and dtype != torch.float32
     assert fa.flash_attention_forward.copies == copies + (3 if padded else 0)
     _k2_lse_matches(q, k, torch.ops.tk8s.flash_attn_fwd(q, k, v, causal, layout)[1], causal,
@@ -392,7 +394,7 @@ def test_k2_copies_inputs_that_tma_cannot_address(pad_last, offset):
 def test_k2_backward_is_deterministic(dtype):
     """No atomics: every dQ, dK and dV row is written by one CTA in a fixed
     order, so two backward calls on the same inputs agree bit for bit, on
-    the wgmma and the FMA instance."""
+    the bf16 and the 3xTF32 instance."""
     _card()
     q, k, v, dout = _k2_inputs(4, 1024, 12, 64, dtype, "bshd", seed=11)
     out, lse = torch.ops.tk8s.flash_attn_fwd(q, k, v, True, "bshd")
@@ -447,7 +449,7 @@ def test_k2_wrapper_raises_on_what_it_does_not_take():
     got = fa.flash_attention(x, x, x)
     assert _rel_err(got, fa.attention_reference_layout(x, x, x, True, "bshd")) <= K2_REL_SAME_DTYPE
     y = torch.zeros(1, 128, 2, 64, device="cuda")
-    # f32 runs (the FMA instance); float64 is refused in its place
+    # f32 runs (the 3xTF32 instance); float64 is refused in its place
     with pytest.raises(TypeError, match="float32, bf16 or fp16"):
         fa.flash_attention(y.double(), y.double(), y.double())
     wide = torch.zeros(1, 128, 2, 264, device="cuda")

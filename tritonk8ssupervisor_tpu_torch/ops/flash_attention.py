@@ -11,15 +11,15 @@ length and every head_dim from 1 to 256, on the instance that
 `flash_attention_cuda.instance` names from the dtype and head_dim alone:
 bf16 and fp16 run on the wgmma kernels (`csrc/flash_attention.cu`), on the
 narrowest of their 64, 128 and 256 tiles that holds the head_dim, with
-the columns past it read as zeros; float32 runs on the FMA kernels
-(`csrc/flash_attention_fma.cu`), f32 products on the CUDA cores and no
-TF32. Both mask a ragged last tile, so there is no dense branch. The wgmma
-kernels read q, k, v (and O and dO) in place where TMA can address them,
-which the LM's qkv views allow; any other view is copied first, and a
-head_dim that is not a multiple of 8 into rows zero-padded to one, whose
-outputs are sliced back (`_kernel_view`, counted in
-`flash_attention_forward.copies`). The FMA kernels read any strides and
-copy nothing. What K2 does not take (a head_dim above 256, another dtype,
+the columns past it read as zeros; float32 runs on the 3xTF32 kernels
+(`csrc/flash_attention_tf32.cu`), every f32 product split into three
+TF32 products on the tensor cores. Both mask a ragged last tile, so there
+is no dense branch. The bf16/fp16 kernels read q, k, v (and O and dO) in
+place where TMA can address them, which the LM's qkv views allow; any
+other view is copied first, and a head_dim that is not a multiple of 8
+into rows zero-padded to one, whose outputs are sliced back
+(`_kernel_view`, counted in `flash_attention_forward.copies`). The 3xTF32
+kernels read any strides and any head_dim and copy nothing. What K2 does not take (a head_dim above 256, another dtype,
 mixed dtypes) raises; nothing falls back to the plain version on the card
 and no failure switches the instance.
 
@@ -93,28 +93,28 @@ def _check_kernel_inputs(q, k, v, layout: str) -> None:
 
 def flash_attention_forward(q, k, v, causal: bool, layout: str):
     """K2's forward wrapper: (O in q's layout and dtype, (B, H, S) f32
-    logsumexp). On the wgmma instances q, k and v are read in place where
-    TMA can address them, else copied (each copy counted in
-    `flash_attention_forward.copies`); the FMA instance reads them in
+    logsumexp). On the bf16/fp16 instances q, k and v are read in place
+    where TMA can address them, else copied (each copy counted in
+    `flash_attention_forward.copies`); the 3xTF32 instance reads them in
     place. One launch, counted in `flash_attention_forward.launches` (and
-    in its `fma_launches` on the FMA instance)."""
+    in its `tf32_launches` on the 3xTF32 instance)."""
     b, h, s, d = _dims(q.shape, layout)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if not q.numel():
         return torch.empty(q.shape, dtype=q.dtype, device=q.device), lse
-    fma = flash_attention_cuda.instance(q.dtype, d) == "fma"
-    views = [x if fma else _kernel_view(x) for x in (q, k, v)]
+    tf32 = flash_attention_cuda.instance(q.dtype, d).startswith("tf32x3")
+    views = [x if tf32 else _kernel_view(x) for x in (q, k, v)]
     flash_attention_forward.copies += sum(y is not x for x, y in zip((q, k, v), views))
     out = torch.empty(views[0].shape, dtype=q.dtype, device=q.device)
     flash_attention_cuda.forward(*views, out, lse, causal, layout, d ** -0.5)
     flash_attention_forward.launches += 1
-    flash_attention_forward.fma_launches += fma
+    flash_attention_forward.tf32_launches += tf32
     # a padded head_dim's O: its first d columns
     return (out if out.shape == q.shape else out[..., :d].contiguous()), lse
 
 
 flash_attention_forward.launches = 0
-flash_attention_forward.fma_launches = 0  # of `launches`, those on the FMA instance
+flash_attention_forward.tf32_launches = 0  # of `launches`, those on the 3xTF32 instance
 flash_attention_forward.copies = 0
 
 
@@ -122,10 +122,10 @@ def flash_attention_backward(dout, q, k, v, out, lse, causal: bool, layout: str)
     """K2's backward wrapper: (dq, dk, dv), contiguous in the layout of q.
     One call launches the pre-pass, the dK/dV and the dQ kernels and is
     counted once in `flash_attention_backward.launches` (and in its
-    `fma_launches` on the FMA instance)."""
+    `tf32_launches` on the 3xTF32 instance)."""
     shape, d = q.shape, q.shape[-1]
-    fma = flash_attention_cuda.instance(q.dtype, d) == "fma"
-    if not fma:
+    tf32 = flash_attention_cuda.instance(q.dtype, d).startswith("tf32x3")
+    if not tf32:
         dout, q, k, v, out = (_kernel_view(x) for x in (dout, q, k, v, out))
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
     if q.numel():
@@ -134,13 +134,13 @@ def flash_attention_backward(dout, q, k, v, out, lse, causal: bool, layout: str)
         flash_attention_cuda.backward(dout, q, k, v, out, lse, rows, *grads,
                                       causal, layout, d ** -0.5)
         flash_attention_backward.launches += 1
-        flash_attention_backward.fma_launches += fma
+        flash_attention_backward.tf32_launches += tf32
     # a padded head_dim's gradients: their first d columns
     return tuple(g if g.shape == shape else g[..., :d].contiguous() for g in grads)
 
 
 flash_attention_backward.launches = 0
-flash_attention_backward.fma_launches = 0
+flash_attention_backward.tf32_launches = 0
 
 
 @torch.library.custom_op(
@@ -196,12 +196,15 @@ def _pairs(seq: int, causal: bool) -> int:
 def forward_cost(b: int, h: int, s: int, d: int, causal: bool,
                  elem: int) -> tuple[int, int]:
     """(bytes, operations) of K2's forward at (batch, heads, seq,
-    head_dim) in a dtype of `elem` bytes (4 for the FMA instance's f32):
+    head_dim) in a dtype of `elem` bytes (4 for the 3xTF32 instance's f32):
     q, k, v read and O written once, the f32 logsumexp written; two
     products (4 * D a pair) over the (query, key) pairs the mask keeps. d
     is the caller's head_dim, not the tile or padded width the kernel runs
     at: work on the zero columns lowers the kernel's share of this bound,
-    it never raises the count.
+    it never raises the count. The operations are f32-accurate products
+    at 4 bytes, bounded by the 3xTF32 rate (a third of dense TF32), and
+    bf16/fp16 products at 2, bounded by the dense bf16 rate
+    (`utils/roofline.kernel_peak_flops`).
     `chip_smoke.py`'s bound and `utils/roofline.py` both read it."""
     n = b * s * h * d
     return 4 * n * elem + b * h * s * 4, 4 * b * h * d * _pairs(s, causal)
@@ -212,7 +215,7 @@ def backward_cost(b: int, h: int, s: int, d: int, causal: bool,
     """(bytes, operations) of K2's backward: q, k, v, O, dO
     and the logsumexp read, dq, dk, dv written once; five products a
     pair (the kernel recomputes P), against the model work of four that
-    the FLOP counter's formula below counts."""
+    the FLOP counter's formula below counts; the rates as the forward's."""
     n = b * s * h * d
     return 8 * n * elem + b * h * s * 4, 10 * b * h * d * _pairs(s, causal)
 
@@ -232,7 +235,7 @@ def _bwd_flops(dout_shape, q_shape, k_shape, v_shape, out_shape_, lse_shape,
 
 def attention_f64(q, k, v, causal: bool, layout: str):
     """The attention function in float64 on the values of q, k, v (any
-    float dtype, any device; differentiable): the yardstick of the FMA
+    float dtype, any device; differentiable): the yardstick of the 3xTF32
     instance's error bound in tests/test_torch_kernels.py and
     `chip_smoke.py`. No path of the port calls it."""
     q, k, v = (x.double() for x in (q, k, v))

@@ -1,18 +1,19 @@
 """K2's launcher: the ctypes binding of `csrc/flash_attention.cu` and of
-its f32 instance, `csrc/flash_attention_fma.cu`.
+its f32 instance, `csrc/flash_attention_tf32.cu`.
 
 The kernel sources say what they replace and how they are built; this
 module picks the instance an input runs on from its dtype and head_dim
 alone (`instance`): the wgmma kernels at the tile width that holds the
-head_dim (`tile_width`) for bf16 and fp16, the FMA kernels for float32.
-It turns tensors into their arguments: data pointers, strides for either
-layout, and PyTorch's current stream. The caller
-(`ops/flash_attention.py`) has checked device, dtype and head_dim, padded
-a bf16/fp16 head_dim that is not a multiple of 8 (`padded_width`) and
-allocated the outputs. The wgmma instances read and write every tile
-through TMA tensor maps, which take only what `check_tma_operand` lets
-through; the FMA instance reads any strides. A launch that the runtime
-refuses raises here; nothing picks another instance.
+head_dim (`tile_width`), bf16 and fp16 products for bf16 and fp16 and
+3xTF32 products for float32. It turns tensors into their arguments:
+data pointers, strides for either layout, and PyTorch's current stream.
+The caller (`ops/flash_attention.py`) has checked device, dtype and
+head_dim, padded a bf16/fp16 head_dim that is not a multiple of 8
+(`padded_width`) and allocated the outputs. The bf16/fp16 instances read
+and write every tile through TMA tensor maps, which take only what
+`check_tma_operand` lets through; the f32 instance reads and writes any
+strides. A launch that the runtime refuses raises here; nothing picks
+another instance.
 """
 
 from __future__ import annotations
@@ -25,13 +26,13 @@ import torch
 from tritonk8ssupervisor_tpu_torch.ops import cuda_build
 
 SOURCE = "flash_attention.cu"
-FMA_SOURCE = "flash_attention_fma.cu"
+TF32_SOURCE = "flash_attention_tf32.cu"
 # what the wgmma kernels are instantiated for: dtype -> its code in the C
 # interface, and the tile widths; a head_dim d runs on the narrowest tile
 # that holds it, with the columns [d, tile) read as zeros
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-# the FMA kernels' dtypes -> their codes; they take head_dim 1-256 too
-FMA_DTYPES = {torch.float32: 0}
+# what the 3xTF32 kernels take, at head_dim 1-256 too
+TF32_DTYPES = (torch.float32,)
 TILE_WIDTHS = (64, 128, 256)
 MAX_HEAD_DIM = TILE_WIDTHS[-1]
 # TMA reads rows of whole 16-byte units: a head_dim of bf16 or fp16 that
@@ -45,17 +46,17 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
 @functools.cache
-def _fma_lib() -> ctypes.CDLL:
-    lib = cuda_build.load(FMA_SOURCE)
-    lib.tk8s_attn_fma_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _STRIDES,
-                                      _I, _I, _I, _I, _F, _P]
-    lib.tk8s_attn_fma_fwd.restype = _I
-    lib.tk8s_attn_fma_bwd.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _P, _P, _STRIDES, _I, _I, _I, _I,
-                                      _F, _P]
-    lib.tk8s_attn_fma_bwd.restype = _I
-    lib.tk8s_attn_fma_error_string.argtypes = [_I]
-    lib.tk8s_attn_fma_error_string.restype = ctypes.c_char_p
+def _tf32_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(TF32_SOURCE)
+    lib.tk8s_attn_tf32_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _STRIDES,
+                                       _I, _I, _I, _I, _F, _P]
+    lib.tk8s_attn_tf32_fwd.restype = _I
+    lib.tk8s_attn_tf32_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _STRIDES, _I, _I, _I, _I,
+                                       _F, _P]
+    lib.tk8s_attn_tf32_bwd.restype = _I
+    lib.tk8s_attn_tf32_error_string.argtypes = [_I]
+    lib.tk8s_attn_tf32_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -85,7 +86,7 @@ def _strides(layout: str, *tensors: torch.Tensor):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _fma_strides(layout: str, *tensors: torch.Tensor):
+def _full_strides(layout: str, *tensors: torch.Tensor):
     """(batch, seq, head, head_dim) strides of each tensor, flat."""
     flat = [s for x in tensors for s in (*_bsh(x, layout), x.stride(-1))]
     return (ctypes.c_longlong * len(flat))(*flat)
@@ -115,15 +116,16 @@ def tile_width(head_dim: int) -> int:
 def instance(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel instance that takes q, k, v of `dtype` at `head_dim`, a
     function of those two alone: "wgmma-64", "wgmma-128" or "wgmma-256"
-    (the tile) for bf16 and fp16, "fma" for float32. Raises TypeError for
-    any other dtype and ValueError for a head_dim outside 1-256."""
-    if dtype not in DTYPES and dtype not in FMA_DTYPES:
+    (the tile) for bf16 and fp16, "tf32x3-64", "tf32x3-128" or
+    "tf32x3-256" for float32. Raises TypeError for any other dtype and
+    ValueError for a head_dim outside 1-256."""
+    if dtype not in DTYPES and dtype not in TF32_DTYPES:
         raise TypeError(
             f"K2 takes float32, bf16 or fp16 q, k, v, got {dtype}: other dtypes are "
             "outside its contract (ROADMAP.md, the kernels' limits)"
         )
     tile = tile_width(head_dim)
-    return "fma" if dtype in FMA_DTYPES else f"wgmma-{tile}"
+    return f"tf32x3-{tile}" if dtype in TF32_DTYPES else f"wgmma-{tile}"
 
 
 def padded_width(head_dim: int) -> int:
@@ -163,10 +165,10 @@ def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
         )
 
 
-def _raise_on_fma(lib: ctypes.CDLL, code: int, what: str) -> None:
+def _raise_on_tf32(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(
-            f"K2 f32 {what} launch failed: {lib.tk8s_attn_fma_error_string(code).decode()} "
+            f"K2 f32 {what} launch failed: {lib.tk8s_attn_tf32_error_string(code).decode()} "
             f"({code})"
         )
 
@@ -178,14 +180,14 @@ def forward(q, k, v, out, lse, causal: bool, layout: str,
     default; the caller's real head_dim where it padded them)."""
     b, h, s, d = dims(q.shape, layout)
     scale = d ** -0.5 if scale is None else scale
-    if instance(q.dtype, d) == "fma":
-        lib = _fma_lib()
-        code = lib.tk8s_attn_fma_fwd(
-            FMA_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), _fma_strides(layout, q, k, v, out),
+    if instance(q.dtype, d).startswith("tf32x3"):
+        lib = _tf32_lib()
+        code = lib.tk8s_attn_tf32_fwd(
+            d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _full_strides(layout, q, k, v, out),
             b, h, s, int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream,
         )
-        _raise_on_fma(lib, code, "forward")
+        _raise_on_tf32(lib, code, "forward")
         return
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         check_tma_operand(name, x)
@@ -205,16 +207,15 @@ def backward(dout, q, k, v, out, lse, rows, dq, dk, dv, causal: bool,
     as the forward's."""
     b, h, s, d = dims(q.shape, layout)
     scale = d ** -0.5 if scale is None else scale
-    if instance(q.dtype, d) == "fma":
-        lib = _fma_lib()
-        code = lib.tk8s_attn_fma_bwd(
-            FMA_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _fma_strides(layout, q, k, v, out, dout, dq, dk, dv),
+    if instance(q.dtype, d).startswith("tf32x3"):
+        lib = _tf32_lib()
+        code = lib.tk8s_attn_tf32_bwd(
+            d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _full_strides(layout, q, k, v, out, dout, dq, dk, dv),
             b, h, s, int(causal), scale, torch.cuda.current_stream(q.device).cuda_stream,
         )
-        _raise_on_fma(lib, code, "backward")
+        _raise_on_tf32(lib, code, "backward")
         return
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout),
                     ("dq", dq), ("dk", dk), ("dv", dv)):

@@ -34,9 +34,10 @@ So this module:
   the op's recorded arguments where torch records strings, else from the
   (B, H, S) logsumexp that a backward op on the same q dims takes; left
   unknown, the forward keeps its bytes and counts 0 FLOPs. An f32 call of
-  K2 or K4 runs on their FMA instances, outside the tensor cores: its
-  FLOPs count against the card's f32 rate (`PEAK_F32_FLOPS`) in the
-  compute bound and the claw-back, the rest against the tensor cores';
+  K2 or K4 takes f32-accurate products (K2's 3xTF32 instance, K4's FMA
+  instance): its FLOPs count against the card's rate for those
+  (`PEAK_F32_PRODUCT_FLOPS`, a third of dense TF32) in the compute bound
+  and the claw-back, the rest against the tensor cores' bf16 rate;
 - shares an operator's bytes and FLOPs among its device events in
   proportion to their device time, so the totals stay exact (K2's
   backward launches three kernels, cuBLAS's split-K two).
@@ -77,18 +78,27 @@ PEAK_HBM_BYTES = {
     "NVIDIA H200": 4.8e12,  # H200 SXM
 }
 # Data-sheet f32 rate outside the tensor cores (FLOP/s): the ceiling of
-# K1's and K3's f32 arithmetic and of K2's and K4's FMA instances in
+# K1's and K3's f32 arithmetic (elementwise work and reductions) in
 # chip_smoke.py's bounds.
 PEAK_F32_FLOPS = {
     "NVIDIA H100 80GB HBM3": 67e12,
     "NVIDIA H100 PCIe": 51e12,
     "NVIDIA H200": 67e12,
 }
+# Data-sheet rate of f32-accurate products on the tensor cores (FLOP/s):
+# the dense TF32 rate (H100 SXM and H200 495, H100 PCIe 378) over 3, since
+# a 3xTF32 product (csrc/flash_attention_tf32.cu) takes three TF32 ones.
+# The ceiling of K2's and K4's f32 calls in chip_smoke.py's bounds, K4's
+# f32 instance (CUDA-core FMAs) included: no f32 product can go faster.
+PEAK_F32_PRODUCT_FLOPS = {
+    "NVIDIA H100 80GB HBM3": 495e12 / 3,
+    "NVIDIA H100 PCIe": 378e12 / 3,
+    "NVIDIA H200": 495e12 / 3,
+}
 
-# the port's kernels whose float32 calls run on their FMA instances
-# (csrc/flash_attention_fma.cu, csrc/conv_backward_fma.cu), not on the
-# tensor cores
-FMA_KERNELS = ("tk8s::flash_attn_fwd", "tk8s::flash_attn_bwd", "tk8s::conv1x1_bwd")
+# the port's kernels whose float32 calls take f32-accurate products
+# (csrc/flash_attention_tf32.cu, csrc/conv_backward_fma.cu)
+F32_PRODUCT_KERNELS = ("tk8s::flash_attn_fwd", "tk8s::flash_attn_bwd", "tk8s::conv1x1_bwd")
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 NO_OPERATOR = "no operator"
@@ -159,14 +169,15 @@ def peak_tensor_flops_per_sec(device_name: str | None = None) -> float | None:
 
 
 def kernel_peak_flops(elem: int, device_name: str | None = None) -> float | None:
-    """The compute ceiling of K2's and K4's arithmetic on `elem`-byte
-    operands: the f32 rate outside the tensor cores for 4 (their FMA
-    instances), the dense bf16/fp16 tensor-core rate for 2. None when the
+    """The compute ceiling of K2's and K4's products on `elem`-byte
+    operands: the rate of f32-accurate products (3xTF32, a third of dense
+    TF32) for 4, the dense bf16/fp16 tensor-core rate for 2. None when the
     card is unknown or there is none."""
     name = _device_name(device_name)
     if name is None:
         return None
-    return perf.peak_for_device(PEAK_F32_FLOPS if elem == 4 else perf.PEAK_BF16_FLOPS, name)
+    return perf.peak_for_device(PEAK_F32_PRODUCT_FLOPS if elem == 4 else perf.PEAK_BF16_FLOPS,
+                                name)
 
 
 def bound_ms(n_bytes: float, flops: float, peak_bytes_per_sec: float,
@@ -190,7 +201,7 @@ class OpStat:
     bytes_accessed: float
     flops: float
     occurrences: int = 1
-    on_cuda_cores: bool = False  # an f32 call of K2 or K4 (FMA_KERNELS)
+    f32_products: bool = False  # an f32 call of K2 or K4 (F32_PRODUCT_KERNELS)
 
     @property
     def gbytes_per_sec(self) -> float:
@@ -217,7 +228,7 @@ class RooflineReport:
     peak_bytes_per_sec: float | None = None
     peak_flops_per_sec: float | None = None
     dispatches: int = 1
-    f32_flops: float = 0.0  # of total_flops, what runs outside the tensor cores
+    f32_flops: float = 0.0  # of total_flops, the f32-accurate products
     peak_f32_flops_per_sec: float | None = None
 
     @property
@@ -238,8 +249,8 @@ class RooflineReport:
     @property
     def mxu_bound_ms(self) -> float | None:
         """Lower bound on device time if every FLOP ran at its unit's
-        peak: the tensor cores', and the f32 rate for `f32_flops` where
-        that rate is known (the reference's name, kept for `--json`)."""
+        peak: the tensor cores' bf16 rate, and the f32-product rate for
+        `f32_flops` where that rate is known (the reference's name, kept for `--json`)."""
         if not self.peak_flops_per_sec:
             return None
         if not (self.f32_flops and self.peak_f32_flops_per_sec):
@@ -273,7 +284,7 @@ class RooflineReport:
             for op in self.ops
             if op.duration_ms >= min_ms
             and op.gbytes_per_sec < bw_cut
-            and op.tflops_per_sec < (f32_cut if op.on_cuda_cores else mxu_cut)
+            and op.tflops_per_sec < (f32_cut if op.f32_products else mxu_cut)
         ]
 
 
@@ -470,11 +481,11 @@ def op_cost(event: dict, layouts: dict | None = None) -> tuple[float, float]:
     return 0.0, float(recorded_flops or 0)
 
 
-def on_cuda_cores(event: dict) -> bool:
-    """Whether a CPU operator event is an f32 call of K2 or K4, whose FMA
-    instance runs its FLOPs outside the tensor cores."""
+def f32_products(event: dict) -> bool:
+    """Whether a CPU operator event is an f32 call of K2 or K4, whose
+    FLOPs are f32-accurate products (`PEAK_F32_PRODUCT_FLOPS`)."""
     name = operator_name(event)
-    if name not in FMA_KERNELS:
+    if name not in F32_PRODUCT_KERNELS:
         return False
     tensors = _tensor_inputs(event.get("args") or {})
     q = 1 if name == "tk8s::flash_attn_bwd" else 0  # the backward's first input is dO
@@ -513,7 +524,7 @@ def analyze(
     operators = {id(e["operator"]): e["operator"] for e in events if e["operator"]}
     layouts = attention_layouts(operators.values())
     costs = {key: op_cost(op, layouts) for key, op in operators.items()}
-    f32 = {key for key, op in operators.items() if on_cuda_cores(op)}
+    f32 = {key for key, op in operators.items() if f32_products(op)}
     op_device_us: dict = collections.defaultdict(float)
     for e in events:
         if e["operator"] is not None:
@@ -547,7 +558,7 @@ def analyze(
         key = (e.get("name", "?"), cat)
         stat = merged.get(key)
         if stat is None:
-            merged[key] = OpStat(key[0], cat, dur_ms, nbytes, flops, on_cuda_cores=cores)
+            merged[key] = OpStat(key[0], cat, dur_ms, nbytes, flops, f32_products=cores)
         else:
             stat.duration_ms += dur_ms
             stat.bytes_accessed += nbytes

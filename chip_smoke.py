@@ -11,8 +11,8 @@ which raises on failure (exit code not 0, no result line):
    K1, K2, K4 and K3 (CUDA C++, `csrc/cross_entropy.cu`,
    `csrc/flash_attention.cu`, `csrc/conv_backward.cu` and
    `csrc/decode_attention.cu`), K2's 3xTF32 instance
-   (`csrc/flash_attention_tf32.cu`) and K4's FMA instance
-   (`csrc/conv_backward_fma.cu`) start building from the checkout in the
+   (`csrc/flash_attention_tf32.cu`) and K4's TF32 instance
+   (`csrc/conv_backward_tf32.cu`) start building from the checkout in the
    background, one nvcc each, all at once;
 2. kernel K1's forward and backward (once K1 is built) against their
    plain PyTorch versions on the card: f32 at the ResNet shape
@@ -375,7 +375,7 @@ which raises on failure (exit code not 0, no result line):
    with dense attention (K2 12 + 12 a step, all on the 3xTF32 instance,
    K1 1 + 1 on f32 logits); ResNet-50 at batch 256 in f32 with
    `fused_1x1_bwd`, 3 steps against the default path (K4 33 a step, all
-   on the FMA instance). With `--f32` this phase runs alone.
+   on the TF32 instance's 3xTF32 route). With `--f32` this phase runs alone.
 
 Phase 6 asserts that the default path launches K4 no time. Every phase
 that counts K1's launches in train steps asserts one launch of its
@@ -513,7 +513,7 @@ VIT_UPDATE_REL = 5e-2
 # magnitude; dW, f32 throughout, relative to its own
 K4_REL_DX = 1e-2
 K4_REL_DW = 1e-3
-# an f32 compute dtype on K4's FMA instance (F13), as
+# an f32 compute dtype on K4's TF32 instance ("tf32x3"), as
 # tests/test_torch_kernels.py states: elementwise |got - f64| <= 1.01 K
 # 2^-24 (|A||B|)_64 + 1e-30 (the forward error bound of an f32 FMA sum in
 # any order, K = N for dX and M for dW; 1e-30 covers results flushed to
@@ -528,7 +528,7 @@ K2_SOURCE = "flash_attention.cu"
 K4_SOURCE = conv_backward_cuda.SOURCE
 K3_SOURCE = decode_attention_cuda.SOURCE
 K2_TF32_SOURCE = flash_attention_cuda.TF32_SOURCE
-K4_FMA_SOURCE = conv_backward_cuda.FMA_SOURCE
+K4_TF32_SOURCE = conv_backward_cuda.TF32_SOURCE
 # K3 against its plain version, relative to the reference's own largest
 # magnitude, as tests/test_torch_kernels.py states: both compute the same
 # f32 output up to summation order and __expf (f32: 2e-5) and round it once
@@ -1103,7 +1103,7 @@ def check_k4(size: int, c: int, n: int, calls: int, seed: int, dtype=torch.bfloa
         "library_": (library, iters),
     })
     # the call's device time by kernel: dgrad, wgrad and the reduction (the
-    # FMA instance's two products are both `gemm`)
+    # TF32 instance's two products are both `gemm_tf32`)
     parts = {}
     for key, ms in (_kernels_ms(lambda: cb.conv1x1_backward_kernel(x2, dy2, w2)).items()
                     if by_kernel else ()):
@@ -3677,7 +3677,7 @@ SHIPPED_FLAGS = {
 }
 # what each workload builds besides K1
 SHIPPED_KERNEL = {"lm": K2_SOURCE, "resnet50": K4_SOURCE}
-SHIPPED_SOURCES = ["conv_backward.cu", "conv_backward_fma.cu", "cross_entropy.cu",
+SHIPPED_SOURCES = ["conv_backward.cu", "conv_backward_tf32.cu", "cross_entropy.cu",
                    "decode_attention.cu", "flash_attention.cu", "flash_attention_tf32.cu",
                    "hopper.cuh"]
 SHIPPED_RUN_TIMEOUT_S = 600
@@ -5159,7 +5159,7 @@ def run_head_dims(card: str) -> dict:
 
 
 # Phase 38: K2 and K4 at every dtype and width the reference takes (F12,
-# F13, F14): K2's 3xTF32 and K4's FMA instances against float64 and their
+# F13, F14): K2's 3xTF32 and K4's TF32 instances against float64 and their
 # plain versions, the f32 LM and the f32 fused ResNet-50 stepped through
 # them
 
@@ -5173,7 +5173,8 @@ F32_K2 = [
 ]
 # timed calls of the kernel and SDPA, and of the plain version, at each
 F32_K2_ITERS = (20, 3)
-# bf16 rows at widths that are not multiples of 8 (the FMA instance's):
+# bf16 rows at widths that are not multiples of 8 (the TF32 instance's
+# one-product route, "tf32x1"):
 # (spatial size at batch 256, C, N)
 F32_K4_NARROW = [(14, 3, 13), (4, 100, 36)]
 F32_LM_STEPS = 3
@@ -5264,14 +5265,14 @@ def run_f32_lm(card: str) -> dict:
 
 def run_f32_resnet50(card: str) -> dict:
     """ResNet-50 at batch 256, 224x224, in f32 with `fused_1x1_bwd` (K4's
-    FMA instance for its 33 stride-1 1x1 convolutions a step) against the
+    TF32 instance, "tf32x3", for its 33 stride-1 1x1 convolutions a step) against the
     default path (cuDNN, TF32 off), from one set of weights and batch."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = torch.randn((F32_RESNET_BATCH, 224, 224, 3), generator=gen, device="cuda")
     labels = torch.randint(0, 1000, (F32_RESNET_BATCH,), generator=gen, device="cuda",
                            dtype=torch.int32)
     k4 = cb.conv1x1_backward_kernel
-    k4.launches = k4.fma_launches = 0
+    k4.launches = k4.tf32_launches = 0
     cb.conv1x1_backward.copies = 0
     torch.cuda.reset_peak_memory_stats()
     fused = _f32_steps(lambda: ResNet50(num_classes=1000, dtype=torch.float32,
@@ -5279,26 +5280,26 @@ def run_f32_resnet50(card: str) -> dict:
                        train.make_train_step, MESH_LR["resnet50"], (images, labels),
                        F32_RESNET_STEPS)
     peak = torch.cuda.max_memory_allocated()
-    launches, fma, copies = k4.launches, k4.fma_launches, cb.conv1x1_backward.copies
+    launches, tf32, copies = k4.launches, k4.tf32_launches, cb.conv1x1_backward.copies
     default = _f32_steps(lambda: ResNet50(num_classes=1000, dtype=torch.float32),
                          train.make_train_step, MESH_LR["resnet50"], (images, labels),
                          F32_RESNET_STEPS)
     agree = _first_steps_agree("the f32 ResNet-50, fused_1x1_bwd against the default path",
                                fused, default)
     per_step = sum(calls for *_, calls in K4_SHAPES)
-    if (launches, fma) != (per_step * F32_RESNET_STEPS,) * 2 or copies:
-        raise AssertionError(f"the f32 fused ResNet-50: K4 launched {launches} times ({fma} "
-                             f"on the FMA instance), {copies} copies in {F32_RESNET_STEPS} steps")
+    if (launches, tf32) != (per_step * F32_RESNET_STEPS,) * 2 or copies:
+        raise AssertionError(f"the f32 fused ResNet-50: K4 launched {launches} times ({tf32} "
+                             f"on the TF32 instance), {copies} copies in {F32_RESNET_STEPS} steps")
     result = {**agree, "losses": {"fused": fused["losses"], "default": default["losses"]},
               "step_ms": {"fused": fused["step_ms"], "default": default["step_ms"]},
               "steps": F32_RESNET_STEPS, "batch": F32_RESNET_BATCH, "k4": launches,
-              "k4_fma": fma, "k4_copies": copies, "peak_memory_bytes": peak}
-    print(f"f32 ResNet-50 batch {F32_RESNET_BATCH} 224x224, fused_1x1_bwd (K4's FMA instance) "
+              "k4_tf32": tf32, "k4_copies": copies, "peak_memory_bytes": peak}
+    print(f"f32 ResNet-50 batch {F32_RESNET_BATCH} 224x224, fused_1x1_bwd (K4's 3xTF32 route) "
           f"against the default path (cuDNN, TF32 off) from one set of weights: first-step loss "
           f"{fused['losses'][0]:.6f} against {default['losses'][0]:.6f} (rel "
           f"{agree['first_step_loss_rel']:.2e}), first update within "
           f"{agree['first_update_rel']:.2e} of its largest entry; step {fused['step_ms']:.2f} ms "
-          f"against {default['step_ms']:.2f} ms; K4 {launches} launches ({fma} FMA) in "
+          f"against {default['step_ms']:.2f} ms; K4 {launches} launches ({tf32} TF32) in "
           f"{F32_RESNET_STEPS} steps; peak memory {peak / 1e9:.2f} GB; on {card}", flush=True)
     return result
 
@@ -5335,7 +5336,7 @@ def run_f32(card: str) -> dict:
           f"within {lm['first_step_loss_rel']:.1e} (loss) and {lm['first_update_rel']:.1e} "
           f"(update) of dense attention, K2 {lm['k2_forward']} + {lm['k2_backward']} 3xTF32 in "
           f"{lm['steps']} steps; the f32 ResNet-50's within {resnet50['first_step_loss_rel']:.1e} "
-          f"and {resnet50['first_update_rel']:.1e} of the default path, K4 {resnet50['k4']} FMA "
+          f"and {resnet50['first_update_rel']:.1e} of the default path, K4 {resnet50['k4']} TF32 "
           f"in {resnet50['steps']} steps; {result['phase_seconds']:.1f} s; on {card}", flush=True)
     return result
 
@@ -5422,7 +5423,7 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     builds = {source: _build_in_background(source)
               for source in (K1_SOURCE, K2_SOURCE, K4_SOURCE, K3_SOURCE, K2_TF32_SOURCE,
-                             K4_FMA_SOURCE)}
+                             K4_TF32_SOURCE)}
 
     _join_build(K1_SOURCE, builds[K1_SOURCE], started)
     k1_main = check_k1(256, 1000, seed=0)
@@ -5539,7 +5540,7 @@ def main() -> int:
     gpu_plane = run_gpu_plane(card)
     head_dims = run_head_dims(card)
     _join_build(K2_TF32_SOURCE, builds[K2_TF32_SOURCE], started)
-    _join_build(K4_FMA_SOURCE, builds[K4_FMA_SOURCE], started)
+    _join_build(K4_TF32_SOURCE, builds[K4_TF32_SOURCE], started)
     f32 = run_f32(card)
 
     k2_lm = k2_rows[0]
@@ -5762,18 +5763,23 @@ def main() -> int:
                               **r[part]} for r in f32["k2"][1:]],
         } for part in ("forward", "backward")),
         {
-            "name": "conv1x1_bwd (K4, FMA instance)",
+            "name": "conv1x1_bwd (K4, 3xTF32 instance)",
             "route": "cuda",
-            "source": "tritonk8ssupervisor_tpu_torch/csrc/conv_backward_fma.cu",
+            "source": "tritonk8ssupervisor_tpu_torch/csrc/conv_backward_tf32.cu",
             "replaces": "tritonk8ssupervisor_tpu/ops/conv_backward.py:83",
             "launches": f32["resnet50"]["k4"],
-            "path": "ResNet-50 in f32 with fused_1x1_bwd; bf16 and fp16 at widths that are not "
-                    "multiples of 8",
-            "design": "f32 FMAs on the CUDA cores, no TF32: a SIMT GEMM for dgrad and one for "
-                      "wgrad over a fixed split of M, 128 x 128 output tiles of 256 threads, 8 x 8 "
-                      "a thread from float4 reads of k-major shared tiles of depth 8, double "
-                      "buffered with the next depth in registers; rows read element by element "
-                      "(any width, any alignment); partials summed in split order",
+            "path": "ResNet-50 in f32 with fused_1x1_bwd (route tf32x3); bf16 and fp16 at "
+                    "widths that are not multiples of 8 (route tf32x1)",
+            "design": "TF32 wgmma, every f32 product lo*hi + hi*lo + hi*hi (one exact product "
+                      "for bf16 and fp16): a producer warpgroup loads rows with plain loads (any "
+                      "width and start), splits them and writes hi and lo K-major (dY as rows, "
+                      "W, dY and X transposed) into an mbarrier ring; two consumer warpgroups "
+                      "of 64 rows run m64n{64,128,256}k8 from shared memory; persistent CTAs over "
+                      "128 x {64, 128, 256} tiles, wgrad over one wave of M splits summed in "
+                      "order; contractions shorter than 16 as exact f32 FMAs",
+            "first_design": "f32 FMAs on the CUDA cores (csrc/conv_backward_fma.cu, removed): "
+                            "SIMT GEMMs of 128 x 128 tiles, 8 x 8 a thread from k-major shared "
+                            "tiles of depth 8; its times stand in PERF.md section 6",
             **f32["k4"][0],
             "library_ratio": _library_ratio(f32["k4"][0]),
             "per_step": f32["k4_per_step"],
@@ -5934,7 +5940,7 @@ if __name__ == "__main__":
             sys.exit(2)
         torch.backends.cudnn.allow_tf32 = False  # as main() runs it
         torch.backends.cuda.matmul.allow_tf32 = False
-        for source in (K1_SOURCE, K2_TF32_SOURCE, K4_FMA_SOURCE):
+        for source in (K1_SOURCE, K2_TF32_SOURCE, K4_TF32_SOURCE):
             cuda_build.load(source)
         run_f32(_card_line())
         sys.exit(0)

@@ -1,7 +1,7 @@
 """K2 and K4 at every dtype and width the reference takes, on the CPU.
 
-K2's 3xTF32 instance (`csrc/flash_attention_tf32.cu`) and K4's FMA
-instance (`csrc/conv_backward_fma.cu`) run only on the card
+K2's 3xTF32 instance (`csrc/flash_attention_tf32.cu`) and K4's TF32
+instance (`csrc/conv_backward_tf32.cu`) run only on the card
 (tests/test_torch_kernels.py holds them to their bound there). Here,
 without a card:
 
@@ -9,7 +9,7 @@ without a card:
   and head_dim (K2) or widths (K4) alone, and a failed build raises
   instead of picking another instance;
 - the wrappers hand f32 inputs to K2's 3xTF32 launchers, and K4's f32
-  and narrow widths to its FMA launcher (recorded, not run), without
+  and narrow widths to its TF32 launcher (recorded, not run), without
   copies;
 - K4's plain version in f32 and at widths 3, 13, 100 and 36 against the
   reference's `_fused_backward_2d` (its Pallas kernel interpreted, or its
@@ -86,21 +86,22 @@ def test_k2_route_refuses_a_head_dim_past_256(dtype):
 
 
 K4_ROUTES = [
-    (torch.float32, 64, 64, "fma"), (torch.float32, 3, 13, "fma"),
-    (torch.float32, 2048, 512, "fma"),
+    (torch.float32, 64, 64, "tf32x3"), (torch.float32, 3, 13, "tf32x3"),
+    (torch.float32, 2048, 512, "tf32x3"),
     (torch.bfloat16, 64, 256, "wgmma-64"), (torch.bfloat16, 128, 512, "wgmma-128"),
     (torch.bfloat16, 2048, 512, "wgmma-256"), (torch.float16, 200, 72, "wgmma-256"),
-    (torch.bfloat16, 3, 13, "fma"), (torch.bfloat16, 100, 36, "fma"),
-    (torch.bfloat16, 12, 8, "fma"), (torch.float16, 8, 12, "fma"),
-    (torch.float16, 1, 1, "fma"),
+    (torch.bfloat16, 3, 13, "tf32x1"), (torch.bfloat16, 100, 36, "tf32x1"),
+    (torch.bfloat16, 12, 8, "tf32x1"), (torch.float16, 8, 12, "tf32x1"),
+    (torch.float16, 1, 1, "tf32x1"),
 ]
 
 
 @pytest.mark.parametrize("dtype,c,n,route", K4_ROUTES,
                          ids=lambda v: str(v).removeprefix("torch."))
 def test_k4_route_is_a_function_of_dtype_and_widths(dtype, c, n, route):
-    """Every input the wgmma instances took keeps its route; f32 and the
-    widths TMA cannot address go to the FMA instance."""
+    """Every input the wgmma instances took keeps its route; f32 goes to
+    the TF32 instance's 3xTF32 route and the bf16/fp16 widths TMA cannot
+    address to its one-product route."""
     assert conv_backward_cuda.instance(dtype, c, n) == route
 
 
@@ -117,23 +118,23 @@ def _unbuilt(name):
 
 
 def test_a_failed_build_raises_and_never_switches_the_instance(monkeypatch):
-    """The f32 inputs' 3xTF32 library (K2) and FMA library (K4) fail to
-    build: both wrappers raise the build's error, and neither reaches for
-    the bf16/fp16 library."""
+    """The f32 inputs' 3xTF32 libraries (K2's and K4's) fail to build:
+    both wrappers raise the build's error, and neither reaches for the
+    bf16/fp16 library."""
     monkeypatch.setattr(flash_attention_cuda, "_tf32_lib", _unbuilt("flash_attention_tf32.cu"))
     monkeypatch.setattr(flash_attention_cuda, "_lib", _unbuilt("the wgmma library"))
-    monkeypatch.setattr(conv_backward_cuda, "_fma_lib", _unbuilt("conv_backward_fma.cu"))
+    monkeypatch.setattr(conv_backward_cuda, "_tf32_lib", _unbuilt("conv_backward_tf32.cu"))
     monkeypatch.setattr(conv_backward_cuda, "_lib", _unbuilt("the wgmma library"))
     monkeypatch.setattr(cb, "_on_one_cuda_device", lambda *tensors: True)
     q = torch.empty(2, 16, 3, 40, device="meta")
     with pytest.raises(RuntimeError, match="flash_attention_tf32.cu"):
         fa.flash_attention_forward(q, q, q, True, "bshd")
-    with pytest.raises(RuntimeError, match="conv_backward_fma.cu"):
+    with pytest.raises(RuntimeError, match="conv_backward_tf32.cu"):
         cb.conv1x1_backward_kernel(torch.empty(32, 24, device="meta"),
                                    torch.empty(32, 16, device="meta"),
                                    torch.empty(16, 24, device="meta"))
     half = {"device": "meta", "dtype": torch.float16}
-    with pytest.raises(RuntimeError, match="conv_backward_fma.cu"):
+    with pytest.raises(RuntimeError, match="conv_backward_tf32.cu"):
         cb.conv1x1_backward_kernel(torch.empty(32, 12, **half), torch.empty(32, 8, **half),
                                    torch.empty(8, 12, **half))
 
@@ -180,10 +181,10 @@ def test_k2_wrappers_hand_f32_views_to_the_fma_launchers_without_a_copy(monkeypa
     (torch.bfloat16, 3, 13, False), (torch.float16, 100, 36, True),
     (torch.bfloat16, 12, 24, True),
 ])
-def test_k4_wrapper_hands_f32_and_narrow_widths_to_the_fma_launcher(monkeypatch, dtype, c, n,
-                                                                     misaligned):
+def test_k4_wrapper_hands_f32_and_narrow_widths_to_the_tf32_launcher(monkeypatch, dtype, c, n,
+                                                                      misaligned):
     """Rows at any start (a 2-byte offset here) and any width pass the
-    wrapper's checks when they route to the FMA instance; the launcher is
+    wrapper's checks when they route to the TF32 instance; the launcher is
     recorded, not run, and dW comes back f32."""
     launched = []
     monkeypatch.setattr(cb, "_on_one_cuda_device", lambda *tensors: True)
@@ -191,15 +192,16 @@ def test_k4_wrapper_hands_f32_and_narrow_widths_to_the_fma_launcher(monkeypatch,
                         lambda x2, dy2, w2, dx2, dw: launched.append(
                             (conv_backward_cuda.instance(x2.dtype, c, n), dx2.dtype, dw.dtype)))
     monkeypatch.setattr(cb.conv1x1_backward_kernel, "launches", 0)
-    monkeypatch.setattr(cb.conv1x1_backward_kernel, "fma_launches", 0)
+    monkeypatch.setattr(cb.conv1x1_backward_kernel, "tf32_launches", 0)
     m = 50
     x2 = torch.zeros(m * c + 1, dtype=dtype)[1:].view(m, c) if misaligned else torch.zeros(
         m, c, dtype=dtype)
     dy2, w2 = torch.zeros(m, n, dtype=dtype), torch.zeros(n, c, dtype=dtype)
     dx2, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
-    assert launched == [("fma", dtype, torch.float32)]
+    route = "tf32x3" if dtype == torch.float32 else "tf32x1"
+    assert launched == [(route, dtype, torch.float32)]
     assert dx2.shape == (m, c) and dw.shape == (n, c)
-    assert cb.conv1x1_backward_kernel.launches == cb.conv1x1_backward_kernel.fma_launches == 1
+    assert cb.conv1x1_backward_kernel.launches == cb.conv1x1_backward_kernel.tf32_launches == 1
 
 
 def test_k4_wgmma_route_still_needs_aligned_rows(monkeypatch):
@@ -212,15 +214,15 @@ def test_k4_wgmma_route_still_needs_aligned_rows(monkeypatch):
 
 @pytest.mark.parametrize("m,c,n", [(1, 3, 13), (10, 100, 36), (802816, 64, 64),
                                    (12544, 2048, 512), (50176, 3, 13)])
-def test_k4_fma_split_plan(m, c, n):
-    """The FMA dW's split of M: a fixed function of the shape, whole
-    8-row stages, no empty split, at most two CTAs an SM in one wave."""
-    splits, rows = conv_backward_cuda.fma_split(m, c, n)
-    assert conv_backward_cuda.fma_split(m, c, n) == (splits, rows)
-    assert rows % 8 == 0 and (splits - 1) * rows < m <= splits * rows
-    tiles = -(-c // 128) * -(-n // 128)
-    assert splits * tiles <= max(2 * 132, tiles)
-    assert conv_backward_cuda.fma_split(0, c, n) == (1, 0)
+def test_k4_tf32_split_plan(m, c, n):
+    """The TF32 dW's split of M: a fixed function of the shape, whole
+    32-row stages, no empty split, at most one CTA an SM in one wave."""
+    splits, rows = conv_backward_cuda.tf32_split(m, c, n)
+    assert conv_backward_cuda.tf32_split(m, c, n) == (splits, rows)
+    assert rows % 32 == 0 and (splits - 1) * rows < m <= splits * rows
+    tiles = -(-max(c, n) // 128) * -(-min(c, n) // conv_backward_cuda.tf32_tile(min(c, n)))
+    assert splits * tiles <= max(132, tiles)
+    assert conv_backward_cuda.tf32_split(0, c, n) == (1, 0)
 
 
 # ----------------------------------------- K4's plain version vs the reference
@@ -248,7 +250,7 @@ def test_plain_version_in_f32_matches_the_reference_at_any_width(m, c, n):
 
 @pytest.mark.parametrize("m,c,n", WIDTHS, ids=lambda v: str(v))
 def test_plain_version_in_bf16_matches_the_reference_at_any_width(m, c, n):
-    """bf16 rows at widths that are not multiples of 8 (the FMA instance's
+    """bf16 rows at widths that are not multiples of 8 (the TF32 instance's
     bf16 inputs): dX within one bf16 ulp, dW to 1e-5 of its largest."""
     rng = np.random.default_rng(7 + m + c + n)
     x2, dy2, w2 = (jnp.asarray(rng.normal(size=s), jnp.bfloat16)
@@ -291,7 +293,7 @@ def test_conv1x1_in_f32_matches_the_reference_s_at_any_width(shape):
 
 def test_f32_fused_resnet_step_at_narrow_widths_matches_jax():
     """One SGD step of `ResNet(dtype=float32, fused_1x1_bwd=True)` with 3
-    filters (1x1 convolutions of widths 3 and 12, the FMA instance's on
+    filters (1x1 convolutions of widths 3 and 12, the TF32 instance's on
     the card) through each package's `make_train_step`: the loss to 1e-4
     and every parameter and statistic to rtol 1e-4, atol 5e-5, as
     tests/test_torch_conv_backward.py holds the 8-filter model."""

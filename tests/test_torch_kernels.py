@@ -538,20 +538,29 @@ K4_CASES = [
     pytest.param(802816, 256, 64, torch.bfloat16, id="stage0-full"),
     pytest.param(50176, 256, 1024, torch.bfloat16, id="stage2-full"),
     pytest.param(12544, 2048, 512, torch.float16, id="stage3-full-fp16"),
-    # the FMA instance: float32 at ResNet-50's widths, and any width in f32,
-    # bf16 or fp16
-    pytest.param(128, 24, 32, torch.float32, id="f32-small"),
-    pytest.param(1000, 3, 13, torch.float32, id="f32-widths-3-13"),
-    pytest.param(4099, 100, 36, torch.float32, id="f32-widths-100-36"),
-    pytest.param(802816, 64, 64, torch.float32, id="f32-stage0-full"),
-    pytest.param(50176, 256, 1024, torch.float32, id="f32-stage2-full"),
-    pytest.param(12544, 2048, 512, torch.float32, id="f32-stage3-full"),
-    pytest.param(50176, 3, 13, torch.bfloat16, id="bf16-widths-3-13"),
-    pytest.param(4096, 100, 36, torch.bfloat16, id="bf16-widths-100-36"),
-    pytest.param(1000, 12, 20, torch.float16, id="fp16-widths-12-20"),
+    # the TF32 instance: float32 at ResNet-50's widths and any width
+    # ("tf32x3"), bf16 and fp16 at widths that are not multiples of 8
+    # ("tf32x1"); contractions shorter than K_MIN = 16 (N for dX, M for dW)
+    # as f32 FMAs, at the threshold on the tensor cores
+    pytest.param(128, 24, 32, torch.float32, id="tf32x3-small"),
+    pytest.param(1000, 3, 13, torch.float32, id="tf32x3-widths-3-13"),
+    pytest.param(4099, 100, 36, torch.float32, id="tf32x3-widths-100-36"),
+    pytest.param(802816, 64, 64, torch.float32, id="tf32x3-stage0-full"),
+    pytest.param(50176, 256, 1024, torch.float32, id="tf32x3-stage2-full"),
+    pytest.param(12544, 2048, 512, torch.float32, id="tf32x3-stage3-full"),
+    pytest.param(1000, 3, 1, torch.float32, id="tf32x3-n1-fma-dx"),
+    pytest.param(1000, 5, 4, torch.float32, id="tf32x3-n4-fma-dx"),
+    pytest.param(3, 64, 64, torch.float32, id="tf32x3-m3-fma-dw"),
+    pytest.param(1000, 24, 16, torch.float32, id="tf32x3-n16-at-k-min"),
+    pytest.param(16, 40, 72, torch.float32, id="tf32x3-m16-at-k-min"),
+    pytest.param(50176, 3, 13, torch.bfloat16, id="tf32x1-bf16-widths-3-13"),
+    pytest.param(4096, 100, 36, torch.bfloat16, id="tf32x1-bf16-widths-100-36"),
+    pytest.param(1000, 12, 20, torch.float16, id="tf32x1-fp16-widths-12-20"),
+    pytest.param(1000, 13, 20, torch.bfloat16, 1, id="tf32x1-bf16-2-byte-offset"),
+    pytest.param(777, 36, 100, torch.float32, 1, id="tf32x3-4-byte-offset"),
 ]
 
-# float32 (the FMA instance): elementwise |kernel - f64| <= 1.01 K 2^-24
+# float32 (the tf32x3 route): elementwise |kernel - f64| <= 1.01 K 2^-24
 # (|A| |B|)_64 + 1e-30 against a float64 evaluation, K the contraction
 # length (N for dX, M for dW): the forward error bound of an f32 FMA sum in
 # any order; the 1e-30 covers results flushed to zero. The plain f32
@@ -568,21 +577,32 @@ def _k4_f32_bound_ratio(dx, dw, x2, dy2, w2):
                for got, ref, mag, k in ((dx, ref_dx, mag_dx, n), (dw, ref_dw, mag_dw, m)))
 
 
-def _k4_inputs(m, c, n, dtype, seed=0):
+def _k4_inputs(m, c, n, dtype, seed=0, offset=0):
+    """X, dY, W from a seed; with `offset`, each starts that many elements
+    into its storage (rows at any start: the TF32 instance's)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def at_offset(t):
+        if not offset:
+            return t
+        storage = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+        return storage[offset:].view(t.shape).copy_(t)
+
     x2 = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
     dy2 = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
     w2 = (torch.randn(n, c, generator=gen, device="cuda") / c ** 0.5).to(dtype)
-    return x2, dy2, w2
+    return at_offset(x2), at_offset(dy2), at_offset(w2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,c,n,dtype", K4_CASES)
-def test_k4_matches_plain_version(m, c, n, dtype):
+@pytest.mark.parametrize("m,c,n,dtype,offset", [
+    p if len(p.values) == 5 else pytest.param(*p.values, 0, id=p.id) for p in K4_CASES])
+def test_k4_matches_plain_version(m, c, n, dtype, offset):
     _card()
     from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
 
-    x2, dy2, w2 = _k4_inputs(m, c, n, dtype)
+    x2, dy2, w2 = _k4_inputs(m, c, n, dtype, offset=offset)
+    assert offset == 0 or x2.data_ptr() % 16 != 0
     before = cb.conv1x1_backward_kernel.launches
     dx, dw = cb.conv1x1_backward_kernel(x2, dy2, w2)
     torch.cuda.synchronize()
@@ -621,10 +641,11 @@ def test_k4_at_widths_and_rows_that_are_not_whole_tiles(m, c, n, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 128), (torch.float32, 128),
-                                     (torch.bfloat16, 100)], ids=["bf16", "f32", "bf16-fma"])
+                                     (torch.bfloat16, 100)], ids=["bf16", "f32", "bf16-tf32x1"])
 def test_k4_is_deterministic(dtype, c):
     """dW is summed over a fixed split of M in a fixed order: two calls on
-    the same inputs agree bit for bit, on the wgmma and the FMA instance."""
+    the same inputs agree bit for bit, on the wgmma instance and on both
+    routes of the TF32 instance."""
     _card()
     from tritonk8ssupervisor_tpu_torch.ops import conv_backward as cb
 
@@ -680,7 +701,7 @@ def test_k4_raises_on_what_it_does_not_take():
     x = torch.zeros(2, 16, 4, 4, device="cuda").to(memory_format=torch.channels_last)
     w = torch.zeros(8, 16, 1, 1, device="cuda")
     dy = torch.zeros(2, 8, 4, 4, device="cuda").to(memory_format=torch.channels_last)
-    # f32 and width 12 run on the FMA instance; float64 is refused in their place
+    # f32 and width 12 run on the TF32 instance; float64 is refused in their place
     with pytest.raises(TypeError, match="float32, bf16 or fp16"):
         cb.conv1x1_backward(x, w, dy, torch.float64)
     with pytest.raises(TypeError, match="float32, bf16 or fp16"):

@@ -29,7 +29,7 @@ from tritonk8ssupervisor_tpu_torch.config import compile as cc
 from tritonk8ssupervisor_tpu_torch.config.schema import ClusterConfig
 
 PACKAGE_DIR = Path(tritonk8ssupervisor_tpu_torch.__file__).resolve().parent
-CUDA_SOURCES = ["conv_backward.cu", "conv_backward_fma.cu", "cross_entropy.cu",
+CUDA_SOURCES = ["conv_backward.cu", "conv_backward_tf32.cu", "cross_entropy.cu",
                 "decode_attention.cu", "flash_attention.cu", "flash_attention_tf32.cu",
                 "hopper.cuh"]
 CONFIGMAP_LIMIT = 1_048_576  # bytes the API server accepts in one object

@@ -20,8 +20,10 @@ On CPU tensors the backward is the plain version
 every M, on the instance `conv_backward_cuda.instance` names from the
 compute dtype and widths alone: the wgmma kernels
 (`csrc/conv_backward.cu`) for bf16 and fp16 at widths that are multiples
-of 8, the FMA kernels (`csrc/conv_backward_fma.cu`: f32 products on the
-CUDA cores, no TF32) for a float32 compute dtype and any other width.
+of 8, the TF32 kernels (`csrc/conv_backward_tf32.cu`: TF32 wgmma, every
+f32 product split into three, "tf32x3", and one exact product of bf16 or
+fp16 values at any other width, "tf32x1"; contractions shorter than 16 as
+f32 FMAs).
 What K4 does not take (another compute dtype, a mismatched device)
 raises, and nothing falls back to the plain version or to the other
 instance.
@@ -69,8 +71,8 @@ def conv1x1_backward_plain(x2, dy2, w, compute_dtype):
 def conv1x1_backward_f64(x2, dy2, w2):
     """K4's function in float64 on the values of X (M, C), dY (M, N), W
     (N, C), with the magnitudes its f32 error bound reads: (dX, dW,
-    |dY| |W|, |dY|^T |X|), all float64. The yardstick of the FMA
-    instance in tests/test_torch_kernels.py and `chip_smoke.py`; no path
+    |dY| |W|, |dY|^T |X|), all float64. The yardstick of the f32 route
+    in tests/test_torch_kernels.py and `chip_smoke.py`; no path
     of the port calls it."""
     x, dy, w = (t.double() for t in (x2, dy2, w2))
     return dy @ w, dy.t() @ x, dy.abs() @ w.abs(), dy.abs().t() @ x.abs()
@@ -93,7 +95,7 @@ def _check_kernel_inputs(x2, dy2, w2) -> None:
     route = conv_backward_cuda.instance(x2.dtype, x2.shape[1], dy2.shape[1])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("K4 reads X, dY and W as contiguous rows")
-    if route != "fma" and not all(t.data_ptr() % 16 == 0 for t in tensors):
+    if route.startswith("wgmma") and not all(t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError("K4's wgmma instances read X, dY and W as 16-byte aligned rows")
     if not _on_one_cuda_device(*tensors):
         raise ValueError(
@@ -108,7 +110,7 @@ def conv1x1_backward_kernel(x2, dy2, w2):
     C) in that dtype, dW (N, C) f32); anything else raises. One call
     launches dgrad, wgrad and, with more than one split of M, the
     reduction; it is counted once in `conv1x1_backward_kernel.launches`
-    (and in its `fma_launches` on the FMA instance). An empty M launches
+    (and in its `tf32_launches` on the TF32 instance). An empty M launches
     nothing: dX is empty and dW zero, as the reference returns."""
     _check_kernel_inputs(x2, dy2, w2)
     m, c = x2.shape
@@ -119,12 +121,13 @@ def conv1x1_backward_kernel(x2, dy2, w2):
     dw = torch.empty((n, c), dtype=torch.float32, device=x2.device)
     conv_backward_cuda.backward(x2, dy2, w2, dx2, dw)
     conv1x1_backward_kernel.launches += 1
-    conv1x1_backward_kernel.fma_launches += conv_backward_cuda.instance(x2.dtype, c, n) == "fma"
+    conv1x1_backward_kernel.tf32_launches += conv_backward_cuda.instance(
+        x2.dtype, c, n).startswith("tf32")
     return dx2, dw
 
 
 conv1x1_backward_kernel.launches = 0
-conv1x1_backward_kernel.fma_launches = 0  # of `launches`, those on the FMA instance
+conv1x1_backward_kernel.tf32_launches = 0  # of `launches`, those on the TF32 instance
 
 
 @torch.library.custom_op(

@@ -34,8 +34,8 @@ So this module:
   the op's recorded arguments where torch records strings, else from the
   (B, H, S) logsumexp that a backward op on the same q dims takes; left
   unknown, the forward keeps its bytes and counts 0 FLOPs. An f32 call of
-  K2 or K4 takes f32-accurate products (K2's 3xTF32 instance, K4's FMA
-  instance): its FLOPs count against the card's rate for those
+  K2 or K4 takes f32-accurate products (K2's and K4's 3xTF32
+  instances): its FLOPs count against the card's rate for those
   (`PEAK_F32_PRODUCT_FLOPS`, a third of dense TF32) in the compute bound
   and the claw-back, the rest against the tensor cores' bf16 rate;
 - shares an operator's bytes and FLOPs among its device events in
@@ -87,9 +87,9 @@ PEAK_F32_FLOPS = {
 }
 # Data-sheet rate of f32-accurate products on the tensor cores (FLOP/s):
 # the dense TF32 rate (H100 SXM and H200 495, H100 PCIe 378) over 3, since
-# a 3xTF32 product (csrc/flash_attention_tf32.cu) takes three TF32 ones.
-# The ceiling of K2's and K4's f32 calls in chip_smoke.py's bounds, K4's
-# f32 instance (CUDA-core FMAs) included: no f32 product can go faster.
+# a 3xTF32 product (csrc/flash_attention_tf32.cu, csrc/conv_backward_tf32.cu)
+# takes three TF32 ones. The ceiling of K2's and K4's f32 calls in
+# chip_smoke.py's bounds: no f32-accurate product can go faster.
 PEAK_F32_PRODUCT_FLOPS = {
     "NVIDIA H100 80GB HBM3": 495e12 / 3,
     "NVIDIA H100 PCIe": 378e12 / 3,
@@ -97,7 +97,7 @@ PEAK_F32_PRODUCT_FLOPS = {
 }
 
 # the port's kernels whose float32 calls take f32-accurate products
-# (csrc/flash_attention_tf32.cu, csrc/conv_backward_fma.cu)
+# (csrc/flash_attention_tf32.cu, csrc/conv_backward_tf32.cu)
 F32_PRODUCT_KERNELS = ("tk8s::flash_attn_fwd", "tk8s::flash_attn_bwd", "tk8s::conv1x1_bwd")
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")

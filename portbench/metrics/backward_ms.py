@@ -1,0 +1,10 @@
+"""backward_ms.<family> (ms, layer "step: parallel/train.py"): device ms a
+traced step of the kernels launched by ops that start inside the step's
+`train.backward` spans, on any thread: autograd's device thread runs the
+backward while the step waits inside the span (`spans.launched_ms`)."""
+
+from portbench.spans import launched_ms
+
+
+def read(run):
+    return launched_ms(run.trace, "train.backward")

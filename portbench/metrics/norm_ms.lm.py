@@ -1,0 +1,9 @@
+"""norm_ms.lm (ms, layer "model: models/transformer.py"): device ms a traced
+step of the ops inside `model.norm` spans (every LayerNorm), and of the
+backward nodes those ops made (`spans.sublayer_ms`)."""
+
+from portbench.spans import sublayer_ms
+
+
+def read(run):
+    return sublayer_ms(run.trace, "model.norm")

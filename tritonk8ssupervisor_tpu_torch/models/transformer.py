@@ -28,6 +28,11 @@
   a mixture-of-experts block (`models/moe.py`); its router loss is
   kept as the block's `moe_mlp.router_loss`, which the train steps fold
   into the objective.
+- While a torch profiler runs, the sublayers are profiler ranges
+  (`obs/trace.annotate`), disjoint so that their times add up:
+  `model.embed`, `model.norm` (each `LayerNorm`), `model.attention` (qkv
+  through the output projection and the residual add), `model.mlp` (the
+  MLP or MoE MLP and its residual add) and `model.head`.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tritonk8ssupervisor_tpu_torch.models.moe import MoEMLP
 from tritonk8ssupervisor_tpu_torch.models.resnet import lecun_normal_
+from tritonk8ssupervisor_tpu_torch.obs.trace import annotate
 from tritonk8ssupervisor_tpu_torch.ops.ring_attention import (
     attention_reference_layout,
 )
@@ -108,7 +114,8 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.dtype)
+        with annotate("model.norm"):
+            return layer_norm(x, self.weight, self.bias, self.dtype)
 
 
 class _HeadMajorQKV(nn.Module):
@@ -196,21 +203,23 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, e = x.shape
         y = self.LayerNorm_0(x)
-        if self.head_major:
-            q, k, v = self.qkv(y)
-            attn = self.attention_fn(q, k, v, causal=self.causal, layout="bhsd")
-            x = x + self.proj(attn)
-        else:
-            # views of the one projection: K2 reads them in place
-            q, k, v = (t.view(b, s, self.num_heads, e // self.num_heads)
-                       for t in self.qkv(y).split(e, dim=-1))
-            attn = self.attention_fn(q, k, v, causal=self.causal)
-            x = x + self.proj(attn.reshape(b, s, e))
+        with annotate("model.attention"):
+            if self.head_major:
+                q, k, v = self.qkv(y)
+                attn = self.attention_fn(q, k, v, causal=self.causal, layout="bhsd")
+                x = x + self.proj(attn)
+            else:
+                # views of the one projection: K2 reads them in place
+                q, k, v = (t.view(b, s, self.num_heads, e // self.num_heads)
+                           for t in self.qkv(y).split(e, dim=-1))
+                attn = self.attention_fn(q, k, v, causal=self.causal)
+                x = x + self.proj(attn.reshape(b, s, e))
         y = self.LayerNorm_1(x)
-        if self.moe_experts:
-            return x + self.moe_mlp(y)
-        y = F.gelu(self.mlp_up(y), approximate="tanh")
-        return x + self.mlp_down(y)
+        with annotate("model.mlp"):
+            if self.moe_experts:
+                return x + self.moe_mlp(y)
+            y = F.gelu(self.mlp_up(y), approximate="tanh")
+            return x + self.mlp_down(y)
 
 
 class TransformerLM(nn.Module):
@@ -278,10 +287,13 @@ class TransformerLM(nn.Module):
         with a ring `attention_fn`) reads `pos_embed` at its own
         positions, as the reference's global array does."""
         s = tokens.shape[1]
-        pos = self.pos_embed[pos_offset:pos_offset + s]
-        x = self.tok_embed(tokens).to(self.dtype) + pos.to(self.dtype)
+        with annotate("model.embed"):
+            pos = self.pos_embed[pos_offset:pos_offset + s]
+            x = self.tok_embed(tokens).to(self.dtype) + pos.to(self.dtype)
         remat = self.remat_blocks and self.training and torch.is_grad_enabled()
         for i in range(self.num_layers):
             block = getattr(self, f"Block_{i}")
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        return self.lm_head(self.LayerNorm_0(x))
+        x = self.LayerNorm_0(x)
+        with annotate("model.head"):
+            return self.lm_head(x)

@@ -44,6 +44,26 @@ The REAL engine (serving/engine.py) additionally emits per-chunk
 prefill spans: one JSONL line per compiled prefill dispatch is noise
 next to real compute, and is exactly the "where did this 4k prompt's
 prefill ride along" evidence the timeline wants.
+
+The training step's plane writes no JSONL: a step issues dozens of
+sublayer calls in a few hundred milliseconds, so its spans are
+`torch.profiler` ranges (`annotate`), which exist only while a profiler
+runs and cost one flag test otherwise. Their names:
+
+    train.step       one call of a train step (parallel/train.py)
+    train.forward    the model's forward (once per chunk or inner step)
+    train.loss       loss and metrics from the logits, router losses
+    train.backward   objective.backward()
+    train.optimizer  the gradients' reduction and optimizer.step()
+    model.embed      token plus position embedding (models/transformer.py)
+    model.norm       one LayerNorm
+    model.attention  a block's qkv, attention, output projection, residual
+    model.mlp        a block's MLP (or MoE MLP) and residual
+    model.head       the LM head
+
+The profiler's clock is the Unix clock the serving plane's `Tracer`
+writes (`Telemetry.for_run`: `time.time`), so a trace of steps lines up
+with the span log.
 """
 
 from __future__ import annotations
@@ -57,6 +77,11 @@ SPAN = "span"
 
 SERVING = "serving"
 SUPERVISOR = "supervisor"
+
+_NULL = contextlib.nullcontext()
+# torch's profiler flag, bound on the first `annotate`: the planes that do
+# not train import this module without torch
+_profiling = None
 
 
 class SpanLog(EventLedger):
@@ -143,3 +168,18 @@ class Tracer:
             yield
         finally:
             self.emit(name, t0, self._clock(), key=key, **attrs)
+
+
+def annotate(name: str):
+    """A `torch.profiler.record_function(name)` range over the body while a
+    torch profiler runs; otherwise a shared null context, after one flag
+    test. A running profiler is the only switch: the benchmark's traced
+    stretches and an operator's `--profile DIR` both turn the spans on."""
+    global _profiling
+    if _profiling is None:
+        from torch._C._autograd import _profiler_enabled as _profiling
+    if not _profiling():
+        return _NULL
+    import torch
+
+    return torch.profiler.record_function(name)

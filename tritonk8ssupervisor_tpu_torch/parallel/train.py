@@ -24,6 +24,12 @@ tensor parallelism the image step's classifier is class-sharded over
 for the next-token shift), and its mixture-of-experts blocks rank their
 slots over the whole sequence (`models/moe.py`). The LM step's
 `forward_fn` hook runs the pipelined LM (`parallel/pipeline.py`).
+
+While a torch profiler runs, both train steps mark their phases with
+profiler ranges (`obs/trace.annotate`): `train.step` around the call, and
+inside it `train.forward`, `train.loss`, `train.backward` (once per chunk
+or inner step) and `train.optimizer`. Without a profiler each costs one
+flag test.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from torch import nn
 
 from tritonk8ssupervisor_tpu_torch import resolve_device
 from tritonk8ssupervisor_tpu_torch.models.moe import MoEMLP
+from tritonk8ssupervisor_tpu_torch.obs.trace import annotate
 from tritonk8ssupervisor_tpu_torch.ops.cross_entropy import (
     cross_entropy_loss_and_correct,
     cross_entropy_loss_and_correct_reference,
@@ -189,19 +196,27 @@ def make_train_step(
                 return vocab_parallel_cross_entropy(logits, labels, model_group)
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
+        with annotate("train.step"):
+            return run(images, labels)
+
+    def run(images: torch.Tensor, labels: torch.Tensor) -> dict:
         state.model.train()
         for _ in range(max(1, steps_per_call)):
-            logits = state.model(images)
-            losses, correct = loss_and_correct(logits, labels)
-            loss = losses.mean()
-            aux = _moe_aux_total(state.model)
-            objective = loss if aux is None else loss + aux
-            if mesh is not None:
-                # this rank's part of the mean over the global batch
-                objective = objective / degree
+            with annotate("train.forward"):
+                logits = state.model(images)
+            with annotate("train.loss"):
+                losses, correct = loss_and_correct(logits, labels)
+                loss = losses.mean()
+                aux = _moe_aux_total(state.model)
+                objective = loss if aux is None else loss + aux
+                if mesh is not None:
+                    # this rank's part of the mean over the global batch
+                    objective = objective / degree
             state.optimizer.zero_grad(set_to_none=True)
-            objective.backward()
-            _finish_step(state, split)
+            with annotate("train.backward"):
+                objective.backward()
+            with annotate("train.optimizer"):
+                _finish_step(state, split)
         if mesh is None:
             metrics = {"loss": loss.detach(), "accuracy": correct.float().mean()}
         else:
@@ -446,6 +461,10 @@ def make_lm_train_step(
     split = spmd.split_axes(state.mesh, seq_axis) if state.mesh is not None else ()
 
     def step(tokens: torch.Tensor) -> dict:
+        with annotate("train.step"):
+            return run(tokens)
+
+    def run(tokens: torch.Tensor) -> dict:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         b = tokens.shape[0]
@@ -454,24 +473,27 @@ def make_lm_train_step(
         loss_sum = acc_sum = 0.0
         aux_sum = None
         for chunk in tokens.reshape(grad_accum, b // grad_accum, -1):
-            logits = (_lm_forward(state, chunk, layout) if forward_fn is None
-                      else forward_fn(state.model, chunk))
-            loss, accuracy = _next_token_metrics(pair_fn, logits, chunk, layout)
-            aux = _moe_aux_total(state.model)
-            if aux is None:
-                loss.backward()
-            else:  # on a mesh, this rank's part of the global router loss
-                (loss + aux / (layout.batch_shards * layout.seq_shards)).backward()
-            loss_sum = loss_sum + loss.detach()
-            acc_sum = acc_sum + accuracy
-            if aux is not None:
-                aux_sum = aux.detach() + (0.0 if aux_sum is None else aux_sum)
-        if grad_accum > 1:
-            # the mean of chunk means is the full-batch mean
-            for p in params:
-                if p.grad is not None:
-                    p.grad.div_(grad_accum)
-        _finish_step(state, split)
+            with annotate("train.forward"):
+                logits = (_lm_forward(state, chunk, layout) if forward_fn is None
+                          else forward_fn(state.model, chunk))
+            with annotate("train.loss"):
+                loss, accuracy = _next_token_metrics(pair_fn, logits, chunk, layout)
+                objective = loss
+                aux = _moe_aux_total(state.model)
+                if aux is not None:  # on a mesh, this rank's part of the global router loss
+                    objective = loss + aux / (layout.batch_shards * layout.seq_shards)
+                    aux_sum = aux.detach() + (0.0 if aux_sum is None else aux_sum)
+                loss_sum = loss_sum + loss.detach()
+                acc_sum = acc_sum + accuracy
+            with annotate("train.backward"):
+                objective.backward()
+        with annotate("train.optimizer"):
+            if grad_accum > 1:
+                # the mean of chunk means is the full-batch mean
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(grad_accum)
+            _finish_step(state, split)
         metrics = _global_metrics(state, split, loss_sum / grad_accum, acc_sum / grad_accum)
         if aux_sum is not None:
             metrics["router_loss"] = aux_sum / grad_accum
